@@ -4,17 +4,22 @@
 
 Phases, in order (any failure ends the run with a non-zero exit and no
 result line):
-  1. build the CUDA kernel (mind_tpu_torch/ops/csrc/fusion_attention.cu,
-     sm_90a) from the checkout;
-  2. hold the kernel against its plain PyTorch version at the main path's
+  1. build both CUDA kernels (mind_tpu_torch/ops/csrc/fusion_attention.cu,
+     float32, and fusion_attention_bf16.cu, bf16 operands on the tensor
+     cores; sm_90a, one nvcc per source, side by side) from the checkout;
+  2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
-     both update_edge values, and time both against the card's bound;
+     both update_edge values (and both edge input types of the bf16
+     variant), and time both against the card's bound;
   3. load the trained ScenePredNet weights from the committed archive;
-  4. run plan cycles of fused_plan_core at full width on a seeded synthetic
-     scene (48 actor slots, 80 lane segments, 256-point target lane),
-     rolling the observation window between cycles; the first cycle is held
-     against the same cycle on the CPU through the plain version;
-  5. print per-phase times, the kernel table and the card.
+  4. float32 path: plan cycles of fused_plan_core at full width on a seeded
+     synthetic scene (48 actor slots, 80 lane segments, 256-point target
+     lane), rolling the observation window between cycles; the first cycle
+     is held against the same cycle on the CPU through the plain version;
+  5. demo path: the same cycles under planner_config_for_demo("demo_1")
+     (bf16 network); one ScenePredNet forward on the path's first AIME
+     inputs is held, kernel against plain, on the card;
+  6. print per-phase times, the kernel table and the card.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
@@ -31,11 +36,26 @@ import time
 import numpy as np
 import torch
 
-N_CYCLES = 3
+N_CYCLES = 2
 SEED = 0
 PEAK_F32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
+# float32 kernel vs its plain version: float32 sums in another order
 TOL_KERNEL = 2e-4
+# bf16 kernel vs its plain version: sums in another order, and a float32
+# activation that lies on a bf16 rounding boundary may round the other way in
+# the kernel. One such flip of a mem value between 2 and 4 is a step of 2^-6
+# on one of a row's 128 summands; through a weight of 0.3 and two LayerNorms
+# it moves an edge output by up to ~1e-2 (measured max 5.5e-3). Flips are
+# rare, so the mean error is held far tighter.
+TOL_KERNEL_BF16 = 2e-2
+TOL_KERNEL_BF16_MEAN = 1e-4
+# one bf16 ScenePredNet forward, kernel against plain: the same flips, carried
+# through 6 fusion layers and the decoder
+TOL_NET_CLS = 5e-3
+TOL_NET_POS = 5e-2         # metres
+REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
 
 
 def log(*a):
@@ -56,63 +76,103 @@ def cuda_time_ms(fn, reps=20, warmup=3):
 
 def phase_build(fa):
     t = time.perf_counter()
-    fa.build_kernel()
-    log(f"[build] fusion_attention.cu built and loaded in {time.perf_counter() - t:.3f} s")
-    if fa.build_kernel.log:
-        log(fa.build_kernel.log.strip())
+    fa.build_kernels()
+    log(f"[build] both fusion kernels built and loaded in {time.perf_counter() - t:.3f} s")
+    for variant, text in fa.build_kernels.log.items():
+        log(f"[build] nvcc, {variant}:\n{text.strip()}")
 
 
-def phase_kernel_check(fa, dev, key_mask):
-    """Kernel vs plain at B = 8, N = 129 on random inputs with the main
-    path's token mask; returns the kernel table entry (launches filled in
-    later)."""
-    B, N, D, H = key_mask.shape[0], key_mask.shape[1], 128, 8
+def kernel_inputs(fa, dev, B, N, D):
     g = torch.Generator(device="cpu").manual_seed(SEED)
     rn = lambda *s, sc=0.08: (torch.randn(*s, generator=g) * sc).to(dev)
     w = fa.FusionWeights(**{
         f: (rn(D, D) if f.startswith("w") else
             1 + rn(D, sc=0.1) if f.endswith("_g") else rn(D, sc=0.1))
         for f in fa.FusionWeights._fields})
-    node = rn(B, N, D, sc=1.0)
-    edge = rn(B, N, N, D, sc=0.5)
-    err, ms, plain_ms, bound_ms = {}, {}, {}, {}
-    for ue in (True, False):
-        out, edge_out = fa.fused_edge_attention(node, edge, key_mask, w, H, ue)
-        torch.cuda.synchronize()
-        ref_out, ref_edge = fa.fused_edge_attention_ref(node, edge, key_mask, w, H, ue)
-        err[ue] = max((out - ref_out).abs().max().item(),
-                      (edge_out - ref_edge).abs().max().item())
-        if not ue and edge_out is not edge:
-            raise RuntimeError("passthrough must return the input edge")
-        ms[ue] = cuda_time_ms(lambda: fa.fused_edge_attention(node, edge, key_mask, w, H, ue))
-        plain_ms[ue] = cuda_time_ms(
-            lambda: fa.fused_edge_attention_ref(node, edge, key_mask, w, H, ue))
-        bound_ms[ue] = 1e3 * max(fa.fused_edge_attention_flops(B, N, D, ue) / PEAK_F32_FLOPS,
-                                 fa.fused_edge_attention_bytes(B, N, D, ue) / PEAK_HBM_BYTES)
-        log(f"[kernel] update_edge={ue}: max_abs_err={err[ue]:.3e} kernel={ms[ue]:.4f} ms "
-            f"plain={plain_ms[ue]:.4f} ms bound={bound_ms[ue]:.4f} ms "
-            f"({fa.fused_edge_attention_flops(B, N, D, ue) / 1e9:.2f} GFLOP, "
-            f"{fa.fused_edge_attention_bytes(B, N, D, ue) / 1e6:.1f} MB)")
-        if not err[ue] < TOL_KERNEL:
-            raise RuntimeError(f"kernel disagrees with plain: {err[ue]} >= {TOL_KERNEL}")
-    # a forward runs 5 launches with the edge update and 1 without: the
-    # table gives the mean per launch of that mix
-    mix = lambda d: (5 * d[True] + d[False]) / 6
-    return {
-        "name": "fused_edge_attention",
-        "route": "cuda",
-        "source": "mind_tpu_torch/ops/csrc/fusion_attention.cu",
-        "replaces": "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)",
-        "launches": None,
-        "max_abs_err": max(err.values()),
-        "ms": mix(ms), "plain_ms": mix(plain_ms), "bound_ms": mix(bound_ms),
-        "bound_by": "operations",
-        "library_ms": None,
-        "shape": f"B={B} N={N} D={D} heads={H} float32",
-        "by_update_edge": {str(k).lower(): {"ms": ms[k], "plain_ms": plain_ms[k],
-                                            "bound_ms": bound_ms[k], "max_abs_err": err[k]}
-                           for k in (True, False)},
-    }
+    return w, rn(B, N, D, sc=1.0), rn(B, N, N, D, sc=0.5)
+
+
+def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
+    """One (inputs, update_edge) case: kernel vs plain, and both timed."""
+    edge = args[1]
+    out, edge_out = fa.fused_edge_attention(*args, H, ue)
+    torch.cuda.synchronize()
+    ref_out, ref_edge = ref(*args, H, ue)
+    if out.dtype != torch.float32 or edge_out.dtype != torch.float32:
+        raise RuntimeError(f"{label}: outputs must be float32")
+    if not ue and edge.dtype == torch.float32 and edge_out is not edge:
+        raise RuntimeError(f"{label}: passthrough must return a float32 input edge")
+    d_out, d_edge = (out - ref_out).abs(), (edge_out - ref_edge).abs()
+    err = max(d_out.max().item(), d_edge.max().item())
+    mean = max(d_out.mean().item(), d_edge.mean().item())
+    ms = cuda_time_ms(lambda: fa.fused_edge_attention(*args, H, ue))
+    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue))
+    if not (err < tol and mean < tol_mean):
+        raise RuntimeError(f"{label}: kernel disagrees with plain: max {err} (tol {tol}), "
+                           f"mean {mean} (tol {tol_mean})")
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "mean_abs_err": mean}
+
+
+def phase_kernel_check(fa, dev, key_mask):
+    """Both kernels vs their plain versions at B = 8, N = 129 on random
+    inputs with the main path's token mask; returns the two kernel table
+    entries (launches filled in later). "ms" is the mean per launch of the
+    main path's mix of one forward: 5 launches with the edge update and 1
+    without. In the bf16 variant the first of the 5 reads a bf16 node and
+    edge (the encoders' output); the later ones read float32, which is what
+    the layer before them wrote, so each case's node has its edge's type."""
+    B, N, D, H = key_mask.shape[0], key_mask.shape[1], 128, 8
+    w, node, edge = kernel_inputs(fa, dev, B, N, D)
+    bf16 = torch.bfloat16
+    w16 = fa.FusionWeights(*(t.to(bf16) for t in w))
+    # (variant, edge type, update_edge, launches of it in one forward)
+    cases = [("float32", "float32", True, 5), ("float32", "float32", False, 1),
+             ("bfloat16", "bfloat16", True, 1), ("bfloat16", "float32", True, 4),
+             ("bfloat16", "float32", False, 1), ("bfloat16", "bfloat16", False, 0)]
+    entries = {}
+    for variant, edge_type, ue, weight in cases:
+        if variant == "float32":
+            args, ref = (node, edge, key_mask, w), fa.fused_edge_attention_ref
+            tol, tol_mean, peak = TOL_KERNEL, TOL_KERNEL, PEAK_F32_FLOPS
+            nbytes = fa.fused_edge_attention_bytes(B, N, D, ue)
+        else:
+            x, e = (node.to(bf16), edge.to(bf16)) if edge_type == "bfloat16" else (node, edge)
+            args, ref = (x, e, key_mask, w16), fa.fused_edge_attention_bf16_ref
+            tol, tol_mean, peak = TOL_KERNEL_BF16, TOL_KERNEL_BF16_MEAN, PEAK_BF16_FLOPS
+            nbytes = fa.fused_edge_attention_bytes(B, N, D, ue, e.element_size(),
+                                                   x.element_size(), 2)
+        flops = fa.fused_edge_attention_flops(B, N, D, ue, variant)
+        label = f"{variant} node,edge={edge_type} update_edge={ue}"
+        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label)
+        t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_HBM_BYTES
+        r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
+                 bound_by="operations" if t_ops > t_bytes else "bytes")
+        log(f"[kernel] {label}: max_abs_err={r['max_abs_err']:.3e} "
+            f"mean_abs_err={r['mean_abs_err']:.3e} kernel={r['ms']:.4f} ms "
+            f"plain={r['plain_ms']:.4f} ms bound={r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        entries.setdefault(variant, {})[f"edge_{edge_type}_update_{str(ue).lower()}"] = r
+    table = []
+    for variant, by_case in entries.items():
+        total = sum(r["weight"] for r in by_case.values())
+        mix = lambda k: sum(r[k] * r["weight"] for r in by_case.values()) / total
+        bound_by = {r["bound_by"] for r in by_case.values() if r["weight"]}
+        table.append({
+            "name": "fused_edge_attention" + ("" if variant == "float32" else "_bf16"),
+            "route": "cuda",
+            "source": "mind_tpu_torch/ops/csrc/fusion_attention"
+                      + ("" if variant == "float32" else "_bf16") + ".cu",
+            "replaces": REPLACES + (", float32 mode" if variant == "float32"
+                                    else ", bf16 operand mode (:109-130)"),
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in by_case.values()),
+            "ms": mix("ms"), "plain_ms": mix("plain_ms"), "bound_ms": mix("bound_ms"),
+            "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
+            "library_ms": None,
+            "shape": f"B={B} N={N} D={D} heads={H} {variant}",
+            "by_case": by_case,
+        })
+    return table
 
 
 class World:
@@ -163,13 +223,78 @@ def fill_buffer(aime, scene, dtype, dev):
     return buf
 
 
+class FirstCall:
+    """The network as the plan cycle calls it, keeping the first call's
+    inputs."""
+
+    def __init__(self, net):
+        self.net, self.inputs = net, None
+
+    def __call__(self, *inputs):
+        if self.inputs is None:
+            self.inputs = inputs
+        return self.net(*inputs)
+
+
+def run_path(name, variant, cfg, net, scene, mods, aime, scene_statics, kine_propagate, fa, dev):
+    """N_CYCLES plan cycles of one configuration on the card. The launch
+    counts are set to 0 just before and read just after; returns (launches
+    of `variant`, per-cycle records, the first cycle's (out, best, buf))."""
+    tplanner = mods[0]
+    pdt = getattr(torch, cfg.pipeline_dtype)
+    world = World(scene)
+    buf = fill_buffer(aime, scene, pdt, dev)
+    statics = scene_statics(scene, pdt, dev)
+    first, total_rounds, cycles = None, 0, []
+    fa.reset_launch_counts()
+    for c in range(N_CYCLES):
+        report = {}
+        before = fa.fused_edge_attention.launches
+        t = time.perf_counter()
+        out = plan_once(mods, net, cfg, world, buf, statics, dev, report)
+        wall = time.perf_counter() - t
+        launched = fa.fused_edge_attention.launches - before
+        rounds = report["rounds"]
+        total_rounds += rounds
+        log(f"[{name} {c}] out={out.tolist()} rounds={rounds} "
+            f"trees={int(report['trees'].n_trees)} best={int(report['best'])} "
+            f"launches={launched} iterations={report['warm_iterations']}+{report['iterations']} "
+            f"wall={wall * 1e3:.1f} ms | "
+            + " ".join(f"{k}={report[k] * 1e3:.1f} ms"
+                       for k in ("aime", "cost_topology", "solve", "selection")))
+        if out.shape != (4,) or not np.isfinite(out).all():
+            raise RuntimeError(f"{name}: plan output not finite: {out}")
+        if out[2] != 1.0:
+            raise RuntimeError(f"{name}: plan failed: no scenario tree (ok = 0)")
+        if launched != cfg.net.n_scene_layer * rounds:
+            raise RuntimeError(f"{name}: {launched} kernel launches for {rounds} AIME rounds")
+        cycles.append({"wall_ms": wall * 1e3, "rounds": rounds,
+                       "trees": int(report["trees"].n_trees),
+                       "warm_iterations": report["warm_iterations"],
+                       "iterations": report["iterations"],
+                       **{k: report[k] * 1e3 for k in ("aime", "cost_topology", "solve",
+                                                        "selection")}})
+        if first is None:
+            first = (out, int(report["best"]), buf)
+        world.step(out[:2], kine_propagate)
+        states = torch.tensor(world.state, device=dev)
+        buf = aime.obs_buffer_update(buf, states, torch.tensor(scene.present, device=dev))
+    counts = dict(fa.fused_edge_attention.launches_by_variant)
+    other = sum(n for v, n in counts.items() if v != variant)
+    if counts[variant] != cfg.net.n_scene_layer * total_rounds or counts[variant] == 0 or other:
+        raise RuntimeError(f"{name}: the path did not run through the {variant} kernel "
+                           f"alone: {counts} for {total_rounds} AIME rounds")
+    return counts[variant], cycles, first
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
     from mind_tpu_torch.common.kinematics import kine_propagate
-    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig
+    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig, planner_config_for_demo
+    from mind_tpu_torch.models import scene_pred
     from mind_tpu_torch.models.weights import load_scene_pred
     from mind_tpu_torch.ops import fusion_attention as fa
     from mind_tpu_torch.planner import aime_device as aime
@@ -189,10 +314,10 @@ def main() -> int:
     # 1. build
     phase_build(fa)
 
-    # 2. kernel vs plain at the main path's shapes and token mask
+    # 2. kernels vs plain at the main path's shapes and token mask
     token_mask = torch.tensor(np.concatenate([scene.present, scene.lane_mask, [True]]),
                               device=dev)
-    entry = phase_kernel_check(fa, dev, token_mask[None].expand(
+    entries = phase_kernel_check(fa, dev, token_mask[None].expand(
         cfg.scen_tree.max_branch_nodes, -1).contiguous())
 
     # 3. trained weights
@@ -201,57 +326,21 @@ def main() -> int:
     log(f"[weights] {DEFAULT_WEIGHTS.name}: {sum(p.numel() for p in net.parameters())} "
         f"parameters loaded in {time.perf_counter() - t:.3f} s")
 
-    # 4. plan cycles on the card
-    pdt = getattr(torch, cfg.pipeline_dtype)
-    world = World(scene)
-    buf = fill_buffer(aime, scene, pdt, dev)
-    statics = scene_statics(scene, pdt, dev)
+    # 4. float32 path on the card
     mods = (tplanner, make_cost_params)
-    first = None
-    fa.fused_edge_attention.launches = 0
-    total_rounds = 0
-    cycles = []
-    for c in range(N_CYCLES):
-        report = {}
-        before = fa.fused_edge_attention.launches
-        t = time.perf_counter()
-        out = plan_once(mods, net, cfg, world, buf, statics, dev, report)
-        wall = time.perf_counter() - t
-        launched = fa.fused_edge_attention.launches - before
-        rounds = report["rounds"]
-        total_rounds += rounds
-        log(f"[plan {c}] out={out.tolist()} rounds={rounds} trees={int(report['trees'].n_trees)} "
-            f"best={int(report['best'])} launches={launched} wall={wall * 1e3:.1f} ms | "
-            + " ".join(f"{k}={report[k] * 1e3:.1f} ms"
-                       for k in ("aime", "cost_topology", "solve", "selection")))
-        if out.shape != (4,) or not np.isfinite(out).all():
-            raise RuntimeError(f"plan output not finite: {out}")
-        if out[2] != 1.0:
-            raise RuntimeError("plan failed: no scenario tree (ok = 0)")
-        if launched != cfg.net.n_scene_layer * rounds:
-            raise RuntimeError(f"{launched} kernel launches for {rounds} AIME rounds")
-        cycles.append({"wall_ms": wall * 1e3, "rounds": rounds,
-                       **{k: report[k] * 1e3 for k in ("aime", "cost_topology", "solve",
-                                                        "selection")}})
-        if first is None:
-            first = (out, int(report["best"]), buf, world.x0())
-        world.step(out[:2], kine_propagate)
-        states = torch.tensor(world.state, device=dev)
-        buf = aime.obs_buffer_update(buf, states, torch.tensor(scene.present, device=dev))
-    entry["launches"] = fa.fused_edge_attention.launches
-    if entry["launches"] != cfg.net.n_scene_layer * total_rounds or entry["launches"] == 0:
-        raise RuntimeError("the main path did not run through the kernel")
+    common = (scene, mods, aime, scene_statics, kine_propagate, fa, dev)
+    entries[0]["launches"], cycles32, first = run_path("plan", "float32", cfg, net, *common)
 
     # the first cycle again on the CPU, through the plain version
-    out0, best0, buf0, x00 = first
+    out0, best0, buf0 = first
     cpu = torch.device("cpu")
     net_cpu = load_scene_pred(cfg.net, DEFAULT_WEIGHTS, cpu)
-    world_cpu = World(scene)
-    buf_cpu = aime.DeviceObsBuffer(*(t.cpu() for t in buf0))
     report = {}
     t = time.perf_counter()
-    out_cpu = plan_once(mods, net_cpu, cfg, world_cpu, buf_cpu,
-                        scene_statics(scene, pdt, cpu), cpu, report)
+    out_cpu = plan_once(mods, net_cpu, cfg, World(scene),
+                        aime.DeviceObsBuffer(*(t.cpu() for t in buf0)),
+                        scene_statics(scene, getattr(torch, cfg.pipeline_dtype), cpu), cpu,
+                        report)
     log(f"[reference] CPU plain plan: out={out_cpu.tolist()} best={int(report['best'])} "
         f"in {time.perf_counter() - t:.1f} s")
     if out_cpu[2] != out0[2] or int(report["best"]) != best0 or \
@@ -259,12 +348,35 @@ def main() -> int:
         raise RuntimeError(f"card plan {out0} (tree {best0}) disagrees with the CPU "
                            f"plan {out_cpu} (tree {int(report['best'])})")
 
-    # 5. report
-    log("[phases] " + json.dumps({"cycles": cycles}))
+    # 5. demo path: the bf16 network of the demo planner configuration
+    dcfg = planner_config_for_demo("demo_1")
+    if dcfg.net.compute_dtype != "bfloat16" or not dcfg.ckpt_path:
+        raise RuntimeError("the demo configuration must ask for bf16 and trained weights")
+    dnet = FirstCall(load_scene_pred(dcfg.net, dcfg.ckpt_path, dev))
+    entries[1]["launches"], cycles16, _ = run_path("demo", "bfloat16", dcfg, dnet, *common)
+    with torch.no_grad():
+        got = dnet.net(*dnet.inputs)
+        scene_pred.fused_edge_attention = fa.fused_edge_attention_bf16_ref
+        try:
+            want = dnet.net(*dnet.inputs)
+        finally:
+            scene_pred.fused_edge_attention = fa.fused_edge_attention
+    torch.cuda.synchronize()
+    net_err = {"cls_prob": (got[0] - want[0]).abs().max().item(),
+               "positions_m": (got[1][..., :2] - want[1][..., :2]).abs().max().item(),
+               "velocity": (got[2] - want[2]).abs().max().item()}
+    log(f"[demo] ScenePredNet forward on the first AIME inputs, kernel vs plain: {net_err}")
+    if not all(torch.isfinite(x).all() for x in got) or \
+            not net_err["cls_prob"] < TOL_NET_CLS or not net_err["positions_m"] < TOL_NET_POS:
+        raise RuntimeError(f"bf16 network: kernel and plain disagree: {net_err}")
+
+    # 6. report
+    log("[phases] " + json.dumps({"float32": cycles32, "demo_bf16": cycles16,
+                                  "demo_net_err": net_err}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -40,8 +40,8 @@ class NetConfig:
     update_edge: bool = True
     param_out: str = "bezier"
     bezier_order: int = 7
-    # inference compute dtype ('float32' | 'bfloat16'); only float32 is
-    # ported so far, bfloat16 raises NotImplementedError
+    # inference compute dtype ('float32' | 'bfloat16'): bfloat16 holds the
+    # parameters in bf16 and runs the fusion core's bf16 tensor-core kernel
     compute_dtype: str = "float32"
 
 
@@ -246,9 +246,8 @@ def planner_config_for_demo(demo: str) -> PlannerConfig:
     """PlannerConfig equivalent to the reference's planning/demo_*.py modules.
 
     demo_3 raises the desired-velocity weight to .5 in both phases; all
-    other demos share demo_1's values. The demos run the fusion net in
-    bfloat16, which the port does not run yet. Picks up the committed
-    trained weights."""
+    other demos share demo_1's values. The demos run the network in
+    bfloat16. Picks up the committed trained weights."""
     cfg = PlannerConfig()
     cfg.net.compute_dtype = "bfloat16"
     if demo.endswith("3"):

@@ -9,6 +9,13 @@ only around the convolution.
 
 Normalizations follow flax: variance as E[x^2] - E[x]^2 clipped at 0, then
 (x - mean) * (rsqrt(var + eps) * scale) + bias.
+
+Mixed types follow flax too, written out because PyTorch does not promote
+the operands of a matrix product: a `Dense` brings input, weight and bias to
+their common type (bfloat16 with bfloat16 -> bfloat16, float32 input with
+bfloat16 weights -> float32), and a normalization takes its statistics and
+its affine in float32 and returns the common type of input and parameters.
+With float32 parameters and inputs every cast is a no-op.
 """
 
 from __future__ import annotations
@@ -19,10 +26,24 @@ import torch.nn.functional as F
 
 
 def _flax_norm(x, dims, weight, bias, eps):
+    out_dtype = torch.promote_types(x.dtype, weight.dtype)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x.mean(dim=dims, keepdim=True)
     mean2 = (x * x).mean(dim=dims, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
-    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+    y = (x - mean) * (torch.rsqrt(var + eps) * weight.to(x.dtype)) + bias.to(x.dtype)
+    return y.to(out_dtype)
+
+
+class Dense(nn.Linear):
+    """flax nn.Dense: operands promoted to their common type. In bfloat16 the
+    bias is added to the rounded product, as flax adds it."""
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        if dt == torch.bfloat16:
+            return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):
@@ -128,7 +149,7 @@ class MLPBlock(nn.Module):
         super().__init__()
         self.n = len(features)
         for i, f in enumerate(features):
-            setattr(self, f"Dense_{i}", nn.Linear(c_in, f))
+            setattr(self, f"Dense_{i}", Dense(c_in, f))
             setattr(self, f"LayerNorm_{i}", LayerNorm(f))
             c_in = f
 
@@ -169,13 +190,13 @@ class SelfAttentionEncoderLayer(nn.Module):
         super().__init__()
         D = d_model
         self.n_head = n_head
-        self.Dense_0 = nn.Linear(D, D)   # q
-        self.Dense_1 = nn.Linear(D, D)   # k
-        self.Dense_2 = nn.Linear(D, D)   # v
-        self.Dense_3 = nn.Linear(D, D)   # out
+        self.Dense_0 = Dense(D, D)   # q
+        self.Dense_1 = Dense(D, D)   # k
+        self.Dense_2 = Dense(D, D)   # v
+        self.Dense_3 = Dense(D, D)   # out
         self.LayerNorm_0 = LayerNorm(D)
-        self.Dense_4 = nn.Linear(D, d_ffn)
-        self.Dense_5 = nn.Linear(d_ffn, D)
+        self.Dense_4 = Dense(D, d_ffn)
+        self.Dense_5 = Dense(d_ffn, D)
         self.LayerNorm_1 = LayerNorm(D)
 
     def forward(self, x):

@@ -21,6 +21,15 @@ Outputs:
 
 The fusion-layer core goes through ops.fusion_attention.fused_edge_attention:
 the CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
+
+Under cfg.compute_dtype == "bfloat16" (the policy of
+mind_tpu/models/scene_pred.py::make_batched_apply) the parameters are held in
+bfloat16, the float inputs are cast to bfloat16 and the outputs return as
+float32. The encoders then run in bfloat16; a fusion layer's core follows the
+TPU kernel's numerics (bf16 operands, float32 accumulation, LayerNorms,
+softmax and outputs), so the token stream is float32 from the first fusion
+layer on and meets the bfloat16 weights in float32; the decoder casts its
+inputs to float32.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch.nn.functional as F
 
 from mind_tpu_torch.config import NetConfig
 from mind_tpu_torch.models.layers import (
+    Dense,
     GNConv1d,
     LayerNorm,
     MLPBlock,
@@ -127,8 +137,8 @@ class RelaFusionLayer(nn.Module):
                 t = torch.zeros(D)
             self.register_parameter(name, nn.Parameter(t))
         self.LayerNorm_0 = LayerNorm(D)
-        self.Dense_0 = nn.Linear(D, 2 * D)
-        self.Dense_1 = nn.Linear(2 * D, D)
+        self.Dense_0 = Dense(D, 2 * D)
+        self.Dense_1 = Dense(2 * D, D)
         self.LayerNorm_1 = LayerNorm(D)
 
     def fusion_weights(self) -> FusionWeights:
@@ -207,9 +217,9 @@ class SceneDecoder(nn.Module):
         self.SelfAttentionEncoderLayer_1 = SelfAttentionEncoderLayer(H, 4, H * 12)
         self.MLPBlock_3 = MLPBlock(H, (H * M // 2, H * M))
         self.MLPBlock_4 = MLPBlock(H, (H, H))
-        self.Dense_0 = nn.Linear(H, 1)
+        self.Dense_0 = Dense(H, 1)
         self.MLPBlock_5 = MLPBlock(H, (H, H))
-        self.Dense_1 = nn.Linear(H, (cfg.bezier_order + 1) * 5)
+        self.Dense_1 = Dense(H, (cfg.bezier_order + 1) * 5)
         F_ = cfg.pred_len
         self.register_buffer("mat_T", torch.tensor(
             bezier_T(cfg.bezier_order, F_), dtype=torch.float32), persistent=False)
@@ -218,6 +228,10 @@ class SceneDecoder(nn.Module):
 
     def forward(self, ctx, actors, tgt_feat, tgt_rpe):
         # ctx [B, D], actors [B, A, D], tgt_feat [B, D], tgt_rpe [B, 20]
+        # the decoder runs in float32 also under bfloat16 inference: Bezier
+        # control-point positions need more than 8 mantissa bits
+        ctx, actors, tgt_feat, tgt_rpe = (
+            x.to(torch.float32) for x in (ctx, actors, tgt_feat, tgt_rpe))
         cfg = self.cfg
         H, M, F_ = cfg.d_embed, cfg.num_modes, cfg.pred_len
         K = cfg.bezier_order + 1
@@ -258,9 +272,8 @@ class ScenePredNet(nn.Module):
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: only float32 is ported")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 or bfloat16")
         self.cfg = cfg
         self.ActorNet_0 = ActorNet(cfg.in_actor, cfg.d_actor, cfg.n_fpn_scale)
         # one LaneNet instance encodes the lanes and the target nodes
@@ -268,8 +281,25 @@ class ScenePredNet(nn.Module):
         self.FusionNet_0 = FusionNet(cfg)
         self.SceneDecoder_0 = SceneDecoder(cfg)
 
+    def apply_compute_dtype(self):
+        """Hold the parameters in cfg.compute_dtype (the Bezier matrices are
+        buffers and stay float32). Returns self."""
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        for p in self.parameters():
+            p.data = p.data.to(dtype)
+        return self
+
     def forward(self, actors, actor_mask, lanes, lane_mask, rpe, tgt_nodes,
                 tgt_rpe):
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        if dtype != torch.float32:
+            actors, lanes, rpe, tgt_nodes, tgt_rpe = (
+                x.to(dtype) for x in (actors, lanes, rpe, tgt_nodes, tgt_rpe))
+        cls_prob, reg, vel = self._forward(actors, actor_mask, lanes, lane_mask, rpe,
+                                           tgt_nodes, tgt_rpe)
+        return cls_prob.to(torch.float32), reg.to(torch.float32), vel.to(torch.float32)
+
+    def _forward(self, actors, actor_mask, lanes, lane_mask, rpe, tgt_nodes, tgt_rpe):
         actor_feat = self.ActorNet_0(actors)                 # [B, A, D]
         lane_feat = self.LaneNet_0(lanes)                    # [B, L, D]
         tgt_feat = self.LaneNet_0(tgt_nodes[:, None])[:, 0]  # [B, D]

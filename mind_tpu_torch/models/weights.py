@@ -54,11 +54,12 @@ def load_scene_pred(cfg: NetConfig, path: str | Path | None, device=None,
     """ScenePredNet in eval mode on `device` (the CUDA card unless the
     caller passes a CPU device), with the archive's weights (every
     parameter must be present) or, without a path, random weights from
-    `seed`."""
+    `seed`. The archive is float32; under cfg.compute_dtype == "bfloat16"
+    the parameters are rounded to bfloat16 after loading."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):  # leaves the caller's RNG alone
         torch.manual_seed(seed)
         net = ScenePredNet(cfg)
     if path is not None:
         net.load_state_dict(params_from_flax(load_flax_npz(path)), strict=True)
-    return net.to(device).eval()
+    return net.apply_compute_dtype().to(device).eval()

@@ -1,328 +1,348 @@
 // Fused edge-conditioned fusion-layer core for Hopper (sm_90a), float32.
 //
 // Replaces the TPU kernel mind_tpu/ops/fusion_attention.py::_kernel (the
-// Pallas kernel launched by fused_edge_attention). Per scene b and target j:
+// Pallas kernel launched by fused_edge_attention) in its float32 mode. Per
+// scene b, source i and target j:
 //
-//   mem[i,j]  = relu(LN(edge[i,j] Wm_e + node[i] Wm_s + node[j] Wm_t + bm))
+//   mem[i,j]   = relu(LN(edge[i,j] Wm_e + node[i] Wm_s + node[j] Wm_t + bm))
 //   edge'[i,j] = LN(edge[i,j] + relu(LN(mem[i,j] We + be)))   (update_edge)
 //   q[j] = node[j] Wq + bq,  k/v[i,j] = mem[i,j] Wk/Wv + bk/bv
 //   out[j] = softmax_i(q[j].k[i,j] / sqrt(dh), masked keys -> -1e9) v  Wo + bo
 //
-// with 8 heads of dh = 16 and D = E = 128. Every projection, including
-// node Wm_s, node Wm_t, node Wq and out Wo, is computed here.
+// with 8 heads of dh = 16 and D = E = 128.
 //
-// Bound on the H100 (B = 8, N = 129): 2.18 GFLOP per scene with the edge
-// update (1.64 without), 17 MB of edge traffic per scene. At 67 TFLOP/s of
-// non-tensor float32 against 3.35 TB/s of HBM the work is compute-bound
-// (~128 flop per edge byte), so the design keeps mem/k/v out of device
-// memory entirely and spends its effort on the four 128x128 products per
-// (i, j) pair:
+// Folded keys and values. k and v are never formed per pair:
+//   logit_h[i,j] = mem[i,j] . (Wk[:, h] q_h[j]) / sqrt(dh)       (+ a term constant in i)
+//   out_h[j]     = (sum_i attn_h[i,j] mem[i,j]) Wv[:, h] + bv_h   (the weights sum to 1)
+// so a pair costs two 128x128 products (one without the edge update) and two
+// [8 x 128] ones instead of four 128x128 products: 9.5 GFLOP per call at
+// B = 8, N = 129 with the edge update (5.2 without) instead of 17.7 (13.3).
+// The result differs from the unfolded form only by the order of float32 sums.
 //
-// - grid (ceil(N / TJ), B); one block of 256 threads owns TJ = 8 targets;
-// - sources stream in chunks of TI = 8, so a chunk is R = 64 (i, j) rows;
-// - each product is a [64 x 128] x [128 x 128] SIMT GEMM out of shared
-//   memory: warp w owns rows 8w..8w+7 (one source, all 8 targets), lane l
-//   owns columns l + 32c (c = 0..3), so LayerNorm and the per-head q.k
-//   dot products are warp shuffles over the registers that hold the row;
-// - the weight matrix of each product is staged whole in shared memory
-//   (64 KB), reloaded per chunk from L2;
-// - softmax is online (running max / sum / [TJ, D] accumulator per head
-//   across chunks), so only the edge' rows and the [TJ, D] output leave
-//   the block;
-// - ragged N is masked in the kernel: padded sources are never read into
-//   the softmax and padded targets are never written.
+// Bound on the H100 (B = 8, N = 129, edge update): 9.5 GFLOP at 67 TFLOP/s of
+// non-tensor float32 is 0.142 ms; 137 MB of edge in and out at 3.35 TB/s is
+// 0.041 ms. The work is bound by operations, so the design keeps the four FMA
+// pipes busy:
 //
-// Numerics: plain float32 FMA, no TF32 and no bf16; LayerNorm is two-pass
-// (mean, then mean of squared deviations) as in fused_edge_attention_ref.
+// - (scene, target) pairs are flattened into B*N columns and a block owns 8
+//   consecutive ones: 1032 columns are 129 full tiles on 132 SMs, one wave,
+//   no tile of padding; a tile may straddle two scenes;
+// - Wm_e and We stay resident in shared memory (128 KB), copied once per
+//   block with cp.async;
+// - sources stream in chunks of 8, so a chunk is 64 (i, j) rows; the edge
+//   chunk of the next step is prefetched with cp.async into the second of two
+//   buffers while the current one is worked on;
+// - each product is a [64 x 128] x [128 x 128] SIMT GEMM out of shared memory
+//   with an 8 x 8 register tile per thread (128 threads): 16 16-byte
+//   shared-memory loads per 256 FMAs;
+// - thread (ty, tx) owns source ty of the chunk, all 8 targets, and columns
+//   4tx..4tx+3 and 64+4tx..64+4tx+3, so LayerNorm statistics are shuffles
+//   over 16 lanes;
+// - mem overwrites the edge chunk in shared memory; the residual edge + eu
+//   reads the edge again from L2;
+// - the softmax is online: a thread carries 64 of the block's
+//   [8 targets x 8 heads x 128] accumulator in registers;
+// - node Wm_s, node Wm_t + bm, q, the folded keys and the output products are
+//   per-token work and run once per call in fusion_common.cuh's kernels.
+//
+// Numerics: plain float32 FMA in every product, no TF32 and no bf16;
+// LayerNorm is two-pass as in fused_edge_attention_ref.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "fusion_common.cuh"
 
 namespace {
 
-constexpr int D = 128;          // node width == edge width
-constexpr int NH = 8;           // heads
-constexpr int DH = D / NH;      // 16
-constexpr int TJ = 8;           // targets per block
-constexpr int TI = 8;           // sources per chunk
-constexpr int R = TI * TJ;      // rows per chunk (64)
-constexpr int NT = 256;         // threads per block
-constexpr int RPW = R / (NT / 32);  // rows per warp (8)
-constexpr float LN_EPS = 1e-5f;
-
-struct Weights {
-  const float *wm_e, *wm_s, *wm_t, *bm, *ln_m_g, *ln_m_b;
-  const float *wq, *bq, *wk, *bk, *wv, *bv, *wo, *bo;
-  const float *we, *be, *ln_e1_g, *ln_e1_b, *ln_e2_g, *ln_e2_b;
-};
+using namespace fusion;
 
 // shared-memory layout (floats)
-constexpr int OFF_W = 0;                 // [128][128] staged weight
-constexpr int OFF_A = OFF_W + D * D;     // [R][128] edge chunk, later v
-constexpr int OFF_M = OFF_A + R * D;     // [R][128] mem
-constexpr int OFF_NI = OFF_M + R * D;    // [TI][128] source nodes
-constexpr int OFF_SP = OFF_NI + TI * D;  // [TI][128] node_i Wm_s
-constexpr int OFF_NJ = OFF_SP + TI * D;  // [TJ][128] target nodes, later out
-constexpr int OFF_TP = OFF_NJ + TJ * D;  // [TJ][128] node_j Wm_t + bm
-constexpr int OFF_Q = OFF_TP + TJ * D;   // [TJ][128] q
-constexpr int OFF_L = OFF_Q + TJ * D;    // [R][NH] logits
+constexpr int OFF_WME = 0;                    // [128][128] Wm_e
+constexpr int OFF_WE = OFF_WME + D * D;       // [128][128] We
+constexpr int OFF_X0 = OFF_WE + D * D;        // [R][128] edge chunk, then mem
+constexpr int OFF_X1 = OFF_X0 + R * D;        // [R][128] the other buffer
+constexpr int OFF_QK = OFF_X1 + R * D;        // [TJ][NH][128] folded keys
+constexpr int OFF_L = OFF_QK + TJ * NH * D;   // [R][NH] logits
 constexpr int SMEM_FLOATS = OFF_L + R * NH;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);   // 231,424
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ float group16_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Copy a [128][128] weight matrix (global, row-major [in][out]) to smem.
-__device__ __forceinline__ void stage_weight(float* ws, const float* wg) {
-  const float4* src = reinterpret_cast<const float4*>(wg);
-  float4* dst = reinterpret_cast<float4*>(ws);
-  for (int idx = threadIdx.x; idx < D * D / 4; idx += NT) dst[idx] = __ldg(src + idx);
-}
-
-// out[r][c] = sum_k in[r][k] w[k][c] (+ bias[c]) for 8 rows, w in global.
-__device__ __forceinline__ void small_mm(const float* in, const float* wg,
-                                         const float* bias, float* out) {
-  const int col = threadIdx.x & (D - 1);
-  const int r0 = (threadIdx.x >> 7) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < D; ++k) {
-    const float w = __ldg(wg + k * D + col);
+// acc[rr][c] = sum_k a[rr][k] w[k][col(c)] for the thread's 8 rows and 8 columns.
+__device__ __forceinline__ void gemm_8x8(const float* __restrict__ a,
+                                         const float* __restrict__ w, int tx,
+                                         float acc[8][8]) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[r] = fmaf(in[(r0 + r) * D + k], w, acc[r]);
-  }
-  const float b = bias ? __ldg(bias + col) : 0.f;
+  for (int rr = 0; rr < 8; ++rr)
 #pragma unroll
-  for (int r = 0; r < 4; ++r) out[(r0 + r) * D + col] = acc[r] + b;
-}
-
-// acc[rr][c] = sum_k A[8w+rr][k] W[k][l+32c] for the warp's 8 rows.
-__device__ __forceinline__ void warp_gemm(const float* a, const float* ws,
-                                          float acc[RPW][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[rr][c] = 0.f;
-  const float* arow = a + warp * RPW * D;
+    for (int c = 0; c < 8; ++c) acc[rr][c] = 0.f;
 #pragma unroll 2
   for (int k = 0; k < D; k += 4) {
-    float4 av[RPW];
+    float4 av[8];
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr)
-      av[rr] = *reinterpret_cast<const float4*>(arow + rr * D + k);
+    for (int rr = 0; rr < 8; ++rr)
+      av[rr] = *reinterpret_cast<const float4*>(a + rr * D + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      float wv[4];
+      const float4 w0 = *reinterpret_cast<const float4*>(w + (k + kk) * D + tx * 4);
+      const float4 w1 = *reinterpret_cast<const float4*>(w + (k + kk) * D + 64 + tx * 4);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = ws[(k + kk) * D + lane + 32 * c];
-#pragma unroll
-      for (int rr = 0; rr < RPW; ++rr) {
+      for (int rr = 0; rr < 8; ++rr) {
         const float x = kk == 0 ? av[rr].x : kk == 1 ? av[rr].y
                       : kk == 2 ? av[rr].z : av[rr].w;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[rr][c] = fmaf(x, wv[c], acc[rr][c]);
+        acc[rr][0] = fmaf(x, w0.x, acc[rr][0]);
+        acc[rr][1] = fmaf(x, w0.y, acc[rr][1]);
+        acc[rr][2] = fmaf(x, w0.z, acc[rr][2]);
+        acc[rr][3] = fmaf(x, w0.w, acc[rr][3]);
+        acc[rr][4] = fmaf(x, w1.x, acc[rr][4]);
+        acc[rr][5] = fmaf(x, w1.y, acc[rr][5]);
+        acc[rr][6] = fmaf(x, w1.z, acc[rr][6]);
+        acc[rr][7] = fmaf(x, w1.w, acc[rr][7]);
       }
     }
   }
 }
 
-// Two-pass LayerNorm of one 128-wide row held as 4 values per lane.
-__device__ __forceinline__ void ln_row(float v[4], const float* g, const float* b) {
-  const int lane = threadIdx.x & 31;
-  const float mean = warp_sum(v[0] + v[1] + v[2] + v[3]) * (1.f / D);
+// The thread's 8 values of a 128-wide vector in global memory.
+__device__ __forceinline__ void load8(const float* __restrict__ p, int tx, float o[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p + tx * 4));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 64 + tx * 4));
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+// Two-pass LayerNorm of one 128-wide row held as 8 values in each of 16 lanes.
+__device__ __forceinline__ void ln_row(float v[8], const float* __restrict__ g,
+                                       const float* __restrict__ b, int tx) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) s += v[c];
+  const float mean = group16_sum(s) * (1.f / D);
   float sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) { const float d = v[c] - mean; sq = fmaf(d, d, sq); }
-  const float inv = rsqrtf(warp_sum(sq) * (1.f / D) + LN_EPS);
+  for (int c = 0; c < 8; ++c) { const float d = v[c] - mean; sq = fmaf(d, d, sq); }
+  const float inv = rsqrtf(group16_sum(sq) * (1.f / D) + LN_EPS);
+  float gv[8], bv[8];
+  load8(g, tx, gv);
+  load8(b, tx, bv);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = lane + 32 * c;
-    v[c] = (v[c] - mean) * inv * __ldg(g + col) + __ldg(b + col);
-  }
+  for (int c = 0; c < 8; ++c) v[c] = (v[c] - mean) * inv * gv[c] + bv[c];
 }
 
 __global__ void __launch_bounds__(NT, 1)
-fused_edge_attention_kernel(const float* __restrict__ node,
-                            const float* __restrict__ edge,
-                            const unsigned char* __restrict__ mask,
-                            Weights w, float* __restrict__ out,
-                            float* __restrict__ edge_out, int n,
-                            int update_edge) {
+edge_attention_f32_kernel(const float* __restrict__ edge,
+                          const unsigned char* __restrict__ mask,
+                          const float* __restrict__ wm_e, const float* __restrict__ we,
+                          const float* __restrict__ sp, const float* __restrict__ tp,
+                          const float* __restrict__ qk, Vecs v,
+                          float* __restrict__ ctx, float* __restrict__ edge_out,
+                          int n, int cols, int update_edge) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* Ws = smem + OFF_W;
-  float* As = smem + OFF_A;
-  float* Ms = smem + OFF_M;
-  float* NIs = smem + OFF_NI;
-  float* SPs = smem + OFF_SP;
-  float* NJs = smem + OFF_NJ;
-  float* TPs = smem + OFF_TP;
-  float* Qs = smem + OFF_Q;
+  float* Wme = smem + OFF_WME;
+  float* We = smem + OFF_WE;
+  float* QK = smem + OFF_QK;
   float* Ls = smem + OFF_L;
+  __shared__ long long s_base[TJ];   // element offset of edge[b, 0, j, 0]
+  __shared__ int s_tok0[TJ];         // b * n, or -1 for a column past the end
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int j0 = blockIdx.x * TJ;
-  const int b = blockIdx.y;
-  const float* node_b = node + (size_t)b * n * D;
-  const float* edge_b = edge + (size_t)b * n * n * D;
-  float* edge_out_b = edge_out + (size_t)b * n * n * D;
-  const unsigned char* mask_b = mask + (size_t)b * n;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int c0 = blockIdx.x * TJ;
 
-  // prologue: target nodes -> tar_proj (+bm) and q
-  for (int idx = tid; idx < TJ * D; idx += NT) {
-    const int j = j0 + idx / D;
-    NJs[idx] = j < n ? node_b[(size_t)j * D + idx % D] : 0.f;
+  if (tid < TJ) {
+    const int c = c0 + tid;
+    const int b = c / n, j = c % n;
+    s_base[tid] = ((long long)b * n * n + j) * D;
+    s_tok0[tid] = c < cols ? b * n : -1;
   }
-  __syncthreads();
-  small_mm(NJs, w.wm_t, w.bm, TPs);
-  small_mm(NJs, w.wq, w.bq, Qs);
-  __syncthreads();
+  // resident weights and this tile's folded keys; every block copies the
+  // same weights, so each starts at another row and they do not queue on one
+  // L2 line
+  for (int it = tid; it < D * D / 4; it += NT) {
+    const int idx = (it + blockIdx.x * (D / 4)) & (D * D / 4 - 1);
+    cp_async16(Wme + idx * 4, wm_e + idx * 4, true);
+    if (update_edge) cp_async16(We + idx * 4, we + idx * 4, true);
+  }
+  for (int idx = tid; idx < TJ * NH * D / 4; idx += NT) {
+    const bool ok = c0 + idx / (NH * D / 4) < cols;
+    cp_async16(QK + idx * 4, ok ? qk + (size_t)c0 * NH * D + idx * 4 : qk, ok);
+  }
+  __syncthreads();   // s_base, s_tok0
 
-  // online-softmax state: thread owns (target jj, head h) and 4 of its dims
-  const int sm_pair = tid >> 2;
-  const int sm_j = sm_pair / NH, sm_h = sm_pair % NH, sm_d0 = (tid & 3) * 4;
-  float run_max = -INFINITY, run_sum = 0.f;
-  float run_acc[4] = {0.f, 0.f, 0.f, 0.f};
-
-  // the row this warp owns: source il = warp, targets jj = 0..7
-  const int il = warp;
-  float acc[RPW][4];
-
-  for (int i0 = 0; i0 < n; i0 += TI) {
-    // ---- load the edge chunk and the source nodes, stage Wm_e ----
+  auto load_chunk = [&](float* buf, int i0) {
+#pragma unroll 4
     for (int idx = tid; idx < R * D / 4; idx += NT) {
-      const int r = idx / (D / 4), e4 = idx % (D / 4);
-      const int i = i0 + r / TJ, j = j0 + r % TJ;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < n && j < n)
-        v = __ldg(reinterpret_cast<const float4*>(edge_b + ((size_t)i * n + j) * D) + e4);
-      reinterpret_cast<float4*>(As)[idx] = v;
+      const int r = idx / (D / 4), p = idx % (D / 4);
+      const int i = i0 + r / TJ, rr = r % TJ;
+      const bool ok = i < n && s_tok0[rr] >= 0;
+      const float* src = edge + s_base[rr] + (long long)i * n * D + p * 4;
+      cp_async16(buf + r * D + p * 4, ok ? src : edge, ok);
     }
-    for (int idx = tid; idx < TI * D; idx += NT) {
-      const int i = i0 + idx / D;
-      NIs[idx] = i < n ? node_b[(size_t)i * D + idx % D] : 0.f;
+    cp_async_commit();
+  };
+
+  // online-softmax state: the thread owns target jj = ty, head sm_h and the
+  // 64 columns 8q + 4 sm_half .. + 3 (q = 0..15) of that head's accumulator
+  const int sm_h = tx >> 1, sm_half = tx & 1;
+  float run_max = -INFINITY, run_sum = 0.f;
+  float cacc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) cacc[x] = 0.f;
+
+  float acc[8][8];
+  const int n_chunks = (n + TI - 1) / TI;
+  load_chunk(smem + OFF_X0, 0);
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    float* X = smem + ((ch & 1) ? OFF_X1 : OFF_X0);
+    const int i0 = ch * TI;
+    if (ch + 1 < n_chunks) {
+      load_chunk(smem + ((ch & 1) ? OFF_X0 : OFF_X1), i0 + TI);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    stage_weight(Ws, w.wm_e);
     __syncthreads();
-    small_mm(NIs, w.wm_s, nullptr, SPs);
-    __syncthreads();
+
+    const int i = i0 + ty;            // the thread's source
+    const bool i_ok = i < n;
 
     // ---- mem = relu(LN(edge Wm_e + node_i Wm_s + node_j Wm_t + bm)) ----
-    warp_gemm(As, Ws, acc);
+    gemm_8x8(X + ty * TJ * D, Wme, tx, acc);
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      float v[4];
+    for (int rr = 0; rr < 8; ++rr) {
+      const int tok0 = s_tok0[rr];
+      if (i_ok && tok0 >= 0) {
+        float a[8], t[8];
+        load8(sp + (size_t)(tok0 + i) * D, tx, a);
+        load8(tp + (size_t)(c0 + rr) * D, tx, t);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = lane + 32 * c;
-        v[c] = acc[rr][c] + SPs[il * D + col] + TPs[rr * D + col];
+        for (int c = 0; c < 8; ++c) acc[rr][c] += a[c] + t[c];
       }
-      ln_row(v, w.ln_m_g, w.ln_m_b);
+      ln_row(acc[rr], v.ln_m_g, v.ln_m_b, tx);
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        Ms[(il * TJ + rr) * D + lane + 32 * c] = fmaxf(v[c], 0.f);
+      for (int c = 0; c < 8; ++c) acc[rr][c] = fmaxf(acc[rr][c], 0.f);
     }
-    __syncthreads();
+    __syncthreads();   // every thread has read its edge rows: X becomes mem
+
+    // ---- mem -> shared memory; logits mem . qk[j][h] ----
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      float* row = X + (ty * TJ + rr) * D;
+      *reinterpret_cast<float4*>(row + tx * 4) =
+          make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+      *reinterpret_cast<float4*>(row + 64 + tx * 4) =
+          make_float4(acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]);
+      float part[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float* qrow = QK + (rr * NH + h) * D;
+        const float4 q0 = *reinterpret_cast<const float4*>(qrow + tx * 4);
+        const float4 q1 = *reinterpret_cast<const float4*>(qrow + 64 + tx * 4);
+        float s = acc[rr][0] * q0.x;
+        s = fmaf(acc[rr][1], q0.y, s);
+        s = fmaf(acc[rr][2], q0.z, s);
+        s = fmaf(acc[rr][3], q0.w, s);
+        s = fmaf(acc[rr][4], q1.x, s);
+        s = fmaf(acc[rr][5], q1.y, s);
+        s = fmaf(acc[rr][6], q1.z, s);
+        s = fmaf(acc[rr][7], q1.w, s);
+        part[h] = group16_sum(s);
+      }
+      if (tx < NH) {
+        float mine = part[0];
+#pragma unroll
+        for (int h = 1; h < NH; ++h) mine = tx == h ? part[h] : mine;
+        const int tok0 = s_tok0[rr];
+        const bool key_on = i_ok && tok0 >= 0 && mask[tok0 + i];
+        Ls[(ty * TJ + rr) * NH + tx] = key_on ? mine : MASKED;
+      }
+    }
+    __syncthreads();   // mem and logits visible
 
     // ---- edge' = LN(edge + relu(LN(mem We + be))) ----
     if (update_edge) {
-      stage_weight(Ws, w.we);
-      __syncthreads();
-      warp_gemm(Ms, Ws, acc);
-      const int i = i0 + il;
+      gemm_8x8(X + ty * TJ * D, We, tx, acc);
+      float be[8];
+      load8(v.be, tx, be);
 #pragma unroll
-      for (int rr = 0; rr < RPW; ++rr) {
-        float v[4];
+      for (int rr = 0; rr < 8; ++rr) {
+        // every lane runs the LayerNorm shuffles; only loads and stores are
+        // guarded for rows past the end
+        const bool ok = i_ok && s_tok0[rr] >= 0;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[c] = acc[rr][c] + __ldg(w.be + lane + 32 * c);
-        ln_row(v, w.ln_e1_g, w.ln_e1_b);
+        for (int c = 0; c < 8; ++c) acc[rr][c] += be[c];
+        ln_row(acc[rr], v.ln_e1_g, v.ln_e1_b, tx);
+        const size_t off = ok ? (size_t)(s_base[rr] + (long long)i * n * D) : 0;
+        float e[8];
+        load8(edge + off, tx, e);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          v[c] = fmaxf(v[c], 0.f) + As[(il * TJ + rr) * D + lane + 32 * c];
-        ln_row(v, w.ln_e2_g, w.ln_e2_b);
-        const int j = j0 + rr;
-        if (i < n && j < n) {
-          float* dst = edge_out_b + ((size_t)i * n + j) * D;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) dst[lane + 32 * c] = v[c];
+        for (int c = 0; c < 8; ++c) acc[rr][c] = fmaxf(acc[rr][c], 0.f) + e[c];
+        ln_row(acc[rr], v.ln_e2_g, v.ln_e2_b, tx);
+        if (ok) {
+          float* dst = edge_out + off;
+          *reinterpret_cast<float4*>(dst + tx * 4) =
+              make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
+          *reinterpret_cast<float4*>(dst + 64 + tx * 4) =
+              make_float4(acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]);
         }
       }
-      __syncthreads();
     }
 
-    // ---- k = mem Wk + bk; per-head logits q[j].k[i,j] / sqrt(dh) ----
-    stage_weight(Ws, w.wk);
-    __syncthreads();
-    warp_gemm(Ms, Ws, acc);
+    // ---- online softmax over this chunk's sources, accumulating mem rows ----
     {
-      const int i = i0 + il;
-      const bool key_on = i < n && mask_b[i < n ? i : 0];
+      const int ns = min(TI, n - i0);
+      float l[TI];
+      float mx = run_max;
 #pragma unroll
-      for (int rr = 0; rr < RPW; ++rr) {
+      for (int s = 0; s < TI; ++s) {
+        l[s] = s < ns ? Ls[(s * TJ + ty) * NH + sm_h] : -INFINITY;
+        mx = fmaxf(mx, l[s]);
+      }
+      const float corr = expf(run_max - mx);
+      run_sum *= corr;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int col = lane + 32 * c;
-          float p = (acc[rr][c] + __ldg(w.bk + col)) * Qs[rr * D + col];
+      for (int x = 0; x < 64; ++x) cacc[x] *= corr;
 #pragma unroll
-          for (int o = 8; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-          if ((lane & 15) == 0) {
-            const int h = 2 * c + (lane >> 4);
-            Ls[(il * TJ + rr) * NH + h] = key_on ? p * (1.f / 4.f) : -1e9f;
+      for (int s = 0; s < TI; ++s) {
+        if (s < ns) {
+          const float p = expf(l[s] - mx);
+          run_sum += p;
+          const float* row = X + (s * TJ + ty) * D + sm_half * 4;
+#pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const float4 m = *reinterpret_cast<const float4*>(row + q * 8);
+            cacc[q * 4 + 0] = fmaf(p, m.x, cacc[q * 4 + 0]);
+            cacc[q * 4 + 1] = fmaf(p, m.y, cacc[q * 4 + 1]);
+            cacc[q * 4 + 2] = fmaf(p, m.z, cacc[q * 4 + 2]);
+            cacc[q * 4 + 3] = fmaf(p, m.w, cacc[q * 4 + 3]);
           }
         }
       }
+      run_max = mx;
     }
-    __syncthreads();
-
-    // ---- v = mem Wv + bv, into the (now free) edge buffer ----
-    stage_weight(Ws, w.wv);
-    __syncthreads();
-    warp_gemm(Ms, Ws, acc);
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = lane + 32 * c;
-        As[(il * TJ + rr) * D + col] = acc[rr][c] + __ldg(w.bv + col);
-      }
-    __syncthreads();
-
-    // ---- online softmax over this chunk's sources ----
-    for (int s = 0; s < TI && i0 + s < n; ++s) {
-      const int r = s * TJ + sm_j;
-      const float logit = Ls[r * NH + sm_h];
-      const float m_new = fmaxf(run_max, logit);
-      const float corr = expf(run_max - m_new);
-      const float p = expf(logit - m_new);
-      run_sum = run_sum * corr + p;
-      const float4 v = *reinterpret_cast<const float4*>(As + r * D + sm_h * DH + sm_d0);
-      run_acc[0] = fmaf(run_acc[0], corr, p * v.x);
-      run_acc[1] = fmaf(run_acc[1], corr, p * v.y);
-      run_acc[2] = fmaf(run_acc[2], corr, p * v.z);
-      run_acc[3] = fmaf(run_acc[3], corr, p * v.w);
-      run_max = m_new;
-    }
-    __syncthreads();
+    __syncthreads();   // X is free for the prefetch of chunk ch + 2
   }
 
-  // ---- out = (softmax-weighted v) Wo + bo ----
-  const float inv = 1.f / run_sum;
+  // ---- ctx[c][h][:] = softmax-weighted sum of mem rows, normalised ----
+  if (s_tok0[ty] >= 0) {
+    const float inv = 1.f / run_sum;
+    float* dst = ctx + ((size_t)(c0 + ty) * NH + sm_h) * D + sm_half * 4;
 #pragma unroll
-  for (int d = 0; d < 4; ++d) NJs[sm_j * D + sm_h * DH + sm_d0 + d] = run_acc[d] * inv;
-  __syncthreads();
-  small_mm(NJs, w.wo, w.bo, TPs);
-  __syncthreads();
-  for (int idx = tid; idx < TJ * D; idx += NT) {
-    const int j = j0 + idx / D;
-    if (j < n) out[((size_t)b * n + j) * D + idx % D] = TPs[idx];
+    for (int q = 0; q < 16; ++q)
+      *reinterpret_cast<float4*>(dst + q * 8) =
+          make_float4(cacc[q * 4] * inv, cacc[q * 4 + 1] * inv, cacc[q * 4 + 2] * inv,
+                      cacc[q * 4 + 3] * inv);
   }
 }
 
 }  // namespace
 
+// One call = prologue + main + epilogue on `stream`. sp, tp [B*N, 128],
+// qk and ctx [B*N, 8, 128] are float32 scratch from the caller.
 extern "C" int fused_edge_attention_f32(
     const float* node, const float* edge, const unsigned char* mask,
     const float* wm_e, const float* wm_s, const float* wm_t, const float* bm,
@@ -330,19 +350,24 @@ extern "C" int fused_edge_attention_f32(
     const float* wk, const float* bk, const float* wv, const float* bv,
     const float* wo, const float* bo, const float* we, const float* be,
     const float* ln_e1_g, const float* ln_e1_b, const float* ln_e2_g,
-    const float* ln_e2_b, float* out, float* edge_out, int batch, int n,
-    int update_edge, void* stream) {
+    const float* ln_e2_b, float* sp, float* tp, float* qk, float* ctx,
+    float* out, float* edge_out, int batch, int n, int update_edge, void* stream) {
+  using namespace fusion;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_edge_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  Weights w{wm_e, wm_s, wm_t, bm, ln_m_g, ln_m_b, wq, bq, wk, bk, wv, bv,
-            wo, bo, we, be, ln_e1_g, ln_e1_b, ln_e2_g, ln_e2_b};
-  dim3 grid((n + TJ - 1) / TJ, batch);
-  fused_edge_attention_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      node, edge, mask, w, out, edge_out, n, update_edge);
+  const Vecs v{bm, ln_m_g, ln_m_b, bq, bk, bv, bo, be, ln_e1_g, ln_e1_b, ln_e2_g, ln_e2_b};
+  const int cols = batch * n;
+  const int tok_blocks = (cols + TOK - 1) / TOK;
+  cudaStream_t s = (cudaStream_t)stream;
+  token_proj_kernel<float, float, true><<<dim3(tok_blocks, 3), NT, 0, s>>>(
+      node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
+  edge_attention_f32_kernel<<<(cols + TJ - 1) / TJ, NT, SMEM_BYTES, s>>>(
+      edge, mask, wm_e, we, sp, tp, qk, v, ctx, edge_out, n, cols, update_edge);
+  out_proj_kernel<float, true><<<tok_blocks, NT, 0, s>>>(ctx, wv, wo, v, out, cols);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fused_edge_attention_width() { return D; }
-extern "C" int fused_edge_attention_heads() { return NH; }
+extern "C" int fused_edge_attention_width() { return fusion::D; }
+extern "C" int fused_edge_attention_heads() { return fusion::NH; }

@@ -1,0 +1,248 @@
+// Shared pieces of the two fused edge-attention kernels for Hopper (sm_90a):
+// constants, cp.async helpers, and the per-token prologue and epilogue
+// kernels. Included by fusion_attention.cu (float32) and
+// fusion_attention_bf16.cu (bf16 operands on the tensor cores).
+//
+// Both variants replace the TPU kernel mind_tpu/ops/fusion_attention.py::_kernel
+// and split one call into three launches on the caller's stream:
+//
+//   1. token_proj_kernel: the products that depend on one token only,
+//      computed once per call (not once per block and chunk), one product
+//      per block:
+//        sp[t] = node[t] Wm_s,  tp[t] = node[t] Wm_t + bm,  q[t] = node[t] Wq + bq
+//      and, for the float32 variant, the folded key projection
+//        qk[t][h][:] = Wk[:, head h] q_h[t] / sqrt(dh)            ([8 x 128] per token)
+//   2. the per-(source, target) main kernel of the variant;
+//   3. out_proj_kernel: the per-token output product(s), out Wo + bo.
+//
+// In the bf16 variant the operands of these per-token products are rounded to
+// bf16 and multiplied in float32 FMAs: a product of two bf16 values is exact
+// in float32, so this is the tensor core's arithmetic up to the order of the
+// float32 sum. They are 0.2% of the call's operations.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace fusion {
+
+constexpr int D = 128;          // node width == edge width
+constexpr int NH = 8;           // heads
+constexpr int DH = D / NH;      // 16
+constexpr int TJ = 8;           // (scene, target) columns per block
+constexpr int TI = 8;           // sources per chunk
+constexpr int R = TI * TJ;      // (source, target) rows per chunk
+constexpr int NT = 128;         // threads per block, all kernels
+constexpr int TOK = 8;          // tokens per block in the per-token kernels
+constexpr float LN_EPS = 1e-5f;
+constexpr float QK_SCALE = 0.25f;   // 1 / sqrt(DH)
+constexpr float MASKED = -1e9f;
+
+// Biases and LayerNorm parameters, in the type of the variant's weights
+// (float32, or bf16 as the bf16 network holds them); read as float32.
+template <typename WT>
+struct VecsT {
+  const WT *bm, *ln_m_g, *ln_m_b, *bq, *bk, *bv, *bo, *be;
+  const WT *ln_e1_g, *ln_e1_b, *ln_e2_g, *ln_e2_b;
+};
+using Vecs = VecsT<float>;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// An activation as a product sees it: as it is against float32 weights,
+// rounded to bf16 against bf16 weights.
+template <typename WT> __device__ __forceinline__ float operand(float x) { return x; }
+template <> __device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
+  return round_bf16(x);
+}
+
+// 16-byte asynchronous copy global -> shared; zero-fills when !valid (the
+// source address must still be a mapped one).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// out[r][col] = sum_k xs[r][k] w[k][col] for TOK rows out of shared memory and
+// one weight column per thread out of global memory. The weight column is
+// fetched 16 values at a time, so 16 loads are in flight before the first
+// FMA needs one: these kernels are short chains of L2 latencies otherwise.
+// Every block reads the same weights, so block b starts its walk over k at
+// 16 b: the blocks then ask different L2 lines at any one time instead of
+// queueing on one.
+// ---------------------------------------------------------------------------
+template <typename WT>
+__device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restrict__ w,
+                                         int col, float acc[TOK]) {
+#pragma unroll
+  for (int r = 0; r < TOK; ++r) acc[r] = 0.f;
+#pragma unroll 1
+  for (int ks = 0; ks < D; ks += 16) {
+    const int k0 = (ks + 16 * blockIdx.x) & (D - 1);
+    float wr[16];
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(w[(k0 + kk) * D + col]);
+#pragma unroll
+    for (int kk = 0; kk < 16; kk += 4) {
+#pragma unroll
+      for (int r = 0; r < TOK; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(&xs[r][k0 + kk]);
+        acc[r] = fmaf(x.x, wr[kk], acc[r]);
+        acc[r] = fmaf(x.y, wr[kk + 1], acc[r]);
+        acc[r] = fmaf(x.z, wr[kk + 2], acc[r]);
+        acc[r] = fmaf(x.w, wr[kk + 3], acc[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Prologue: per-token projections. Grid (ceil(tokens / TOK), 3): a block of
+// 128 threads takes TOK tokens and one product (blockIdx.y = 0: sp, 1: tp,
+// 2: q and, with FOLD, the folded keys); thread t owns output column t.
+// ---------------------------------------------------------------------------
+template <typename NodeT, typename WT, bool FOLD>
+__global__ void __launch_bounds__(NT)
+token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
+                  const WT* __restrict__ wm_t, const WT* __restrict__ wq,
+                  const WT* __restrict__ wk, VecsT<WT> v, float* __restrict__ sp,
+                  float* __restrict__ tp, float* __restrict__ q_out, int tokens) {
+  __shared__ __align__(16) float xs[TOK][D];
+  __shared__ __align__(16) float qs[TOK][D];
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * TOK;
+  const int which = blockIdx.y;
+  for (int idx = tid; idx < TOK * D; idx += NT) {
+    const int tok = t0 + idx / D;
+    xs[idx / D][idx % D] =
+        tok < tokens ? operand<WT>(to_f(node[(size_t)tok * D + idx % D])) : 0.f;
+  }
+  __syncthreads();
+
+  const int col = tid;
+  float acc[TOK];
+  token_mm<WT>(xs, which == 0 ? wm_s : which == 1 ? wm_t : wq, col, acc);
+  const float bias = which == 0 ? 0.f : to_f((which == 1 ? v.bm : v.bq)[col]);
+  float* dst = which == 0 ? sp : which == 1 ? tp : q_out;
+#pragma unroll
+  for (int r = 0; r < TOK; ++r) {
+    const int tok = t0 + r;
+    const float val = acc[r] + bias;
+    if (tok < tokens && !(FOLD && which == 2)) dst[(size_t)tok * D + col] = val;
+    if (FOLD) qs[r][col] = val;
+  }
+  if constexpr (FOLD) {
+  if (which == 2) {
+    // qk[tok][h][c] = sum_d Wk[c][h*16+d] q[tok][h*16+d] / sqrt(dh): the
+    // logit of (i, j) for head h is then mem[i,j] . qk[j][h]. The bias term
+    // bk_h . q_h[j] is the same for every source i and cancels in the
+    // softmax, so it is not computed.
+    static_assert(sizeof(WT) == 4, "the folded keys are a float32 product");
+    __syncthreads();
+    const int c = tid;
+#pragma unroll 2
+    for (int hs = 0; hs < NH; ++hs) {
+      const int h = (hs + blockIdx.x) & (NH - 1);   // staggered like token_mm
+      // row c of Wk, head h: 16 contiguous float32 values, as four 16-byte loads
+      float wr[DH];
+#pragma unroll
+      for (int d4 = 0; d4 < DH / 4; ++d4) {
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wk + c * D + h * DH) + d4);
+        wr[4 * d4] = w4.x; wr[4 * d4 + 1] = w4.y; wr[4 * d4 + 2] = w4.z; wr[4 * d4 + 3] = w4.w;
+      }
+#pragma unroll
+      for (int r = 0; r < TOK; ++r) {
+        float a = 0.f;
+#pragma unroll
+        for (int d = 0; d < DH; ++d) a = fmaf(wr[d], qs[r][h * DH + d], a);
+        const int tok = t0 + r;
+        if (tok < tokens) q_out[((size_t)tok * NH + h) * D + c] = a * QK_SCALE;
+      }
+    }
+  }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Epilogue: out = x Wo + bo per token, where
+//   FOLD:  x[t] = ctx[tok][head of t] . Wv[:, t] + bv[t]   (ctx = softmax-weighted
+//          sum of mem rows per head, [8 x 128] per token; the weights sum to
+//          1, so bv is added once)
+//   else:  x[t] = attn[tok][t] + bv[t]                      (attn = softmax-weighted
+//          sum of the bias-free v rows)
+// ---------------------------------------------------------------------------
+template <typename WT, bool FOLD>
+__global__ void __launch_bounds__(NT)
+out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
+                const WT* __restrict__ wo, VecsT<WT> v, float* __restrict__ out,
+                int tokens) {
+  __shared__ __align__(16) float cs[FOLD ? TOK * NH : 1][D];
+  __shared__ __align__(16) float xs[TOK][D];
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * TOK;
+  const int col = tid;
+  const float bv = to_f(v.bv[col]);
+  float acc[TOK];
+  if (FOLD) {
+    for (int idx = tid; idx < TOK * NH * D; idx += NT) {
+      const int tok = t0 + idx / (NH * D);
+      cs[idx / D][idx % D] = tok < tokens ? in[(size_t)t0 * NH * D + idx] : 0.f;
+    }
+    __syncthreads();
+    // row r of this product is token r's accumulator of the thread's head
+    const int h = col / DH;
+#pragma unroll
+    for (int r = 0; r < TOK; ++r) acc[r] = 0.f;
+#pragma unroll 1
+    for (int ks = 0; ks < D; ks += 16) {
+      const int k0 = (ks + 16 * blockIdx.x) & (D - 1);   // staggered like token_mm
+      float wr[16];
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(wv[(k0 + kk) * D + col]);
+#pragma unroll
+      for (int kk = 0; kk < 16; kk += 4) {
+#pragma unroll
+        for (int r = 0; r < TOK; ++r) {
+          const float4 x = *reinterpret_cast<const float4*>(&cs[r * NH + h][k0 + kk]);
+          acc[r] = fmaf(x.x, wr[kk], acc[r]);
+          acc[r] = fmaf(x.y, wr[kk + 1], acc[r]);
+          acc[r] = fmaf(x.z, wr[kk + 2], acc[r]);
+          acc[r] = fmaf(x.w, wr[kk + 3], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TOK; ++r) xs[r][col] = operand<WT>(acc[r] + bv);
+  } else {
+#pragma unroll
+    for (int r = 0; r < TOK; ++r) {
+      const int tok = t0 + r;
+      xs[r][col] = tok < tokens ? operand<WT>(in[(size_t)tok * D + col] + bv) : 0.f;
+    }
+  }
+  __syncthreads();
+  token_mm<WT>(xs, wo, col, acc);
+  const float bo = to_f(v.bo[col]);
+#pragma unroll
+  for (int r = 0; r < TOK; ++r) {
+    const int tok = t0 + r;
+    if (tok < tokens) out[(size_t)tok * D + col] = acc[r] + bo;
+  }
+}
+
+}  // namespace fusion

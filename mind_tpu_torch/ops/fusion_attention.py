@@ -1,20 +1,29 @@
-"""Fused edge-conditioned fusion-layer core: CUDA kernel + plain PyTorch twin.
+"""Fused edge-conditioned fusion-layer core: two CUDA kernels + plain PyTorch twins.
 
 The fusion layer's hot path builds an edge-conditioned memory
 mem[i, j] = relu(LN(edge[i,j] Wm_e + node[i] Wm_s + node[j] Wm_t + bm)),
 optionally updates the edge from it, projects it to keys/values and attends
 each target j over its memory column (mind_tpu/ops/fusion_attention.py).
 
-`fused_edge_attention` launches the hand-written sm_90a kernel in
-`csrc/fusion_attention.cu` (the port of the TPU kernel
-mind_tpu/ops/fusion_attention.py::_kernel) for CUDA tensors, and runs the
-plain twin `fused_edge_attention_ref` for CPU tensors. There is no fallback
-between the two: a CUDA tensor goes to the kernel or raises.
+`fused_edge_attention` dispatches on the type of the weights it is given:
 
-The kernel is built with nvcc at first use into `_build/` beside this file
-(listed in .gitignore), as a shared library with a C interface loaded with
-ctypes. The library name carries a hash of the source, so an edited kernel
-is rebuilt.
+- float32 weights: the float32 kernel `csrc/fusion_attention.cu` (plain FMA,
+  held to 2e-4 against `fused_edge_attention_ref`);
+- bfloat16 weights: the tensor-core kernel `csrc/fusion_attention_bf16.cu`,
+  the mode the TPU kernel runs under compute_dtype="bfloat16": bf16 operands
+  into every 128-wide product, float32 accumulation, float32 LayerNorms,
+  softmax, residual and outputs. Its plain version is
+  `fused_edge_attention_bf16_ref`.
+
+Both are hand-written for sm_90a and are the ports of the TPU kernel
+mind_tpu/ops/fusion_attention.py::_kernel. CUDA tensors launch the kernel of
+their variant or raise; CPU tensors run the variant's plain version. There is
+no fallback between the two.
+
+The kernels are built with nvcc at first use into `_build/` beside this file
+(listed in .gitignore), one shared library with a C interface per source,
+compiled side by side and loaded with ctypes. A library's name carries a hash
+of its source and of the shared header, so an edited kernel is rebuilt.
 """
 
 from __future__ import annotations
@@ -29,7 +38,10 @@ from typing import NamedTuple
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "fusion_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_COMMON = _CSRC / "fusion_common.cuh"
+_SRCS = {"float32": _CSRC / "fusion_attention.cu",
+         "bfloat16": _CSRC / "fusion_attention_bf16.cu"}
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -100,48 +112,109 @@ def fused_edge_attention_ref(node, edge, key_mask, w: FusionWeights,
     return out @ w.wo + w.bo, edge_new
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"libfusion_attention_{digest}.so"
+def _round_bf16(x):
+    """A float32 activation as a bf16-operand product sees it."""
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
-def build_kernel() -> ctypes.CDLL:
-    """Compile the kernel (once per source hash) and load it. Raises on any
-    build failure; never returns a library that did not build."""
-    if build_kernel.lib is not None:
-        return build_kernel.lib
-    so = _library_path()
-    if not so.exists():
+def fused_edge_attention_bf16_ref(node, edge, key_mask, w: FusionWeights,
+                                  n_head: int, update_edge: bool = True):
+    """Plain PyTorch version of the bf16 operand mode, on any device: the
+    same function as `fused_edge_attention_ref` with the operands of every
+    128-wide product rounded to bf16 and everything else (accumulation, bias
+    adds, LayerNorms, logits, softmax, the residual edge + eu) in float32.
+
+    node [B, N, D] and edge [B, N, N, E] may be bfloat16 or float32; the
+    weights are bfloat16 (their values are used as they are), biases and
+    LayerNorm parameters any float type here (the kernel takes them in
+    bfloat16, as the bf16 network holds them). Returns float32 (attn_out, edge_new);
+    with `update_edge` False edge_new is the input edge as float32."""
+    f32 = torch.float32
+    B, N, D = node.shape
+    dh = D // n_head
+    p = {k: t.to(f32) for k, t in w._asdict().items()}
+    nb = _round_bf16(node)
+    mem = (torch.einsum("bije,ed->bijd", _round_bf16(edge), p["wm_e"])
+           + (nb @ p["wm_s"])[:, :, None, :]
+           + (nb @ p["wm_t"])[:, None, :, :]
+           + p["bm"])
+    mem = _round_bf16(torch.relu(_ln(mem, p["ln_m_g"], p["ln_m_b"])))
+
+    edge32 = edge.to(f32)
+    if update_edge:
+        eu = torch.relu(_ln(torch.einsum("bijd,de->bije", mem, p["we"]) + p["be"],
+                            p["ln_e1_g"], p["ln_e1_b"]))
+        edge_new = _ln(edge32 + eu, p["ln_e2_g"], p["ln_e2_b"])
+    else:
+        edge_new = edge32
+
+    q = (nb @ p["wq"] + p["bq"]).reshape(B, N, n_head, dh)
+    k = (mem @ p["wk"] + p["bk"]).reshape(B, N, N, n_head, dh)
+    v = (mem @ p["wv"] + p["bv"]).reshape(B, N, N, n_head, dh)
+    logits = torch.einsum("bjhd,bijhd->bhji", q, k) * (1.0 / dh ** 0.5)
+    logits = torch.where(key_mask[:, None, None, :], logits,
+                         torch.full((), -1e9, dtype=f32, device=logits.device))
+    attn = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhji,bijhd->bjhd", attn, v).reshape(B, N, D)
+    return _round_bf16(out) @ p["wo"] + p["bo"], edge_new
+
+
+def _library_path(variant: str) -> Path:
+    h = hashlib.sha256(_SRCS[variant].read_bytes() + _COMMON.read_bytes())
+    return _BUILD_DIR / f"lib{_SRCS[variant].stem}_{h.hexdigest()[:12]}.so"
+
+
+def build_kernels() -> dict:
+    """Compile both kernels (once per source hash, the two nvcc runs side by
+    side) and load them; returns {"float32": CDLL, "bfloat16": CDLL}. Raises
+    on any build failure; never returns a library that did not build."""
+    if build_kernels.libs is not None:
+        return build_kernels.libs
+    paths = {v: _library_path(v) for v in _SRCS}
+    missing = [v for v, so in paths.items() if not so.exists()]
+    if missing:
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the fusion kernel cannot be built")
+            raise RuntimeError("nvcc not found: the fusion kernels cannot be built")
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        build_kernel.log = res.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.fused_edge_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.fused_edge_attention_width.restype = ctypes.c_int
-    lib.fused_edge_attention_heads.restype = ctypes.c_int
-    build_kernel.lib = lib
-    return lib
+        procs = {}
+        for v in missing:
+            tmp = paths[v].with_suffix(f".{os.getpid()}.tmp")
+            procs[v] = (tmp, subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRCS[v])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        results = {v: (tmp, proc.communicate()[1], proc.returncode)
+                   for v, (tmp, proc) in procs.items()}
+        for v, (tmp, err, rc) in results.items():
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {_SRCS[v].name} ({rc}):\n{err}")
+            build_kernels.log[v] = err
+            os.replace(tmp, paths[v])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = {v: ctypes.CDLL(str(so)) for v, so in paths.items()}
+    fn = libs["float32"].fused_edge_attention_f32
+    fn.argtypes = [ptr] * 29 + [i32] * 3 + [ptr]
+    fn.restype = i32
+    fn = libs["bfloat16"].fused_edge_attention_bf16
+    fn.argtypes = [ptr, i32, ptr, i32] + [ptr] * 27 + [i32] * 4 + [ptr]
+    fn.restype = i32
+    for lib, stem in ((libs["float32"], "fused_edge_attention"),
+                      (libs["bfloat16"], "fused_edge_attention_bf16")):
+        getattr(lib, stem + "_width").restype = i32
+        getattr(lib, stem + "_heads").restype = i32
+    build_kernels.libs = libs
+    return libs
 
 
-build_kernel.lib = None
-build_kernel.log = ""
+build_kernels.libs = None
+build_kernels.log = {}
 
 
-def _check(name, t, shape, dtype, device):
+def _check(name, t, shape, dtypes, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -150,62 +223,143 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def fused_edge_attention(node, edge, key_mask, w: FusionWeights, n_head: int,
-                         update_edge: bool = True):
-    """Fused layer core. CPU tensors run `fused_edge_attention_ref`; CUDA
-    tensors launch the sm_90a kernel (float32, D = E = 128, 8 heads) and
-    raise on anything it does not take. With `update_edge=False` the input
-    edge is returned as it is (no copy)."""
-    if node.device.type == "cpu":
-        return fused_edge_attention_ref(node, edge, key_mask, w, n_head,
-                                        update_edge)
-    if node.device.type != "cuda":
-        raise ValueError(f"unsupported device {node.device}")
-    lib = build_kernel()
+def _launched(variant):
+    fused_edge_attention.launches += 1
+    fused_edge_attention.launches_by_variant[variant] += 1
+
+
+def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
+    lib = build_kernels()["float32"]
     D = lib.fused_edge_attention_width()
     if n_head != lib.fused_edge_attention_heads():
         raise ValueError(f"kernel is built for {lib.fused_edge_attention_heads()}"
                          f" heads, got {n_head}")
     B, N = node.shape[0], node.shape[1]
-    dev, f32 = node.device, torch.float32
+    dev, f32 = node.device, (torch.float32,)
     _check("node", node, (B, N, D), f32, dev)
     _check("edge", edge, (B, N, N, D), f32, dev)
-    _check("key_mask", key_mask, (B, N), torch.bool, dev)
+    _check("key_mask", key_mask, (B, N), (torch.bool,), dev)
     for name, t in w._asdict().items():
         _check(name, t, (D, D) if name.startswith("w") else (D,), f32, dev)
-    out = torch.empty((B, N, D), dtype=f32, device=dev)
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    out = new(B, N, D)
     edge_out = torch.empty_like(edge) if update_edge else edge
+    # scratch of the call's three launches: per-token projections, folded keys,
+    # per-head softmax-weighted memory
+    sp, tp, qk, ctx = new(B * N, D), new(B * N, D), new(B * N, n_head, D), new(B * N, n_head, D)
     err = lib.fused_edge_attention_f32(
         node.data_ptr(), edge.data_ptr(), key_mask.data_ptr(),
         *(t.data_ptr() for t in w),
+        sp.data_ptr(), tp.data_ptr(), qk.data_ptr(), ctx.data_ptr(),
         out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_attention launch failed: CUDA error {err}")
-    fused_edge_attention.launches += 1
+    _launched("float32")
     return out, edge_out
 
 
-fused_edge_attention.launches = 0
+def _launch_bf16(node, edge, key_mask, w, n_head, update_edge):
+    lib = build_kernels()["bfloat16"]
+    D = lib.fused_edge_attention_bf16_width()
+    if n_head != lib.fused_edge_attention_bf16_heads():
+        raise ValueError(f"kernel is built for {lib.fused_edge_attention_bf16_heads()}"
+                         f" heads, got {n_head}")
+    B, N = node.shape[0], node.shape[1]
+    dev = node.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    _check("node", node, (B, N, D), (bf16, f32), dev)
+    _check("edge", edge, (B, N, N, D), (bf16, f32), dev)
+    _check("key_mask", key_mask, (B, N), (torch.bool,), dev)
+    # weights, biases and LayerNorm parameters as the bf16 network holds them
+    for name, t in w._asdict().items():
+        _check(name, t, (D, D) if name.startswith("w") else (D,), (bf16,), dev)
+    new = lambda *s: torch.empty(s, dtype=f32, device=dev)
+    out = new(B, N, D)
+    write_cast = not update_edge and edge.dtype != f32
+    edge_out = new(B, N, N, D) if update_edge or write_cast else edge
+    sp, tp, q, attn = (new(B * N, D) for _ in range(4))
+    err = lib.fused_edge_attention_bf16(
+        node.data_ptr(), int(node.dtype == bf16), edge.data_ptr(), int(edge.dtype == bf16),
+        key_mask.data_ptr(),
+        *(t.data_ptr() for t in w),
+        sp.data_ptr(), tp.data_ptr(), q.data_ptr(), attn.data_ptr(),
+        out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge), int(write_cast),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_edge_attention (bf16) launch failed: CUDA error {err}")
+    _launched("bfloat16")
+    return out, edge_out
 
 
-def fused_edge_attention_flops(batch: int, n: int, d: int,
-                               update_edge: bool) -> int:
-    """Operations of one call (2 per multiply-add), from its shapes: the
-    three (four with the edge update) [d x d] products per (i, j) pair plus
-    the per-token projections; LayerNorm and softmax are counted as lower
-    order terms."""
-    pair_mm = 4 if update_edge else 3
+def fused_edge_attention(node, edge, key_mask, w: FusionWeights, n_head: int,
+                         update_edge: bool = True):
+    """Fused layer core; the variant follows the type of `w.wm_e`.
+
+    float32 weights: CPU tensors run `fused_edge_attention_ref`, CUDA tensors
+    launch the float32 kernel (float32 everywhere, D = E = 128, 8 heads). With
+    `update_edge=False` the input edge is returned as it is (no copy).
+
+    bfloat16 weights: CPU tensors run `fused_edge_attention_bf16_ref`, CUDA
+    tensors launch the tensor-core kernel (node and edge bfloat16 or float32).
+    Both outputs are float32; with `update_edge=False` a float32 input edge is
+    returned as it is and a bfloat16 one is written out as float32.
+
+    A CUDA tensor launches its kernel or raises on anything it does not take."""
+    variant = {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(w.wm_e.dtype)
+    if variant is None:
+        raise TypeError(f"weights have dtype {w.wm_e.dtype}: float32 or bfloat16 expected")
+    if node.device.type == "cpu":
+        ref = fused_edge_attention_ref if variant == "float32" else fused_edge_attention_bf16_ref
+        return ref(node, edge, key_mask, w, n_head, update_edge)
+    if node.device.type != "cuda":
+        raise ValueError(f"unsupported device {node.device}")
+    launch = _launch_f32 if variant == "float32" else _launch_bf16
+    return launch(node, edge, key_mask, w, n_head, update_edge)
+
+
+fused_edge_attention.launches = 0          # calls that launched a kernel, both variants
+fused_edge_attention.launches_by_variant = {"float32": 0, "bfloat16": 0}
+
+
+def reset_launch_counts():
+    fused_edge_attention.launches = 0
+    for k in fused_edge_attention.launches_by_variant:
+        fused_edge_attention.launches_by_variant[k] = 0
+
+
+def fused_edge_attention_flops(batch: int, n: int, d: int, update_edge: bool,
+                               variant: str = "float32", n_head: int = 8) -> int:
+    """Operations of one call (2 per multiply-add), from its shapes; LayerNorm
+    and softmax are counted as lower order terms.
+
+    "float32" counts the folded form, the least work that computes the
+    function: per (i, j) pair one [d x d] product (two with the edge update)
+    plus the per-head logit and weighted-memory sums (2 n_head d), and six
+    [d x d] products per token (Wm_s, Wm_t, Wq, the folded keys, Wv, Wo).
+    "bfloat16" counts the form its kernel and the TPU kernel run: three (four)
+    [d x d] products per pair and four per token. "unfolded" is that count for
+    the float32 function, kept for comparison."""
     pairs = batch * n * n
     tokens = batch * n
+    if variant == "float32":
+        pair_macs = d * d * (2 if update_edge else 1) + 2 * n_head * d
+        return 2 * (pair_macs * pairs + 6 * d * d * tokens) + 4 * pairs * d
+    if variant not in ("bfloat16", "unfolded"):
+        raise ValueError(variant)
+    pair_mm = 4 if update_edge else 3
     return 2 * d * d * (pair_mm * pairs + 4 * tokens) + 4 * pairs * d
 
 
-def fused_edge_attention_bytes(batch: int, n: int, d: int,
-                               update_edge: bool) -> int:
-    """Bytes that one call must move: inputs read once, outputs written
-    once (float32), weights included."""
-    edge = batch * n * n * d * 4
-    node = batch * n * d * 4
-    weights = (7 * d * d + 13 * d) * 4
-    return edge * (2 if update_edge else 1) + 2 * node + batch * n + weights
+def fused_edge_attention_bytes(batch: int, n: int, d: int, update_edge: bool,
+                               edge_bytes: int = 4, node_bytes: int = 4,
+                               weight_bytes: int = 4) -> int:
+    """Bytes that one call must move: inputs read once, outputs written once
+    (float32 outputs), weights included. The defaults are the float32
+    variant; the bf16 variant has 2-byte weights and a 2- or 4-byte node and
+    edge, and writes a float32 edge whenever it updates or casts it."""
+    pairs = batch * n * n * d
+    edge_out = pairs * 4 if update_edge or edge_bytes != 4 else 0
+    node = batch * n * d * (node_bytes + 4)
+    weights = 7 * d * d * weight_bytes + 12 * d * 4
+    return pairs * edge_bytes + edge_out + node + batch * n + weights

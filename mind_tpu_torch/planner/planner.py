@@ -91,7 +91,9 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
     phase in seconds under "aime", "cost_topology", "solve" and "selection"
     (with a device synchronize ending each phase), the AIME rounds run
     ("rounds"), the cost trees ("trees", a DeviceCostTrees), the per-tree
-    selection costs ("tree_cost") and the selected tree ("best")."""
+    selection costs ("tree_cost"), the selected tree ("best") and the largest
+    iteration count over the active trees of the warm and the full solve
+    ("warm_iterations", "iterations")."""
     tt = cfg.traj_tree
     if return_exec_payload or tt.exec_resolve_mode == "native":
         raise NotImplementedError("the native exec re-solve payload is not ported")
@@ -124,7 +126,10 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
     out = torch.cat([ctrl, ok[None], its.max().to(torch.float32)[None]])
     clock.lap("selection")
     if report is not None:
-        report.update(rounds=rounds, trees=dct, tree_cost=cost_b, best=best)
+        warm_its = torch.where(dct.tree_mask, info["warm_iterations"],
+                               torch.zeros_like(info["warm_iterations"]))
+        report.update(rounds=rounds, trees=dct, tree_cost=cost_b, best=best,
+                      iterations=int(its.max()), warm_iterations=int(warm_its.max()))
     return out
 
 

@@ -1,7 +1,16 @@
 """Fused edge-attention core: the port's plain PyTorch version vs the JAX
 Pallas kernel (interpret mode) and its jnp twin on the CPU; the CUDA kernel
 vs the plain version on the card (skipped without one). Tolerance 2e-4, as
-tests/test_fusion_kernel.py holds the Pallas kernel."""
+tests/test_fusion_kernel.py holds the Pallas kernel.
+
+The bf16 operand mode: the port's second plain version vs the Pallas kernel in
+interpret mode with bf16 node, weights and (first-layer) edge. On the CPU the
+interpreted kernel multiplies a float32 activation (mem, a later layer's edge)
+with bf16 weights in float32, where the plain version rounds the activation
+to bf16 as the matrix unit and the CUDA kernel do. So each case is held twice:
+with that rounding switched off to 2e-4 (the same arithmetic), and as it is to
+1e-2 on the output and 3e-2 on the edge (the rounding's 2^-9 relative error
+on 128 summands, after two LayerNorms; measured 3.4e-3 and 1.6e-2)."""
 
 import numpy as np
 import pytest
@@ -76,14 +85,89 @@ def test_passthrough_returns_input_edge():
 
 
 def test_flop_and_byte_counts():
-    """The numbers the bound rests on, at the main path's shapes: the
-    per-pair products alone are 2.18 GFLOP per scene with the edge update
-    and 1.64 without; the per-token projections and the attention add
-    0.027."""
-    assert 2.18 < tfa.fused_edge_attention_flops(1, 129, 128, True) / 1e9 < 2.21
-    assert 1.64 < tfa.fused_edge_attention_flops(1, 129, 128, False) / 1e9 < 1.67
+    """The numbers the bounds rest on, at the main path's shapes. float32
+    counts the folded form (keys and values never formed per pair): 1.16
+    GFLOP per scene with the edge update and 0.61 without, against 2.18 and
+    1.64 unfolded, which is what the bf16 variant and the TPU kernel run."""
+    assert 1.15 < tfa.fused_edge_attention_flops(1, 129, 128, True) / 1e9 < 1.20
+    assert 0.61 < tfa.fused_edge_attention_flops(1, 129, 128, False) / 1e9 < 0.66
+    for variant in ("unfolded", "bfloat16"):
+        assert 2.18 < tfa.fused_edge_attention_flops(1, 129, 128, True, variant) / 1e9 < 2.21
+        assert 1.64 < tfa.fused_edge_attention_flops(1, 129, 128, False, variant) / 1e9 < 1.67
     # 17.0 MB of edge in and out, plus nodes and weights
     assert 17.0 < tfa.fused_edge_attention_bytes(1, 129, 128, True) / 1e6 < 17.7
+    # bf16 variant at B = 8: 68.2 MB of float32 edge in and 68.2 MB out
+    assert 136.3 < tfa.fused_edge_attention_bytes(8, 129, 128, True, 4, 4, 2) / 1e6 < 137.7
+    # first layer: bf16 edge in (34.1 MB), float32 edge out
+    assert 102.2 < tfa.fused_edge_attention_bytes(8, 129, 128, True, 2, 2, 2) / 1e6 < 103.4
+    # last layer: float32 edge read, none written
+    assert 68.1 < tfa.fused_edge_attention_bytes(8, 129, 128, False, 4, 4, 2) / 1e6 < 69.6
+
+
+TOL_BF16_OUT, TOL_BF16_EDGE = 1e-2, 3e-2
+BF16_CASES = [(32, True, "bfloat16"), (40, True, "float32"), (32, False, "bfloat16"),
+              (129, True, "float32")]
+
+
+def bf16_inputs(seed_w, seed_x, b, n, edge_dtype, device="cpu", node_dtype="bfloat16"):
+    """Weights (bf16), node and edge (bf16 or float32) as torch tensors, and
+    the numpy arrays they were rounded from."""
+    w = weights_np(seed_w)
+    node, edge, mask = inputs_np(seed_x, b, n)
+    tw = tfa.FusionWeights(**{k: torch.tensor(v, device=device).to(torch.bfloat16)
+                              for k, v in w.items()})
+    te = torch.tensor(edge, device=device).to(getattr(torch, edge_dtype))
+    tn = torch.tensor(node, device=device).to(getattr(torch, node_dtype))
+    return (w, node, edge, mask), (tn, te, torch.tensor(mask, device=device), tw)
+
+
+@pytest.mark.parametrize("n,update_edge,edge_dtype", BF16_CASES)
+def test_bf16_plain_matches_pallas_kernel(n, update_edge, edge_dtype, monkeypatch):
+    import jax
+    import jax.numpy as jnp
+    from mind_tpu.ops.fusion_attention import FusionWeights, fused_edge_attention
+
+    (w, node, edge, mask), targs = bf16_inputs(0, 1, 1, n, edge_dtype)
+    bf = jnp.bfloat16
+    jw = FusionWeights(**{k: jnp.asarray(v).astype(bf) for k, v in w.items()})
+    want_out, want_edge = jax.vmap(
+        lambda x, e, m: fused_edge_attention(x, e, m, jw, H, update_edge, tj=8,
+                                             interpret=True))(
+            jnp.asarray(node).astype(bf), jnp.asarray(edge).astype(edge_dtype),
+            jnp.asarray(mask))
+    want_out, want_edge = np.asarray(want_out), np.asarray(want_edge)
+    assert want_out.dtype == want_edge.dtype == np.float32
+    valid = n - 5
+
+    def check(tol_out, tol_edge):
+        got_out, got_edge = tfa.fused_edge_attention(*targs, H, update_edge)
+        assert got_out.dtype == got_edge.dtype == torch.float32
+        np.testing.assert_allclose(got_out.numpy()[:, :valid], want_out[:, :valid],
+                                   rtol=0, atol=tol_out)
+        np.testing.assert_allclose(got_edge.numpy(), want_edge, rtol=0, atol=tol_edge)
+
+    check(TOL_BF16_OUT, TOL_BF16_EDGE)
+    # with the activations left unrounded it is the interpreted kernel's arithmetic
+    monkeypatch.setattr(tfa, "_round_bf16", lambda x: x.to(torch.float32))
+    check(TOL, TOL)
+
+
+@pytest.mark.parametrize("edge_dtype", ["bfloat16", "float32"])
+def test_bf16_passthrough_returns_float32(edge_dtype):
+    """update_edge=False in the bf16 mode: the edge comes back as float32,
+    whatever came in, with the input's values."""
+    _, (node, edge, mask, w) = bf16_inputs(2, 3, 1, 16, edge_dtype)
+    out, edge_out = tfa.fused_edge_attention(node, edge, mask, w, H, update_edge=False)
+    assert out.dtype == edge_out.dtype == torch.float32
+    assert torch.equal(edge_out, edge.to(torch.float32))
+
+
+def test_wrapper_refuses_other_weight_types():
+    w = torch_weights(weights_np(2))
+    node, edge, mask = map(torch.tensor, inputs_np(3, 1, 8))
+    w64 = tfa.FusionWeights(*(t.double() for t in w))
+    with pytest.raises(TypeError):
+        tfa.fused_edge_attention(node.double(), edge.double(), mask, w64, H)
 
 
 @pytest.mark.cuda
@@ -110,3 +194,47 @@ def test_cuda_kernel_matches_plain():
                 assert edge_out is edge
     with pytest.raises(TypeError):
         tfa.fused_edge_attention(node.double(), edge, mask, w, H)
+
+
+# kernel B vs its plain version on the card: sums in another order, and a
+# float32 activation that lies on a bf16 rounding boundary may round the other
+# way in the kernel. One such flip of a mem value between 2 and 4 is a step of
+# 2^-6 on one of a row's 128 summands; through a weight of 0.3 and two
+# LayerNorms it moves an edge output by up to ~1e-2 (measured max 7.1e-3).
+# Flips are rare, so the mean error is held far tighter (measured 2.6e-6).
+TOL_BF16_KERNEL = 2e-2
+TOL_BF16_KERNEL_MEAN = 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_matches_plain():
+    """The tensor-core kernel vs the bf16 plain version on the card, at
+    B = 8, N = 129 and a ragged N = 40; both update modes, and every pair of
+    node and edge types it takes (the network gives it both bf16 in the first
+    layer and both float32 in the later ones)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    for b, n in ((8, 129), (3, 40)):
+        for node_dtype, edge_dtype in (("bfloat16", "bfloat16"), ("float32", "float32"),
+                                       ("bfloat16", "float32"), ("float32", "bfloat16")):
+            _, (node, edge, mask, w) = bf16_inputs(4, 5, b, n, edge_dtype, dev, node_dtype)
+            for update_edge in (True, False):
+                before = dict(tfa.fused_edge_attention.launches_by_variant)
+                out, edge_out = tfa.fused_edge_attention(node, edge, mask, w, H, update_edge)
+                torch.cuda.synchronize()
+                after = tfa.fused_edge_attention.launches_by_variant
+                assert after["bfloat16"] == before["bfloat16"] + 1
+                assert after["float32"] == before["float32"]
+                ref_out, ref_edge = tfa.fused_edge_attention_bf16_ref(node, edge, mask, w, H,
+                                                                      update_edge)
+                assert out.dtype == edge_out.dtype == torch.float32
+                for got, ref in ((out, ref_out), (edge_out, ref_edge)):
+                    diff = (got - ref).abs()
+                    assert diff.max().item() < TOL_BF16_KERNEL
+                    assert diff.mean().item() < TOL_BF16_KERNEL_MEAN
+    with pytest.raises(TypeError):
+        tfa.fused_edge_attention(node.double(), edge, mask, w, H)
+    with pytest.raises(TypeError):   # bias / LayerNorm vectors must be bf16 too
+        tfa.fused_edge_attention(node, edge, mask, w._replace(bm=w.bm.float()), H)

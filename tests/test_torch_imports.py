@@ -1,0 +1,37 @@
+"""The port stands on PyTorch alone: no module of mind_tpu_torch, and not
+chip_smoke.py, imports jax, flax, orbax or the JAX package mind_tpu, at top
+level or inside a function. One case per file, so each counts."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "mind_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "flax", "orbax", "mind_tpu")
+
+
+def imported_names(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", getattr(
+                node.func, "attr", "")) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for lineno, name in imported_names(tree):
+        assert name.split(".")[0] not in BANNED, f"{path}:{lineno} imports {name}"
+
+
+def test_every_port_module_is_covered():
+    assert len(FILES) >= 20
+    assert any(p.name == "fusion_attention.py" for p in FILES)

@@ -146,6 +146,26 @@ def test_plan_cycle_matches_jax(nets, precision):
         np.testing.assert_allclose(got[:2], want[:2], rtol=0, atol=1e-6)
 
 
+def test_demo_config_plan_cycle_runs_in_bf16():
+    """planner_config_for_demo("demo_1"): the bf16 network at full width
+    (D = 128, 6 fusion layers, trained weights) through one plan cycle on the
+    CPU, on a scene cut to 8 actor and 12 lane slots."""
+    from mind_tpu_torch.config import planner_config_for_demo
+
+    cfg = planner_config_for_demo("demo_1")
+    assert cfg.net.compute_dtype == "bfloat16" and cfg.ckpt_path
+    cfg.max_actors, cfg.max_lanes = A, L
+    cfg.scen_tree.max_branch_nodes = 4
+    cfg.scen_tree.max_tree_nodes = 32
+    net = load_scene_pred(cfg.net, cfg.ckpt_path, CPU)
+    assert next(net.parameters()).dtype == torch.bfloat16
+    scene = synthetic_scene(seed=8, max_actors=A, max_lanes=L, n_agents=8)
+    out, report = torch_plan(net, cfg, scene)
+    assert out.shape == (4,) and np.isfinite(out).all()
+    assert out[2] == 1.0, "ok"
+    assert report["rounds"] >= 1 and int(report["trees"].n_trees) >= 1
+
+
 def test_entry_points_need_a_device_without_gpu():
     """With no GPU, an entry point called without a device raises instead
     of running on the CPU."""

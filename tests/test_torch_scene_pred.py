@@ -41,17 +41,20 @@ def flat(params):
     return {k: np.asarray(v) for k, v in flatten_dict(params, sep="/").items()}
 
 
+def run_port(tcfg, params, inputs):
+    net = load_scene_pred(tcfg, None, torch.device("cpu"))
+    net.load_state_dict(params_from_flax(flat(params)), strict=True)
+    with torch.no_grad():
+        return [g.numpy() for g in net(*map(torch.from_numpy, inputs))]
+
+
 def run_both(jcfg, tcfg, params, inputs, A, L):
     import jax.numpy as jnp
     from mind_tpu.models.scene_pred import ScenePredNet, make_batched_apply
 
     batched_apply = make_batched_apply(ScenePredNet(jcfg), jcfg)
     want = batched_apply(params, *map(jnp.asarray, inputs))
-    net = load_scene_pred(tcfg, None, torch.device("cpu"))
-    net.load_state_dict(params_from_flax(flat(params)), strict=True)
-    with torch.no_grad():
-        got = net(*map(torch.from_numpy, inputs))
-    return [np.asarray(w) for w in want], [g.numpy() for g in got]
+    return [np.asarray(w) for w in want], run_port(tcfg, params, inputs)
 
 
 def test_small_config_random_init_matches_flax():
@@ -66,6 +69,54 @@ def test_small_config_random_init_matches_flax():
     for w, g, name in zip(want, got, ("cls", "reg", "vel")):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_small_config_bf16_matches_flax_with_pallas_kernel():
+    """compute_dtype="bfloat16": the port's bf16 network (parameters in
+    bf16, the fusion core's bf16 plain version) vs make_batched_apply with the
+    Pallas kernel interpreted. Both round to bf16 at every encoder layer, at
+    places that differ by a last bit, and the interpreted kernel leaves
+    float32 activations unrounded where the port rounds them as the matrix
+    unit does. Measured gaps: 8.4e-4 on cls_prob, 1.25e-2 m on positions,
+    2.3e-2 on velocity, 5.4e-3 (relative + absolute) on covariance; each is
+    held to about twice that. The port's float32 network lies 2.3e-3 and
+    2.6e-2 m from its bf16 one on these inputs, outside the limits, so a
+    network that quietly ran in float32 fails; the last lines check that."""
+    from mind_tpu.config import NetConfig
+    from mind_tpu.models import init_scene_pred
+
+    A, L = 6, 12
+    tol_cls, tol_pos = 1.6e-3, 2.4e-2
+    jcfg = NetConfig(**SMALL, use_pallas_fusion=True, compute_dtype="bfloat16")
+    _, params, _ = init_scene_pred(jcfg, A, L, seed=3)
+    inputs = make_inputs(np.random.default_rng(0), 3, A, L, jcfg)
+    tcfg = TNetConfig(**SMALL, compute_dtype="bfloat16")
+    want, got = run_both(jcfg, tcfg, params, inputs, A, L)
+    for w, g, name in zip(want, got, ("cls", "reg", "vel")):
+        assert g.shape == w.shape and g.dtype == w.dtype == np.float32, name
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=tol_cls, err_msg="cls_prob")
+    np.testing.assert_allclose(got[1][..., :2], want[1][..., :2], rtol=0, atol=tol_pos,
+                               err_msg="positions")
+    # exp(covariance) reaches 6: relative to its size
+    np.testing.assert_allclose(got[1][..., 2:], want[1][..., 2:], rtol=1.2e-2, atol=1.2e-2,
+                               err_msg="covariance")
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=4.5e-2, err_msg="velocity")
+    got32 = run_port(TNetConfig(**SMALL), params, inputs)
+    assert np.abs(got[0] - got32[0]).max() > tol_cls
+    assert np.abs(got[1][..., :2] - got32[1][..., :2]).max() > tol_pos
+    assert np.abs(got32[0] - want[0]).max() > tol_cls
+
+
+def test_bf16_network_holds_bf16_parameters_and_float32_buffers():
+    net = load_scene_pred(TNetConfig(**SMALL, compute_dtype="bfloat16"), None,
+                          torch.device("cpu"))
+    assert {p.dtype for p in net.parameters()} == {torch.bfloat16}
+    assert net.SceneDecoder_0.mat_T.dtype == torch.float32
+    net32 = load_scene_pred(TNetConfig(**SMALL), None, torch.device("cpu"))
+    assert {p.dtype for p in net32.parameters()} == {torch.float32}
+    # the same seed gives the float32 weights rounded to bf16
+    for (k, p), (_, q) in zip(net.named_parameters(), net32.named_parameters()):
+        assert torch.equal(p, q.to(torch.bfloat16)), k
 
 
 def test_production_config_trained_weights_match_flax():
@@ -108,7 +159,8 @@ def test_weight_archive_equals_orbax_checkpoint():
 def _kernel_launch_calls(tree):
     return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
             and getattr(n.func, "attr", getattr(n.func, "id", "")) in
-            ("fused_edge_attention", "fused_edge_attention_f32")]
+            ("fused_edge_attention", "fused_edge_attention_f32",
+             "fused_edge_attention_bf16")]
 
 
 def test_port_imports_no_jax_and_has_no_fallback():

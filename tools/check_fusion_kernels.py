@@ -1,0 +1,109 @@
+"""Build both fused edge-attention kernels and hold each against its plain
+PyTorch version on the GPU, then time them.
+
+    python3 tools/check_fusion_kernels.py [--reps 20] [--no-time] [--profile]
+
+Prints nvcc's ptxas report (registers, spills, shared memory), the max abs
+error of each variant at B = 8 / N = 129 and at a ragged B = 3 / N = 40 for
+both update_edge values (and both node and edge types of the bf16 variant), and the
+time per call from CUDA events. `--profile` adds, per variant, the device
+time of each kernel of one call (prologue, main, epilogue and the wrapper's
+own small copies) from torch.profiler. Exits non-zero if a kernel does not build,
+does not launch or misses its tolerance. Needs a CUDA device and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as cs  # noqa: E402
+from mind_tpu_torch.ops import fusion_attention as fa  # noqa: E402
+
+D, H = 128, 8
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def make_inputs(b, n, dev, variant, edge_dtype):
+    w, node, edge = cs.kernel_inputs(fa, dev, b, n, D)
+    mask = (torch.arange(n, device=dev) < n - 5)[None].expand(b, -1).contiguous()
+    if variant == "bfloat16":
+        w = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
+        # as the network calls it: node and edge bf16 in the first layer,
+        # both float32 after it
+        node, edge = node.to(edge_dtype), edge.to(edge_dtype)
+    return node, edge, mask, w
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("check_fusion_kernels: needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.perf_counter()
+    fa.build_kernels()
+    print(f"built in {time.perf_counter() - t:.1f} s")
+    for variant, text in fa.build_kernels.log.items():
+        print(f"--- nvcc, {variant} ---\n{text.strip()}")
+    failed = False
+    for variant, ref in (("float32", fa.fused_edge_attention_ref),
+                         ("bfloat16", fa.fused_edge_attention_bf16_ref)):
+        edge_types = (torch.float32,) if variant == "float32" else (torch.float32, torch.bfloat16)
+        for b, n in ((8, 129), (3, 40)):
+            for edge_dtype in edge_types:
+                node, edge, mask, w = make_inputs(b, n, dev, variant, edge_dtype)
+                for ue in (True, False):
+                    out, edge_out = fa.fused_edge_attention(node, edge, mask, w, H, ue)
+                    torch.cuda.synchronize()
+                    ref_out, ref_edge = ref(node, edge, mask, w, H, ue)
+                    e_out = (out - ref_out).abs().max().item()
+                    e_edge = (edge_out - ref_edge).abs().max().item()
+                    ok = e_out < TOL[variant] and e_edge < TOL[variant]
+                    failed |= not ok
+                    line = (f"{variant} B={b} N={n} node,edge={str(edge_dtype)[6:]} update_edge={ue}: "
+                            f"err out={e_out:.3e} edge={e_edge:.3e} {'ok' if ok else 'FAIL'}")
+                    if not args.no_time and n == 129:
+                        ms = cs.cuda_time_ms(
+                            lambda: fa.fused_edge_attention(node, edge, mask, w, H, ue), args.reps)
+                        line += f" | {ms:.4f} ms per call"
+                    print(line, flush=True)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        for variant in ("float32", "bfloat16"):
+            node, edge, mask, w = make_inputs(8, 129, dev, variant, torch.float32)
+            for ue in (True, False):
+                fa.fused_edge_attention(node, edge, mask, w, H, ue)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(args.reps):
+                        fa.fused_edge_attention(node, edge, mask, w, H, ue)
+                    torch.cuda.synchronize()
+                by_name = {}
+                for e in prof.events():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+                print(f"profile {variant} update_edge={ue}, us per call:")
+                for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+                    print(f"  {us / args.reps:9.2f}  {name[:90]}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,17 @@
 """Where a plan cycle's time goes on the GPU: torch.profiler over steady
 plan cycles of the port on chip_smoke.py's synthetic scene.
 
-    python3 tools/profile_plan_cycle.py [--cycles 2] [--out plan_profile.json]
+    python3 tools/profile_plan_cycle.py [--cycles 2] [--demo] [--out plan_profile.json]
+
+`--demo` profiles the demo planner configuration (bf16 network) instead of
+the float32 defaults.
 
 Runs one warm-up cycle, then profiles `--cycles` cycles (CPU + CUDA
 activities) and prints one JSON object: per cycle the host wall time and
 phase times, the number of device kernels launched, the device busy time
 (union of kernel intervals) and its share of the wall time; and the device
-time by kernel name, largest first. Needs a CUDA device.
+time by kernel name, largest first, and the fusion core's kernels apart.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ def busy_us(intervals):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cycles", type=int, default=2)
+    ap.add_argument("--demo", action="store_true",
+                    help="planner_config_for_demo('demo_1'): the bf16 network")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -51,7 +57,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from mind_tpu_torch.common.kinematics import kine_propagate
-    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig
+    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig, planner_config_for_demo
     from mind_tpu_torch.models.weights import load_scene_pred
     from mind_tpu_torch.ops import fusion_attention as fa
     from mind_tpu_torch.planner import aime_device as aime
@@ -60,7 +66,7 @@ def main() -> int:
     from mind_tpu_torch.synthetic import scene_statics, synthetic_scene
 
     dev = torch.device("cuda")
-    cfg = PlannerConfig()
+    cfg = planner_config_for_demo("demo_1") if args.demo else PlannerConfig()
     scene = synthetic_scene(cs.SEED, cfg.max_actors, cfg.max_lanes, n_agents=40)
     net = load_scene_pred(cfg.net, DEFAULT_WEIGHTS, dev)
     pdt = getattr(torch, cfg.pipeline_dtype)
@@ -98,13 +104,21 @@ def main() -> int:
                                                        "selection")},
             "rounds": report["rounds"], "trees": int(report["trees"].n_trees),
             "fusion_launches": fa.fused_edge_attention.launches - before,
+            "warm_iterations": report["warm_iterations"], "iterations": report["iterations"],
             "device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e3 / (wall * 1e3),
         })
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    # the fusion core's three launches per call, whatever their rank
+    fusion = {k: v for k, v in by_name.items()
+              if any(s in k for s in ("edge_attention", "token_proj", "out_proj"))}
     result = {
         "device": torch.cuda.get_device_name(0),
+        "compute_dtype": cfg.net.compute_dtype,
         "cycles": cycles,
+        "fusion_kernels": [{"name": k[:80], "ms": v[0] / args.cycles, "count": v[1] / args.cycles}
+                           for k, v in sorted(fusion.items())],
+        "fusion_ms_per_cycle": sum(v[0] for v in fusion.values()) / args.cycles,
         "device_ms_by_kernel": [{"name": k[:80], "ms": v[0] / args.cycles,
                                  "count": v[1] / args.cycles} for k, v in top],
     }
