@@ -19,7 +19,21 @@ result line):
   5. demo path: the same cycles under planner_config_for_demo("demo_1")
      (bf16 network); one ScenePredNet forward on the path's first AIME
      inputs is held, kernel against plain, on the card;
-  6. print per-phase times, the kernel table and the card.
+  6. closed loop: the port's Simulator on the seeded synthetic AV2 scenario
+     (a three-lane road as a log_map_archive map and a 110-frame Scenario,
+     through the data layer, load_agents, MINDAgent and MINDPlanner.plan on
+     the staged path with exported trees) under the demo configuration at
+     full width, 150 ticks of 20 ms with the planner enabled after 1 s: 20
+     plans; per-plan wall time with the planner's phases, ticks per second
+     and the share of the loop's wall time outside plan() are printed;
+  7. float32 loop: 36 ticks under the float32 defaults with the planner
+     enabled after 0.2 s (5 plans, float32 kernel), on the card and again
+     on the CPU through the plain version: ego states within 1e-3 m, the
+     same tree at every plan;
+  8. exec re-solve: one plan each with float32 selection solves and a
+     float64 re-solve of the winner in polish and in scratch mode; the
+     scratch control is held against a pure float64 solve of the same scene;
+  9. print per-phase times, the kernel table and the card.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
@@ -31,6 +45,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,6 +70,19 @@ TOL_KERNEL_BF16_MEAN = 1e-4
 # through 6 fusion layers and the decoder
 TOL_NET_CLS = 5e-3
 TOL_NET_POS = 5e-2         # metres
+# closed loop: ego on the card against the CPU run through the plain version
+# (the BASELINE.json rollout budget), metres
+TOL_LOOP_EGO = 1e-3
+# scratch re-solve against a pure float64 solve of the same scene: the same
+# float64 arithmetic on one tree (measured gap 0.0 on the card and the CPU)
+TOL_SCRATCH = 1e-7
+# polish re-solve against the same: it stops within rel_tol of that optimum
+# (measured gap 8.9e-8 on the card at full width); controls are O(0.1)
+TOL_POLISH = 1e-3
+SEQ_ID = "synthetic"
+# the AV logs 5 m/s behind a leader at 3 m/s; asked for 8 m/s (the demo
+# configurations set a target velocity too), every plan has to accelerate
+TARGET_VELOCITY = 8.0
 REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
 
 
@@ -287,20 +315,178 @@ def run_path(name, variant, cfg, net, scene, mods, aime, scene_statics, kine_pro
     return counts[variant], cycles, first
 
 
+def run_loop(name, mods, planner_cfg, enable, ticks, device, data_root, scenario):
+    """The port's Simulator for `ticks` ticks on the synthetic AV2 scenario
+    with the AV's planner enabled after `enable` seconds, on `device` (None:
+    the card). Returns (sim, the AV's agent, per-plan records)."""
+    Simulator, SimConfig, ClAgentConfig = mods
+    cfg = SimConfig(sim_name="demo_1", seq_id=SEQ_ID, data_root=data_root,
+                    cl_agents=[ClAgentConfig(id="AV", enable_timestep=enable,
+                                             target_velocity=TARGET_VELOCITY)])
+    sim = Simulator(cfg, planner_cfg=planner_cfg, max_steps=ticks, device=device,
+                    scenario=scenario)
+    sim.init_sim()
+    agent = next(a for a in sim.agents if a.id == "AV")
+    plans, plan, timer = [], agent.plan, agent.planner.metrics.timer
+
+    def recorded():
+        before = dict(timer.totals)
+        t = time.perf_counter()
+        ok, res = plan()
+        rec = {"tick": sim.metrics["ticks"], "ok": ok,
+               "wall_ms": (time.perf_counter() - t) * 1e3,
+               "rounds": agent.planner.last_rounds,
+               **{k: (timer.totals[k] - before.get(k, 0.0)) * 1e3 for k in timer.totals}}
+        if ok:
+            rec.update(ctrl=[float(c) for c in agent.ctrl], trees=agent.planner.last_n_trees,
+                       tree=res[0][0].get_root_key(),
+                       iterations=agent.planner.metrics.counters["gauge/ilqr_iterations"])
+        plans.append(rec)
+        log(f"[{name} plan {len(plans) - 1}] " + json.dumps(rec))
+        return ok, res
+
+    agent.plan = recorded
+    sim.run_sim()
+    m = sim.metrics
+    failures = agent.planner.metrics.counters.get("plan_failures", 0)
+    if m["ticks"] != ticks or failures or not all(r["ok"] for r in plans):
+        raise RuntimeError(f"{name}: the loop ended early or a plan failed: {m}, "
+                           f"{failures} plan failures")
+    if m["plan_calls"] != len(plans):
+        raise RuntimeError(f"{name}: {m['plan_calls']} plan calls, {len(plans)} recorded")
+    ego = sim.ego_trajectory()
+    if ego.shape != (ticks, 4) or not np.isfinite(ego).all():
+        raise RuntimeError(f"{name}: ego trajectory {ego.shape} not finite")
+    return sim, agent, plans
+
+
+def check_exported_trees(name, frame):
+    """The scenario and trajectory trees of one plan: non-empty, finite."""
+    for key in ("scen_tree", "traj_tree"):
+        (tree,) = frame[key]
+        if tree.size() < (2 if key == "traj_tree" else 1):   # the traj tree's root is x0
+            raise RuntimeError(f"{name}: exported {key} is empty")
+        for k in tree.bfs_keys():
+            for x in tree.get_node(k).data:
+                if np.size(x) == 0 or not np.isfinite(np.asarray(x, np.float64)).all():
+                    raise RuntimeError(f"{name}: {key} node {k} payload empty or not finite")
+    return {k: frame[k][0].size() for k in ("scen_tree", "traj_tree")}
+
+
+def phase_closed_loop(loop_mods, dcfg, fa, data_root, syn, lane_w, origin):
+    """150 ticks under the demo configuration, 20 plans, on the card."""
+    fa.reset_launch_counts()
+    sim, agent, plans = run_loop("loop", loop_mods, dcfg, 1.0, 150, None, data_root,
+                                 syn.scenario)
+    counts = dict(fa.fused_edge_attention.launches_by_variant)
+    rounds = sum(r["rounds"] for r in plans)
+    if len(plans) != 20:
+        raise RuntimeError(f"closed loop: {len(plans)} plans, expected 20")
+    if counts["bfloat16"] != dcfg.net.n_scene_layer * rounds or counts["bfloat16"] == 0 \
+            or counts["float32"] != 0:
+        raise RuntimeError(f"closed loop: launches {counts} for {rounds} AIME rounds")
+    ego = sim.ego_trajectory()
+    enabled = ego[plans[0]["tick"]:]
+    along = float(enabled[-1, 0] - enabled[0, 0])
+    lateral = float(np.abs(enabled[:, 1] - origin[1]).max())   # the target lane is y = 0
+    if not (np.diff(enabled[:, 0]) > 0).all() or along < 5.0 or lateral > lane_w:
+        raise RuntimeError(f"closed loop: ego advanced {along:.2f} m along the lane, "
+                           f"{lateral:.2f} m off it at most (lane width {lane_w})")
+    trees = check_exported_trees("closed loop", sim.frames[plans[-1]["tick"]])
+    m = sim.metrics
+    summary = {
+        "ticks": m["ticks"], "plan_calls": m["plan_calls"], "wall_s": m["wall_time_s"],
+        "ticks_per_s": m["ticks"] / m["wall_time_s"],
+        "share_outside_plan": 1.0 - m["plan_time_s"] / m["wall_time_s"],
+        "plan_wall_ms_mean": float(np.mean([r["wall_ms"] for r in plans])),
+        "plan_wall_ms_first": plans[0]["wall_ms"],
+        "plan_wall_ms_steady_mean": float(np.mean([r["wall_ms"] for r in plans[1:]])),
+        "phases_ms_steady_mean": {k: float(np.mean([r[k] for r in plans[1:]]))
+                                  for k in ("aime", "flatten", "solve", "export")},
+        "rounds": rounds, "launches": counts, "ego_advance_m": along,
+        "ego_lateral_max_m": lateral, "last_plan_tree_sizes": trees,
+        "tracks": len(sim.agents), "lane_segments": syn.n_graph_segments,
+    }
+    log("[loop] " + json.dumps(summary))
+    return counts["bfloat16"], summary
+
+
+def phase_float32_loop(loop_mods, cfg, fa, data_root, syn):
+    """36 ticks under the float32 defaults on the card (kernel A) and on the
+    CPU (plain version): the same trees, ego within TOL_LOOP_EGO."""
+    fa.reset_launch_counts()
+    sim, _, plans = run_loop("loop32", loop_mods, cfg, 0.2, 36, None, data_root, syn.scenario)
+    counts = dict(fa.fused_edge_attention.launches_by_variant)
+    rounds = sum(r["rounds"] for r in plans)
+    if len(plans) != 5 or counts["float32"] != cfg.net.n_scene_layer * rounds \
+            or counts["float32"] == 0 or counts["bfloat16"] != 0:
+        raise RuntimeError(f"float32 loop: {len(plans)} plans, launches {counts} for "
+                           f"{rounds} AIME rounds")
+    t = time.perf_counter()
+    sim_cpu, _, plans_cpu = run_loop("loop32-cpu", loop_mods, cfg, 0.2, 36, "cpu", data_root,
+                                     syn.scenario)
+    cpu_s = time.perf_counter() - t
+    if fa.fused_edge_attention.launches != counts["float32"]:
+        raise RuntimeError("the CPU loop launched a kernel")
+    gap = float(np.abs(sim.ego_trajectory() - sim_cpu.ego_trajectory()).max())
+    same = [a["tick"] == b["tick"] and a["tree"] == b["tree"] for a, b in zip(plans, plans_cpu)]
+    summary = {"plans": len(plans), "ego_gap_m": gap, "same_tree": same,
+               "launches": counts, "cpu_loop_s": cpu_s,
+               "plan_wall_ms": [r["wall_ms"] for r in plans]}
+    log("[loop32] " + json.dumps(summary))
+    if len(plans_cpu) != len(plans) or not all(same) or not gap < TOL_LOOP_EGO:
+        raise RuntimeError(f"float32 loop: card and CPU disagree: {summary}")
+    return counts["float32"], summary
+
+
+def phase_exec_resolve(loop_mods, float32_cfg, data_root, syn):
+    """One plan each: float32 selection + float64 polish, + float64 scratch,
+    and a pure float64 solve of the same scene (the pipeline stays float32,
+    so all three grow the same scenario trees)."""
+    out = {}
+    for mode, solve, exec_dtype in (("float64", "float64", None), ("polish", "float32", "float64"),
+                                    ("scratch", "float32", "float64")):
+        cfg = float32_cfg()
+        cfg.traj_tree.solve_dtype = solve
+        cfg.traj_tree.exec_solve_dtype = exec_dtype
+        cfg.traj_tree.exec_resolve_mode = mode if exec_dtype else "polish"
+        _, _, plans = run_loop(f"exec-{mode}", loop_mods, cfg, 0.2, 16, None, data_root,
+                               syn.scenario)
+        if len(plans) != 1:
+            raise RuntimeError(f"exec re-solve {mode}: {len(plans)} plans, expected 1")
+        out[mode] = plans[0]
+    ref = np.array(out["float64"]["ctrl"])
+    summary = {}
+    for mode, tol in (("polish", TOL_POLISH), ("scratch", TOL_SCRATCH)):
+        r = out[mode]
+        gap = float(np.abs(np.array(r["ctrl"]) - ref).max())
+        summary[mode] = {"exec_resolve_ms": r.get("exec_resolve"), "solve_ms": r["solve"],
+                         "ctrl": r["ctrl"], "gap_to_float64": gap, "tolerance": tol}
+        if r["tree"] != out["float64"]["tree"] or not gap < tol or not r.get("exec_resolve"):
+            raise RuntimeError(f"exec re-solve {mode}: {summary[mode]} against the float64 "
+                               f"solve {out['float64']}")
+    summary["float64"] = {"solve_ms": out["float64"]["solve"], "ctrl": out["float64"]["ctrl"]}
+    log("[exec] " + json.dumps(summary))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
     from mind_tpu_torch.common.kinematics import kine_propagate
-    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig, planner_config_for_demo
+    from mind_tpu_torch.config import (DEFAULT_WEIGHTS, ClAgentConfig, PlannerConfig, SimConfig,
+                                       planner_config_for_demo)
     from mind_tpu_torch.models import scene_pred
     from mind_tpu_torch.models.weights import load_scene_pred
     from mind_tpu_torch.ops import fusion_attention as fa
     from mind_tpu_torch.planner import aime_device as aime
     from mind_tpu_torch.planner import planner as tplanner
     from mind_tpu_torch.planner.trajectory_tree import make_cost_params
-    from mind_tpu_torch.synthetic import scene_statics, synthetic_scene
+    from mind_tpu_torch.sim.simulator import Simulator
+    from mind_tpu_torch.synthetic import (AV2_ORIGIN, LANE_W, scene_statics, synthetic_av2,
+                                          synthetic_scene, write_synthetic_map)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -370,9 +556,36 @@ def main() -> int:
             not net_err["cls_prob"] < TOL_NET_CLS or not net_err["positions_m"] < TOL_NET_POS:
         raise RuntimeError(f"bf16 network: kernel and plain disagree: {net_err}")
 
-    # 6. report
+    # 6.-8. the closed loop through Simulator / MINDAgent / MINDPlanner on the
+    # synthetic AV2 scenario; the map goes through a file as a real one does
+    syn = synthetic_av2(SEED)
+    loop_mods = (Simulator, SimConfig, ClAgentConfig)
+
+    def float32_cfg():
+        """The float32 defaults with the trained weights."""
+        c = PlannerConfig()
+        c.ckpt_path = str(DEFAULT_WEIGHTS)
+        return c
+
+    with tempfile.TemporaryDirectory() as data_root:
+        write_synthetic_map(syn.map_json, data_root, SEQ_ID)
+        loop_launches, loop = phase_closed_loop(loop_mods, dcfg, fa, data_root, syn, LANE_W,
+                                                AV2_ORIGIN)
+        loop32_launches, loop32 = phase_float32_loop(loop_mods, float32_cfg(), fa, data_root,
+                                                     syn)
+        execs = phase_exec_resolve(loop_mods, float32_cfg, data_root, syn)
+    # launches per path; "launches" stays the sum over the paths that run the kernel
+    entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
+                                      "float32_loop": loop32_launches}
+    entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
+                                      "closed_loop": loop_launches}
+    entries[0]["launches"] += loop32_launches
+    entries[1]["launches"] += loop_launches
+
+    # 9. report
     log("[phases] " + json.dumps({"float32": cycles32, "demo_bf16": cycles16,
-                                  "demo_net_err": net_err}))
+                                  "demo_net_err": net_err, "closed_loop": loop,
+                                  "float32_loop": loop32, "exec_resolve": execs}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

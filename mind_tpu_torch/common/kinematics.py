@@ -2,8 +2,23 @@
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+
+
+@dataclass
+class VehicleParam:
+    wb: float = 3.0
+    max_spd: float = 15.0
+    max_acc: float = 6.0
+    max_str: float = float(np.deg2rad(45.0))
+    max_dstr: float = float(np.deg2rad(30.0))
+
+    @property
+    def max_dec(self) -> float:
+        return -self.max_acc
 
 
 def kine_propagate(state, ctrl, dt, wb=2.5, max_spd=20.0,
@@ -21,6 +36,23 @@ def kine_propagate(state, ctrl, dt, wb=2.5, max_spd=20.0,
         new_v,
         yaw + v / wb * torch.tan(delta) * dt,
     ], dim=-1)
+
+
+def kine_propagate_np(state, ctrl, dt, wb=2.5, max_spd=20.0,
+                      max_steer=float(np.deg2rad(45.0)), max_acc=6.0, max_dec=-6.0):
+    """Numpy form of `kine_propagate` on one state [x, y, v, yaw], float64
+    on the host: the simulator's 50 Hz step of a closed-loop agent."""
+    x, y, v, yaw = state
+    a = np.clip(ctrl[0], max_dec, max_acc)
+    delta = np.clip(ctrl[1], -max_steer, max_steer)
+    out = np.array([
+        x + v * np.cos(yaw) * dt,
+        y + v * np.sin(yaw) * dt,
+        v + a * dt,
+        yaw + v / wb * np.tan(delta) * dt,
+    ])
+    out[2] = np.clip(out[2], -max_spd, max_spd)
+    return out
 
 
 def ext_bicycle_step(x, u, dt: float, wb: float = 2.5):

@@ -119,10 +119,13 @@ class TrajTreeConfig:
     rel_tol: float = 1e-5
     # iLQR solve precision: "float32" or "float64"
     solve_dtype: str = "float32"
-    # execution re-solve precision; None follows `solve_dtype`, which
-    # disables the re-solve. A re-solve is not ported yet and raises.
+    # execution re-solve precision: the selected tree is solved again at this
+    # dtype and its control is executed; None follows `solve_dtype`, which
+    # disables the re-solve
     exec_solve_dtype: Optional[str] = None
-    # exec re-solve strategy: "polish" | "scratch" | "native" (not ported)
+    # exec re-solve strategy: "polish" (one full solve from the winner's
+    # controls) | "scratch" (the whole two-phase solve) | "native" (a host
+    # C++ solver; not ported, raises)
     exec_resolve_mode: str = "polish"
     exec_polish_iterations: int = 100
     n_line_search: int = 10

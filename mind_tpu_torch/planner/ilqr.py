@@ -286,10 +286,13 @@ def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
 
 
 def build_topology(parent_list, max_nodes: int, max_levels: int,
-                   max_width: int | None = None, device=None) -> TreeTopology:
+                   max_width: int | None = None, device=None,
+                   as_numpy: bool = False) -> TreeTopology:
     """Host helper: parent indices (-1 root-attached) -> padded TreeTopology
     of one tree. Nodes must be indexed parents before children. Pass
-    `max_width` to stack trees of different shapes."""
+    `max_width` to stack trees of different shapes, and `as_numpy=True` to
+    get numpy arrays: a caller that stacks several trees uploads them once
+    instead of making tensors per tree."""
     n = len(parent_list)
     if n > max_nodes:
         raise ValueError(f"{n} cost nodes exceed max_nodes={max_nodes}")
@@ -309,6 +312,8 @@ def build_topology(parent_list, max_nodes: int, max_levels: int,
     table = np.full((max_levels, width), -1, np.int64)
     for l, ids in enumerate(levels):
         table[l, :len(ids)] = ids
+    if as_numpy:
+        return TreeTopology(parent=parent, node_mask=mask, level_table=table)
     return TreeTopology(parent=torch.as_tensor(parent, device=device),
                         node_mask=torch.as_tensor(mask, device=device),
                         level_table=torch.as_tensor(table, device=device))

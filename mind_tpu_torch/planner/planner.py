@@ -1,47 +1,62 @@
-"""One MIND plan cycle (port of mind_tpu/planner/planner.py::fused_plan_core).
+"""MINDPlanner facade (port of mind_tpu/planner/planner.py): the host shell
+around the device observation window, AIME tree growth and the batched
+two-phase tree iLQR, with one host read on each side of the solve.
 
-AIME tree growth + cost topology + two-phase tree iLQR + best-tree
-selection, for one scene on one device. The MINDPlanner facade, the host
-observation buffer and the exec re-solve modes are not ported yet.
+Per plan cycle the staged path (`export_trees=True`) runs AIME, reads one
+packed vector of tree metadata, builds the cost trees on the host, uploads
+them in one tensor, solves, and reads one packed vector with the control;
+trajectories cross to the host only for the exported trees. The fused path
+(`export_trees=False`, `fused_plan_core`) builds the cost trees on the
+device and reads four numbers. The "native" exec re-solve (a C++ solver on
+the host) and its `return_exec_payload` branch are not ported: they raise.
 """
 
 from __future__ import annotations
 
 import time
-from enum import Enum
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mind_tpu_torch.common.device import resolve_device
+from mind_tpu_torch.common.geometry import resample_polyline
+from mind_tpu_torch.common.tree import Node, Tree
 from mind_tpu_torch.config import PlannerConfig
-from mind_tpu_torch.planner.aime_device import aime_grow_tree
-from mind_tpu_torch.planner.cost_topology import device_cost_topology
-from mind_tpu_torch.planner.ilqr import ILQRConfig
+from mind_tpu_torch.data.av2 import ObjectType
+from mind_tpu_torch.data.semantic_map import (
+    LocalSemanticMap,
+    SemanticMap,
+    build_lane_graph,
+    lane_graph_features,
+)
+from mind_tpu_torch.models.weights import load_scene_pred
+from mind_tpu_torch.planner.aime_device import (
+    DeviceObsBuffer,
+    aime_grow_tree,
+    obs_buffer_update,
+)
+from mind_tpu_torch.planner.cost_topology import DeviceCostTrees, device_cost_topology
+from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology
+from mind_tpu_torch.planner.scenario_tree import NodeSlots
+from mind_tpu_torch.planner.scene_prep import OBS_LEN, LaneGraphStatic, TargetLaneStatic
 from mind_tpu_torch.planner.trajectory_tree import (
+    build_cost_indices,
     evaluate_traj_tree,
     gather_cost_nodes,
+    make_cost_params,
+    polish_solve,
     torch_dtype,
     two_phase_solve,
 )
+from mind_tpu_torch.utils.metrics import Metrics
 
 MAX_TREES = 6  # <= num modes root children
+MAX_TGT_PTS = 256       # AIME target lane, ~1 m resampled
 MAX_COST_TGT_PTS = 64   # cost-field target lane, 4 m simplified
 
-
-class ObjectType(str, Enum):
-    """AV2 object types (a copy of mind_tpu/data/av2.py's enum)."""
-
-    VEHICLE = "vehicle"
-    PEDESTRIAN = "pedestrian"
-    MOTORCYCLIST = "motorcyclist"
-    CYCLIST = "cyclist"
-    BUS = "bus"
-    STATIC = "static"
-    BACKGROUND = "background"
-    CONSTRUCTION = "construction"
-    RIDERLESS_BICYCLE = "riderless_bicycle"
-    UNKNOWN = "unknown"
-
+NATIVE_NOT_PORTED = ("the native exec re-solve (exec_resolve_mode='native', "
+                     "return_exec_payload) is not ported: ROADMAP.md queue A item 1")
 
 TYPE_ORDER = [
     ObjectType.VEHICLE,
@@ -78,29 +93,103 @@ def selection_weights(cfg: PlannerConfig):
             cfg.efficiency_weight, cfg.target_weight)
 
 
+def resolve_exec_dtype(tt, solve_dtype: str) -> str:
+    """Name of the exec re-solve dtype. TrajTreeConfig.exec_solve_dtype=None
+    means 'follow solve_dtype'; the re-solve runs only when the two differ."""
+    name = tt.exec_solve_dtype or solve_dtype
+    torch_dtype(name)   # raises on an unsupported name
+    return name
+
+
+def exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us_best,
+                      warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt):
+    """Re-solve the SELECTED tree at `tt.exec_solve_dtype` and return its
+    first control (float32 [2]). Selection ran on the faster solves of all
+    trees; only the winner, whose first control the vehicle executes, pays
+    for the higher precision. `best` is a 0-d index tensor; the winner runs
+    through the batched solver as a batch of one, so its iteration path
+    (alpha grid, first-accept rule, LM schedule) is the solver's own.
+
+    Two strategies (TrajTreeConfig.exec_resolve_mode):
+    - 'polish': one full-phase solve started from the winner's converged
+      controls `us_best`;
+    - 'scratch': the full two-phase solve (reference planner.py:174-178),
+      the iteration path of a solve that ran at the exec dtype from the
+      start."""
+    dts = resolve_exec_dtype(tt, ilqr_cfg.dtype)
+    one = best.reshape(1)
+    topo_best = TreeTopology(*(x.index_select(0, one) for x in dct.topo))
+    nodes_e = gather_cost_nodes(slots, norm_prob, dct.cost_slot.index_select(0, one),
+                                dct.cost_step.index_select(0, one),
+                                topo_best.node_mask, amask, dtype=torch_dtype(dts))
+    if tt.exec_resolve_mode == "polish":
+        xs_e, _, _ = polish_solve(
+            topo_best, x0, us_best[None], nodes_e, full_params,
+            ilqr_cfg._replace(dtype=dts, max_iterations=tt.exec_polish_iterations))
+    elif tt.exec_resolve_mode == "scratch":
+        xs_e, _, _ = two_phase_solve(
+            topo_best, x0, nodes_e, warm_params, full_params,
+            ilqr_cfg._replace(dtype=dts), warm_ilqr_cfg._replace(dtype=dts))
+    else:
+        raise ValueError(f"unknown exec_resolve_mode {tt.exec_resolve_mode!r}")
+    return xs_e[0, 0, 4:6].to(torch.float32)
+
+
+def solve_and_select(slots, norm_prob, amask, dct: DeviceCostTrees, x0, warm_params,
+                     full_params, target_vel, eval_segs, *, cfg, ilqr_cfg,
+                     warm_ilqr_cfg, weights, clock=None):
+    """Two-phase solve of every tree, selection cost, argmin and the
+    executed control (with the exec re-solve of the winner where the
+    configuration asks for one). Returns (xs, us, info, cost_b, best,
+    ctrl float32 [2]); `best` stays on the device. `clock` (a _PhaseClock)
+    takes the laps "solve", "selection" and "exec_resolve"."""
+    tt = cfg.traj_tree
+    clock = clock or _PhaseClock(None, None)
+    topo = dct.topo
+    nodes = gather_cost_nodes(slots, norm_prob, dct.cost_slot, dct.cost_step,
+                              topo.node_mask, amask, dtype=torch_dtype(ilqr_cfg.dtype))
+    xs, us, info = two_phase_solve(topo, x0, nodes, warm_params, full_params,
+                                   ilqr_cfg, warm_ilqr_cfg, active=dct.tree_mask)
+    clock.lap("solve")
+    cost_b = evaluate_traj_tree(xs, us, topo.node_mask, topo.node_mask.sum(-1), x0,
+                                *eval_segs, target_vel, weights)
+    cost_b = torch.where(dct.tree_mask, cost_b, torch.full_like(cost_b, float("inf")))
+    best = torch.argmin(cost_b)
+    # control = first cost node's [accel, steer] (reference planner.py:141-144)
+    ctrl = xs[best, 0, 4:6].to(torch.float32)
+    clock.lap("selection")
+    if resolve_exec_dtype(tt, ilqr_cfg.dtype) != ilqr_cfg.dtype:
+        ctrl = exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us[best],
+                                 warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt)
+        clock.lap("exec_resolve")
+    return xs, us, info, cost_b, best, ctrl
+
+
+def _masked_max(values, mask):
+    return torch.where(mask, values, torch.zeros_like(values)).max()
+
+
 def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
                     target_vel, lane_static, tgt_static, eval_segs, *,
                     cfg, ilqr_cfg, warm_ilqr_cfg, weights,
                     return_exec_payload=False, report=None):
     """The whole plan cycle: AIME + cost topology + two-phase solve +
-    selection. `net` is the batched ScenePredNet (it takes the place of the
-    JAX version's params and batched_apply). Returns a float32 tensor
+    selection (+ the polish/scratch exec re-solve where configured). `net`
+    is the batched ScenePredNet (it takes the place of the JAX version's
+    params and batched_apply). Returns a float32 tensor
     [ctrl(2), ok, max_iterations].
 
     With `report` (a dict), the cycle also records the wall time of each
-    phase in seconds under "aime", "cost_topology", "solve" and "selection"
-    (with a device synchronize ending each phase), the AIME rounds run
-    ("rounds"), the cost trees ("trees", a DeviceCostTrees), the per-tree
-    selection costs ("tree_cost"), the selected tree ("best") and the largest
-    iteration count over the active trees of the warm and the full solve
-    ("warm_iterations", "iterations")."""
+    phase in seconds under "aime", "cost_topology", "solve", "selection"
+    and, where it ran, "exec_resolve" (with a device synchronize ending each
+    phase), the AIME rounds run ("rounds"), the cost trees ("trees", a
+    DeviceCostTrees), the per-tree selection costs ("tree_cost"), the
+    selected tree ("best") and the largest iteration count over the active
+    trees of the warm and the full solve ("warm_iterations", "iterations")."""
     tt = cfg.traj_tree
     if return_exec_payload or tt.exec_resolve_mode == "native":
-        raise NotImplementedError("the native exec re-solve payload is not ported")
-    if (tt.exec_solve_dtype or ilqr_cfg.dtype) != ilqr_cfg.dtype:
-        raise NotImplementedError("the exec re-solve (polish/scratch) is not ported")
-    dev = buf.pos.device
-    clock = _PhaseClock(dev, report)
+        raise NotImplementedError(NATIVE_NOT_PORTED)
+    clock = _PhaseClock(buf.pos.device, report)
 
     state, meta, rounds = aime_grow_tree(net, cfg, buf, types, amask, lane_static, tgt_static)
     clock.lap("aime")
@@ -109,27 +198,18 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
         state.end_flag, meta.tree_id, MAX_TREES, tt.max_cost_nodes,
         tt.max_depth_levels, tt.max_width_hint)
     clock.lap("cost_topology")
-    sd = torch_dtype(ilqr_cfg.dtype)
-    topo = dct.topo
-    nodes = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot,
-                              dct.cost_step, topo.node_mask, amask, dtype=sd)
-    xs, us, info = two_phase_solve(topo, x0, nodes, warm_params, full_params,
-                                   ilqr_cfg, warm_ilqr_cfg, active=dct.tree_mask)
-    clock.lap("solve")
-    cost_b = evaluate_traj_tree(xs, us, topo.node_mask, topo.node_mask.sum(-1), x0,
-                                *eval_segs, target_vel, weights)
-    cost_b = torch.where(dct.tree_mask, cost_b, torch.full_like(cost_b, float("inf")))
-    best = torch.argmin(cost_b)
-    ctrl = xs[best, 0, 4:6].to(torch.float32)
+    _, _, info, cost_b, best, ctrl = solve_and_select(
+        state.slots, meta.norm_prob, amask, dct, x0, warm_params, full_params,
+        target_vel, eval_segs, cfg=cfg, ilqr_cfg=ilqr_cfg,
+        warm_ilqr_cfg=warm_ilqr_cfg, weights=weights, clock=clock)
     ok = (dct.n_trees > 0).to(torch.float32)
-    its = torch.where(dct.tree_mask, info["iterations"], torch.zeros_like(info["iterations"]))
-    out = torch.cat([ctrl, ok[None], its.max().to(torch.float32)[None]])
-    clock.lap("selection")
+    its = _masked_max(info["iterations"], dct.tree_mask)
+    out = torch.cat([ctrl, ok[None], its.to(torch.float32)[None]])
     if report is not None:
-        warm_its = torch.where(dct.tree_mask, info["warm_iterations"],
-                               torch.zeros_like(info["warm_iterations"]))
         report.update(rounds=rounds, trees=dct, tree_cost=cost_b, best=best,
-                      iterations=int(its.max()), warm_iterations=int(warm_its.max()))
+                      iterations=int(its),
+                      warm_iterations=int(_masked_max(info["warm_iterations"],
+                                                      dct.tree_mask)))
     return out
 
 
@@ -149,3 +229,438 @@ class _PhaseClock:
         now = time.perf_counter()
         self.report[name] = now - self.t
         self.t = now
+
+
+class ObsBuffer:
+    """Host shell around the device observation window: tracks id->slot
+    assignment and presence; the rolling [A, 50] tensors live on `device`
+    and are updated once per plan trigger. (The JAX package's deferred
+    `device_updates=False` mode serves its batched runners, which are not
+    ported.)"""
+
+    def __init__(self, max_actors: int, origin: Optional[np.ndarray] = None,
+                 dtype: str = "float64", device=None):
+        self.device = resolve_device(device)
+        self.A = max_actors
+        self.origin = origin  # local planning frame (see MINDPlanner)
+        self.slots: Dict[str, int] = {}
+        self.types = np.zeros((max_actors, 7), np.float32)
+        self.active = np.zeros(max_actors, bool)
+        self.last_present = np.zeros(max_actors, bool)
+        self.buf = DeviceObsBuffer.create(max_actors, torch_dtype(dtype), self.device)
+        # device copies of `types` and of the last actor mask, uploaded again
+        # only after they changed
+        self._types_d = None
+        self._types_ver = -1
+        self._ver = 0
+        self._mask_d = None
+        self._mask_key = None
+
+    def _slot(self, track_id: str, obj_type: ObjectType) -> Optional[int]:
+        if track_id in self.slots:
+            return self.slots[track_id]
+        free = np.flatnonzero(~self.active)
+        if len(free) == 0:
+            return None  # buffer full: ignore new tracks
+        s = int(free[0])
+        self.slots[track_id] = s
+        self.active[s] = True
+        self.types[s] = type_onehot(obj_type)
+        self._ver += 1
+        return s
+
+    def update(self, observations):
+        """observations: list of (track_id, state[x,y,v,yaw], obj_type);
+        the ego must be first with track_id 'AV' (slot 0)."""
+        states = np.zeros((self.A, 4), np.float64)
+        present = np.zeros(self.A, bool)
+        for track_id, state, obj_type in observations:
+            s = self._slot(track_id, obj_type)
+            if s is None:
+                continue
+            states[s] = state
+            present[s] = True
+        if self.origin is not None:
+            states[:, :2] -= self.origin
+        # float64 on the way in: the observation window is the root of the
+        # decision pipeline; obs_buffer_update casts to the window's dtype
+        self.last_present = present
+        self.buf = obs_buffer_update(self.buf, torch.as_tensor(states, device=self.device),
+                                     torch.as_tensor(present, device=self.device))
+
+    def actor_mask(self) -> np.ndarray:
+        """Agents predicted this plan: active and observed at the last frame
+        (reference utils.py:274-276)."""
+        return self.active & self.last_present
+
+    def types_device(self):
+        if self._types_ver != self._ver:
+            self._types_d = torch.tensor(self.types, device=self.device)
+            self._types_ver = self._ver
+        return self._types_d
+
+    def mask_device(self, mask: np.ndarray):
+        key = mask.tobytes()
+        if self._mask_key != key:
+            self._mask_d = torch.tensor(mask, device=self.device)
+            self._mask_key = key
+        return self._mask_d
+
+
+class MINDPlanner:
+    """One ego agent's planner. Mirrors the reference's public surface:
+    update_observation / update_state_ctrl / update_target_lane / plan.
+    Runs on the CUDA card unless the caller passes a CPU `device`.
+    `shared_net` is a ScenePredNet in eval mode on that device, shared
+    between planners in place of loading one here."""
+
+    def __init__(self, cfg: PlannerConfig, smp: SemanticMap,
+                 lcl_smp: LocalSemanticMap, export_trees: bool = True,
+                 shared_net=None, device=None):
+        self.device = resolve_device(device)
+        if cfg.traj_tree.exec_resolve_mode == "native":
+            raise NotImplementedError(NATIVE_NOT_PORTED)
+        self.cfg = cfg
+        self.obs_len = cfg.obs_len
+        self.smp = smp
+        self.lcl_smp = lcl_smp
+        self.state: Optional[np.ndarray] = None
+        self.ctrl: Optional[np.ndarray] = None
+        self.gt_tgt_lane: Optional[np.ndarray] = None
+        self.metrics = Metrics()
+        self.export_trees = export_trees
+
+        self._init_statics()
+        self.obs_buffer = ObsBuffer(cfg.max_actors, origin=self.origin,
+                                    dtype=cfg.pipeline_dtype, device=self.device)
+        self.net = shared_net if shared_net is not None else self._init_network()
+        self._init_programs()
+
+    # ------------------------------------------------------------------
+    def _init_statics(self):
+        cfg, dev = self.cfg, self.device
+        # Plan in a per-scenario LOCAL frame: AV2 global coordinates sit
+        # ~6500 m from the map origin, where float32 resolution is ~8e-4 m,
+        # above the 1e-3 trajectory-parity budget (BASELINE.json). A fixed
+        # 100 m-rounded origin is subtracted on the host, in float64, from
+        # every position before it reaches the device (exactly
+        # representable, so the shift itself is lossless), bringing
+        # on-device coordinates to O(100) m with ~6e-6 m resolution.
+        # Controls are frame-independent.
+        self.origin = np.round(
+            np.asarray(self.lcl_smp.target_lane, float).mean(axis=0)
+            / 100.0) * 100.0
+        # lane graph (static per scenario): instance-frame node features plus
+        # global anchors (see scene_prep docstring)
+        graph = build_lane_graph(self.smp.map_data, np.zeros(2), np.eye(2),
+                                 cfg.scen_tree.seg_length,
+                                 cfg.scen_tree.seg_n_node)
+        feats = lane_graph_features(graph)  # [L, 10, 16]
+        L = cfg.max_lanes
+        n = feats.shape[0]
+        if n > L:
+            raise ValueError(f"{n} lane segments exceed max_lanes={L}")
+        node_feats = np.zeros((L, 10, 16), np.float32)
+        node_feats[:n] = feats
+        # anchors at the PIPELINE dtype: under 'float64' they enter the scene
+        # prep (and through it the network-input float32 cast and the
+        # decision pipeline) unrounded
+        pd = dict(dtype=torch_dtype(cfg.pipeline_dtype), device=dev)
+        anchors = np.zeros((L, 2), np.float64)
+        anchors[:n] = graph["lane_ctrs"] - self.origin
+        vecs = np.tile(np.array([1.0, 0.0], np.float64), (L, 1))
+        vecs[:n] = graph["lane_vecs"]
+        mask = np.zeros(L, bool)
+        mask[:n] = True
+        self.lane_static = LaneGraphStatic(
+            node_feats=torch.tensor(node_feats, device=dev),
+            anchors_g=torch.tensor(anchors, **pd),
+            anchor_vecs_g=torch.tensor(vecs, **pd),
+            mask=torch.tensor(mask, device=dev),
+        )
+
+        # resampled target lane (~1 m) + info (reference planner.py:147-171)
+        lane = self.lcl_smp.target_lane
+        info = self.lcl_smp.target_lane_info
+        pts, src = resample_polyline(lane, 1.0)
+        info_rows = np.concatenate([
+            info[0][:, None], info[1], info[2], info[3],
+            info[4][:, None], info[5][:, None],
+        ], axis=-1).astype(np.float64)[src]  # [P, 12]
+        P = MAX_TGT_PTS
+        if len(pts) > P:
+            raise ValueError(f"target lane too long: {len(pts)} points > {P}")
+        tp = np.full((P, 2), 1e6, np.float64)
+        tp[:len(pts)] = pts - self.origin
+        ti = np.zeros((P, 12), np.float64)
+        ti[:len(pts)] = info_rows
+        tm = np.zeros(P, bool)
+        tm[:len(pts)] = True
+        self.tgt_static = TargetLaneStatic(
+            points=torch.tensor(tp, **pd), info=torch.tensor(ti, **pd),
+            mask=torch.tensor(tm, device=dev), n_points=len(pts))
+
+        # evaluation lane (unresampled target lane, reference
+        # planner.py:200-205), always float64: tree selection is a discrete
+        # decision (PARITY.md)
+        ev = np.asarray(lane, np.float64) - self.origin
+        S = MAX_TGT_PTS
+        evp = np.full((S, 2), 1e6, np.float64)
+        evp[:len(ev)] = ev
+        evm = np.zeros(S - 1, bool)
+        evm[:len(ev) - 1] = True
+        f64 = dict(dtype=torch.float64, device=dev)
+        self._eval_segs = (torch.tensor(evp[:-1], **f64), torch.tensor(evp[1:], **f64),
+                           torch.tensor(evm, device=dev))
+
+    def _init_network(self):
+        """ScenePredNet in eval mode on the planner's device: the weights of
+        the `.npz` archive at cfg.ckpt_path (written by
+        tools/export_flax_weights.py), or seeded weights without a path."""
+        cfg = self.cfg
+        if cfg.ckpt_path and not str(cfg.ckpt_path).endswith(".npz"):
+            raise ValueError(f"ckpt_path {cfg.ckpt_path!r}: the port reads only the .npz "
+                             "archive written by tools/export_flax_weights.py")
+        return load_scene_pred(cfg.net, cfg.ckpt_path or None, self.device, seed=cfg.seed)
+
+    def _init_programs(self):
+        self.ilqr_cfg, self.warm_ilqr_cfg = ilqr_configs(self.cfg)
+        self._weights = selection_weights(self.cfg)
+
+    def _cost_params(self):
+        """Static parts of the warm/full CostParams (built once; only the
+        state-centered grid origin changes per plan)."""
+        if not hasattr(self, "_cost_params_cache"):
+            cfg = self.cfg
+            tv = float(self.lcl_smp.target_velocity)
+            zero = np.zeros(6)
+            lane_local = self.gt_tgt_lane - self.origin
+            self._cost_params_cache = tuple(
+                make_cost_params(phase, zero, lane_local, tv, MAX_COST_TGT_PTS,
+                                 warm=warm, device=self.device)
+                for phase, warm in ((cfg.traj_tree.warm, True), (cfg.traj_tree.full, False)))
+        return self._cost_params_cache
+
+    def _field_offset(self, state: np.ndarray):
+        """Grid origin from a LOCAL-frame state, float64 (two_phase_solve
+        casts cost params to the solve dtype)."""
+        ph = self.cfg.traj_tree.full
+        n, _ = ph.smooth_grid_size
+        half = 0.5 * (n - 1) * ph.smooth_grid_res
+        return torch.tensor([state[0] - half, state[1] - half], dtype=torch.float64,
+                            device=self.device)
+
+    def local_state(self) -> np.ndarray:
+        """Current ego state in the local planning frame (float64 host)."""
+        s = np.asarray(self.state, np.float64).copy()
+        s[:2] -= self.origin
+        return s
+
+    def _solve_inputs(self):
+        """(x0 float64 [6], warm params, full params, target velocity) of
+        this plan, on the device. x0 stays float64: two_phase_solve casts to
+        the solve dtype, and the exec re-solve sees the unrounded state."""
+        s_loc = self.local_state()
+        x0 = torch.tensor([*s_loc, *self.ctrl], dtype=torch.float64, device=self.device)
+        warm_p, full_p = self._cost_params()
+        # only the grid origin depends on the current state
+        offset = self._field_offset(s_loc)
+        # the selection cost takes the target velocity rounded to float32,
+        # as the JAX package passes it
+        tv = float(np.float32(self.lcl_smp.target_velocity))
+        return (x0, warm_p._replace(field_offset=offset),
+                full_p._replace(field_offset=offset), tv)
+
+    # ------------------------------------------------------------------
+    # reference public surface
+    # ------------------------------------------------------------------
+    def update_observation(self, observations):
+        self.obs_buffer.update(observations)
+
+    def update_state_ctrl(self, state, ctrl):
+        self.state = np.asarray(state, np.float64)
+        self.ctrl = np.asarray(ctrl, np.float64)
+
+    def update_target_lane(self, gt_tgt_lane):
+        self.gt_tgt_lane = np.asarray(gt_tgt_lane, np.float64)
+
+    @torch.no_grad()
+    def plan(self) -> Tuple[bool, Optional[np.ndarray], Optional[list]]:
+        cfg = self.cfg
+        MN = cfg.scen_tree.max_tree_nodes
+        actor_mask = self.obs_buffer.actor_mask()
+        if not actor_mask[0]:
+            return False, None, None  # no ego observation yet
+        amask_d = self.obs_buffer.mask_device(actor_mask)
+
+        if not self.export_trees:
+            return self._plan_fused(amask_d)
+
+        with self.metrics.timer.phase("aime"):
+            state, meta, rounds = aime_grow_tree(
+                self.net, cfg, self.obs_buffer.buf, self.obs_buffer.types_device(),
+                amask_d, self.lane_static, self.tgt_static)
+            f64 = torch.float64
+            packed_np = torch.cat([
+                meta.parent.to(f64), meta.duration.to(f64), meta.end_flag.to(f64),
+                meta.tree_id.to(f64), meta.norm_prob, meta.n_nodes.to(f64)[None],
+            ]).cpu().numpy()  # the one AIME-side read after the rounds
+        self.last_rounds = rounds
+
+        parent = packed_np[0:MN].astype(np.int64)
+        duration = packed_np[MN:2 * MN].astype(np.int64)
+        end_flag = packed_np[2 * MN:3 * MN] > 0.5
+        tree_id = packed_np[3 * MN:4 * MN].astype(np.int64)
+        norm_prob = packed_np[4 * MN:5 * MN]
+        n_nodes = int(packed_np[5 * MN])
+
+        if not end_flag.any():
+            self.metrics.incr("plan_failures")
+            return False, None, None
+        self.metrics.incr("plans")
+        self.last_n_nodes = n_nodes
+        # AIME meta kept for stage-by-stage diagnostics
+        self.last_meta = {"parent": parent, "duration": duration, "end_flag": end_flag,
+                          "tree_id": tree_id, "norm_prob": norm_prob}
+
+        with self.metrics.timer.phase("flatten"):
+            trees = build_cost_indices(parent, duration, end_flag, tree_id,
+                                       cfg.traj_tree)[:MAX_TREES]
+            n_real = len(trees)
+            dct = self._upload_trees(trees + [trees[0]] * (MAX_TREES - n_real), n_real)
+            self.last_n_trees = n_real
+            self.metrics.observe("scen_trees", n_real)
+            self.metrics.observe("scen_nodes", n_nodes)
+
+        x0, warm_p, full_p, tv = self._solve_inputs()
+        # phase laps (each ends in a device synchronize) only where an exec
+        # re-solve is configured, to time it apart from the selection solves
+        resolves = resolve_exec_dtype(cfg.traj_tree, self.ilqr_cfg.dtype) != self.ilqr_cfg.dtype
+        laps = {}
+        with self.metrics.timer.phase("solve"):
+            xs_b, us_b, info, cost_b, best_d, ctrl_d = solve_and_select(
+                state.slots, meta.norm_prob, amask_d, dct, x0, warm_p, full_p, tv,
+                self._eval_segs, cfg=cfg, ilqr_cfg=self.ilqr_cfg,
+                warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights,
+                clock=_PhaseClock(self.device, laps) if resolves else None)
+            its = _masked_max(info["iterations"] + info["warm_iterations"], dct.tree_mask)
+            # everything the host needs in one read; float64 so that near-tie
+            # selection margins survive
+            small = torch.cat([ctrl_d.to(f64), best_d.to(f64)[None], its.to(f64)[None],
+                               cost_b]).cpu().numpy()
+        if resolves:   # a part of "solve", kept apart as well
+            self.metrics.timer.totals["exec_resolve"] += laps["exec_resolve"]
+            self.metrics.timer.counts["exec_resolve"] += 1
+        ctrl = small[:2].copy()
+        best = int(small[2])
+        self.last_best = best
+        self.metrics.observe("ilqr_iterations", float(small[3]))
+        self.last_tree_costs = small[4:4 + n_real]
+
+        if not np.isfinite(ctrl).all():
+            self.metrics.incr("plan_failures")
+            return False, None, None
+
+        with self.metrics.timer.phase("export"):
+            scen_tree = self._export_scen_tree(
+                state.slots, parent, duration, end_flag, tree_id, norm_prob,
+                actor_mask, best)
+            traj_tree = self._export_traj_tree(
+                trees[best][0], xs_b[best].cpu().numpy(), us_b[best].cpu().numpy(),
+                x0.cpu().numpy())
+        return True, ctrl, [[scen_tree], [traj_tree]]
+
+    def _upload_trees(self, trees, n_real: int) -> DeviceCostTrees:
+        """Stack the host-built trees (MAX_TREES of them, the padding
+        repeats tree 0) in numpy and upload them as ONE integer tensor,
+        split on the device."""
+        T = len(trees)
+        parts = [np.stack([t[0].parent for t in trees]),
+                 np.stack([t[0].node_mask for t in trees]).astype(np.int64),
+                 np.stack([t[0].level_table for t in trees]),
+                 np.stack([t[1] for t in trees]), np.stack([t[2] for t in trees]),
+                 (np.arange(T) < n_real).astype(np.int64)[:, None]]
+        flat = torch.as_tensor(np.concatenate([p.reshape(T, -1) for p in parts], axis=1),
+                               device=self.device)
+        parent, mask, table, cs, st, tm = (
+            x.reshape(p.shape) for x, p in
+            zip(flat.split([p[0].size for p in parts], dim=1), parts))
+        tree_mask = tm[:, 0] > 0
+        return DeviceCostTrees(
+            topo=TreeTopology(parent=parent, node_mask=mask > 0, level_table=table),
+            cost_slot=cs, cost_step=st, tree_mask=tree_mask, n_trees=tree_mask.sum())
+
+    def _plan_fused(self, amask_d):
+        """Plan without exported trees: the cost trees are built on the
+        device and the host reads four numbers."""
+        with self.metrics.timer.phase("plan_fused"):
+            x0, warm_p, full_p, tv = self._solve_inputs()
+            out = fused_plan_core(
+                self.net, self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d,
+                x0, warm_p, full_p, tv, self.lane_static, self.tgt_static,
+                self._eval_segs, cfg=self.cfg, ilqr_cfg=self.ilqr_cfg,
+                warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights)
+            small = out.cpu().numpy()  # the one read
+        ctrl = small[:2].astype(np.float64)
+        self.metrics.observe("ilqr_iterations", float(small[3]))
+        if small[2] < 0.5 or not np.isfinite(ctrl).all():
+            self.metrics.incr("plan_failures")
+            return False, None, None
+        self.metrics.incr("plans")
+        return True, ctrl, None
+
+    # ------------------------------------------------------------------
+    def _export_scen_tree(self, slots: NodeSlots, parent, duration, end_flag,
+                          tree_id, norm_prob, actor_mask, best: int) -> Tree:
+        """Pull the best tree's node trajectories for visualization
+        (reference get_scenario_tree export, scenario_tree.py:243-272).
+        `best` indexes the sorted root-child slots, the order in which both
+        build_cost_indices and device_cost_topology number the trees."""
+        roots = sorted({int(t) for t in np.unique(tree_id) if t >= 0})
+        rc = roots[best]
+        members = [int(i) for i in np.flatnonzero(end_flag) if tree_id[i] == rc]
+        tree = Tree()
+        if not members:
+            return tree
+        ids = torch.tensor(members, dtype=torch.long, device=self.device)
+        pos = slots.pos[ids].cpu().numpy() + self.origin  # back to global
+        cov = slots.cov[ids].cpu().numpy()
+        tgt = slots.tgt_pts[ids].cpu().numpy() + self.origin
+        row = {k: i for i, k in enumerate(members)}
+
+        # BFS insertion: root child first, then children by parent links
+        inserted = {rc}
+        queue = [rc]
+        tree.add_node(Node(rc, None, self._payload(rc, row, pos, cov, tgt, duration,
+                                                   norm_prob, actor_mask)))
+        while queue:
+            k = queue.pop(0)
+            for c in members:
+                if int(parent[c]) == k and c not in inserted:
+                    tree.add_node(Node(c, k, self._payload(
+                        c, row, pos, cov, tgt, duration, norm_prob, actor_mask)))
+                    inserted.add(c)
+                    queue.append(c)
+        return tree
+
+    @staticmethod
+    def _payload(i, row, pos, cov, tgt, duration, norm_prob, actor_mask):
+        d = int(duration[i])
+        r = row[i]
+        traj = pos[r][actor_mask, OBS_LEN:OBS_LEN + d]
+        cv = cov[r][actor_mask, OBS_LEN:OBS_LEN + d]
+        return [float(norm_prob[i]), traj, cv, tgt[r]]
+
+    def _export_traj_tree(self, topo, xs, us, x0) -> Tree:
+        xs = np.asarray(xs, np.float64).copy()
+        xs[:, :2] += self.origin  # back to global for visualization
+        x0 = np.asarray(x0, np.float64).copy()
+        x0[:2] += self.origin
+        tree = Tree()
+        tree.add_node(Node(-1, None, [x0, np.zeros(2)]))
+        parent = np.asarray(topo.parent)
+        mask = np.asarray(topo.node_mask)
+        for i in range(int(mask.sum())):
+            p = int(parent[i])
+            tree.add_node(Node(i, p if p >= 0 else -1, [xs[i], us[i]]))
+        return tree

@@ -1,19 +1,24 @@
 """Trajectory-tree optimizer pieces of the plan cycle (port of
-mind_tpu/planner/trajectory_tree.py): cost-node gather, per-phase cost
-parameters, the two-phase solve and the best-tree selection cost. Every
-function takes a leading axis of trees where the JAX package vmaps.
+mind_tpu/planner/trajectory_tree.py): scenario trees flattened to cost
+trees on the host, cost-node gather, per-phase cost parameters, the
+two-phase and polish solves and the best-tree selection cost. The device
+functions take a leading axis of trees where the JAX package vmaps; the
+host-side constructors return one tree each, without that axis.
 """
 
 from __future__ import annotations
+
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
 from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.common.geometry import point_segments_dist
-from mind_tpu_torch.config import OptPhaseConfig
+from mind_tpu_torch.common.tree import Tree
+from mind_tpu_torch.config import OptPhaseConfig, TrajTreeConfig
 from mind_tpu_torch.ops.potential import CostParams, NodeCostData
-from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology, ilqr_solve
+from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology, build_topology, ilqr_solve
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -22,6 +27,121 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}")
     return _DTYPES[name]
+
+
+class CostTreeArrays(NamedTuple):
+    """One scenario tree flattened to cost-node arrays (padded to MN)."""
+
+    topo: TreeTopology
+    nodes: NodeCostData
+    n_nodes: np.ndarray  # [] int32 real cost-node count
+
+
+def flatten_scen_tree(scen_tree: Tree, actor_mask: np.ndarray, cfg: TrajTreeConfig,
+                      max_exo: int, device=None) -> CostTreeArrays:
+    """DFS over the nodes of an exported scenario tree, one cost node per
+    even step (reference trajectory_tree.py:28-54,66-122). Node data is
+    [prob, trajs [n, d, 2], covs [n, d], target points]; `actor_mask` marks
+    the buffer slots the n trajectories belong to (ego first)."""
+    device = resolve_device(device)
+    MN = cfg.max_cost_nodes
+    parents: List[int] = []
+    probs: List[float] = []
+    ego_means: List[np.ndarray] = []
+    ego_covs: List[float] = []
+    exo_means: List[np.ndarray] = []
+    exo_covs: List[np.ndarray] = []
+
+    exo_valid = np.asarray(actor_mask)[1:]
+    n_exo = exo_valid.shape[0]
+
+    last_index = {}
+    stack = [scen_tree.get_root()]
+    while stack:
+        node = stack.pop()
+        prob, trajs, covs, _tgt = node.data
+        last = last_index[node.parent_key] if node.parent_key is not None else -1
+        duration = trajs.shape[1]
+        for i in range(0, duration, 2):
+            parents.append(last)
+            last = len(parents) - 1
+            probs.append(float(prob))
+            ego_means.append(trajs[0, i])
+            ego_covs.append(float(covs[0, i]))
+            em = np.full((max_exo, 2), 1e6, np.float32)
+            ec = np.zeros(max_exo, np.float32)
+            em[:n_exo] = trajs[1:, i]
+            ec[:n_exo] = covs[1:, i]
+            exo_means.append(em)
+            exo_covs.append(ec)
+        last_index[node.key] = len(parents) - 1
+        for ck in node.children_keys:
+            stack.append(scen_tree.get_node(ck))
+
+    n = len(parents)
+    topo = build_topology(parents, MN, cfg.max_depth_levels,
+                          max_width=cfg.max_width_hint, device=device)
+
+    def pad1(vals, fill=0.0):
+        out = np.full(MN, fill, np.float32)
+        out[:n] = vals
+        return out
+
+    exo_mask = np.zeros((MN, max_exo), bool)
+    exo_mask[:n] = exo_valid[None, :]
+    em = np.full((MN, max_exo, 2), 1e6, np.float32)
+    em[:n] = np.stack(exo_means)
+    ec = np.zeros((MN, max_exo), np.float32)
+    ec[:n] = np.stack(exo_covs)
+    egm = np.zeros((MN, 2), np.float32)
+    egm[:n] = np.stack(ego_means)
+
+    t = lambda x: torch.as_tensor(x, device=device)
+    nodes = NodeCostData(prob=t(pad1(probs)), ego_mean=t(egm), ego_cov=t(pad1(ego_covs)),
+                         exo_mean=t(em), exo_cov=t(ec), exo_mask=t(exo_mask))
+    return CostTreeArrays(topo=topo, nodes=nodes, n_nodes=np.int32(n))
+
+
+def build_cost_indices(parent: np.ndarray, duration: np.ndarray, end_flag: np.ndarray,
+                       tree_id: np.ndarray, cfg: TrajTreeConfig):
+    """Host-side: AIME meta arrays -> per-tree cost-node index arrays.
+
+    The construction of flatten_scen_tree without touching trajectories:
+    cost node k of a tree references a (scenario slot, even step) pair, and
+    gather_cost_nodes reads the means and covariances on the device. Returns
+    a list of (topo, cost_slot [MN], cost_step [MN]) per scenario tree, in
+    the order of the sorted root-child slots, all numpy."""
+    MN = cfg.max_cost_nodes
+    roots = sorted({int(t) for t in np.unique(tree_id) if t >= 0})
+    # children lists over end-flagged nodes
+    kids = {}
+    for i in np.flatnonzero(end_flag):
+        p = int(parent[i])
+        if p >= 0:
+            kids.setdefault(p, []).append(int(i))
+
+    out = []
+    for rc in roots:
+        parents_c, slots_c, steps_c = [], [], []
+        stack = [(rc, -1)]
+        while stack:
+            node, last = stack.pop()
+            d = int(duration[node])
+            for s in range(0, d, 2):
+                parents_c.append(last)
+                last = len(parents_c) - 1
+                slots_c.append(node)
+                steps_c.append(s)
+            for c in kids.get(node, []):
+                stack.append((c, last))
+        topo = build_topology(parents_c, MN, cfg.max_depth_levels,
+                              max_width=cfg.max_width_hint, as_numpy=True)
+        cs = np.zeros(MN, np.int64)
+        cs[:len(slots_c)] = slots_c
+        st = np.zeros(MN, np.int64)
+        st[:len(steps_c)] = steps_c
+        out.append((topo, cs, st))
+    return out
 
 
 def gather_cost_nodes(slots, norm_prob, cost_slot, cost_step, node_mask,
@@ -108,6 +228,19 @@ def two_phase_solve(topo: TreeTopology, x0, nodes: NodeCostData,
     xs, us, info = ilqr_solve(topo, x0, us_warm, nodes, full_params, ilqr_cfg, active)
     info["warm_iterations"] = info_w["iterations"]
     return xs, us, info
+
+
+def polish_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
+                 full_params: CostParams, ilqr_cfg: ILQRConfig, active=None):
+    """One full-phase solve at `ilqr_cfg.dtype` started from `us_init` (the
+    selected tree's converged controls of the selection solve): the
+    `TrajTreeConfig.exec_resolve_mode="polish"` re-solve. It descends the
+    full cost surface from the lower-precision optimum, so it ends on
+    rel_tol after a few iterations where two_phase_solve walks the whole
+    warm + full path. Float inputs are cast to the solve dtype here."""
+    sd = torch_dtype(ilqr_cfg.dtype)
+    return ilqr_solve(topo, x0.to(sd), us_init.to(sd), _cast(nodes, sd),
+                      _cast(full_params, sd), ilqr_cfg, active)
 
 
 def evaluate_traj_tree(xs, us, node_mask, n_nodes, x0, eval_seg_start,

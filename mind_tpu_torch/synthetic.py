@@ -1,22 +1,30 @@
-"""Seeded synthetic driving scene for the plan cycle, made with numpy.
+"""Seeded synthetic driving scenes, made with numpy. The AV2 logs the demos
+use are not in the repository, so the tests and chip_smoke.py run on these.
 
-A straight three-lane road along +x: the ego (slot 0) closes on a slow
-leader in its lane and `n_agents - 2` other agents drive at constant
-speeds, a lane graph of
-`max_lanes` straight segments covers the road, and the target lane is the
-ego's lane centerline at ~1 m spacing. The AV2 logs the demos use are not
-in the repository, so the tests and chip_smoke.py plan on this scene.
-`scene_statics` turns it into the planner's tensors.
+`synthetic_scene` is one plan cycle's input: a straight three-lane road
+along +x on which the ego (slot 0) closes on a slow leader in its lane and
+`n_agents - 2` other agents drive at constant speeds, a lane graph of
+`max_lanes` straight segments, and the target lane as the ego's lane
+centerline at ~1 m spacing. `scene_statics` turns it into the planner's
+tensors.
+
+`synthetic_av2` is the same road as an AV2 scenario for the closed loop: a
+vector map in the log_map_archive JSON schema and a Scenario of 110 frames
+at 10 Hz, which pass through the port's data layer (StaticMap.from_json,
+SemanticMap, ArgoAgentLoader.trajs_info_of) like a scenario read from disk.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mind_tpu_torch.common.device import resolve_device
+from mind_tpu_torch.data.av2 import ObjectState, ObjectType, Scenario, Track, TrackCategory
 from mind_tpu_torch.planner.scene_prep import OBS_LEN, LaneGraphStatic, TargetLaneStatic
 
 LANE_W = 3.5
@@ -127,3 +135,132 @@ def scene_statics(scene: SyntheticScene, pipeline_dtype: torch.dtype,
     eval_segs = (torch.tensor(tp[:-1], **f64), torch.tensor(tp[1:], **f64),
                  torch.tensor(em, device=device))
     return SceneStatics(lane, tgt, eval_segs, scene.tgt_points[::4][:64].copy())
+
+
+# --------------------------------------------------------------------------
+# the road as an AV2 scenario
+# --------------------------------------------------------------------------
+
+AV2_ORIGIN = np.array([2300.0, 1200.0])   # the road's x = 0, y = 0 in map coordinates
+N_FRAMES = 110
+
+
+class SyntheticAV2(NamedTuple):
+    map_json: dict       # log_map_archive schema, as StaticMap.from_json reads it
+    scenario: Scenario   # 110 frames at 10 Hz, the first 50 observed
+    n_graph_segments: int  # lane-graph segments build_lane_graph cuts (15 m each)
+
+
+def synthetic_av2(seed: int, n_tracks: int = 40, seg_len: float = 60.0,
+                  segs_a: int = 4, segs_b: int = 2, x_start: float = -60.0) -> SyntheticAV2:
+    """A straight three-lane road along +x of (segs_a + segs_b) * seg_len
+    metres (360 m by default), built of lane segments with boundaries,
+    predecessor / successor and neighbour ids and mark types, and
+    `n_tracks` tracks on it.
+
+    The successor links are cut after `segs_a` segments, as at the edge of
+    an AV2 map crop: a semantic lane (a maximal successor chain) is then at
+    most segs_a * seg_len long, and its ~1 m resampling fits the planner's
+    256 target-lane points. The default road gives 3 * 6 * 4 = 72 lane-graph
+    segments.
+
+    Tracks: "AV" at 5 m/s in the middle lane, a slow leader 25 m ahead of
+    it, a focal track in the left lane, and others of mixed types and
+    categories at constant speeds. Some have gaps, start late or end early
+    (nearest-neighbour padding and the has_flag threshold have work to do),
+    and three are there to be dropped by the loader: one off the road, one
+    that starts after the observed part, one unobserved at the last
+    observed frame."""
+    rng = np.random.default_rng(seed)
+    n_seg = segs_a + segs_b
+    lanes = {}
+    for lane in (-1, 0, 1):
+        yc = lane * LANE_W
+        for k in range(n_seg):
+            x0, x1 = x_start + k * seg_len, x_start + (k + 1) * seg_len
+            xs = np.linspace(x0, x1, 5)
+            edge = lambda y: [{"x": float(x + AV2_ORIGIN[0]), "y": float(y + AV2_ORIGIN[1]),
+                               "z": 0.0} for x in xs]
+            lid = _lane_id(lane, k)
+            linked = lambda j: 0 <= j < n_seg and (j < segs_a) == (k < segs_a)
+            lanes[str(lid)] = {
+                "id": lid,
+                "is_intersection": False,
+                "lane_type": "VEHICLE",
+                "left_lane_boundary": edge(yc + LANE_W / 2),
+                "right_lane_boundary": edge(yc - LANE_W / 2),
+                "left_lane_mark_type": "DASHED_WHITE" if lane < 1 else "SOLID_WHITE",
+                "right_lane_mark_type": "DASHED_WHITE" if lane > -1 else "SOLID_WHITE",
+                "left_neighbor_id": _lane_id(lane + 1, k) if lane < 1 else None,
+                "right_neighbor_id": _lane_id(lane - 1, k) if lane > -1 else None,
+                "predecessors": [_lane_id(lane, k - 1)] if linked(k - 1) else [],
+                "successors": [_lane_id(lane, k + 1)] if linked(k + 1) else [],
+            }
+    map_json = {"lane_segments": lanes, "pedestrian_crossings": {}, "drivable_areas": {}}
+
+    x_hi = x_start + segs_a * seg_len
+    tracks = [
+        _track("AV", ObjectType.VEHICLE, TrackCategory.UNSCORED_TRACK, 0.0, 0.0, 5.0, rng),
+        _track("leader", ObjectType.VEHICLE, TrackCategory.SCORED_TRACK, 25.0, 0.0, 3.0, rng),
+        _track("focal", ObjectType.VEHICLE, TrackCategory.FOCAL_TRACK, -10.0, LANE_W, 6.0, rng),
+        # dropped by the loader: off the road, future-only, unobserved at frame 49
+        _track("offroad", ObjectType.VEHICLE, TrackCategory.UNSCORED_TRACK, 10.0, 30.0, 4.0, rng),
+        _track("late", ObjectType.VEHICLE, TrackCategory.TRACK_FRAGMENT, 5.0, -LANE_W, 4.0, rng,
+               frames=np.arange(60, N_FRAMES)),
+        _track("lost", ObjectType.CYCLIST, TrackCategory.TRACK_FRAGMENT, 30.0, -LANE_W, 2.0, rng,
+               frames=np.arange(0, 40)),
+    ]
+    kinds = [ObjectType.VEHICLE] * 5 + [ObjectType.BUS, ObjectType.MOTORCYCLIST,
+                                         ObjectType.CYCLIST, ObjectType.PEDESTRIAN,
+                                         ObjectType.STATIC]
+    cats = [TrackCategory.SCORED_TRACK, TrackCategory.UNSCORED_TRACK,
+            TrackCategory.TRACK_FRAGMENT]
+    for i in range(len(tracks), n_tracks):
+        v = float(rng.uniform(2.0, 8.0))
+        # on a lane for the whole observed part (frames 0..49)
+        x = float(rng.uniform(x_start + 10.0, x_hi - 10.0 - 4.9 * v))
+        y = int(rng.integers(-1, 2)) * LANE_W + float(rng.normal(0.0, 0.3))
+        frames = np.arange(N_FRAMES)
+        style = i % 4
+        if style == 1:     # a gap in the observed part and one in the future
+            frames = np.delete(frames, np.r_[20:27, 70:74])
+        elif style == 2:   # appears late, still before the last observed frame
+            frames = frames[int(rng.integers(5, 40)):]
+        elif style == 3:   # vanishes in the future part
+            frames = frames[:int(rng.integers(60, 100))]
+        tracks.append(_track(f"t{i:03d}", kinds[i % len(kinds)], cats[i % len(cats)],
+                             x, y, v, rng, frames=frames))
+    scenario = Scenario(scenario_id=f"synthetic-{seed}", focal_track_id="focal",
+                        city_name="synthetic", tracks=tracks)
+    return SyntheticAV2(map_json, scenario, 3 * n_seg * max(int(seg_len // 15.0), 1))
+
+
+def _lane_id(lane: int, k: int) -> int:
+    return 1000 * (lane + 2) + k
+
+
+def _track(track_id, obj_type, category, x0, y, v, rng, frames=None) -> Track:
+    """Constant speed along +x from road position (x0, y) at frame 0, with a
+    small seeded heading wobble; states only at `frames`."""
+    frames = np.arange(N_FRAMES) if frames is None else frames
+    phase = float(rng.uniform(0.0, 2 * np.pi))
+    states = []
+    for f in frames:
+        t = DT_OBS * float(f)
+        yaw = 0.02 * np.sin(0.5 * t + phase)
+        states.append(ObjectState(
+            observed=bool(f < OBS_LEN), timestep=int(f),
+            position=(float(x0 + v * t + AV2_ORIGIN[0]), float(y + AV2_ORIGIN[1])),
+            heading=float(yaw),
+            velocity=(float(v * np.cos(yaw)), float(v * np.sin(yaw)))))
+    return Track(track_id, states, obj_type, category)
+
+
+def write_synthetic_map(map_json: dict, data_root, seq_id: str) -> Path:
+    """Write the map where a SimConfig with this data_root and seq_id looks
+    for it (SimConfig.map_path); returns the file's path."""
+    path = Path(data_root) / seq_id / f"log_map_archive_{seq_id}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(map_json, f)
+    return path
