@@ -31,9 +31,21 @@ result line):
      on the CPU through the plain version: ego states within 1e-3 m, the
      same tree at every plan;
   8. exec re-solve: one plan each with float32 selection solves and a
-     float64 re-solve of the winner in polish and in scratch mode; the
-     scratch control is held against a pure float64 solve of the same scene;
-  9. print per-phase times, the kernel table and the card.
+     float64 re-solve of the winner in polish, scratch and native mode (the
+     native one in C++ on the host, mind_tpu_torch/native, built with g++);
+     the scratch control is held against a pure float64 solve of the same
+     scene, the native control against the scratch one (1e-7);
+  9. graph against eager: the float32 plan-cycle scene's two-phase solve of
+     all trees with each iLQR iteration a replayed CUDA graph (1 and 4
+     replays per host read) and eagerly: the same iteration counts, xs/us
+     equal to the bit, and the three timed;
+ 10. episode: run_episode_timed (sim/episode.py) on the closed loop's
+     scenario under the demo configuration, 150 ticks with the planner
+     enabled after 1 s: no failed cycle, the loop's plan count, the ego
+     within 1e-3 m of the Simulator's trajectory of phase 6; kernel B
+     launched 6 times per AIME round, kernel A never; then
+     run_episode_segmented in 4-cycle segments equal to it to the bit;
+ 11. print per-phase times, the kernel table and the card.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
@@ -79,6 +91,14 @@ TOL_SCRATCH = 1e-7
 # polish re-solve against the same: it stops within rel_tol of that optimum
 # (measured gap 8.9e-8 on the card at full width); controls are O(0.1)
 TOL_POLISH = 1e-3
+# native (C++ on the host) against the scratch re-solve of the same plan:
+# the same two-phase float64 iteration path, sums in another order (the JAX
+# package's tests/test_native.py holds its own pair to the same 1e-7)
+TOL_NATIVE = 1e-7
+# episode against the Simulator loop of the same scenario (fused against
+# staged plans, float64 integration on the device against the host): the
+# BASELINE.json rollout budget, metres
+TOL_EPISODE_EGO = 1e-3
 SEQ_ID = "synthetic"
 # the AV logs 5 m/s behind a leader at 3 m/s; asked for 8 m/s (the demo
 # configurations set a target velocity too), every plan has to accelerate
@@ -201,6 +221,76 @@ def phase_kernel_check(fa, dev, key_mask):
             "by_case": by_case,
         })
     return table
+
+
+def phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev):
+    """(a) The float32 plan-cycle scene's two-phase solve of all trees, with
+    the iteration as a CUDA graph (REPLAYS_PER_READ = 1 and 4) and eagerly:
+    the same warm and full iteration counts, xs/us equal to the bit. Each
+    timed once more after a first call that captures the graphs."""
+    from mind_tpu_torch.planner import ilqr
+    from mind_tpu_torch.planner.cost_topology import device_cost_topology
+    from mind_tpu_torch.planner.planner import MAX_COST_TGT_PTS, MAX_TREES, ilqr_configs
+    from mind_tpu_torch.planner.trajectory_tree import (gather_cost_nodes, make_cost_params,
+                                                        torch_dtype, two_phase_solve)
+
+    tt = cfg.traj_tree
+    pdt = getattr(torch, cfg.pipeline_dtype)
+    buf = fill_buffer(aime, scene, pdt, dev)
+    st = scene_statics(scene, pdt, dev)
+    amask = torch.tensor(scene.present, device=dev)
+    with torch.no_grad():
+        state, meta, _ = aime.aime_grow_tree(net, cfg, buf, torch.tensor(scene.types, device=dev),
+                                             amask, st.lane, st.tgt)
+    dct = device_cost_topology(state.parent, state.depth, state.duration, state.start_t,
+                               state.end_flag, meta.tree_id, MAX_TREES, tt.max_cost_nodes,
+                               tt.max_depth_levels, tt.max_width_hint)
+    ilqr_cfg, warm_cfg = ilqr_configs(cfg)
+    nodes = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot, dct.cost_step,
+                              dct.topo.node_mask, amask, dtype=torch_dtype(ilqr_cfg.dtype))
+    x0 = World(scene).x0()
+    wp, fp = (make_cost_params(ph, x0, st.cost_lane, scene.target_vel, MAX_COST_TGT_PTS, w, dev)
+              for ph, w in ((tt.warm, True), (tt.full, False)))
+    x0 = torch.tensor(x0, device=dev)
+
+    def solve(graphed, k=None):
+        if k is not None:
+            ilqr.REPLAYS_PER_READ = k
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xs, us, info = two_phase_solve(dct.topo, x0, nodes, wp, fp, ilqr_cfg, warm_cfg,
+                                       active=dct.tree_mask, graphed=graphed)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, xs, us, info
+
+    keep = ilqr.REPLAYS_PER_READ
+    runs = {}
+    try:
+        for name, graphed, k in (("eager", False, None), ("graph_k1", True, 1),
+                                 ("graph_k4", True, 4), ("eager", False, None),
+                                 ("graph_k4", True, 4), ("graph_k1", True, 1)):
+            ms, xs, us, info = solve(graphed, k)
+            runs.setdefault(name, {"ms": [], "out": (xs, us, info)})["ms"].append(ms)
+    finally:
+        ilqr.REPLAYS_PER_READ = keep
+    xs0, us0, info0 = runs["eager"]["out"]
+    tm = dct.tree_mask
+    its = lambda info, k: [int(x) for x in info[k][tm].tolist()]
+    summary = {"trees": int(dct.n_trees), "levels": ilqr._levels_in_use(dct.topo),
+               "warm_iterations": its(info0, "warm_iterations"),
+               "iterations": its(info0, "iterations"), "replays_per_read": keep,
+               "ms": {n: r["ms"] for n, r in runs.items()}}
+    for name in ("graph_k1", "graph_k4"):
+        xs, us, info = runs[name]["out"]
+        summary[f"{name}_max_abs_diff"] = max((xs - xs0).abs().max().item(),
+                                              (us - us0).abs().max().item())
+        if its(info, "warm_iterations") != summary["warm_iterations"] or \
+                its(info, "iterations") != summary["iterations"] or \
+                not (torch.equal(xs, xs0) and torch.equal(us, us0)):
+            raise RuntimeError(f"graphed solve ({name}) differs from the eager solve: {summary}, "
+                               f"{its(info, 'warm_iterations')} + {its(info, 'iterations')}")
+    log("[graph] " + json.dumps(summary))
+    return summary
 
 
 class World:
@@ -408,7 +498,7 @@ def phase_closed_loop(loop_mods, dcfg, fa, data_root, syn, lane_w, origin):
         "tracks": len(sim.agents), "lane_segments": syn.n_graph_segments,
     }
     log("[loop] " + json.dumps(summary))
-    return counts["bfloat16"], summary
+    return counts["bfloat16"], summary, sim.ego_trajectory()
 
 
 def phase_float32_loop(loop_mods, cfg, fa, data_root, syn):
@@ -445,7 +535,8 @@ def phase_exec_resolve(loop_mods, float32_cfg, data_root, syn):
     so all three grow the same scenario trees)."""
     out = {}
     for mode, solve, exec_dtype in (("float64", "float64", None), ("polish", "float32", "float64"),
-                                    ("scratch", "float32", "float64")):
+                                    ("scratch", "float32", "float64"),
+                                    ("native", "float32", "float64")):
         cfg = float32_cfg()
         cfg.traj_tree.solve_dtype = solve
         cfg.traj_tree.exec_solve_dtype = exec_dtype
@@ -465,9 +556,91 @@ def phase_exec_resolve(loop_mods, float32_cfg, data_root, syn):
         if r["tree"] != out["float64"]["tree"] or not gap < tol or not r.get("exec_resolve"):
             raise RuntimeError(f"exec re-solve {mode}: {summary[mode]} against the float64 "
                                f"solve {out['float64']}")
+    r = out["native"]
+    gap = float(np.abs(np.array(r["ctrl"]) - np.array(out["scratch"]["ctrl"])).max())
+    summary["native"] = {"exec_native_ms": r.get("exec_native"), "solve_ms": r["solve"],
+                         "ctrl": r["ctrl"], "gap_to_scratch": gap, "tolerance": TOL_NATIVE}
+    if r["tree"] != out["scratch"]["tree"] or not gap < TOL_NATIVE or not r.get("exec_native") \
+            or "exec_resolve" in r:
+        raise RuntimeError(f"exec re-solve native: {summary['native']} against the scratch "
+                           f"re-solve {out['scratch']}")
     summary["float64"] = {"solve_ms": out["float64"]["solve"], "ctrl": out["float64"]["ctrl"]}
     log("[exec] " + json.dumps(summary))
     return summary
+
+
+class RoundCounter:
+    """aime_grow_tree as fused_plan_core calls it, summing the AIME rounds
+    of every call."""
+
+    def __init__(self, fn):
+        self.fn, self.rounds = fn, 0
+
+    def __call__(self, *a, **kw):
+        state, meta, rounds = self.fn(*a, **kw)
+        self.rounds += rounds
+        return state, meta, rounds
+
+
+def phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego, loop_plans):
+    """run_episode_timed on the closed loop's scenario and configuration
+    (150 ticks, planner enabled after 1 s) against that loop's trajectory;
+    then run_episode_segmented against the timed run. The launch counts are
+    set to 0 just before run_episode_timed, which drives the episode twice
+    (a warm call, then the timed one), and read just after."""
+    from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.sim import episode
+
+    Simulator, SimConfig, ClAgentConfig = loop_mods
+    cfg = SimConfig(sim_name="demo_1", seq_id=SEQ_ID, data_root=data_root,
+                    cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
+                                             target_velocity=TARGET_VELOCITY)])
+    sim = Simulator(cfg, planner_cfg=dcfg, max_steps=150, scenario=syn.scenario)
+    sim.init_sim()
+    counter = RoundCounter(tplanner.aime_grow_tree)
+    tplanner.aime_grow_tree = counter
+    phases = []
+    try:
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        res, wall = episode.run_episode_timed(sim, phases=phases)
+        both_s = time.perf_counter() - t
+        counts = dict(fa.fused_edge_attention.launches_by_variant)
+    finally:
+        tplanner.aime_grow_tree = counter.fn
+    planning = [p for p in phases if "solve" in p]
+    timed_rounds = sum(p["rounds"] for p in planning)
+    gap = (float(np.abs(res.ego_states[:, :2] - loop_ego[:, :2]).max())
+           if res.ego_states.shape == loop_ego.shape else float("inf"))
+    split = {k: float(np.mean([p[k] * 1e3 for p in planning]))
+             for k in ("obs", "aime", "cost_topology", "solve", "selection", "propagate")}
+    idle = [p for p in phases if "solve" not in p]
+    summary = {
+        "ticks": len(res.ego_states), "plan_calls": res.plan_calls, "fail_cycle": res.fail_cycle,
+        "loop_plan_calls": loop_plans, "ego_gap_to_loop_m": gap, "wall_s": wall,
+        "warm_wall_s": both_s - wall, "ticks_per_s": len(res.ego_states) / wall,
+        "planning_cycle_ms_mean": float(np.mean([sum(p[k] for k in split) * 1e3
+                                                 for p in planning])),
+        "phases_ms_mean_planning_cycle": split,
+        "non_planning_cycle_ms_mean": float(np.mean([(p["obs"] + p["propagate"]) * 1e3
+                                                     for p in idle])),
+        "rounds_timed_call": timed_rounds, "rounds_both_calls": counter.rounds,
+        "launches": counts, "iterations": res.iterations[res.planned].tolist()}
+    log("[episode] " + json.dumps(summary))
+    layers = dcfg.net.n_scene_layer
+    if res.fail_cycle != -1 or res.plan_calls != loop_plans or not gap < TOL_EPISODE_EGO:
+        raise RuntimeError(f"episode disagrees with the closed loop: {summary}")
+    if counts["bfloat16"] != layers * counter.rounds or counts["float32"] != 0 \
+            or counter.rounds == 0 or counter.rounds != 2 * timed_rounds:
+        raise RuntimeError(f"episode: launches {counts} for {counter.rounds} AIME rounds")
+    seg = episode.run_episode_segmented(sim, seg_cycles=4)
+    same = {f: bool(np.array_equal(getattr(seg, f), getattr(res, f)))
+            for f in ("ego_states", "plan_ok", "planned", "iterations", "controls")}
+    log(f"[episode] segmented (4-cycle segments) equal to the timed run: {same}")
+    if not all(same.values()) or seg.fail_cycle != res.fail_cycle:
+        raise RuntimeError(f"segmented episode differs from the whole one: {same}")
+    summary["segmented_equal"] = True
+    return counts["bfloat16"], summary
 
 
 def main() -> int:
@@ -556,7 +729,7 @@ def main() -> int:
             not net_err["cls_prob"] < TOL_NET_CLS or not net_err["positions_m"] < TOL_NET_POS:
         raise RuntimeError(f"bf16 network: kernel and plain disagree: {net_err}")
 
-    # 6.-8. the closed loop through Simulator / MINDAgent / MINDPlanner on the
+    # 6.-10. the closed loop through Simulator / MINDAgent / MINDPlanner on the
     # synthetic AV2 scenario; the map goes through a file as a real one does
     syn = synthetic_av2(SEED)
     loop_mods = (Simulator, SimConfig, ClAgentConfig)
@@ -569,23 +742,27 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as data_root:
         write_synthetic_map(syn.map_json, data_root, SEQ_ID)
-        loop_launches, loop = phase_closed_loop(loop_mods, dcfg, fa, data_root, syn, LANE_W,
-                                                AV2_ORIGIN)
+        loop_launches, loop, loop_ego = phase_closed_loop(loop_mods, dcfg, fa, data_root, syn,
+                                                          LANE_W, AV2_ORIGIN)
         loop32_launches, loop32 = phase_float32_loop(loop_mods, float32_cfg(), fa, data_root,
                                                      syn)
         execs = phase_exec_resolve(loop_mods, float32_cfg, data_root, syn)
+        graph = phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev)
+        episode_launches, episode = phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego,
+                                                  loop["plan_calls"])
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "float32_loop": loop32_launches}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
-                                      "closed_loop": loop_launches}
+                                      "closed_loop": loop_launches, "episode": episode_launches}
     entries[0]["launches"] += loop32_launches
-    entries[1]["launches"] += loop_launches
+    entries[1]["launches"] += loop_launches + episode_launches
 
-    # 9. report
+    # 11. report
     log("[phases] " + json.dumps({"float32": cycles32, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
-                                  "float32_loop": loop32, "exec_resolve": execs}))
+                                  "float32_loop": loop32, "exec_resolve": execs,
+                                  "graph_vs_eager": graph, "episode": episode}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

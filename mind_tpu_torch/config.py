@@ -124,8 +124,9 @@ class TrajTreeConfig:
     # disables the re-solve
     exec_solve_dtype: Optional[str] = None
     # exec re-solve strategy: "polish" (one full solve from the winner's
-    # controls) | "scratch" (the whole two-phase solve) | "native" (a host
-    # C++ solver; not ported, raises)
+    # controls) | "scratch" (the whole two-phase solve) | "native" (the
+    # scratch solve in float64 C++ on the host, mind_tpu_torch/native; it
+    # runs whatever exec_solve_dtype says)
     exec_resolve_mode: str = "polish"
     exec_polish_iterations: int = 100
     n_line_search: int = 10

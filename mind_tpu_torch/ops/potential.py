@@ -120,7 +120,7 @@ def potential_field_eval(pos, node: NodeCostData, p: CostParams):
     y_idx = torch.clamp(torch.round(fy).long(), 0, p.grid_n - 1)
 
     # 3x3 raw patch [..., 3(y), 3(x)], zero outside the grid
-    offs = torch.tensor([-1, 0, 1], device=dev)
+    offs = torch.arange(-1, 2, device=dev)   # built on the device: no copy inside a graph
     ix = x_idx[..., None, None] + offs[None, :]     # [..., 1, 3] -> columns
     iy = y_idx[..., None, None] + offs[:, None]     # [..., 3, 1] -> rows
     ix, iy = torch.broadcast_tensors(ix, iy)
@@ -141,7 +141,8 @@ def potential_field_eval(pos, node: NodeCostData, p: CostParams):
     def dbasis(t):
         return torch.stack([-2 + 2 * t, 2 - 4 * t, 2 * t], -1)
 
-    ddbasis = torch.tensor([2.0, -4.0, 2.0], dtype=dt, device=dev).expand(u.shape + (3,))
+    # [2, -4, 2], built on the device
+    ddbasis = (2.0 - 6.0 * (torch.arange(3, device=dev) == 1)).to(dt).expand(u.shape + (3,))
     bu, bv = basis(u), basis(v)
     dbu, dbv = dbasis(u), dbasis(v)
 

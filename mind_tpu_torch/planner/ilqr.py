@@ -2,8 +2,10 @@
 
 The JAX package vmaps a `lax.while_loop` solver over trees; here a batch
 axis G of trees is written out and the loop runs in Python until no tree is
-active, with one host read of the active mask per iteration. Finished trees
-keep their state while the others iterate, as under vmap.
+active. Finished trees keep their state while the others iterate, as under
+vmap. On the card the loop body (`_iterate`) is one captured CUDA graph,
+replayed REPLAYS_PER_READ times per host read of the run mask; on the CPU it
+runs eagerly, one host read per iteration.
 
 - topology as index arrays: `level_table[g, l]` lists the node slots at
   tree depth l (padded with -1); `parent[g, n]` is each node's parent slot
@@ -204,28 +206,228 @@ def _backward(topo: TreeTopology, derivs, mu, n_levels):
     return k[:, :MN], K[:, :MN], pd_ok
 
 
+class _Inputs(NamedTuple):
+    """What one solve's iterations read: the trees, their start, cost data
+    and parameters, the active mask, and the same expanded to the G * NA
+    line-search rollouts (built once per solve, outside the iteration)."""
+
+    topo: TreeTopology
+    x0: torch.Tensor         # [G, 6]
+    nodes: NodeCostData
+    params: CostParams
+    active: torch.Tensor     # [G] bool
+    topo_r: TreeTopology     # [G * NA, ...]
+    x0_r: torch.Tensor       # [G * NA, 6]
+    nodes_r: NodeCostData
+    alpha_r: torch.Tensor    # [G * NA]
+
+
+class _State(NamedTuple):
+    """The solver's loop state, per tree; the last seven fields are the
+    derivatives at the current (xs, us)."""
+
+    xs: torch.Tensor
+    us: torch.Tensor
+    J_opt: torch.Tensor
+    mu: torch.Tensor
+    delta: torch.Tensor
+    accepted: torch.Tensor
+    converged: torch.Tensor
+    diverged: torch.Tensor
+    it: torch.Tensor
+    F_x: torch.Tensor
+    F_u: torch.Tensor
+    L: torch.Tensor
+    L_x: torch.Tensor
+    L_u: torch.Tensor
+    L_xx: torch.Tensor
+    L_uu: torch.Tensor
+
+
+def _sel(m, new, old):
+    return torch.where(m.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def _running(st: _State, active, cfg: ILQRConfig):
+    return active & ~st.converged & ~st.diverged & (st.it < cfg.max_iterations)
+
+
+def _iterate(inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int) -> _State:
+    """One iteration of every running tree: derivative refresh where the
+    last step was accepted, backward sweep, parallel line search, LM and
+    convergence update. A tree that does not run keeps its state, so extra
+    calls after the last iteration change nothing. No host read: this is
+    the body that a CUDA graph captures."""
+    dt, wb, NA = cfg.dt, cfg.wheelbase, cfg.n_line_search
+    G = st.xs.shape[0]
+    run = _running(st, inp.active, cfg)
+    # where nothing was accepted, _sel keeps the old derivatives
+    fresh = _derivatives(st.xs, st.us, inp.nodes, inp.params, inp.topo.node_mask, dt, wb)
+    derivs = tuple(_sel(st.accepted, n, o) for n, o in zip(fresh, st[9:]))
+
+    k, K, pd_ok = _backward(inp.topo, derivs, st.mu, n_levels)
+
+    # parallel line search over all alphas
+    rep = lambda t: t.repeat_interleave(NA, dim=0)     # [G, ...] -> [G*NA, ...]
+    xs_c, us_c = _rollout_policy(inp.topo_r, inp.x0_r, rep(st.xs), rep(st.us), rep(k), rep(K),
+                                 inp.alpha_r, dt, wb, n_levels)
+    J_c = _tree_cost(inp.topo_r, xs_c, us_c, inp.nodes_r, inp.params).view(G, NA)
+    J_opt = st.J_opt
+    improved = (J_c < J_opt[:, None]) & pd_ok[:, None]
+    any_improved = improved.any(-1)
+    first = torch.argmax(improved.to(torch.uint8), dim=-1)  # first improving alpha
+    pick = torch.arange(G, device=J_c.device) * NA + first
+    xs_new, us_new = xs_c[pick], us_c[pick]
+    J_new = J_c.gather(1, first[:, None])[:, 0]
+
+    conv_new = any_improved & (((J_opt - J_new) / J_opt).abs() < cfg.rel_tol)
+
+    # LM schedule (solver.py:153-158, 194-198)
+    mu, delta = st.mu, st.delta
+    delta_acc = torch.clamp(delta, max=1.0) / cfg.delta_0
+    mu_acc = mu * delta_acc
+    mu_acc = torch.where(mu_acc <= cfg.mu_min, torch.zeros_like(mu_acc), mu_acc)
+    delta_rej = torch.clamp(delta, min=1.0) * cfg.delta_0
+    mu_rej = torch.clamp(mu * delta_rej, min=cfg.mu_min)
+
+    acc = any_improved
+    upd = lambda new, old: _sel(run, new, old)
+    return _State(
+        xs=upd(_sel(acc, xs_new, st.xs), st.xs),
+        us=upd(_sel(acc, us_new, st.us), st.us),
+        J_opt=upd(torch.where(acc, J_new, J_opt), J_opt),
+        mu=upd(torch.where(acc, mu_acc, mu_rej), mu),
+        delta=upd(torch.where(acc, delta_acc, delta_rej), delta),
+        accepted=upd(acc, st.accepted),
+        converged=upd(conv_new, st.converged),
+        diverged=upd(~acc & (mu_rej >= cfg.mu_max), st.diverged),
+        it=st.it + run.long(),
+        F_x=derivs[0], F_u=derivs[1], L=derivs[2], L_x=derivs[3], L_u=derivs[4],
+        L_xx=derivs[5], L_uu=derivs[6])
+
+
+def _flatten(tree):
+    """The tensors of nested NamedTuples, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _flatten(x)]
+    return []
+
+
+def _unflatten(tree, tensors):
+    """`tree` with its tensors replaced, in order, by those of the iterator."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_unflatten(x, tensors) for x in tree))
+    return tree
+
+
+def _signature(tree):
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, tuple):
+        return tuple(_signature(x) for x in tree)
+    return tree
+
+
+# Replays of the captured iteration per host read of the run mask. A finished
+# tree is masked out of every update, so the replays after the last iteration
+# change nothing: k trades host reads against idle replays. On the H100 one
+# replay of the plan-cycle scene's iteration (30 levels, 6 trees) takes
+# ~18 ms, far more than a host read, so k = 1 is the faster (chip_smoke.py
+# times both; PERF.md section 5).
+REPLAYS_PER_READ = 1
+
+
+class _GraphedIteration:
+    """`_iterate` captured as one CUDA graph, on static input and state
+    tensors that are allocated outside the graph's memory pool; the body
+    copies the new state into the static state, so the graph keeps no
+    tensor of its own alive and graphs can share one pool."""
+
+    def __init__(self, inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int, pool):
+        empty = lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device)
+        self.inp = _unflatten(inp, iter([empty(t) for t in _flatten(inp)]))
+        self.state = _State(*(empty(t) for t in st))
+        self.cfg, self.n_levels = cfg, n_levels
+        self.load(inp, st)
+        # warm up on a side stream (cuBLAS handles, allocator) before capture
+        side = torch.cuda.Stream(device=st.xs.device)
+        side.wait_stream(torch.cuda.current_stream(st.xs.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._body()
+        torch.cuda.current_stream(st.xs.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self._body()
+
+    def _body(self):
+        new = _iterate(self.inp, self.state, self.cfg, self.n_levels)
+        for s, n in zip(self.state, new):
+            s.copy_(n)
+
+    def load(self, inp: _Inputs, st: _State):
+        for s, t in zip(_flatten(self.inp), _flatten(inp)):
+            s.copy_(t)
+        for s, t in zip(self.state, st):
+            s.copy_(t)
+
+    def solve(self, inp: _Inputs, st: _State) -> _State:
+        self.load(inp, st)
+        while bool(_running(self.state, self.inp.active, self.cfg).any()):   # one host read
+            for _ in range(REPLAYS_PER_READ):
+                self.graph.replay()
+        return _State(*(t.clone() for t in self.state))
+
+
+class _GraphCache:
+    """One captured iteration per (device, solver settings, levels in use,
+    input shapes and dtypes), all in one memory pool: graphs run one at a
+    time on the caller's stream, and none keeps a tensor in the pool."""
+
+    def __init__(self):
+        self.graphs = {}
+        self.pool = None
+
+    def get(self, inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int):
+        key = (st.xs.device, cfg, n_levels, _signature(inp), _signature(st))
+        g = self.graphs.get(key)
+        if g is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            g = self.graphs[key] = _GraphedIteration(inp, st, cfg, n_levels, self.pool)
+        return g
+
+
+_GRAPHS = _GraphCache()
+
+
 def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
-               params: CostParams, cfg: ILQRConfig = ILQRConfig(), active=None):
+               params: CostParams, cfg: ILQRConfig = ILQRConfig(), active=None,
+               graphed=None):
     """Fit the tree iLQR on a batch of G trees. topo fields [G, ...], x0
     [6] or [G, 6], us_init [G, MN, 2], nodes fields [G, MN, ...]; `active`
     [G] bool leaves trees out whose result is not needed (they keep their
-    start). Returns (xs [G, MN, 6], us [G, MN, 2], info dict of [G])."""
+    start). Returns (xs [G, MN, 6], us [G, MN, 2], info dict of [G]).
+
+    On a CUDA device each iteration is one replay of a captured CUDA graph
+    (`_GraphedIteration`), with one host read of the run mask per
+    REPLAYS_PER_READ replays; on the CPU the same `_iterate` runs eagerly,
+    one host read per iteration. `graphed=False` runs the eager loop on the
+    card too, to hold the two against each other; a capture that fails
+    raises."""
     dt, wb = cfg.dt, cfg.wheelbase
     G, MN = us_init.shape[:2]
     dt_, dev = us_init.dtype, us_init.device
+    if graphed is None:
+        graphed = dev.type == "cuda"
+    if graphed and dev.type != "cuda":
+        raise ValueError(f"a graphed solve needs a CUDA device, got {dev}")
     x0 = x0.expand(G, x0.shape[-1])
     n_levels = _levels_in_use(topo)
-
-    xs = _rollout(topo, x0, us_init, dt, wb, n_levels)
-    derivs = _derivatives(xs, us_init, nodes, params, topo.node_mask, dt, wb)
-    us = us_init
-    J_opt = derivs[2].sum(-1)
-    mu = torch.full((G,), cfg.mu_init, dtype=dt_, device=dev)
-    delta = torch.full((G,), cfg.delta_0, dtype=dt_, device=dev)
-    accepted = torch.zeros(G, dtype=torch.bool, device=dev)
-    converged = torch.zeros(G, dtype=torch.bool, device=dev)
-    diverged = torch.zeros(G, dtype=torch.bool, device=dev)
-    it = torch.zeros(G, dtype=torch.long, device=dev)
     if active is None:
         active = torch.ones(G, dtype=torch.bool, device=dev)
 
@@ -233,56 +435,26 @@ def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
     alphas = torch.tensor(1.1 ** (-np.arange(NA, dtype=np.float64) ** 2),
                           dtype=dt_, device=dev)
     rep = lambda t: t.repeat_interleave(NA, dim=0)     # [G, ...] -> [G*NA, ...]
-    topo_r = TreeTopology(*(rep(t) for t in topo))
-    nodes_r = NodeCostData(*(rep(t) for t in nodes))
-    alpha_r = alphas.repeat(G)
-    sel = lambda m, new, old: torch.where(m.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+    inp = _Inputs(topo=topo, x0=x0, nodes=nodes, params=params, active=active,
+                  topo_r=TreeTopology(*(rep(t) for t in topo)), x0_r=rep(x0),
+                  nodes_r=NodeCostData(*(rep(t) for t in nodes)), alpha_r=alphas.repeat(G))
 
-    while True:
-        run = active & ~converged & ~diverged & (it < cfg.max_iterations)
-        if not bool(run.any()):          # one host read per iteration
-            break
-        # refresh derivatives where the previous step was accepted
-        if bool(accepted.any()):
-            fresh = _derivatives(xs, us, nodes, params, topo.node_mask, dt, wb)
-            derivs = tuple(sel(accepted, n, o) for n, o in zip(fresh, derivs))
+    xs = _rollout(topo, x0, us_init, dt, wb, n_levels)
+    derivs = _derivatives(xs, us_init, nodes, params, topo.node_mask, dt, wb)
+    zeros = lambda dtype: torch.zeros(G, dtype=dtype, device=dev)
+    st = _State(xs, us_init, derivs[2].sum(-1), torch.full((G,), cfg.mu_init, dtype=dt_, device=dev),
+                torch.full((G,), cfg.delta_0, dtype=dt_, device=dev), zeros(torch.bool),
+                zeros(torch.bool), zeros(torch.bool), zeros(torch.long), *derivs)
 
-        k, K, pd_ok = _backward(topo, derivs, mu, n_levels)
+    if graphed:
+        st = _GRAPHS.get(inp, st, cfg, n_levels).solve(inp, st)
+    else:
+        while bool(_running(st, active, cfg).any()):          # one host read per iteration
+            st = _iterate(inp, st, cfg, n_levels)
 
-        # parallel line search over all alphas
-        xs_c, us_c = _rollout_policy(topo_r, rep(x0), rep(xs), rep(us), rep(k), rep(K),
-                                     alpha_r, dt, wb, n_levels)
-        J_c = _tree_cost(topo_r, xs_c, us_c, nodes_r, params).view(G, NA)
-        improved = (J_c < J_opt[:, None]) & pd_ok[:, None]
-        any_improved = improved.any(-1)
-        first = torch.argmax(improved.to(torch.uint8), dim=-1)  # first improving alpha
-        pick = torch.arange(G, device=dev) * NA + first
-        xs_new, us_new = xs_c[pick], us_c[pick]
-        J_new = J_c.gather(1, first[:, None])[:, 0]
-
-        conv_new = any_improved & (((J_opt - J_new) / J_opt).abs() < cfg.rel_tol)
-
-        # LM schedule (solver.py:153-158, 194-198)
-        delta_acc = torch.clamp(delta, max=1.0) / cfg.delta_0
-        mu_acc = mu * delta_acc
-        mu_acc = torch.where(mu_acc <= cfg.mu_min, torch.zeros_like(mu_acc), mu_acc)
-        delta_rej = torch.clamp(delta, min=1.0) * cfg.delta_0
-        mu_rej = torch.clamp(mu * delta_rej, min=cfg.mu_min)
-
-        acc = any_improved
-        upd = lambda new, old: sel(run, new, old)
-        xs = upd(sel(acc, xs_new, xs), xs)
-        us = upd(sel(acc, us_new, us), us)
-        J_opt = upd(torch.where(acc, J_new, J_opt), J_opt)
-        mu = upd(torch.where(acc, mu_acc, mu_rej), mu)
-        delta = upd(torch.where(acc, delta_acc, delta_rej), delta)
-        accepted = upd(acc, accepted)
-        converged = upd(conv_new, converged)
-        diverged = upd(~acc & (mu_rej >= cfg.mu_max), diverged)
-        it = it + run.long()
-
-    info = {"iterations": it, "J": J_opt, "converged": converged, "diverged": diverged}
-    return xs, us, info
+    info = {"iterations": st.it, "J": st.J_opt, "converged": st.converged,
+            "diverged": st.diverged}
+    return st.xs, st.us, info
 
 
 def build_topology(parent_list, max_nodes: int, max_levels: int,

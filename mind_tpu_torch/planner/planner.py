@@ -7,8 +7,10 @@ packed vector of tree metadata, builds the cost trees on the host, uploads
 them in one tensor, solves, and reads one packed vector with the control;
 trajectories cross to the host only for the exported trees. The fused path
 (`export_trees=False`, `fused_plan_core`) builds the cost trees on the
-device and reads four numbers. The "native" exec re-solve (a C++ solver on
-the host) and its `return_exec_payload` branch are not ported: they raise.
+device and reads four numbers. With `exec_resolve_mode="native"` the
+executed control comes from the float64 C++ re-solve of the winner tree on
+the host (mind_tpu_torch/native), fed on the fused path by the packed
+payload of `fused_plan_core(return_exec_payload=True)` in the same read.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mind_tpu_torch import native
 from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.common.geometry import resample_polyline
 from mind_tpu_torch.common.tree import Node, Tree
@@ -54,9 +57,6 @@ from mind_tpu_torch.utils.metrics import Metrics
 MAX_TREES = 6  # <= num modes root children
 MAX_TGT_PTS = 256       # AIME target lane, ~1 m resampled
 MAX_COST_TGT_PTS = 64   # cost-field target lane, 4 m simplified
-
-NATIVE_NOT_PORTED = ("the native exec re-solve (exec_resolve_mode='native', "
-                     "return_exec_payload) is not ported: ROADMAP.md queue A item 1")
 
 TYPE_ORDER = [
     ObjectType.VEHICLE,
@@ -158,7 +158,8 @@ def solve_and_select(slots, norm_prob, amask, dct: DeviceCostTrees, x0, warm_par
     # control = first cost node's [accel, steer] (reference planner.py:141-144)
     ctrl = xs[best, 0, 4:6].to(torch.float32)
     clock.lap("selection")
-    if resolve_exec_dtype(tt, ilqr_cfg.dtype) != ilqr_cfg.dtype:
+    # the native re-solve runs on the host after the plan's read (MINDPlanner)
+    if tt.exec_resolve_mode != "native" and resolve_exec_dtype(tt, ilqr_cfg.dtype) != ilqr_cfg.dtype:
         ctrl = exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us[best],
                                  warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt)
         clock.lap("exec_resolve")
@@ -177,7 +178,10 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
     selection (+ the polish/scratch exec re-solve where configured). `net`
     is the batched ScenePredNet (it takes the place of the JAX version's
     params and batched_apply). Returns a float32 tensor
-    [ctrl(2), ok, max_iterations].
+    [ctrl(2), ok, max_iterations]; with `return_exec_payload`, the float64
+    vector of `native.pack_exec_payload` instead: those 4 numbers, then the
+    winner tree's parent row, node mask and float64 cost-node data, for the
+    native re-solve on the host (one read for both).
 
     With `report` (a dict), the cycle also records the wall time of each
     phase in seconds under "aime", "cost_topology", "solve", "selection"
@@ -187,8 +191,6 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
     selected tree ("best") and the largest iteration count over the active
     trees of the warm and the full solve ("warm_iterations", "iterations")."""
     tt = cfg.traj_tree
-    if return_exec_payload or tt.exec_resolve_mode == "native":
-        raise NotImplementedError(NATIVE_NOT_PORTED)
     clock = _PhaseClock(buf.pos.device, report)
 
     state, meta, rounds = aime_grow_tree(net, cfg, buf, types, amask, lane_static, tgt_static)
@@ -210,7 +212,14 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
                       iterations=int(its),
                       warm_iterations=int(_masked_max(info["warm_iterations"],
                                                       dct.tree_mask)))
-    return out
+    if not return_exec_payload:
+        return out
+    one = best.reshape(1)
+    topo_best = TreeTopology(*(x.index_select(0, one) for x in dct.topo))
+    nodes_e = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot.index_select(0, one),
+                                dct.cost_step.index_select(0, one), topo_best.node_mask, amask,
+                                dtype=torch.float64)
+    return native.pack_exec_payload(out, topo_best.parent, topo_best.node_mask, *nodes_e)
 
 
 class _PhaseClock:
@@ -318,8 +327,6 @@ class MINDPlanner:
                  lcl_smp: LocalSemanticMap, export_trees: bool = True,
                  shared_net=None, device=None):
         self.device = resolve_device(device)
-        if cfg.traj_tree.exec_resolve_mode == "native":
-            raise NotImplementedError(NATIVE_NOT_PORTED)
         self.cfg = cfg
         self.obs_len = cfg.obs_len
         self.smp = smp
@@ -426,6 +433,9 @@ class MINDPlanner:
     def _init_programs(self):
         self.ilqr_cfg, self.warm_ilqr_cfg = ilqr_configs(self.cfg)
         self._weights = selection_weights(self.cfg)
+        self._exec_native = self.cfg.traj_tree.exec_resolve_mode == "native"
+        if self._exec_native:
+            native.load()   # build the C++ solver now, not in the middle of a run
 
     def _cost_params(self):
         """Static parts of the warm/full CostParams (built once; only the
@@ -449,6 +459,69 @@ class MINDPlanner:
         half = 0.5 * (n - 1) * ph.smooth_grid_res
         return torch.tensor([state[0] - half, state[1] - half], dtype=torch.float64,
                             device=self.device)
+
+    # ------------------------------------------------------------------
+    # NATIVE execution re-solve (TrajTreeConfig.exec_resolve_mode="native"):
+    # the winner tree's two-phase float64 solve runs as C++ on the host
+    # (mind_tpu_torch/native/exec_ilqr.cpp), the semantics of the device
+    # 'scratch' re-solve (reference planner.py:174-178).
+    # ------------------------------------------------------------------
+    def _native_cost_params(self):
+        """Flat phase-parameter blocks + target-lane points for the C++
+        solver (built once; only the grid origin changes per plan)."""
+        if not hasattr(self, "_native_params_cache"):
+            warm_p, full_p = self._cost_params()
+            wf, pts = native.pack_cost_params(warm_p)
+            ff, _ = native.pack_cost_params(full_p)  # the phases share the lane
+            self._native_params_cache = (wf, ff, pts)
+        return self._native_params_cache
+
+    def _native_exec_ctrl(self, parent, node_mask, nodes, s_loc) -> Optional[np.ndarray]:
+        """Staged-path entry: the winner tree's parent row, node mask [MN]
+        and float64 NodeCostData (tensors on the device) go to the host in
+        one packed read, then through the native re-solve."""
+        zeros = torch.zeros(4, dtype=torch.float64, device=parent.device)
+        flat = native.pack_exec_payload(zeros, parent, node_mask, *nodes).cpu().numpy()
+        return self._native_exec_ctrl_flat(flat, s_loc)
+
+    def _native_exec_ctrl_flat(self, flat: np.ndarray, s_loc) -> Optional[np.ndarray]:
+        """Fused-path entry: unpack the one-read payload written by
+        fused_plan_core (layout and size check: native.unpack_exec_payload)
+        and run the native re-solve."""
+        pl = native.unpack_exec_payload(flat, self.cfg.traj_tree.max_cost_nodes,
+                                        self.cfg.max_actors - 1)
+        return self._native_solve_arrays(pl.parent, pl.node_mask, pl.prob, pl.ego_mean,
+                                         pl.ego_cov, pl.exo_mean, pl.exo_cov, pl.exo_mask,
+                                         s_loc)
+
+    def _native_solve_arrays(self, parent, mask, prob, ego_mean, ego_cov, exo_mean, exo_cov,
+                             exo_mask, s_loc) -> Optional[np.ndarray]:
+        """The native two-phase re-solve of the winner tree; returns its
+        first control (xs[0, 4:6], planner.py:141-144 semantics), or None
+        when the tree is empty."""
+        n = int(mask.sum())
+        if n <= 0:
+            return None
+        tt = self.cfg.traj_tree
+        wf, ff, pts = self._native_cost_params()
+        off = self._field_offset_np(s_loc)
+        wf, ff = wf.copy(), ff.copy()
+        wf[0:2] = off
+        ff[0:2] = off
+        x0 = np.concatenate([np.asarray(s_loc, np.float64), np.asarray(self.ctrl, np.float64)])
+        xs, _us, _info = native.two_phase_solve(
+            parent[:n], prob[:n], ego_mean[:n], ego_cov[:n], exo_mean[:n], exo_cov[:n],
+            exo_mask[:n], pts, x0, wf, ff, dt=tt.dt, wb=tt.wheelbase,
+            warm_max_iterations=tt.warm_max_iterations, max_iterations=tt.max_iterations,
+            rel_tol=tt.rel_tol, n_line_search=tt.n_line_search, mu_max=tt.max_reg)
+        return xs[0, 4:6]
+
+    def _field_offset_np(self, state: np.ndarray) -> np.ndarray:
+        """Numpy twin of _field_offset (the same float64 arithmetic)."""
+        ph = self.cfg.traj_tree.full
+        n, _ = ph.smooth_grid_size
+        half = 0.5 * (n - 1) * ph.smooth_grid_res
+        return np.array([state[0] - half, state[1] - half], np.float64)
 
     def local_state(self) -> np.ndarray:
         """Current ego state in the local planning frame (float64 host)."""
@@ -535,7 +608,8 @@ class MINDPlanner:
         x0, warm_p, full_p, tv = self._solve_inputs()
         # phase laps (each ends in a device synchronize) only where an exec
         # re-solve is configured, to time it apart from the selection solves
-        resolves = resolve_exec_dtype(cfg.traj_tree, self.ilqr_cfg.dtype) != self.ilqr_cfg.dtype
+        resolves = (not self._exec_native and resolve_exec_dtype(cfg.traj_tree, self.ilqr_cfg.dtype)
+                    != self.ilqr_cfg.dtype)
         laps = {}
         with self.metrics.timer.phase("solve"):
             xs_b, us_b, info, cost_b, best_d, ctrl_d = solve_and_select(
@@ -556,6 +630,17 @@ class MINDPlanner:
         self.last_best = best
         self.metrics.observe("ilqr_iterations", float(small[3]))
         self.last_tree_costs = small[4:4 + n_real]
+
+        if self._exec_native and np.isfinite(ctrl).all():
+            with self.metrics.timer.phase("exec_native"):
+                w = slice(best, best + 1)
+                nodes_e = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot[w],
+                                            dct.cost_step[w], dct.topo.node_mask[w], amask_d,
+                                            dtype=torch.float64)
+                nat = self._native_exec_ctrl(dct.topo.parent[best], dct.topo.node_mask[best],
+                                             nodes_e, self.local_state())
+            if nat is not None:
+                ctrl = np.asarray(nat, np.float64)
 
         if not np.isfinite(ctrl).all():
             self.metrics.incr("plan_failures")
@@ -599,13 +684,23 @@ class MINDPlanner:
                 self.net, self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d,
                 x0, warm_p, full_p, tv, self.lane_static, self.tgt_static,
                 self._eval_segs, cfg=self.cfg, ilqr_cfg=self.ilqr_cfg,
-                warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights)
-            small = out.cpu().numpy()  # the one read
+                warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights,
+                return_exec_payload=self._exec_native)
+            flat = out.cpu().numpy()  # the one read (with the payload in native mode)
+            small = flat[:4]
         ctrl = small[:2].astype(np.float64)
         self.metrics.observe("ilqr_iterations", float(small[3]))
         if small[2] < 0.5 or not np.isfinite(ctrl).all():
             self.metrics.incr("plan_failures")
             return False, None, None
+        if self._exec_native:
+            with self.metrics.timer.phase("exec_native"):
+                nat = self._native_exec_ctrl_flat(flat, self.local_state())
+            if nat is not None:
+                ctrl = np.asarray(nat, np.float64)
+                if not np.isfinite(ctrl).all():
+                    self.metrics.incr("plan_failures")
+                    return False, None, None
         self.metrics.incr("plans")
         return True, ctrl, None
 

@@ -213,10 +213,12 @@ def _cast(t, dtype):
 
 def two_phase_solve(topo: TreeTopology, x0, nodes: NodeCostData,
                     warm_params: CostParams, full_params: CostParams,
-                    ilqr_cfg: ILQRConfig, warm_cfg: ILQRConfig = None, active=None):
+                    ilqr_cfg: ILQRConfig, warm_cfg: ILQRConfig = None, active=None,
+                    graphed=None):
     """Warm-start solve (target-lane cost only), then the full solve from
     the warm controls (reference planner.py:174-178), for a batch of trees.
-    Float inputs are cast to `ilqr_cfg.dtype` here; results stay in it."""
+    Float inputs are cast to `ilqr_cfg.dtype` here; results stay in it.
+    `graphed` goes to ilqr_solve (None: a CUDA graph on the card)."""
     sd = torch_dtype(ilqr_cfg.dtype)
     x0 = x0.to(sd)
     nodes = _cast(nodes, sd)
@@ -224,8 +226,9 @@ def two_phase_solve(topo: TreeTopology, x0, nodes: NodeCostData,
     G, MN = topo.parent.shape
     us0 = torch.zeros((G, MN, 2), dtype=sd, device=x0.device)
     _, us_warm, info_w = ilqr_solve(topo, x0, us0, nodes, warm_params,
-                                    warm_cfg or ilqr_cfg, active)
-    xs, us, info = ilqr_solve(topo, x0, us_warm, nodes, full_params, ilqr_cfg, active)
+                                    warm_cfg or ilqr_cfg, active, graphed)
+    xs, us, info = ilqr_solve(topo, x0, us_warm, nodes, full_params, ilqr_cfg, active,
+                              graphed)
     info["warm_iterations"] = info_w["iterations"]
     return xs, us, info
 

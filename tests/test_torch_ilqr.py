@@ -2,17 +2,22 @@
 mind_tpu on the same inputs (float64)."""
 
 import numpy as np
+import pytest
 import torch
 
+from mind_tpu_torch.config import TrajTreeConfig
 from mind_tpu_torch.ops import potential as tpot
 from mind_tpu_torch.planner import ilqr as tilqr
 from mind_tpu_torch.planner.cost_topology import device_cost_topology as t_cost_topology
+from mind_tpu_torch.planner.trajectory_tree import make_cost_params as t_make_cost_params
 from mind_tpu_torch.planner.trajectory_tree import two_phase_solve as t_two_phase_solve
 
-from test_cost_topology import make_meta
-from test_ilqr import MN, X_EXO, make_nodes, make_params
-
 F64 = torch.float64
+# the JAX test modules' sizes (tests/test_ilqr.py); their helpers import jax,
+# so they are imported inside the tests that compare with mind_tpu, and this
+# file also collects on the card's machine, which has no jax
+MN = 16
+X_EXO = 4
 
 
 def to_torch(nt, cls):
@@ -49,6 +54,7 @@ def test_cost_node_eval_matches_jax():
     import jax
     import jax.numpy as jnp
     from mind_tpu.ops.potential import cost_node_eval
+    from test_ilqr import make_params
 
     rng = np.random.default_rng(0)
     n = 64
@@ -77,6 +83,7 @@ def test_cost_node_eval_matches_jax():
 def test_cost_topology_matches_jax():
     import jax.numpy as jnp
     from mind_tpu.planner.cost_topology import device_cost_topology
+    from test_cost_topology import make_meta
 
     meta = make_meta()
     kw = dict(max_trees=6, max_cost_nodes=64, max_levels=32, max_width=8)
@@ -96,6 +103,7 @@ def problems():
     tests/test_ilqr.py problems: a chain, the branching contingency tree,
     and a branching tree with exo agents near the path."""
     import jax.numpy as jnp
+    from test_ilqr import make_nodes, make_params
 
     chain = list(range(-1, 13))
     branch = [-1, 0, 1, 1, 2, 3, 4, 5]
@@ -160,3 +168,68 @@ def test_two_phase_solve_matches_jax_f64():
         np.testing.assert_allclose(us[i].numpy(), w_us, rtol=0, atol=1e-8)
         # trees left out keep their start
         assert int(info["iterations"][(i + 1) % 3]) == 0
+
+
+def random_batch(seed, G, n_max, n_exo, dtype, device):
+    """G random trees of up to n_max cost nodes (parents before children,
+    the deepest node first), their cost data around a 10 m/s ego, warm and
+    full CostParams of the default phase settings, and x0: the inputs of
+    one plan's two-phase solve, made with numpy."""
+    rng = np.random.default_rng(seed)
+    tt = TrajTreeConfig()
+    topos, mn = [], n_max
+    for g in range(G):
+        n = int(rng.integers(n_max // 2, n_max + 1))
+        parents = [-1] + [int(rng.integers(max(0, i - 12), i)) for i in range(1, n)]
+        topos.append(tilqr.build_topology(parents, mn, 32, max_width=16))
+    topo = tilqr.TreeTopology(*(torch.stack(f).to(device) for f in zip(*topos)))
+    step = rng.uniform(1.5, 2.5, (G, mn, 1)) * (1 + np.arange(mn))[None, :, None] ** 0.5
+    nodes = tpot.NodeCostData(
+        prob=torch.tensor(rng.uniform(0.2, 1.0, (G, mn)) * topo.node_mask.cpu().numpy()),
+        ego_mean=torch.tensor(np.concatenate([step * 4, rng.normal(0, 0.5, (G, mn, 1))], -1)),
+        ego_cov=torch.tensor(rng.uniform(0.2, 1.5, (G, mn))),
+        exo_mean=torch.tensor(rng.normal(0, 15, (G, mn, n_exo, 2)) + [20.0, 0.0]),
+        exo_cov=torch.tensor(rng.uniform(0.3, 1.5, (G, mn, n_exo))),
+        exo_mask=torch.tensor(rng.random((G, mn, n_exo)) > 0.3) & topo.node_mask.cpu()[..., None])
+    nodes = tpot.NodeCostData(*(t.to(device) if t.dtype == torch.bool else t.to(device, dtype)
+                                for t in nodes))
+    x0 = np.array([0.0, 0.2, 10.0, 0.02, 0.0, 0.0])
+    lane = np.stack([np.linspace(-20, 200, 40), np.zeros(40)], -1)
+    wp, fp = (t_make_cost_params(ph, x0, lane, 12.0, 64, w, device)
+              for ph, w in ((tt.warm, True), (tt.full, False)))
+    return topo, nodes, wp, fp, torch.tensor(x0, device=device)
+
+
+def test_graphed_solve_needs_a_card():
+    topo, nodes, wp, fp, x0 = random_batch(0, 2, 12, 3, F64, "cpu")
+    cfg = tilqr.ILQRConfig(dtype="float64", max_iterations=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_two_phase_solve(topo, x0, nodes, wp, fp, cfg, graphed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_graphed_solve_matches_eager(dtype):
+    """On the card, the two-phase solve with each iteration a replayed CUDA
+    graph (one and four replays per host read) against the eager loop: the
+    same iteration counts and xs/us equal to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    topo, nodes, wp, fp, x0 = random_batch(1, 6, 96, 12, getattr(torch, dtype), dev)
+    cfg = tilqr.ILQRConfig(dtype=dtype, rel_tol=1e-5)
+    wcfg = cfg._replace(max_iterations=40)
+    active = torch.tensor([True, True, True, True, False, True], device=dev)
+    eager = t_two_phase_solve(topo, x0, nodes, wp, fp, cfg, wcfg, active, graphed=False)
+    keep = tilqr.REPLAYS_PER_READ
+    try:
+        for k in (1, 4):
+            tilqr.REPLAYS_PER_READ = k
+            xs, us, info = t_two_phase_solve(topo, x0, nodes, wp, fp, cfg, wcfg, active,
+                                             graphed=True)
+            for key in ("iterations", "warm_iterations"):
+                assert torch.equal(info[key], eager[2][key]), (k, key)
+            assert torch.equal(xs, eager[0]) and torch.equal(us, eager[1]), k
+    finally:
+        tilqr.REPLAYS_PER_READ = keep
+    assert int(eager[2]["iterations"][4]) == 0 and int(eager[2]["iterations"].max()) > 2

@@ -33,10 +33,22 @@ def test_port_file_imports_no_jax(path):
 
 
 def test_every_port_module_is_covered():
-    assert len(FILES) >= 36
+    assert len(FILES) >= 38
     covered = {str(p.relative_to(ROOT / "mind_tpu_torch")) for p in FILES[:-1]}
     assert covered >= {
         "ops/fusion_attention.py", "planner/planner.py", "planner/trajectory_tree.py",
         "common/bbox.py", "common/tree.py", "utils/metrics.py", "data/av2.py",
         "data/semantic_map.py", "data/loader.py", "sim/agents.py", "sim/simulator.py",
-        "sim/state_io.py", "sim/replay.py", "run_sim.py", "synthetic.py"}
+        "sim/state_io.py", "sim/replay.py", "run_sim.py", "synthetic.py",
+        "native/__init__.py", "sim/episode.py"}
+
+
+def test_native_source_is_the_ports_own():
+    """exec_ilqr.cpp is built from the port's own copy, whose code (below its
+    header comment) is the JAX package's."""
+    ours = (ROOT / "mind_tpu_torch" / "native" / "exec_ilqr.cpp").read_text()
+    theirs = (ROOT / "mind_tpu" / "native" / "exec_ilqr.cpp").read_text()
+    start = "#include <cmath>"
+    assert ours[ours.index(start):] == theirs[theirs.index(start):]
+    assert "mind_tpu/native" not in (ROOT / "mind_tpu_torch" / "native" / "__init__.py").read_text(
+        ).split('"""')[2]

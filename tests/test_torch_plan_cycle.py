@@ -56,9 +56,17 @@ def nets():
 
 
 def jax_plan(params, batched_apply, cfg, scene):
-    """mind_tpu's fused_plan_core on the scene. It runs with
-    return_exec_payload=True, whose payload carries the selected tree's
-    parent row and node mask after the [ctrl, ok, iterations] output."""
+    """mind_tpu's fused_plan_core on the scene: ([ctrl, ok, iterations],
+    the selected tree's parent row and node mask), from its exec payload."""
+    flat = jax_payload(params, batched_apply, cfg, scene)
+    MN = cfg.traj_tree.max_cost_nodes
+    return flat[:4], flat[4:4 + MN].astype(np.int64), flat[4 + MN:4 + 2 * MN] > 0.5
+
+
+def jax_payload(params, batched_apply, cfg, scene):
+    """mind_tpu's fused_plan_core on the scene with return_exec_payload=True:
+    the float64 vector of [ctrl, ok, iterations] and the selected tree's
+    parent row, node mask and float64 cost-node data."""
     import jax
     import jax.numpy as jnp
     from mind_tpu.planner.aime_device import DeviceObsBuffer, obs_buffer_update
@@ -97,12 +105,10 @@ def jax_plan(params, batched_apply, cfg, scene):
         warm_ilqr_cfg=warm, weights=weights, return_exec_payload=True))(
             params, buf, jnp.asarray(scene.types), jnp.asarray(scene.present),
             jnp.asarray(x0_np, jnp.float64), wp, fp, tv, lane, tgt, segs)
-    flat = np.asarray(flat)
-    MN = tt.max_cost_nodes
-    return flat[:4], flat[4:4 + MN].astype(np.int64), flat[4 + MN:4 + 2 * MN] > 0.5
+    return np.asarray(flat)
 
 
-def torch_plan(net, cfg, scene):
+def torch_plan(net, cfg, scene, return_exec_payload=False):
     pdt = getattr(torch, cfg.pipeline_dtype)
     buf = taime.DeviceObsBuffer.create(A, pdt, CPU)
     for f in range(50):
@@ -119,7 +125,8 @@ def torch_plan(net, cfg, scene):
         net, buf, torch.tensor(scene.types), torch.tensor(scene.present),
         torch.tensor(x0_np), wp, fp, scene.target_vel, st.lane, st.tgt, st.eval_segs,
         cfg=cfg, ilqr_cfg=ilqr, warm_ilqr_cfg=warm,
-        weights=tplanner.selection_weights(cfg), report=report)
+        weights=tplanner.selection_weights(cfg), report=report,
+        return_exec_payload=return_exec_payload)
     return out.numpy(), report
 
 

@@ -381,18 +381,22 @@ def test_scratch_resolve_gives_the_float64_control(resolve_inputs, planned64, mo
 
 
 def test_native_resolve_still_raises(world):
-    _, tcfg = planner_cfgs(world.n_lanes, "float32", "float32", exec_solve_dtype="float64",
-                           exec_resolve_mode="native")
+    """The native re-solve is ported: a planner in that mode builds and
+    loads the C++ library when it is made. What still raises is a payload
+    whose length is not the layout's (the size check of the one helper that
+    unpacks it)."""
+    from mind_tpu_torch import native
+
+    _, tcfg = planner_cfgs(world.n_lanes, "float32", "float32", exec_resolve_mode="native")
     lcl = tsm.LocalSemanticMap("AV", world.tsmp)
     lcl.update_target_lane(world.tsmp.semantic_lanes[2])
     lcl.update_target_lane_info(world.tsmp.semantic_lanes_infos[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanner.MINDPlanner(tcfg, world.tsmp, lcl, device=CPU)
-    tcfg.traj_tree.exec_resolve_mode = "polish"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanner.fused_plan_core(None, None, None, None, None, None, None, None, None, None,
-                                 None, cfg=tcfg, ilqr_cfg=None, warm_ilqr_cfg=None,
-                                 weights=None, return_exec_payload=True)
+    planner = tplanner.MINDPlanner(tcfg, world.tsmp, lcl, device=CPU)
+    assert planner._exec_native and native._lib is not None
+    n = native.payload_size(tcfg.traj_tree.max_cost_nodes, tcfg.max_actors - 1)
+    planner.update_state_ctrl(np.zeros(4), np.zeros(2))
+    with pytest.raises(ValueError, match="exec payload"):
+        planner._native_exec_ctrl_flat(np.zeros(n - 1), planner.local_state())
 
 
 def test_planner_needs_a_device_without_gpu(world):

@@ -341,7 +341,8 @@ def test_run_sim_cli(world, tmp_path, capsys):
     assert "metrics:" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="not ported"):
         t_run_sim.main(args)                       # render: true in the config
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        t_run_sim.main(args + ["--episode"])
+    episode = t_run_sim.main(args[:-1] + ["10", "--episode"])   # render on: --episode turns it off
+    assert episode["ticks"] == 10 and episode["plan_calls"] == 0 and episode["fail_cycle"] == -1
+    assert episode["wall_time_s"] > 0
     with pytest.raises(SystemExit, match="not found"):
         t_run_sim.main(["--config", str(tmp_path / "none.json"), "--device", "cpu"])

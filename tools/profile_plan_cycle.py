@@ -1,10 +1,14 @@
 """Where a plan cycle's time goes on the GPU: torch.profiler over steady
 plan cycles of the port on chip_smoke.py's synthetic scene.
 
-    python3 tools/profile_plan_cycle.py [--cycles 2] [--demo] [--out plan_profile.json]
+    python3 tools/profile_plan_cycle.py [--cycles 2] [--demo] [--episode] [--out plan_profile.json]
 
 `--demo` profiles the demo planner configuration (bf16 network) instead of
-the float32 defaults.
+the float32 defaults. `--episode` profiles steady planning cycles of the
+episode runner (sim/episode.py) instead: chip_smoke.py's closed-loop
+scenario (synthetic_av2(0), planner enabled after 1 s), a whole warm
+episode first, then the cycles from cycle 12 on with the carry of the
+cycles before them.
 
 Runs one warm-up cycle, then profiles `--cycles` cycles (CPU + CUDA
 activities) and prints one JSON object: per cycle the host wall time and
@@ -44,16 +48,106 @@ def busy_us(intervals):
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+def device_kernels(prof):
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def summary(by_name, n_cycles):
+    """The device time by kernel name, largest first, and the fusion core's
+    three launches per call apart, per cycle."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    fusion = {k: v for k, v in by_name.items()
+              if any(s in k for s in ("edge_attention", "token_proj", "out_proj"))}
+    return {
+        "fusion_kernels": [{"name": k[:80], "ms": v[0] / n_cycles, "count": v[1] / n_cycles}
+                           for k, v in sorted(fusion.items())],
+        "fusion_ms_per_cycle": sum(v[0] for v in fusion.values()) / n_cycles,
+        "device_ms_by_kernel": [{"name": k[:80], "ms": v[0] / n_cycles,
+                                 "count": v[1] / n_cycles} for k, v in top],
+    }
+
+
+def emit(result, out):
+    text = json.dumps(result, indent=1)
+    print(text)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(text)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+
+
+def profile_episode(args) -> int:
+    """Steady planning cycles of the episode runner under torch.profiler."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mind_tpu_torch.config import (DEFAULT_WEIGHTS, ClAgentConfig, PlannerConfig, SimConfig,
+                                       planner_config_for_demo)
+    from mind_tpu_torch.sim import episode
+    from mind_tpu_torch.sim.simulator import Simulator
+    from mind_tpu_torch.synthetic import synthetic_av2, write_synthetic_map
+
+    if args.demo:
+        cfg = planner_config_for_demo("demo_1")
+    else:
+        cfg = PlannerConfig()
+        cfg.ckpt_path = str(DEFAULT_WEIGHTS)
+    syn = synthetic_av2(cs.SEED)
+    first = 12   # two cycles after the planner is enabled (cycle 10)
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_map(syn.map_json, root, cs.SEQ_ID)
+        sim = Simulator(SimConfig(sim_name="demo_1", seq_id=cs.SEQ_ID, data_root=root,
+                                  cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
+                                                           target_velocity=cs.TARGET_VELOCITY)]),
+                        planner_cfg=cfg, max_steps=5 * (first + args.cycles), scenario=syn.scenario)
+        sim.init_sim()
+        episode.run_episode(sim)    # warm: kernel builds, graph captures, allocator
+        _, inp, statics, run, carry = episode._episode_setup(sim, None, None)
+        carry, _ = run(episode._slice_cycles(inp, 0, first), statics, carry, 0)
+        cycles, by_name = [], {}
+        for c in range(first, first + args.cycles):
+            phases = []
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                carry, _ = run(episode._slice_cycles(inp, c, c + 1), statics, carry, c,
+                               phases=phases)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            kernels = device_kernels(prof)
+            busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+            for e in kernels:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            (rec,) = phases
+            cycles.append({"cycle": c, "wall_ms": wall * 1e3, "rounds": rec.get("rounds"),
+                           "phases_ms": {k: v * 1e3 for k, v in rec.items()
+                                         if k not in ("cycle", "rounds")},
+                           "device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
+                           "device_busy_share": busy / 1e3 / (wall * 1e3)})
+    emit({"device": torch.cuda.get_device_name(0), "path": "episode",
+          "compute_dtype": cfg.net.compute_dtype, "cycles": cycles,
+          **summary(by_name, args.cycles)}, args.out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cycles", type=int, default=2)
     ap.add_argument("--demo", action="store_true",
                     help="planner_config_for_demo('demo_1'): the bf16 network")
+    ap.add_argument("--episode", action="store_true",
+                    help="profile planning cycles of the episode runner")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_plan_cycle: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.episode:
+        return profile_episode(args)
     from torch.profiler import ProfilerActivity, profile
 
     from mind_tpu_torch.common.kinematics import kine_propagate
@@ -93,7 +187,7 @@ def main() -> int:
             before = fa.fused_edge_attention.launches
             out, wall = cycle(report)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_kernels(prof)
         busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
         for e in kernels:
             ms, n = by_name.get(e.name, (0.0, 0))
@@ -108,28 +202,8 @@ def main() -> int:
             "device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / 1e3 / (wall * 1e3),
         })
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    # the fusion core's three launches per call, whatever their rank
-    fusion = {k: v for k, v in by_name.items()
-              if any(s in k for s in ("edge_attention", "token_proj", "out_proj"))}
-    result = {
-        "device": torch.cuda.get_device_name(0),
-        "compute_dtype": cfg.net.compute_dtype,
-        "cycles": cycles,
-        "fusion_kernels": [{"name": k[:80], "ms": v[0] / args.cycles, "count": v[1] / args.cycles}
-                           for k, v in sorted(fusion.items())],
-        "fusion_ms_per_cycle": sum(v[0] for v in fusion.values()) / args.cycles,
-        "device_ms_by_kernel": [{"name": k[:80], "ms": v[0] / args.cycles,
-                                 "count": v[1] / args.cycles} for k, v in top],
-    }
-    text = json.dumps(result, indent=1)
-    print(text)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(text)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip())
+    emit({"device": torch.cuda.get_device_name(0), "compute_dtype": cfg.net.compute_dtype,
+          "cycles": cycles, **summary(by_name, args.cycles)}, args.out)
     return 0
 
 
