@@ -10,7 +10,9 @@ result line):
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
      both update_edge values (and both edge input types of the bf16
-     variant), and time both against the card's bound;
+     variant), and time both against the card's bound; then both at
+     B = 32 against each slice of 8 alone: equal to the bit (a node
+     computes in a batch of scenes what it computes alone);
   3. load the trained ScenePredNet weights from the committed archive;
   4. float32 path: plan cycles of fused_plan_core at full width on a seeded
      synthetic scene (48 actor slots, 80 lane segments, 256-point target
@@ -45,7 +47,27 @@ result line):
      within 1e-3 m of the Simulator's trajectory of phase 6; kernel B
      launched 6 times per AIME round, kernel A never; then
      run_episode_segmented in 4-cycle segments equal to it to the bit;
- 11. print per-phase times, the kernel table and the card.
+ 11. batched episode: run_episodes_batched over four synthetic AV2 scenarios
+     (seeds 0-3, the AV asked for 8, 7, 9 and 6 m/s; planner on after 1 s,
+     150 ticks, demo configuration), warm then timed: kernel B launched 6
+     times per AIME round of the batch (B = 32 nodes per round), the iLQR
+     graphs' pool holding no tensor, each scenario against its own
+     run_episode: the same failing cycle and plan count, the ego within
+     1e-3 m over the whole run; the first cycle where the two take a
+     different discrete decision (plan, ok, iteration count, tree), if
+     any, is printed; and the network's outputs for each scene's nodes in
+     a batched forward equal to its forward alone, to the bit;
+ 12. Monte-Carlo: run_episode_monte_carlo on the loop's scenario, 16 copies
+     in one chunk (B = 128 nodes per round), segments of 10 cycles, warm then
+     timed, with its peak device memory: every copy finite, kernel B
+     launched 6 times per round, segments of 4 equal to it to the bit, copies
+     0 and 15 against run_episode on their own schedules (as in 11);
+ 13. tree scale: parallel_tree_solve of 1024 random branching trees on a
+     one-device mesh, timed, against four slices of 256 solved alone;
+ 14. print per-phase times, the kernel table and the card.
+
+Phase 2 holds both kernels at B = 8, 32 and 128, the batches the paths give
+them.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
@@ -104,6 +126,7 @@ SEQ_ID = "synthetic"
 # configurations set a target velocity too), every plan has to accelerate
 TARGET_VELOCITY = 8.0
 REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
+T0 = 0.0
 
 
 def log(*a):
@@ -130,16 +153,6 @@ def phase_build(fa):
         log(f"[build] nvcc, {variant}:\n{text.strip()}")
 
 
-def kernel_inputs(fa, dev, B, N, D):
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-    rn = lambda *s, sc=0.08: (torch.randn(*s, generator=g) * sc).to(dev)
-    w = fa.FusionWeights(**{
-        f: (rn(D, D) if f.startswith("w") else
-            1 + rn(D, sc=0.1) if f.endswith("_g") else rn(D, sc=0.1))
-        for f in fa.FusionWeights._fields})
-    return w, rn(B, N, D, sc=1.0), rn(B, N, N, D, sc=0.5)
-
-
 def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
     """One (inputs, update_edge) case: kernel vs plain, and both timed."""
     edge = args[1]
@@ -161,16 +174,18 @@ def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "mean_abs_err": mean}
 
 
-def phase_kernel_check(fa, dev, key_mask):
-    """Both kernels vs their plain versions at B = 8, N = 129 on random
-    inputs with the main path's token mask; returns the two kernel table
-    entries (launches filled in later). "ms" is the mean per launch of the
-    main path's mix of one forward: 5 launches with the edge update and 1
-    without. In the bf16 variant the first of the 5 reads a bf16 node and
-    edge (the encoders' output); the later ones read float32, which is what
-    the layer before them wrote, so each case's node has its edge's type."""
+def kernel_cases(fa, dev, key_mask):
+    """Both kernels vs their plain versions at B = key_mask.shape[0] and
+    N = 129, on random inputs with the main path's token mask: one result
+    per (variant, edge type, update_edge) case, weighted by its launches in
+    one forward: 5 with the edge update and 1 without. In the bf16 variant
+    the first of the 5 reads a bf16 node and edge (the encoders' output);
+    the later ones read float32, which is what the layer before them wrote,
+    so each case's node has its edge's type."""
     B, N, D, H = key_mask.shape[0], key_mask.shape[1], 128, 8
-    w, node, edge = kernel_inputs(fa, dev, B, N, D)
+    from mind_tpu_torch.synthetic import fusion_inputs
+
+    w, node, edge = fusion_inputs(B, N, D, dev, SEED)
     bf16 = torch.bfloat16
     w16 = fa.FusionWeights(*(t.to(bf16) for t in w))
     # (variant, edge type, update_edge, launches of it in one forward)
@@ -179,6 +194,8 @@ def phase_kernel_check(fa, dev, key_mask):
              ("bfloat16", "float32", False, 1), ("bfloat16", "bfloat16", False, 0)]
     entries = {}
     for variant, edge_type, ue, weight in cases:
+        if weight == 0 and B != 8:
+            continue
         if variant == "float32":
             args, ref = (node, edge, key_mask, w), fa.fused_edge_attention_ref
             tol, tol_mean, peak = TOL_KERNEL, TOL_KERNEL, PEAK_F32_FLOPS
@@ -190,7 +207,7 @@ def phase_kernel_check(fa, dev, key_mask):
             nbytes = fa.fused_edge_attention_bytes(B, N, D, ue, e.element_size(),
                                                    x.element_size(), 2)
         flops = fa.fused_edge_attention_flops(B, N, D, ue, variant)
-        label = f"{variant} node,edge={edge_type} update_edge={ue}"
+        label = f"B={B} {variant} node,edge={edge_type} update_edge={ue}"
         r = check_case(fa, ref, args, H, ue, tol, tol_mean, label)
         t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_HBM_BYTES
         r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
@@ -200,10 +217,59 @@ def phase_kernel_check(fa, dev, key_mask):
             f"plain={r['plain_ms']:.4f} ms bound={r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         entries.setdefault(variant, {})[f"edge_{edge_type}_update_{str(ue).lower()}"] = r
+    del node, edge, args
+    torch.cuda.empty_cache()
+    return entries
+
+
+def mix(by_case, k):
+    total = sum(r["weight"] for r in by_case.values())
+    return sum(r[k] * r["weight"] for r in by_case.values()) / total
+
+
+def kernel_batch_gap(fa, dev, token_mask, B=8, S=4):
+    """Both kernels on S * B nodes against the same call on each slice of B
+    of them alone, for every (variant, edge type, update_edge) case of the
+    main path: the max abs gap of out and edge per variant. A node must
+    compute in a batch of scenes what it computes alone, so any gap but 0
+    raises."""
+    from mind_tpu_torch.synthetic import fusion_inputs
+
+    N, D, H = token_mask.shape[0], 128, 8
+    w, node, edge = fusion_inputs(S * B, N, D, dev, SEED)
+    mask = token_mask[None].expand(S * B, -1).contiguous()
+    w16 = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
+    cases = [("float32", w, torch.float32, True), ("float32", w, torch.float32, False),
+             ("bfloat16", w16, torch.bfloat16, True), ("bfloat16", w16, torch.float32, True),
+             ("bfloat16", w16, torch.float32, False)]
+    gaps = {}
+    for variant, ww, edge_type, ue in cases:
+        x, e = node.to(edge_type), edge.to(edge_type)
+        whole = fa.fused_edge_attention(x, e, mask, ww, H, ue)
+        # clones: a slice of the mask is not 16-byte aligned, as the kernels need
+        cut = lambda t, k: t[k:k + B].clone()
+        for k in range(0, S * B, B):
+            alone = fa.fused_edge_attention(cut(x, k), cut(e, k), cut(mask, k), ww, H, ue)
+            gap = max(float((a[k:k + B] - b).abs().max()) for a, b in zip(whole, alone))
+            gaps[variant] = max(gaps.get(variant, 0.0), gap)
+    log(f"[kernel] B={S * B} against each slice of {B} alone, max abs gap: {gaps}")
+    if any(g != 0.0 for g in gaps.values()):
+        raise RuntimeError(f"a node's kernel result depends on its batch: {gaps}")
+    return gaps
+
+
+def phase_kernel_check(fa, dev, token_mask, batches=(8, 32, 128)):
+    """kernel_cases at B = 8 (one scene's AIME round) and at the batched
+    paths' B = 32 (4 scenes) and 128 (16 Monte-Carlo copies), and
+    kernel_batch_gap at B = 32; returns the two kernel table entries
+    (launches filled in later), whose ms, plain_ms and bound_ms are the
+    B = 8 mix, with "by_batch" for every B."""
+    per_batch = {B: kernel_cases(fa, dev, token_mask[None].expand(B, -1).contiguous())
+                 for B in batches}
+    batch_gap = kernel_batch_gap(fa, dev, token_mask)
     table = []
-    for variant, by_case in entries.items():
-        total = sum(r["weight"] for r in by_case.values())
-        mix = lambda k: sum(r[k] * r["weight"] for r in by_case.values()) / total
+    for variant in ("float32", "bfloat16"):
+        by_case = per_batch[batches[0]][variant]
         bound_by = {r["bound_by"] for r in by_case.values() if r["weight"]}
         table.append({
             "name": "fused_edge_attention" + ("" if variant == "float32" else "_bf16"),
@@ -213,12 +279,20 @@ def phase_kernel_check(fa, dev, key_mask):
             "replaces": REPLACES + (", float32 mode" if variant == "float32"
                                     else ", bf16 operand mode (:109-130)"),
             "launches": None,
-            "max_abs_err": max(r["max_abs_err"] for r in by_case.values()),
-            "ms": mix("ms"), "plain_ms": mix("plain_ms"), "bound_ms": mix("bound_ms"),
+            "max_abs_err": max(r["max_abs_err"] for b in batches
+                               for r in per_batch[b][variant].values()),
+            "ms": mix(by_case, "ms"), "plain_ms": mix(by_case, "plain_ms"),
+            "bound_ms": mix(by_case, "bound_ms"),
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
             "library_ms": None,
-            "shape": f"B={B} N={N} D={D} heads={H} {variant}",
+            "shape": f"B={batches[0]} N={token_mask.shape[0]} D=128 heads=8 {variant}",
             "by_case": by_case,
+            "by_batch": {str(b): {**{k: mix(per_batch[b][variant], k)
+                                     for k in ("ms", "plain_ms", "bound_ms")},
+                                  "max_abs_err": max(r["max_abs_err"] for r in
+                                                     per_batch[b][variant].values())}
+                         for b in batches},
+            "batch_gap_32_vs_8": batch_gap[variant],
         })
     return table
 
@@ -240,14 +314,16 @@ def phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev):
     st = scene_statics(scene, pdt, dev)
     amask = torch.tensor(scene.present, device=dev)
     with torch.no_grad():
-        state, meta, _ = aime.aime_grow_tree(net, cfg, buf, torch.tensor(scene.types, device=dev),
-                                             amask, st.lane, st.tgt)
+        state, meta, _ = aime.aime_grow_tree(net, cfg, *aime.scene_axis(
+            buf, torch.tensor(scene.types, device=dev), amask, st.lane, st.tgt))
     dct = device_cost_topology(state.parent, state.depth, state.duration, state.start_t,
                                state.end_flag, meta.tree_id, MAX_TREES, tt.max_cost_nodes,
                                tt.max_depth_levels, tt.max_width_hint)
     ilqr_cfg, warm_cfg = ilqr_configs(cfg)
     nodes = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot, dct.cost_step,
-                              dct.topo.node_mask, amask, dtype=torch_dtype(ilqr_cfg.dtype))
+                              dct.topo.node_mask, amask[None],
+                              torch.zeros(MAX_TREES, dtype=torch.long, device=dev),
+                              dtype=torch_dtype(ilqr_cfg.dtype))
     x0 = World(scene).x0()
     wp, fp = (make_cost_params(ph, x0, st.cost_lane, scene.target_vel, MAX_COST_TGT_PTS, w, dev)
               for ph, w in ((tt.warm, True), (tt.full, False)))
@@ -643,7 +719,267 @@ def phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego, loop_plans):
     return counts["bfloat16"], summary
 
 
+def demo_sim(loop_mods, dcfg, data_root, scenario, target_velocity=TARGET_VELOCITY, ticks=150):
+    """An initialized Simulator of one synthetic AV2 scenario under the demo
+    configuration, the AV's planner enabled after 1 s."""
+    Simulator, SimConfig, ClAgentConfig = loop_mods
+    cfg = SimConfig(sim_name="demo_1", seq_id=SEQ_ID, data_root=data_root,
+                    cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
+                                             target_velocity=target_velocity)])
+    sim = Simulator(cfg, planner_cfg=dcfg, max_steps=ticks, scenario=scenario)
+    sim.init_sim()
+    return sim
+
+
+def lane_trees(phases, lane):
+    """The tree a lane selected at each planning cycle, from the phase
+    records of run_episode (one lane) or of a batched run."""
+    return {p["cycle"]: p["best"][lane] for p in phases if "best" in p}
+
+
+def first_decision(got, want, got_trees, want_trees):
+    """The first cycle at which a lane of a batched run and the same
+    scenario or copy run alone take a different discrete decision: plan or
+    not, plan ok, solver iteration count, selected tree. None if none."""
+    for c in range(min(len(got.planned), len(want.planned))):
+        a = (bool(got.planned[c]), bool(got.plan_ok[c]), float(got.iterations[c]),
+             got_trees.get(c))
+        b = (bool(want.planned[c]), bool(want.plan_ok[c]), float(want.iterations[c]),
+             want_trees.get(c))
+        if a != b:
+            return {"cycle": c, "batched": a, "alone": b,
+                    "control_gap": float(np.abs(got.controls[c] - want.controls[c]).max())}
+    return None
+
+
+def against_single(got, want, got_trees, want_trees):
+    """A lane of a batched run against the same scenario or copy run alone:
+    the failing cycles, plan counts, the ego's largest gap over the whole
+    run, the first cycle at which the two take a different discrete
+    decision (None if none) and whether all of it holds: the same failing
+    cycle and plan count, and the ego within TOL_EPISODE_EGO."""
+    diff = (np.abs(got.ego_states[:, :2] - want.ego_states[:, :2])
+            if got.ego_states.shape == want.ego_states.shape else None)
+    gap = float(diff.max()) if diff is not None else float("inf")
+    return {"fail_cycle": [got.fail_cycle, want.fail_cycle],
+            "plan_calls": [got.plan_calls, want.plan_calls], "ego_gap_m": gap,
+            "first_decision_differing": first_decision(got, want, got_trees, want_trees),
+            "ok": got.fail_cycle == want.fail_cycle and got.plan_calls == want.plan_calls
+            and gap < TOL_EPISODE_EGO}
+
+
+def hold_against_singles(name, recs):
+    """Raise unless every record of against_single holds."""
+    bad = {i: r for i, r in recs.items() if not r["ok"]}
+    if bad:
+        raise RuntimeError(f"{name}: batched runs and runs alone disagree: {bad}")
+
+
+def network_batch_gap(net, inputs, B):
+    """The network's outputs (cls, positions, velocities) for each scene's
+    B nodes in a batched forward, as AIME makes it, against the same nodes
+    alone, on the inputs of one batched call."""
+    from mind_tpu_torch.common import batch_invariant
+
+    S = inputs[0].shape[0] // B
+    with torch.no_grad():
+        with batch_invariant.scenes(S):
+            whole = net(*inputs)
+        return [[float((w[s * B:(s + 1) * B][..., :2] if k == 1 else w[s * B:(s + 1) * B])
+                       .sub(a[..., :2] if k == 1 else a).abs().max())
+                 for k, (w, a) in enumerate(zip(whole, net(*(x[s * B:(s + 1) * B]
+                                                               for x in inputs))))]
+                for s in range(S)]
+
+
+def graph_pool_in_use():
+    """(bytes, sizes of the live blocks) allocated in the iLQR graphs'
+    shared memory pool: a graph that kept a tensor of its own there, or a
+    capture that allocated a cuBLAS workspace there, would show here."""
+    from mind_tpu_torch.planner import ilqr
+
+    pool = ilqr._GRAPHS.pool
+    segs = torch.cuda.memory_snapshot()
+    if pool is None or not segs or "segment_pool_id" not in segs[0]:
+        raise RuntimeError("no graph pool, or the memory snapshot names no pool")
+    mine = [seg for seg in segs if tuple(seg["segment_pool_id"]) == tuple(pool)]
+    return (sum(seg["allocated_size"] for seg in mine),
+            [b["size"] for seg in mine for b in seg["blocks"] if b["state"] == "active_allocated"])
+
+
+def phase_batched_episode(loop_mods, dcfg, fa, data_root, synthetic_av2):
+    """run_episodes_batched over 4 synthetic AV2 scenarios (seeds 0-3, the AV
+    asked for 8, 7, 9 and 6 m/s, so that the scenes' cost parameters
+    differ; planner on after 1 s, 150 ticks), a warm call then the timed
+    one, the launch counts set to 0 just before and read just after; each
+    scenario then held against its own run_episode."""
+    from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.sim import episode
+
+    speeds = (8.0, 7.0, 9.0, 6.0)
+    sims = [demo_sim(loop_mods, dcfg, data_root, synthetic_av2(seed).scenario, v)
+            for seed, v in enumerate(speeds)]
+    counter = RoundCounter(tplanner.aime_grow_tree)
+    tplanner.aime_grow_tree = counter
+    phases, first_call = [], []
+    net = sims[0].agents[[a.id for a in sims[0].agents].index("AV")].planner.net
+    hook = net.register_forward_pre_hook(
+        lambda m, args: first_call.append(args) if not first_call else None)
+    try:
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        episode.run_episodes_batched(sims)
+        warm_s = time.perf_counter() - t
+        t = time.perf_counter()
+        res = episode.run_episodes_batched(sims, phases=phases)
+        wall = time.perf_counter() - t
+        counts = dict(fa.fused_edge_attention.launches_by_variant)
+    finally:
+        tplanner.aime_grow_tree = counter.fn
+        hook.remove()
+    pool_bytes, pool_blocks = graph_pool_in_use()
+    planning = [p for p in phases if "solve" in p]
+    timed_rounds = sum(p["rounds"] for p in planning)
+    split = {k: float(np.mean([p[k] * 1e3 for p in planning]))
+             for k in ("obs", "aime", "cost_topology", "solve", "selection", "propagate")}
+    summary = {
+        "scenes": len(sims), "target_velocities": speeds, "wall_s": wall, "warm_wall_s": warm_s,
+        "scene_ticks_per_s": sum(len(r.ego_states) for r in res) / wall,
+        "plan_calls": [r.plan_calls for r in res], "fail_cycle": [r.fail_cycle for r in res],
+        "planning_cycle_ms_mean": float(np.mean([sum(p[k] for k in split) * 1e3
+                                                 for p in planning])),
+        "phases_ms_mean_planning_cycle": split, "rounds_timed_call": timed_rounds,
+        "rounds_both_calls": counter.rounds, "launches": counts,
+        "graph_pool_live_bytes": pool_bytes, "graph_pool_live_blocks": pool_blocks}
+    log("[batched] " + json.dumps(summary))
+    layers = dcfg.net.n_scene_layer
+    if counts["bfloat16"] != layers * counter.rounds or counts["float32"] != 0 \
+            or counter.rounds == 0 or counter.rounds != 2 * timed_rounds:
+        raise RuntimeError(f"batched episode: launches {counts} for {counter.rounds} AIME rounds")
+    if pool_bytes != 0:
+        raise RuntimeError(f"the iLQR graphs hold {pool_bytes} bytes of tensors in their pool")
+    summary["network_batch_gap"] = network_batch_gap(net, first_call[0],
+                                                     dcfg.scen_tree.max_branch_nodes)
+    log("[batched] network outputs of each scene's nodes in the batch against alone "
+        "(cls, positions m, velocities): " + json.dumps(summary["network_batch_gap"]))
+    if any(g != 0.0 for gaps in summary["network_batch_gap"] for g in gaps):
+        raise RuntimeError("a scene's network outputs in the batch differ from alone")
+    singles = {}
+    for i, (sim, r) in enumerate(zip(sims, res)):
+        if not np.isfinite(r.ego_states).all() or r.plan_calls == 0:
+            raise RuntimeError(f"batched episode: scenario {i} planned {r.plan_calls} times, "
+                               "or its ego is not finite")
+        alone = []
+        want = episode.run_episode(sim, phases=alone)
+        singles[i] = against_single(r, want, lane_trees(phases, i), lane_trees(alone, 0))
+    summary["against_run_episode"] = singles
+    log("[batched] each scenario against its run_episode: " + json.dumps(singles))
+    hold_against_singles("batched episode", singles)
+    return counts["bfloat16"], summary
+
+
+def phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn, k=16):
+    """run_episode_monte_carlo on the loop's scenario (seed 0) under the demo
+    configuration: k = 16 copies in one chunk, segments of 10 cycles, a warm
+    call then the timed one with the launch counts set to 0 just before and
+    read just after, and the peak device memory of the timed chunk; then
+    segments of 4 (equal to the bit) and two copies through run_episode on
+    their own schedules (within TOL_EPISODE_EGO)."""
+    from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.sim import episode
+
+    sim = demo_sim(loop_mods, dcfg, data_root, syn.scenario)
+    counter = RoundCounter(tplanner.aime_grow_tree)
+    tplanner.aime_grow_tree = counter
+    walls = []
+    try:
+        fa.reset_launch_counts()
+        episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        phases = []
+        res = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10, chunk_walls=walls,
+                                              phases=phases)
+        wall = time.perf_counter() - t
+        counts = dict(fa.fused_edge_attention.launches_by_variant)
+    finally:
+        tplanner.aime_grow_tree = counter.fn
+    peak = torch.cuda.max_memory_allocated()
+    failed = [i for i, r in enumerate(res) if r.fail_cycle >= 0]
+    summary = {"copies": len(res), "wall_s": wall, "chunk_walls": walls,
+               "copy_ticks_per_s": sum(len(r.ego_states) for r in res) / wall,
+               "copy_ticks_per_s_full_horizon": k * 150 / wall,
+               "failed_copies": len(failed), "fail_cycles": [res[i].fail_cycle for i in failed],
+               "plan_calls": [r.plan_calls for r in res], "peak_memory_gb": peak / 1e9,
+               "rounds_both_calls": counter.rounds, "launches": counts}
+    log("[monte_carlo] " + json.dumps(summary))
+    if len(res) != k or not all(np.isfinite(r.ego_states).all() for r in res):
+        raise RuntimeError(f"monte carlo: {len(res)} copies, or a copy's states are not finite")
+    if counts["bfloat16"] != dcfg.net.n_scene_layer * counter.rounds or counts["float32"] != 0 \
+            or counter.rounds == 0:
+        raise RuntimeError(f"monte carlo: launches {counts} for {counter.rounds} AIME rounds")
+    seg = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=4)
+    for i, (a, b) in enumerate(zip(seg, res)):
+        for f in ("ego_states", "plan_ok", "planned", "iterations", "controls"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise RuntimeError(f"monte carlo: copy {i}'s {f} differs between segments of "
+                                   "4 and of 10 cycles")
+    summary["segments_4_equal_10"] = True
+    inp = episode.build_mc_inputs(sim, k)
+    singles = {}
+    for i in (0, k - 1):
+        alone = []
+        want = episode.run_episode(sim, inputs=episode.lane_inputs(inp, i), phases=alone)
+        singles[i] = against_single(res[i], want, lane_trees(phases, i), lane_trees(alone, 0))
+    summary["against_run_episode"] = singles
+    log("[monte_carlo] segments of 4 equal to 10; copies against run_episode: "
+        + json.dumps(singles))
+    hold_against_singles("monte carlo", singles)
+    return counts["bfloat16"], summary
+
+
+def phase_tree_scale():
+    """parallel_tree_solve on make_tree_batch at the JAX package's scale-test
+    sizes (1024 branching trees of up to 24 of 32 cost nodes, 24 levels,
+    width 4, 4 exo agents; 10 iterations) on a one-device mesh, a first
+    call that captures, then the timed one; held against 4 slices of 256
+    solved alone: us within 1e-4, J within 1e-5 relative."""
+    from mind_tpu_torch.parallel.mesh import make_mesh
+    from mind_tpu_torch.parallel.scale import make_tree_batch, parallel_tree_solve
+    from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology
+    from mind_tpu_torch.ops.potential import NodeCostData
+
+    mesh = make_mesh(1)
+    topo, nodes, params, x0 = make_tree_batch(1024, 24, 32, 24, 4, 4, device=mesh.devices[0])
+    cfg = ILQRConfig(max_iterations=10)
+    parallel_tree_solve(mesh, topo, nodes, params, x0, cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    us, J = parallel_tree_solve(mesh, topo, nodes, params, x0, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    gaps = []
+    for lo in range(0, 1024, 256):
+        cut = lambda x: x[lo:lo + 256]
+        us_s, J_s = parallel_tree_solve(mesh, TreeTopology(*map(cut, topo)),
+                                        NodeCostData(*map(cut, nodes)), params, cut(x0), cfg)
+        gaps.append((float((us_s - us[lo:lo + 256]).abs().max()),
+                     float(((J_s - J[lo:lo + 256]).abs() / J[lo:lo + 256].abs()).max())))
+    summary = {"trees": 1024, "ms": ms, "finite": bool(torch.isfinite(us).all()
+                                                       and torch.isfinite(J).all()),
+               "slice_gaps_us_J_rel": gaps}
+    log("[scale] " + json.dumps(summary))
+    if not summary["finite"] or max(g[0] for g in gaps) >= 1e-4 or max(g[1] for g in gaps) >= 1e-5:
+        raise RuntimeError(f"tree scale: {summary}")
+    return summary
+
+
+
+
 def main() -> int:
+    global T0
+    T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -676,8 +1012,7 @@ def main() -> int:
     # 2. kernels vs plain at the main path's shapes and token mask
     token_mask = torch.tensor(np.concatenate([scene.present, scene.lane_mask, [True]]),
                               device=dev)
-    entries = phase_kernel_check(fa, dev, token_mask[None].expand(
-        cfg.scen_tree.max_branch_nodes, -1).contiguous())
+    entries = phase_kernel_check(fa, dev, token_mask)
 
     # 3. trained weights
     t = time.perf_counter()
@@ -750,19 +1085,27 @@ def main() -> int:
         graph = phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev)
         episode_launches, episode = phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego,
                                                   loop["plan_calls"])
+        batched_launches, batched = phase_batched_episode(loop_mods, dcfg, fa, data_root,
+                                                          synthetic_av2)
+        mc_launches, monte_carlo = phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn)
+    scale = phase_tree_scale()
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "float32_loop": loop32_launches}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
-                                      "closed_loop": loop_launches, "episode": episode_launches}
+                                      "closed_loop": loop_launches, "episode": episode_launches,
+                                      "batched_episode": batched_launches,
+                                      "monte_carlo": mc_launches}
     entries[0]["launches"] += loop32_launches
-    entries[1]["launches"] += loop_launches + episode_launches
+    entries[1]["launches"] += loop_launches + episode_launches + batched_launches + mc_launches
 
-    # 11. report
+    # 14. report
     log("[phases] " + json.dumps({"float32": cycles32, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
                                   "float32_loop": loop32, "exec_resolve": execs,
-                                  "graph_vs_eager": graph, "episode": episode}))
+                                  "graph_vs_eager": graph, "episode": episode,
+                                  "batched_episode": batched, "monte_carlo": monte_carlo,
+                                  "tree_scale": scale, "seconds": time.perf_counter() - T0}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -139,8 +139,8 @@ def point_segments_dist(points, seg_starts, seg_ends, seg_mask):
 
 
 def points_polyline_dist(points, polyline, poly_mask):
-    """Min distances from points [..., 2] to a masked padded polyline [P, 2]
-    (counterpart of jx_points_polyline_dist). Segment i is valid iff points
-    i and i+1 are both valid."""
-    seg_mask = poly_mask[:-1] & poly_mask[1:]
-    return point_segments_dist(points, polyline[:-1], polyline[1:], seg_mask)
+    """Min distances from points [..., 2] to a masked padded polyline
+    [..., P, 2] (counterpart of jx_points_polyline_dist). Segment i is valid
+    iff points i and i+1 are both valid."""
+    seg_mask = poly_mask[..., :-1] & poly_mask[..., 1:]
+    return point_segments_dist(points, polyline[..., :-1, :], polyline[..., 1:, :], seg_mask)

@@ -7,6 +7,12 @@ joining with "." (see models/weights.py). Sequence layers keep the JAX
 layout [..., T, C] at their interface and transpose to torch's [N, C, T]
 only around the convolution.
 
+A scene planned in a batch of scenes must compute what it computes alone
+(common/batch_invariant.py, tools/batch_invariance.py): dense layers,
+convolutions and a normalization's statistics run through
+`batch_invariant.per_scene`, the mode attention's small products are
+`batch_invariant.mm`.
+
 Normalizations follow flax: variance as E[x^2] - E[x]^2 clipped at 0, then
 (x - mean) * (rsqrt(var + eps) * scale) + bias.
 
@@ -24,12 +30,14 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from mind_tpu_torch.common.batch_invariant import mm, per_scene
+
 
 def _flax_norm(x, dims, weight, bias, eps):
     out_dtype = torch.promote_types(x.dtype, weight.dtype)
     x = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = x.mean(dim=dims, keepdim=True)
-    mean2 = (x * x).mean(dim=dims, keepdim=True)
+    mean = per_scene(torch.mean, x, dim=dims, keepdim=True)
+    mean2 = per_scene(torch.mean, x * x, dim=dims, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     y = (x - mean) * (torch.rsqrt(var + eps) * weight.to(x.dtype)) + bias.to(x.dtype)
     return y.to(out_dtype)
@@ -42,8 +50,8 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.weight.dtype)
         if dt == torch.bfloat16:
-            return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+            return per_scene(F.linear, x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return per_scene(F.linear, x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):
@@ -86,7 +94,7 @@ class Conv1d(nn.Module):
     def forward(self, x):
         lead = x.shape[:-2]
         h = x.reshape((-1,) + x.shape[-2:]).transpose(1, 2)   # [N, C, T]
-        h = F.conv1d(h, self.weight, stride=self.stride, padding=self.padding)
+        h = per_scene(F.conv1d, h, self.weight, stride=self.stride, padding=self.padding)
         h = h.transpose(1, 2)
         return h.reshape(lead + h.shape[-2:])
 
@@ -206,9 +214,10 @@ class SelfAttentionEncoderLayer(nn.Module):
         q = self.Dense_0(x).reshape(shp)
         k = self.Dense_1(x).reshape(shp)
         v = self.Dense_2(x).reshape(shp)
-        logits = torch.einsum("...qhd,...khd->...hqk", q, k) / (dh ** 0.5)
+        q, k, v = (t.transpose(-3, -2) for t in (q, k, v))            # [..., H, M, dh]
+        logits = mm(q, k.transpose(-1, -2)) / (dh ** 0.5)                # [..., H, M, M]
         attn = torch.softmax(logits, dim=-1)
-        sa = torch.einsum("...hqk,...khd->...qhd", attn, v).reshape(x.shape)
+        sa = mm(attn, v).transpose(-3, -2).reshape(x.shape)
         x = self.LayerNorm_0(x + self.Dense_3(sa))
         ff = self.Dense_5(torch.relu(self.Dense_4(x)))
         return self.LayerNorm_1(x + ff)

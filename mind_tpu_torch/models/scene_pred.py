@@ -41,6 +41,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from mind_tpu_torch.common.batch_invariant import per_scene
 from mind_tpu_torch.config import NetConfig
 from mind_tpu_torch.models.layers import (
     Dense,
@@ -259,10 +260,10 @@ class SceneDecoder(nn.Module):
         reg_param = param[..., :2].permute(0, 2, 1, 3, 4)    # [B, A, M, K, 2]
         cov_param = param[..., 2:].permute(0, 2, 1, 3, 4)    # [B, A, M, K, 3]
 
-        reg = torch.einsum("fk,bamkd->bamfd", self.mat_T, reg_param)
-        vel = torch.einsum("fk,bamkd->bamfd", self.mat_Tp,
-                           torch.diff(reg_param, dim=3)) / (F_ * 0.1)
-        cov = torch.einsum("fk,bamkd->bamfd", self.mat_T, cov_param)
+        curve = lambda mat, p: per_scene(lambda q: torch.einsum("fk,bamkd->bamfd", mat, q), p)
+        reg = curve(self.mat_T, reg_param)
+        vel = curve(self.mat_Tp, torch.diff(reg_param, dim=3)) / (F_ * 0.1)
+        cov = curve(self.mat_T, cov_param)
         reg_out = torch.cat([reg, torch.exp(cov)], dim=-1)   # [B, A, M, F, 5]
         return cls_prob, reg_out, vel
 

@@ -82,9 +82,9 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // one weight column per thread out of global memory. The weight column is
 // fetched 16 values at a time, so 16 loads are in flight before the first
 // FMA needs one: these kernels are short chains of L2 latencies otherwise.
-// Every block reads the same weights, so block b starts its walk over k at
-// 16 b: the blocks then ask different L2 lines at any one time instead of
-// queueing on one.
+// Every block sums over k from 0 up: the order of a token's sum must not
+// depend on the block it lands in, or a token would compute another value
+// in a batch of scenes than alone.
 // ---------------------------------------------------------------------------
 template <typename WT>
 __device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restrict__ w,
@@ -92,8 +92,7 @@ __device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restr
 #pragma unroll
   for (int r = 0; r < TOK; ++r) acc[r] = 0.f;
 #pragma unroll 1
-  for (int ks = 0; ks < D; ks += 16) {
-    const int k0 = (ks + 16 * blockIdx.x) & (D - 1);
+  for (int k0 = 0; k0 < D; k0 += 16) {
     float wr[16];
 #pragma unroll
     for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(w[(k0 + kk) * D + col]);
@@ -157,7 +156,9 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
     const int c = tid;
 #pragma unroll 2
     for (int hs = 0; hs < NH; ++hs) {
-      const int h = (hs + blockIdx.x) & (NH - 1);   // staggered like token_mm
+      // staggered over the blocks: each head's sum is its own, so the order
+      // of the heads changes no value
+      const int h = (hs + blockIdx.x) & (NH - 1);
       // row c of Wk, head h: 16 contiguous float32 values, as four 16-byte loads
       float wr[DH];
 #pragma unroll
@@ -209,8 +210,7 @@ out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
 #pragma unroll
     for (int r = 0; r < TOK; ++r) acc[r] = 0.f;
 #pragma unroll 1
-    for (int ks = 0; ks < D; ks += 16) {
-      const int k0 = (ks + 16 * blockIdx.x) & (D - 1);   // staggered like token_mm
+    for (int k0 = 0; k0 < D; k0 += 16) {   // from 0 up, as in token_mm
       float wr[16];
 #pragma unroll
       for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(wv[(k0 + kk) * D + col]);

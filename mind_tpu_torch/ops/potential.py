@@ -10,6 +10,14 @@ with the same integer grid, smoothing and polynomials.
 Kept from the JAX package as they are: the uniform boundary rule
 local[r, c] = field[y + r - 1, x + c - 1], zero outside the grid, and the
 convex out-of-grid pull-back (see potential_field_eval).
+
+CostParams may be shared by every tree or carry a leading tree axis on any
+of its tensor leaves (the JAX package vmaps them with `cp_axes`): a leaf of
+shape lead + base, where `base` is the field's own shape (PARAM_RANK) and
+`lead` broadcasts against the cost nodes' leading axes ([G, 1] against
+[G, MN]; `node_aligned` makes it so). Every use below inserts the singleton
+axes of the values it meets between the two, so a shared leaf and a
+per-tree leaf go through the same arithmetic.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ class NodeCostData(NamedTuple):
 
 
 class CostParams(NamedTuple):
-    """Shared (per-phase) cost parameters."""
+    """Per-phase cost parameters, shared or per tree (module docstring)."""
 
     field_offset: torch.Tensor   # [2] grid origin (x0-centered)
     res: torch.Tensor            # [] grid resolution
@@ -55,24 +63,59 @@ class CostParams(NamedTuple):
     w_ctrl: torch.Tensor         # [2]
 
 
+# the rank of each tensor field without a tree axis
+PARAM_RANK = dict(field_offset=1, res=0, tgt_seg_start=2, tgt_seg_end=2, tgt_seg_mask=1,
+                  w_tgt=0, w_ego=0, w_ego_cov_offset=0, w_exo=0, w_exo_cov_offset=0,
+                  w_exo_cost_offset=0, w_des_state=1, des_state=1, w_state_con=1,
+                  state_lb=1, state_ub=1, w_ctrl=1)
+
+
+def tree_axis_fields(p: CostParams):
+    """The fields whose leaves carry a leading tree (or scene) axis."""
+    return [f for f, r in PARAM_RANK.items() if getattr(p, f).dim() > r]
+
+
+def select_trees(p: CostParams, idx) -> CostParams:
+    """The per-tree leaves taken at `idx` along their tree axis; shared
+    leaves stay as they are."""
+    return p._replace(**{f: getattr(p, f).index_select(0, idx) for f in tree_axis_fields(p)})
+
+
+def node_aligned(p: CostParams, node_lead: int) -> CostParams:
+    """A tree axis [G, ...] viewed as [G, 1, ...] (node_lead - 1 ones), so
+    that it broadcasts against cost nodes with `node_lead` leading axes."""
+    ones = (1,) * (node_lead - 1)
+    return p._replace(**{f: (lambda t: t.reshape(t.shape[:1] + ones + t.shape[1:]))(
+        getattr(p, f)) for f in tree_axis_fields(p)})
+
+
+def _at(p: CostParams, field: str, extra: int):
+    """A leaf with `extra` singleton axes between its lead and its own axes,
+    to meet values that have `extra` more axes than the cost nodes."""
+    t = getattr(p, field)
+    k = t.dim() - PARAM_RANK[field]
+    return t.reshape(t.shape[:k] + (1,) * extra + t.shape[k:])
+
+
 def _cell_value(cell_xy, node: NodeCostData, p: CostParams):
     """Raw cost-field value at grid-cell centers cell_xy [..., 3, 3, 2]
     (trajectory_tree.py:80-106); node fields have the leading axes [...]."""
-    d_tgt = point_segments_dist(cell_xy, p.tgt_seg_start, p.tgt_seg_end, p.tgt_seg_mask)
+    d_tgt = point_segments_dist(cell_xy, _at(p, "tgt_seg_start", 2), _at(p, "tgt_seg_end", 2),
+                                _at(p, "tgt_seg_mask", 2))
     e = lambda t: t[..., None, None]   # node scalar -> patch
-    val = p.w_tgt * e(node.prob) * d_tgt ** 2
+    val = _at(p, "w_tgt", 2) * e(node.prob) * d_tgt ** 2
 
     ego_d = torch.linalg.vector_norm(cell_xy - node.ego_mean[..., None, None, :], dim=-1)
-    ego_field = torch.clamp(ego_d - (e(node.ego_cov) + p.w_ego_cov_offset), min=0.0)
-    val = val + p.w_ego * ego_field
+    ego_field = torch.clamp(ego_d - (e(node.ego_cov) + _at(p, "w_ego_cov_offset", 2)), min=0.0)
+    val = val + _at(p, "w_ego", 2) * ego_field
 
     exo_d = torch.linalg.vector_norm(
         cell_xy[..., None, :] - node.exo_mean[..., None, None, :, :], dim=-1)  # [..., 3, 3, X]
-    exo_f = torch.clamp((node.exo_cov[..., None, None, :] + p.w_exo_cov_offset) - exo_d,
-                        min=0.0)
-    exo_f = torch.where(exo_f > 0, exo_f + p.w_exo_cost_offset, torch.zeros_like(exo_f))
+    exo_f = torch.clamp((node.exo_cov[..., None, None, :] + _at(p, "w_exo_cov_offset", 3))
+                        - exo_d, min=0.0)
+    exo_f = torch.where(exo_f > 0, exo_f + _at(p, "w_exo_cost_offset", 3), torch.zeros_like(exo_f))
     exo_f = torch.where(node.exo_mask[..., None, None, :], exo_f, torch.zeros_like(exo_f))
-    return val + p.w_exo * exo_f.sum(-1)
+    return val + _at(p, "w_exo", 2) * exo_f.sum(-1)
 
 
 def _smooth_3x3(g):
@@ -92,8 +135,10 @@ def _smooth_3x3(g):
 
 
 def _quad(a, grid, b):
-    """a @ grid @ b for [..., 3] row/column weights and [..., 3, 3] grids."""
-    return ((a[..., None, :] @ grid) @ b[..., :, None])[..., 0, 0]
+    """a @ grid @ b for [..., 3] row/column weights and [..., 3, 3] grids,
+    as one sum over the nine products: a batched matrix product would sum in
+    an order that depends on the number of nodes (common/batch_invariant.py)."""
+    return (a[..., :, None] * grid * b[..., None, :]).flatten(-2).sum(-1)
 
 
 def potential_field_eval(pos, node: NodeCostData, p: CostParams):
@@ -107,15 +152,17 @@ def potential_field_eval(pos, node: NodeCostData, p: CostParams):
     [0, 1], and a far-out rollout would win the line search. In-grid
     queries follow the reference formula."""
     lo = p.field_offset
-    hi = p.field_offset + p.res * (p.grid_n - 1)
+    res = p.res                    # [lead] against values [...]
+    res1 = _at(p, "res", 1)        # against [..., 2]
+    hi = p.field_offset + res1 * (p.grid_n - 1)
     pos_c = torch.maximum(torch.minimum(pos, hi), lo)
     delta = pos - pos_c  # zero inside the domain
     pos = pos_c
     dt, dev = pos.dtype, pos.device
 
     # integer cell of the query, clamped (potential.py:104-110)
-    fx = (pos[..., 0] - p.field_offset[0]) / p.res
-    fy = (pos[..., 1] - p.field_offset[1]) / p.res
+    fx = (pos[..., 0] - lo[..., 0]) / res
+    fy = (pos[..., 1] - lo[..., 1]) / res
     x_idx = torch.clamp(torch.round(fx).long(), 0, p.grid_n - 1)
     y_idx = torch.clamp(torch.round(fy).long(), 0, p.grid_n - 1)
 
@@ -125,15 +172,15 @@ def potential_field_eval(pos, node: NodeCostData, p: CostParams):
     iy = y_idx[..., None, None] + offs[:, None]     # [..., 3, 1] -> rows
     ix, iy = torch.broadcast_tensors(ix, iy)
     inside = (ix >= 0) & (ix < p.grid_n) & (iy >= 0) & (iy < p.grid_n)
-    cell_xy = p.field_offset + p.res * torch.stack([ix.to(dt), iy.to(dt)], -1)
+    cell_xy = _at(p, "field_offset", 2) + _at(p, "res", 3) * torch.stack([ix.to(dt), iy.to(dt)], -1)
     local = torch.where(inside, _cell_value(cell_xy, node, p),
                         torch.zeros((), dtype=dt, device=dev))
     grid = _smooth_3x3(local)
 
     # fractional offsets (potential.py:161-167)
-    grid_ori = p.field_offset + p.res * torch.stack([x_idx.to(dt), y_idx.to(dt)], -1)
-    u = (pos[..., 0] - grid_ori[..., 0]) / p.res + 0.5
-    v = (pos[..., 1] - grid_ori[..., 1]) / p.res + 0.5
+    grid_ori = lo + res1 * torch.stack([x_idx.to(dt), y_idx.to(dt)], -1)
+    u = (pos[..., 0] - grid_ori[..., 0]) / res + 0.5
+    v = (pos[..., 1] - grid_ori[..., 1]) / res + 0.5
 
     def basis(t):
         return torch.stack([(1 - t) ** 2, 2 * (1 - t) * t, t ** 2], -1)
@@ -148,11 +195,11 @@ def potential_field_eval(pos, node: NodeCostData, p: CostParams):
 
     # grid[row = v index, col = u index] per the reference's indexing
     val = _quad(bv, grid, bu)
-    gx = _quad(bv, grid, dbu) / p.res
-    gy = _quad(dbv, grid, bu) / p.res
-    hxx = _quad(bv, grid, ddbasis) / p.res ** 2
-    hyy = _quad(ddbasis, grid, bu) / p.res ** 2
-    hxy = _quad(dbv, grid, dbu) / p.res ** 2
+    gx = _quad(bv, grid, dbu) / res
+    gy = _quad(dbv, grid, bu) / res
+    hxx = _quad(bv, grid, ddbasis) / res ** 2
+    hyy = _quad(ddbasis, grid, bu) / res ** 2
+    hxy = _quad(dbv, grid, dbu) / res ** 2
     grad = torch.stack([gx, gy], -1)
     hess = torch.stack([torch.stack([hxx, hxy], -1), torch.stack([hxy, hyy], -1)], -2)
 

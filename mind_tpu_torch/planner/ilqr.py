@@ -18,7 +18,9 @@ runs eagerly, one host read per iteration.
   expansion of ops/potential.py at (x_new, u) per node;
 - backward pass: reverse level loop with the children's value sums added
   into their parents (the contingency sum of solver.py:349-350) through a
-  one-hot product, so the sum order is fixed (no atomics);
+  one-hot product, so the sum order is fixed (no atomics); its small matrix
+  products are summed in an order that does not depend on the number of
+  trees (`_mm`), so a tree solves the same alone or in a batch;
 - line search: all alphas rolled out in parallel, first improving alpha
   taken (the reference's first-accept backtrack);
 - Levenberg-Marquardt schedule per tree; a non-PD Quu is a rejected step.
@@ -31,8 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+# a tree's result must not depend on how many trees share its solve
+from mind_tpu_torch.common.batch_invariant import mm as _mm, mv as _mv
 from mind_tpu_torch.common.kinematics import ext_bicycle_jacobians, ext_bicycle_step
-from mind_tpu_torch.ops.potential import CostParams, NodeCostData, cost_node_eval
+from mind_tpu_torch.ops.potential import (CostParams, NodeCostData, cost_node_eval, node_aligned,
+                                          tree_axis_fields)
 
 
 class TreeTopology(NamedTuple):
@@ -105,7 +110,7 @@ def _rollout_policy(topo: TreeTopology, x0, xs_nom, us_nom, k, K, alpha, dt, wb,
         safe_par = torch.clamp(par, min=0)
         x_prev_new = torch.where(has_par, _rows(xs, safe_par), x0[:, None])
         x_prev_nom = torch.where(has_par, _rows(xs_nom, safe_par), x0[:, None])
-        du = (_rows(K, safe) @ (x_prev_new - x_prev_nom)[..., None])[..., 0]
+        du = _mv(_rows(K, safe), x_prev_new - x_prev_nom)
         u_new = _rows(us_nom, safe) + alpha[:, None, None] * _rows(k, safe) + du
         x_new = ext_bicycle_step(x_prev_new, u_new, dt, wb)
         write = torch.where(valid, safe, torch.full_like(ids, MN))
@@ -161,12 +166,13 @@ def _backward(topo: TreeTopology, derivs, mu, n_levels):
         v_x, v_xx = _rows(V_x, safe), _rows(V_xx, safe)
         f_xT, f_uT = f_x.transpose(-1, -2), f_u.transpose(-1, -2)
 
-        Q_x = _rows(L_x, safe) + (f_xT @ v_x[..., None])[..., 0]
-        Q_u = _rows(L_u, safe) + (f_uT @ v_x[..., None])[..., 0]
-        Q_xx = _rows(L_xx, safe) + f_xT @ v_xx @ f_x
+        Q_x = _rows(L_x, safe) + _mv(f_xT, v_x)
+        Q_u = _rows(L_u, safe) + _mv(f_uT, v_x)
+        Q_xx = _rows(L_xx, safe) + _mm(_mm(f_xT, v_xx), f_x)
         V_reg = v_xx + mu * eye
-        Q_ux = f_uT @ V_reg @ f_x
-        Q_uu = _rows(L_uu, safe) + f_uT @ V_reg @ f_u
+        f_uT_V = _mm(f_uT, V_reg)
+        Q_ux = _mm(f_uT_V, f_x)
+        Q_uu = _rows(L_uu, safe) + _mm(f_uT_V, f_u)
 
         # PD check for 2x2 Quu: leading minor > 0 and det > 0
         a, b = Q_uu[..., 0, 0], Q_uu[..., 0, 1]
@@ -179,16 +185,16 @@ def _backward(topo: TreeTopology, derivs, mu, n_levels):
         inv_det = 1.0 / torch.where(det != 0, det, torch.ones_like(det))
         Quu_inv = torch.stack([torch.stack([d, -b], -1),
                                torch.stack([-c, a], -1)], -2) * inv_det[..., None, None]
-        k_n = -(Quu_inv @ Q_u[..., None])[..., 0]
-        K_n = -(Quu_inv @ Q_ux)
+        k_n = -_mv(Quu_inv, Q_u)
+        K_n = -_mm(Quu_inv, Q_ux)
 
         Kt = K_n.transpose(-1, -2)
         Q_uxT = Q_ux.transpose(-1, -2)
         v_x_new = (Q_x
-                   + (Kt @ (Q_uu @ k_n[..., None]))[..., 0]
-                   + (Kt @ Q_u[..., None])[..., 0]
-                   + (Q_uxT @ k_n[..., None])[..., 0])
-        v_xx_new = Q_xx + Kt @ Q_uu @ K_n + Kt @ Q_ux + Q_uxT @ K_n
+                   + _mv(Kt, _mv(Q_uu, k_n))
+                   + _mv(Kt, Q_u)
+                   + _mv(Q_uxT, k_n))
+        v_xx_new = Q_xx + _mm(_mm(Kt, Q_uu), K_n) + _mm(Kt, Q_ux) + _mm(Q_uxT, K_n)
         v_xx_new = 0.5 * (v_xx_new + v_xx_new.transpose(-1, -2))
 
         write_kK = torch.where(valid, safe, torch.full_like(ids, MN))
@@ -201,15 +207,16 @@ def _backward(topo: TreeTopology, derivs, mu, n_levels):
         write = torch.where(par >= 0, par, torch.full_like(par, MN))
         onehot = (write[..., None] == slots).to(dt_) * valid[..., None].to(dt_)  # [G, W, MN+1]
         oh_t = onehot.transpose(1, 2)                                            # [G, MN+1, W]
-        V_x = V_x + oh_t @ v_x_new
-        V_xx = V_xx + (oh_t @ v_xx_new.reshape(G, -1, n_x * n_x)).reshape(V_xx.shape)
+        V_x = V_x + _mm(oh_t, v_x_new)
+        V_xx = V_xx + _mm(oh_t, v_xx_new.reshape(G, -1, n_x * n_x)).reshape(V_xx.shape)
     return k[:, :MN], K[:, :MN], pd_ok
 
 
 class _Inputs(NamedTuple):
     """What one solve's iterations read: the trees, their start, cost data
-    and parameters, the active mask, and the same expanded to the G * NA
-    line-search rollouts (built once per solve, outside the iteration)."""
+    and parameters (per-tree leaves aligned to the nodes), the active mask,
+    and the same expanded to the G * NA line-search rollouts (built once per
+    solve, outside the iteration)."""
 
     topo: TreeTopology
     x0: torch.Tensor         # [G, 6]
@@ -219,6 +226,7 @@ class _Inputs(NamedTuple):
     topo_r: TreeTopology     # [G * NA, ...]
     x0_r: torch.Tensor       # [G * NA, 6]
     nodes_r: NodeCostData
+    params_r: CostParams     # per-tree leaves [G * NA, 1, ...]
     alpha_r: torch.Tensor    # [G * NA]
 
 
@@ -271,7 +279,7 @@ def _iterate(inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int) -> _State
     rep = lambda t: t.repeat_interleave(NA, dim=0)     # [G, ...] -> [G*NA, ...]
     xs_c, us_c = _rollout_policy(inp.topo_r, inp.x0_r, rep(st.xs), rep(st.us), rep(k), rep(K),
                                  inp.alpha_r, dt, wb, n_levels)
-    J_c = _tree_cost(inp.topo_r, xs_c, us_c, inp.nodes_r, inp.params).view(G, NA)
+    J_c = _tree_cost(inp.topo_r, xs_c, us_c, inp.nodes_r, inp.params_r).view(G, NA)
     J_opt = st.J_opt
     improved = (J_c < J_opt[:, None]) & pd_ok[:, None]
     any_improved = improved.any(-1)
@@ -345,23 +353,25 @@ class _GraphedIteration:
     """`_iterate` captured as one CUDA graph, on static input and state
     tensors that are allocated outside the graph's memory pool; the body
     copies the new state into the static state, so the graph keeps no
-    tensor of its own alive and graphs can share one pool."""
+    tensor of its own alive and graphs can share one pool. The warm-up and
+    the capture run on the cache's side stream, whose cuBLAS workspace the
+    warm-up allocates outside the pool: a capture on a stream without one
+    would allocate it inside and keep it there."""
 
-    def __init__(self, inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int, pool):
+    def __init__(self, inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int, pool, side):
         empty = lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device)
         self.inp = _unflatten(inp, iter([empty(t) for t in _flatten(inp)]))
         self.state = _State(*(empty(t) for t in st))
         self.cfg, self.n_levels = cfg, n_levels
         self.load(inp, st)
-        # warm up on a side stream (cuBLAS handles, allocator) before capture
-        side = torch.cuda.Stream(device=st.xs.device)
+        # warm up on the side stream (cuBLAS handle and workspace, allocator)
         side.wait_stream(torch.cuda.current_stream(st.xs.device))
         with torch.cuda.stream(side):
             for _ in range(2):
                 self._body()
         torch.cuda.current_stream(st.xs.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
+        with torch.cuda.graph(self.graph, pool=pool, stream=side):
             self._body()
 
     def _body(self):
@@ -386,19 +396,23 @@ class _GraphedIteration:
 class _GraphCache:
     """One captured iteration per (device, solver settings, levels in use,
     input shapes and dtypes), all in one memory pool: graphs run one at a
-    time on the caller's stream, and none keeps a tensor in the pool."""
+    time on the caller's stream, and none keeps a tensor in the pool. One
+    side stream per device serves every warm-up and capture."""
 
     def __init__(self):
         self.graphs = {}
         self.pool = None
+        self.streams = {}
 
     def get(self, inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int):
-        key = (st.xs.device, cfg, n_levels, _signature(inp), _signature(st))
+        dev = st.xs.device
+        key = (dev, cfg, n_levels, _signature(inp), _signature(st))
         g = self.graphs.get(key)
         if g is None:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            g = self.graphs[key] = _GraphedIteration(inp, st, cfg, n_levels, self.pool)
+            side = self.streams.setdefault(dev, torch.cuda.Stream(device=dev))
+            g = self.graphs[key] = _GraphedIteration(inp, st, cfg, n_levels, self.pool, side)
         return g
 
 
@@ -409,7 +423,8 @@ def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
                params: CostParams, cfg: ILQRConfig = ILQRConfig(), active=None,
                graphed=None):
     """Fit the tree iLQR on a batch of G trees. topo fields [G, ...], x0
-    [6] or [G, 6], us_init [G, MN, 2], nodes fields [G, MN, ...]; `active`
+    [6] or [G, 6], us_init [G, MN, 2], nodes fields [G, MN, ...]; `params`
+    shared, or with per-tree leaves [G, ...] (ops/potential.py); `active`
     [G] bool leaves trees out whose result is not needed (they keep their
     start). Returns (xs [G, MN, 6], us [G, MN, 2], info dict of [G]).
 
@@ -435,9 +450,17 @@ def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
     alphas = torch.tensor(1.1 ** (-np.arange(NA, dtype=np.float64) ** 2),
                           dtype=dt_, device=dev)
     rep = lambda t: t.repeat_interleave(NA, dim=0)     # [G, ...] -> [G*NA, ...]
+    per_tree = tree_axis_fields(params)
+    for f in per_tree:
+        if getattr(params, f).shape[0] != G:
+            raise ValueError(f"cost parameter {f} has {getattr(params, f).shape[0]} trees, "
+                             f"the batch {G}")
+    params_r = node_aligned(params._replace(**{f: rep(getattr(params, f)) for f in per_tree}), 2)
+    params = node_aligned(params, 2)
     inp = _Inputs(topo=topo, x0=x0, nodes=nodes, params=params, active=active,
                   topo_r=TreeTopology(*(rep(t) for t in topo)), x0_r=rep(x0),
-                  nodes_r=NodeCostData(*(rep(t) for t in nodes)), alpha_r=alphas.repeat(G))
+                  nodes_r=NodeCostData(*(rep(t) for t in nodes)), params_r=params_r,
+                  alpha_r=alphas.repeat(G))
 
     xs = _rollout(topo, x0, us_init, dt, wb, n_levels)
     derivs = _derivatives(xs, us_init, nodes, params, topo.node_mask, dt, wb)

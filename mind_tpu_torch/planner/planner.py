@@ -34,10 +34,12 @@ from mind_tpu_torch.data.semantic_map import (
     lane_graph_features,
 )
 from mind_tpu_torch.models.weights import load_scene_pred
+from mind_tpu_torch.ops.potential import select_trees
 from mind_tpu_torch.planner.aime_device import (
     DeviceObsBuffer,
     aime_grow_tree,
     obs_buffer_update,
+    scene_axis,
 )
 from mind_tpu_torch.planner.cost_topology import DeviceCostTrees, device_cost_topology
 from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology
@@ -102,13 +104,15 @@ def resolve_exec_dtype(tt, solve_dtype: str) -> str:
 
 
 def exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us_best,
-                      warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt):
-    """Re-solve the SELECTED tree at `tt.exec_solve_dtype` and return its
-    first control (float32 [2]). Selection ran on the faster solves of all
-    trees; only the winner, whose first control the vehicle executes, pays
-    for the higher precision. `best` is a 0-d index tensor; the winner runs
-    through the batched solver as a batch of one, so its iteration path
-    (alpha grid, first-accept rule, LM schedule) is the solver's own.
+                      warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt, scene):
+    """Re-solve each scene's SELECTED tree at `tt.exec_solve_dtype` and
+    return its first control (float32 [S, 2]). Selection ran on the faster
+    solves of all trees; only the winners, whose first controls the
+    vehicles execute, pay for the higher precision. In the flat layout of
+    solve_and_select, `best` [S] holds each scene's winner, us_best
+    [S, MN, 2], x0 [S, 6] and the parameters are the scenes'; the S winners
+    run through the batched solver as one batch, so each one's iteration
+    path (alpha grid, first-accept rule, LM schedule) is the solver's own.
 
     Two strategies (TrajTreeConfig.exec_resolve_mode):
     - 'polish': one full-phase solve started from the winner's converged
@@ -117,14 +121,14 @@ def exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us_best,
       the iteration path of a solve that ran at the exec dtype from the
       start."""
     dts = resolve_exec_dtype(tt, ilqr_cfg.dtype)
-    one = best.reshape(1)
-    topo_best = TreeTopology(*(x.index_select(0, one) for x in dct.topo))
-    nodes_e = gather_cost_nodes(slots, norm_prob, dct.cost_slot.index_select(0, one),
-                                dct.cost_step.index_select(0, one),
-                                topo_best.node_mask, amask, dtype=torch_dtype(dts))
+    idx = best.reshape(-1)
+    topo_best = TreeTopology(*(x.index_select(0, idx) for x in dct.topo))
+    nodes_e = gather_cost_nodes(slots, norm_prob, dct.cost_slot.index_select(0, idx),
+                                dct.cost_step.index_select(0, idx), topo_best.node_mask, amask,
+                                scene.index_select(0, idx), dtype=torch_dtype(dts))
     if tt.exec_resolve_mode == "polish":
         xs_e, _, _ = polish_solve(
-            topo_best, x0, us_best[None], nodes_e, full_params,
+            topo_best, x0, us_best.reshape((-1,) + us_best.shape[-2:]), nodes_e, full_params,
             ilqr_cfg._replace(dtype=dts, max_iterations=tt.exec_polish_iterations))
     elif tt.exec_resolve_mode == "scratch":
         xs_e, _, _ = two_phase_solve(
@@ -132,56 +136,131 @@ def exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us_best,
             ilqr_cfg._replace(dtype=dts), warm_ilqr_cfg._replace(dtype=dts))
     else:
         raise ValueError(f"unknown exec_resolve_mode {tt.exec_resolve_mode!r}")
-    return xs_e[0, 0, 4:6].to(torch.float32)
+    return xs_e[:, 0, 4:6].to(torch.float32)
 
 
 def solve_and_select(slots, norm_prob, amask, dct: DeviceCostTrees, x0, warm_params,
-                     full_params, target_vel, eval_segs, *, cfg, ilqr_cfg,
+                     full_params, target_vel, eval_segs, scene, *, cfg, ilqr_cfg,
                      warm_ilqr_cfg, weights, clock=None):
-    """Two-phase solve of every tree, selection cost, argmin and the
-    executed control (with the exec re-solve of the winner where the
-    configuration asks for one). Returns (xs, us, info, cost_b, best,
-    ctrl float32 [2]); `best` stays on the device. `clock` (a _PhaseClock)
-    takes the laps "solve", "selection" and "exec_resolve"."""
+    """Two-phase solve of the trees of S scenes as one batch, selection
+    cost, each scene's argmin and executed control (with the exec re-solve
+    of the winners where the configuration asks for one). `scene` [S * T]
+    names each tree's scene, scene-major, as device_cost_topology lays out
+    S scenes' trees; slots, norm_prob, amask, x0 [S, 6] and eval_segs carry
+    the scene axis, target_vel is [S] or a float the scenes share, and the
+    CostParams leaves may carry it (per-scene targets, weights, grid
+    origins); every tree takes its scene's. Returns (xs, us, info, cost_b,
+    best [S], ctrl float32 [S, 2]); `best` holds each scene's winner as an
+    index into the flat batch and stays on the device. `clock` (a
+    _PhaseClock) takes the laps "solve", "selection" and "exec_resolve"."""
     tt = cfg.traj_tree
     clock = clock or _PhaseClock(None, None)
     topo = dct.topo
+    S = x0.shape[0]
+    x0_t = x0.index_select(0, scene)
+    wp_t, fp_t = select_trees(warm_params, scene), select_trees(full_params, scene)
+    tv_t = (target_vel.index_select(0, scene) if isinstance(target_vel, torch.Tensor)
+            else target_vel)
+    segs_t = tuple(x.index_select(0, scene) for x in eval_segs)
     nodes = gather_cost_nodes(slots, norm_prob, dct.cost_slot, dct.cost_step,
-                              topo.node_mask, amask, dtype=torch_dtype(ilqr_cfg.dtype))
-    xs, us, info = two_phase_solve(topo, x0, nodes, warm_params, full_params,
+                              topo.node_mask, amask, scene, dtype=torch_dtype(ilqr_cfg.dtype))
+    xs, us, info = two_phase_solve(topo, x0_t, nodes, wp_t, fp_t,
                                    ilqr_cfg, warm_ilqr_cfg, active=dct.tree_mask)
     clock.lap("solve")
-    cost_b = evaluate_traj_tree(xs, us, topo.node_mask, topo.node_mask.sum(-1), x0,
-                                *eval_segs, target_vel, weights)
+    cost_b = evaluate_traj_tree(xs, us, topo.node_mask, topo.node_mask.sum(-1), x0_t,
+                                *segs_t, tv_t, weights)
     cost_b = torch.where(dct.tree_mask, cost_b, torch.full_like(cost_b, float("inf")))
-    best = torch.argmin(cost_b)
+    T = cost_b.shape[0] // S
+    best = torch.argmin(cost_b.view(S, T), dim=-1) + T * torch.arange(S, device=cost_b.device)
     # control = first cost node's [accel, steer] (reference planner.py:141-144)
     ctrl = xs[best, 0, 4:6].to(torch.float32)
     clock.lap("selection")
     # the native re-solve runs on the host after the plan's read (MINDPlanner)
     if tt.exec_resolve_mode != "native" and resolve_exec_dtype(tt, ilqr_cfg.dtype) != ilqr_cfg.dtype:
         ctrl = exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us[best],
-                                 warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt)
+                                 warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt, scene)
         clock.lap("exec_resolve")
     return xs, us, info, cost_b, best, ctrl
 
 
-def _masked_max(values, mask):
-    return torch.where(mask, values, torch.zeros_like(values)).max()
+def _masked_max(values, mask, scenes: int):
+    """The largest of `values` where `mask` holds, per scene [S] of S
+    scenes' scene-major trees (0 where it holds nowhere)."""
+    return torch.where(mask, values, torch.zeros_like(values)).view(scenes, -1).amax(-1)
+
+
+def _plan_cycle(net, bufs, types, amasks, x0s, warm_params, full_params, target_vels,
+                lane_statics, tgt_statics, eval_segs, *, cfg, ilqr_cfg, warm_ilqr_cfg,
+                weights, clock):
+    """The plan cycle of S scenes (the arguments of batched_plan_core).
+    Returns (out [S, 4], state, meta, dct, info, cost_b, best [S], rounds)."""
+    tt = cfg.traj_tree
+    S = amasks.shape[0]
+    state, meta, rounds = aime_grow_tree(net, cfg, bufs, types, amasks, lane_statics, tgt_statics)
+    clock.lap("aime")
+    dct = device_cost_topology(
+        state.parent, state.depth, state.duration, state.start_t,
+        state.end_flag, meta.tree_id, MAX_TREES, tt.max_cost_nodes,
+        tt.max_depth_levels, tt.max_width_hint)
+    clock.lap("cost_topology")
+    scene = torch.arange(S, device=amasks.device).repeat_interleave(MAX_TREES)
+    _, _, info, cost_b, best, ctrl = solve_and_select(
+        state.slots, meta.norm_prob, amasks, dct, x0s, warm_params, full_params,
+        target_vels, eval_segs, scene, cfg=cfg, ilqr_cfg=ilqr_cfg,
+        warm_ilqr_cfg=warm_ilqr_cfg, weights=weights, clock=clock)
+    ok = (dct.n_trees > 0).to(torch.float32)
+    its = _masked_max(info["iterations"], dct.tree_mask, S)
+    out = torch.cat([ctrl, ok[:, None], its.to(torch.float32)[:, None]], dim=-1)
+    return out, state, meta, dct, info, cost_b, best, rounds
+
+
+def batched_plan_core(net, bufs, types, amasks, x0s, warm_params, full_params, target_vels,
+                      lane_statics, tgt_statics, eval_segs, *, cfg, ilqr_cfg, warm_ilqr_cfg,
+                      weights, report=None):
+    """The plan cycle of S scenes at once (the port's counterpart of the JAX
+    package's `jax.vmap(fused_plan_core)`): every argument of
+    fused_plan_core with a leading scene axis S (bufs, types, amasks, x0s
+    [S, 6], target_vels [S], the lane, target-lane and evaluation statics),
+    and CostParams whose leaves are shared or [S, ...] (a Monte-Carlo sweep
+    shares all but field_offset; a batch of scenarios has every leaf per
+    scene). AIME runs the network once per round over all scenes' nodes,
+    the S * MAX_TREES trees are one solve, and each scene takes the argmin
+    over its own trees (inf on masked ones), with the polish/scratch exec
+    re-solve of the S winners as one batch where the configuration asks for
+    one (none with 'native'). The host reads one flag per AIME round and
+    one per solve iteration for all scenes together.
+
+    Returns float32 [S, 4]: ctrl(2), ok, max iterations. `report` as in
+    fused_plan_core, with per-scene lists for "best", "iterations" and
+    "warm_iterations"."""
+    clock = _PhaseClock(amasks.device, report)
+    out, _, _, dct, info, cost_b, best, rounds = _plan_cycle(
+        net, bufs, types, amasks, x0s, warm_params, full_params, target_vels, lane_statics,
+        tgt_statics, eval_segs, cfg=cfg, ilqr_cfg=ilqr_cfg, warm_ilqr_cfg=warm_ilqr_cfg,
+        weights=weights, clock=clock)
+    if report is not None:
+        S = len(best)
+        report.update(rounds=rounds, trees=dct, tree_cost=cost_b,
+                      best=(best - MAX_TREES * torch.arange(S, device=best.device)).tolist(),
+                      iterations=_masked_max(info["iterations"], dct.tree_mask, S).tolist(),
+                      warm_iterations=_masked_max(info["warm_iterations"], dct.tree_mask,
+                                                  S).tolist())
+    return out
 
 
 def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
                     target_vel, lane_static, tgt_static, eval_segs, *,
                     cfg, ilqr_cfg, warm_ilqr_cfg, weights,
                     return_exec_payload=False, report=None):
-    """The whole plan cycle: AIME + cost topology + two-phase solve +
-    selection (+ the polish/scratch exec re-solve where configured). `net`
-    is the batched ScenePredNet (it takes the place of the JAX version's
-    params and batched_apply). Returns a float32 tensor
-    [ctrl(2), ok, max_iterations]; with `return_exec_payload`, the float64
-    vector of `native.pack_exec_payload` instead: those 4 numbers, then the
-    winner tree's parent row, node mask and float64 cost-node data, for the
-    native re-solve on the host (one read for both).
+    """The whole plan cycle of one scene: AIME + cost topology + two-phase
+    solve + selection (+ the polish/scratch exec re-solve where configured),
+    the S = 1 case of batched_plan_core. `net` is the batched ScenePredNet
+    (it takes the place of the JAX version's params and batched_apply).
+    Returns a float32 tensor [ctrl(2), ok, max_iterations]; with
+    `return_exec_payload`, the float64 vector of `native.pack_exec_payload`
+    instead: those 4 numbers, then the winner tree's parent row, node mask
+    and float64 cost-node data, for the native re-solve on the host (one
+    read for both).
 
     With `report` (a dict), the cycle also records the wall time of each
     phase in seconds under "aime", "cost_topology", "solve", "selection"
@@ -190,35 +269,25 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
     DeviceCostTrees), the per-tree selection costs ("tree_cost"), the
     selected tree ("best") and the largest iteration count over the active
     trees of the warm and the full solve ("warm_iterations", "iterations")."""
-    tt = cfg.traj_tree
     clock = _PhaseClock(buf.pos.device, report)
-
-    state, meta, rounds = aime_grow_tree(net, cfg, buf, types, amask, lane_static, tgt_static)
-    clock.lap("aime")
-    dct = device_cost_topology(
-        state.parent, state.depth, state.duration, state.start_t,
-        state.end_flag, meta.tree_id, MAX_TREES, tt.max_cost_nodes,
-        tt.max_depth_levels, tt.max_width_hint)
-    clock.lap("cost_topology")
-    _, _, info, cost_b, best, ctrl = solve_and_select(
-        state.slots, meta.norm_prob, amask, dct, x0, warm_params, full_params,
-        target_vel, eval_segs, cfg=cfg, ilqr_cfg=ilqr_cfg,
+    bufs, types_s, amasks, lane_s, tgt_s = scene_axis(buf, types, amask, lane_static, tgt_static)
+    out, state, meta, dct, info, cost_b, best, rounds = _plan_cycle(
+        net, bufs, types_s, amasks, x0[None], warm_params, full_params, target_vel, lane_s,
+        tgt_s, tuple(x[None] for x in eval_segs), cfg=cfg, ilqr_cfg=ilqr_cfg,
         warm_ilqr_cfg=warm_ilqr_cfg, weights=weights, clock=clock)
-    ok = (dct.n_trees > 0).to(torch.float32)
-    its = _masked_max(info["iterations"], dct.tree_mask)
-    out = torch.cat([ctrl, ok[None], its.to(torch.float32)[None]])
+    out, best = out[0], best[0]
     if report is not None:
-        report.update(rounds=rounds, trees=dct, tree_cost=cost_b, best=best,
-                      iterations=int(its),
+        report.update(rounds=rounds, trees=dct._replace(n_trees=dct.n_trees[0]), tree_cost=cost_b,
+                      best=best, iterations=int(_masked_max(info["iterations"], dct.tree_mask, 1)),
                       warm_iterations=int(_masked_max(info["warm_iterations"],
-                                                      dct.tree_mask)))
+                                                      dct.tree_mask, 1)))
     if not return_exec_payload:
         return out
     one = best.reshape(1)
     topo_best = TreeTopology(*(x.index_select(0, one) for x in dct.topo))
     nodes_e = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot.index_select(0, one),
-                                dct.cost_step.index_select(0, one), topo_best.node_mask, amask,
-                                dtype=torch.float64)
+                                dct.cost_step.index_select(0, one), topo_best.node_mask, amasks,
+                                torch.zeros_like(one), dtype=torch.float64)
     return native.pack_exec_payload(out, topo_best.parent, topo_best.node_mask, *nodes_e)
 
 
@@ -243,13 +312,18 @@ class _PhaseClock:
 class ObsBuffer:
     """Host shell around the device observation window: tracks id->slot
     assignment and presence; the rolling [A, 50] tensors live on `device`
-    and are updated once per plan trigger. (The JAX package's deferred
-    `device_updates=False` mode serves its batched runners, which are not
-    ported.)"""
+    and are updated once per plan trigger.
+
+    With `device_updates=False` the device update is deferred: update()
+    only records (states, present) in `.pending`, and a batched runner
+    (parallel/multi_scenario.py) applies one update to all scenarios'
+    stacked windows per trigger instead of S."""
 
     def __init__(self, max_actors: int, origin: Optional[np.ndarray] = None,
-                 dtype: str = "float64", device=None):
+                 dtype: str = "float64", device=None, device_updates: bool = True):
         self.device = resolve_device(device)
+        self.device_updates = device_updates
+        self.pending = None
         self.A = max_actors
         self.origin = origin  # local planning frame (see MINDPlanner)
         self.slots: Dict[str, int] = {}
@@ -294,6 +368,9 @@ class ObsBuffer:
         # float64 on the way in: the observation window is the root of the
         # decision pipeline; obs_buffer_update casts to the window's dtype
         self.last_present = present
+        if not self.device_updates:
+            self.pending = (states, present)
+            return
         self.buf = obs_buffer_update(self.buf, torch.as_tensor(states, device=self.device),
                                      torch.as_tensor(present, device=self.device))
 
@@ -569,14 +646,17 @@ class MINDPlanner:
         if not self.export_trees:
             return self._plan_fused(amask_d)
 
+        # one scene: the inputs with a scene axis of 1, as fused_plan_core
+        bufs, types_s, amasks, lane_s, tgt_s = scene_axis(
+            self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d, self.lane_static,
+            self.tgt_static)
         with self.metrics.timer.phase("aime"):
-            state, meta, rounds = aime_grow_tree(
-                self.net, cfg, self.obs_buffer.buf, self.obs_buffer.types_device(),
-                amask_d, self.lane_static, self.tgt_static)
+            state, meta, rounds = aime_grow_tree(self.net, cfg, bufs, types_s, amasks, lane_s,
+                                                 tgt_s)
             f64 = torch.float64
             packed_np = torch.cat([
-                meta.parent.to(f64), meta.duration.to(f64), meta.end_flag.to(f64),
-                meta.tree_id.to(f64), meta.norm_prob, meta.n_nodes.to(f64)[None],
+                meta.parent[0].to(f64), meta.duration[0].to(f64), meta.end_flag[0].to(f64),
+                meta.tree_id[0].to(f64), meta.norm_prob[0], meta.n_nodes.to(f64),
             ]).cpu().numpy()  # the one AIME-side read after the rounds
         self.last_rounds = rounds
 
@@ -611,16 +691,17 @@ class MINDPlanner:
         resolves = (not self._exec_native and resolve_exec_dtype(cfg.traj_tree, self.ilqr_cfg.dtype)
                     != self.ilqr_cfg.dtype)
         laps = {}
+        scene = torch.zeros(MAX_TREES, dtype=torch.long, device=self.device)
         with self.metrics.timer.phase("solve"):
             xs_b, us_b, info, cost_b, best_d, ctrl_d = solve_and_select(
-                state.slots, meta.norm_prob, amask_d, dct, x0, warm_p, full_p, tv,
-                self._eval_segs, cfg=cfg, ilqr_cfg=self.ilqr_cfg,
-                warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights,
+                state.slots, meta.norm_prob, amasks, dct, x0[None], warm_p, full_p, tv,
+                tuple(x[None] for x in self._eval_segs), scene, cfg=cfg,
+                ilqr_cfg=self.ilqr_cfg, warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights,
                 clock=_PhaseClock(self.device, laps) if resolves else None)
-            its = _masked_max(info["iterations"] + info["warm_iterations"], dct.tree_mask)
+            its = _masked_max(info["iterations"] + info["warm_iterations"], dct.tree_mask, 1)
             # everything the host needs in one read; float64 so that near-tie
             # selection margins survive
-            small = torch.cat([ctrl_d.to(f64), best_d.to(f64)[None], its.to(f64)[None],
+            small = torch.cat([ctrl_d[0].to(f64), best_d.to(f64), its.to(f64),
                                cost_b]).cpu().numpy()
         if resolves:   # a part of "solve", kept apart as well
             self.metrics.timer.totals["exec_resolve"] += laps["exec_resolve"]
@@ -635,8 +716,8 @@ class MINDPlanner:
             with self.metrics.timer.phase("exec_native"):
                 w = slice(best, best + 1)
                 nodes_e = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot[w],
-                                            dct.cost_step[w], dct.topo.node_mask[w], amask_d,
-                                            dtype=torch.float64)
+                                            dct.cost_step[w], dct.topo.node_mask[w], amasks,
+                                            scene[w], dtype=torch.float64)
                 nat = self._native_exec_ctrl(dct.topo.parent[best], dct.topo.node_mask[best],
                                              nodes_e, self.local_state())
             if nat is not None:
@@ -648,8 +729,8 @@ class MINDPlanner:
 
         with self.metrics.timer.phase("export"):
             scen_tree = self._export_scen_tree(
-                state.slots, parent, duration, end_flag, tree_id, norm_prob,
-                actor_mask, best)
+                NodeSlots(*(x[0] for x in state.slots)), parent, duration, end_flag, tree_id,
+                norm_prob, actor_mask, best)
             traj_tree = self._export_traj_tree(
                 trees[best][0], xs_b[best].cpu().numpy(), us_b[best].cpu().numpy(),
                 x0.cpu().numpy())

@@ -15,8 +15,10 @@ from typing import NamedTuple
 
 import torch
 
+from mind_tpu_torch.common.batch_invariant import mv
 from mind_tpu_torch.common.geometry import points_polyline_dist
-from mind_tpu_torch.planner.scene_prep import OBS_LEN, SceneInputs, TargetLaneStatic, rot_of
+from mind_tpu_torch.planner.scene_prep import (OBS_LEN, SceneInputs, TargetLaneStatic, per_node,
+                                               rot_of)
 
 SEQ_LEN = 110  # obs 50 + pred 60
 PRED_LEN = 60
@@ -50,7 +52,7 @@ def _wrap(a):
 
 def _rotate(v, r):
     """v [..., 2] -> r v, i.e. out_e = sum_d r[e, d] v_d."""
-    return (r @ v.unsqueeze(-1)).squeeze(-1)
+    return mv(r, v)
 
 
 def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
@@ -60,7 +62,8 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
     """Decode B branch nodes' M modes.
 
     cls [B, M], reg [B, A, M, 60, 5], vel_pred [B, A, M, 60, 2]; windows
-    [B, A, 50, ...] in the global frame; parent_prob [B]; cur_t [B].
+    [B, A, 50, ...] in the global frame; parent_prob [B]; cur_t [B];
+    actor_mask [A] and the target lane once, or per node with the B axis.
     Bulk arithmetic runs at the window dtype (pipeline dtype);
     probabilities and covariance accumulation always run in float64."""
     dtype = win_pos.dtype
@@ -72,6 +75,7 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
     vel_pred = vel_pred.to(dtype)
     B, A, M = reg.shape[:3]
     dev = reg.device
+    actor_mask = per_node(actor_mask, 1, B)                       # [B, A]
     orig, rot, theta = inputs.orig, inputs.rot, inputs.theta
     a_ctrs, a_vecs = inputs.actor_ctrs, inputs.actor_vecs
     a_theta = torch.atan2(a_vecs[..., 1], a_vecs[..., 0])        # [B, A]
@@ -106,7 +110,8 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
     # prune: ego diverging from the target lane (scenario_tree.py:373-379)
     ego_mean = hist_pos[:, :, 0, -1]                              # [B, M, 2]
     ego_cov = hist_cov[:, :, 0, -1]                               # [B, M]
-    d_tgt = points_polyline_dist(ego_mean, tgt_static.points, tgt_static.mask)
+    d_tgt = points_polyline_dist(ego_mean, per_node(tgt_static.points, 2, B)[:, None],
+                                 per_node(tgt_static.mask, 1, B)[:, None])
     keep &= (d_tgt - ego_cov) <= cfg.tar_dist_thres
 
     # bearing-topology signature per exo (scenario_tree.py:382-394)
@@ -115,7 +120,7 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
     bear = torch.atan2(rel[..., 1], rel[..., 0])                  # [B, A, M, 60]
     topo = _wrap(bear[..., 1:] - bear[..., :-1]).sum(-1)          # [B, A, M]
     topo = topo[:, 1:].transpose(1, 2)                            # [B, M, A-1]
-    exo_valid = actor_mask[1:]
+    exo_valid = actor_mask[:, None, 1:]                           # [B, 1, A-1]
 
     # greedy merge in descending-probability order (scenario_tree.py:397-410);
     # the sort is stable, as jnp.argsort is
@@ -141,7 +146,7 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
     idx = torch.clamp(OBS_LEN + ts, 0, SEQ_LEN - 1)
     denom = torch.gather(hist_cov, 3, compare_t[:, None, None, None].expand(B, M, A, 1))
     ratio = hist_cov[..., idx] / denom                            # [B, M, A, 110]
-    trig = ((ratio > cfg.cov_change_rate) & actor_mask[None, None, :, None]).any(2)
+    trig = ((ratio > cfg.cov_change_rate) & actor_mask[:, None, :, None]).any(2)
     trig &= in_range[:, None]
     any_trig = trig.any(-1)
     first_t = torch.argmax(trig.to(torch.uint8), dim=-1)          # first True

@@ -5,7 +5,10 @@ Every function takes a leading batch axis of AIME branch nodes where the
 JAX package vmaps: windows arrive as [B, A, 50, ...] in the GLOBAL frame;
 each node derives its target-centric scene frame from the ego (actor 0)
 and per-actor instance frames. Lane features are static per scenario and
-their global anchors are moved into each node's frame.
+their global anchors are moved into each node's frame. The scenario
+statics (actor types and mask, lane graph, target lane) come once for all
+nodes, or per node with the leading B axis: a batch of several scenes'
+nodes gathers each node's own.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from mind_tpu_torch.common.batch_invariant import mm
 
 OBS_LEN = 50
 
@@ -32,7 +37,7 @@ class TargetLaneStatic(NamedTuple):
     points: torch.Tensor   # [P, 2] global
     info: torch.Tensor     # [P, 12] rows [intersect, type3, cl3, cr3, l, r]
     mask: torch.Tensor     # [P] bool
-    n_points: int          # actual count
+    n_points: int          # actual count (a long tensor [...] when batched)
 
 
 class SceneInputs(NamedTuple):
@@ -82,31 +87,44 @@ def make_rpe(ctrs, vecs, radius: float = 100.0):
     return torch.stack([cos_a1, sin_a1, cos_a2, sin_a2, dist], dim=-1)
 
 
+def per_node(x, rank: int, B: int):
+    """A scenario static of `rank` axes, given once or per node, as [B, ...]
+    (a broadcast view when given once)."""
+    return x if x.dim() > rank else x[None].expand((B,) + x.shape)
+
+
 def prepare_node_inputs(pos, ang, vel, observed, actor_type, actor_mask,
                         lane_static: LaneGraphStatic,
                         tgt_static: TargetLaneStatic,
                         tar_time_ahead: float) -> SceneInputs:
     """Observation windows of B nodes -> padded network inputs.
     pos [B, A, 50, 2], ang [B, A, 50], vel [B, A, 50, 2], observed
-    [B, A, 50] float 0/1, actor_type [A, 7] one-hot, actor_mask [A]."""
+    [B, A, 50] float 0/1, actor_type [A, 7] one-hot, actor_mask [A]; the
+    statics may carry the node axis B instead (module docstring)."""
     B, A = pos.shape[:2]
+    actor_type = per_node(actor_type, 2, B)
+    actor_mask = per_node(actor_mask, 1, B)
+    lane_static = LaneGraphStatic(per_node(lane_static.node_feats, 3, B),
+                                  per_node(lane_static.anchors_g, 2, B),
+                                  per_node(lane_static.anchor_vecs_g, 2, B),
+                                  per_node(lane_static.mask, 1, B))
     dtype = pos.dtype
     # scene frame from ego's last window frame (utils.py:180-190)
     orig = pos[:, 0, OBS_LEN - 1]                     # [B, 2]
     theta = ang[:, 0, OBS_LEN - 1]                    # [B]
     rot = rot_of(theta)                               # [B, 2, 2]
 
-    pos_s = (pos - orig[:, None, None]) @ rot[:, None]
+    pos_s = mm(pos - orig[:, None, None], rot[:, None])
     ang_s = ang - theta[:, None, None]
-    vel_s = vel @ rot[:, None]
+    vel_s = mm(vel, rot[:, None])
 
     # per-actor instance frames from each actor's last frame
     a_orig = pos_s[:, :, OBS_LEN - 1]                 # [B, A, 2]
     a_theta = ang_s[:, :, OBS_LEN - 1]                # [B, A]
     a_rot = rot_of(a_theta)                           # [B, A, 2, 2]
-    pos_n = (pos_s - a_orig[:, :, None]) @ a_rot
+    pos_n = mm(pos_s - a_orig[:, :, None], a_rot)
     ang_n = ang_s - a_theta[..., None]
-    vel_n = vel_s @ a_rot
+    vel_n = mm(vel_s, a_rot)
     a_vecs = torch.stack([torch.cos(a_theta), torch.sin(a_theta)], dim=-1)
 
     # 14-dim actor features, first two timesteps dropped (utils.py:114-139)
@@ -114,14 +132,14 @@ def prepare_node_inputs(pos, ang, vel, observed, actor_type, actor_mask,
     disp[:, :, 1:] = pos_n[:, :, 1:] - pos_n[:, :, :-1]
     ang_cs = torch.stack([torch.cos(ang_n), torch.sin(ang_n)], dim=-1)
     # the type one-hot is zeroed at unobserved steps (utils.py:312-313)
-    type_feat = actor_type[None, :, None, :] * observed[..., None]
+    type_feat = actor_type[:, :, None, :] * observed[..., None]
     feats = torch.cat([disp, ang_cs, vel_n, type_feat.to(dtype),
                        observed[..., None].to(dtype)], dim=-1)
     actors = feats[:, :, 2:, :]                       # [B, A, 48, 14]
 
     # lane anchors into the scene frame
-    lane_ctrs = (lane_static.anchors_g[None] - orig[:, None]) @ rot
-    lane_vecs = lane_static.anchor_vecs_g[None] @ rot
+    lane_ctrs = mm(lane_static.anchors_g - orig[:, None], rot)
+    lane_vecs = mm(lane_static.anchor_vecs_g, rot)
 
     # scene RPE over [actors; lanes]
     scene_ctrs = torch.cat([a_orig, lane_ctrs], dim=1)
@@ -138,12 +156,11 @@ def prepare_node_inputs(pos, ang, vel, observed, actor_type, actor_mask,
     tgt_vecs = torch.stack([tgt_anch_vec, a_vecs[:, 0]], dim=1)
     tgt_rpe = make_rpe(tgt_ctrs, tgt_vecs).reshape(B, -1)  # [B, 20]
 
-    L = lane_static.mask.shape[0]
     return SceneInputs(
         actors=actors,
-        actor_mask=actor_mask[None].expand(B, A),
-        lanes=lane_static.node_feats[None].expand((B,) + lane_static.node_feats.shape),
-        lane_mask=lane_static.mask[None].expand(B, L),
+        actor_mask=actor_mask,
+        lanes=lane_static.node_feats,
+        lane_mask=lane_static.mask,
         rpe=rpe,
         tgt_nodes=tgt_nodes,
         tgt_rpe=tgt_rpe,
@@ -160,46 +177,54 @@ def high_level_command(tgt: TargetLaneStatic, orig, rot, cur_vel,
                        tar_time_ahead: float, min_vel: float = 0.5):
     """11-point target-lane window ahead of each ego by cur_vel * t_ahead
     (reference scenario_tree.py:613-652), as a masked search. orig [B, 2],
-    rot [B, 2, 2], cur_vel [B]. The window start is clamped so the slice
-    fits, as jax.lax.dynamic_slice_in_dim clamps it."""
-    P = tgt.points.shape[0]
-    n = int(tgt.n_points)
+    rot [B, 2, 2], cur_vel [B]; the target lane once, or per node with the
+    leading B axis. The window start is clamped so the slice fits, as
+    jax.lax.dynamic_slice_in_dim clamps it."""
+    B = orig.shape[0]
+    points, info, mask = per_node(tgt.points, 2, B), per_node(tgt.info, 2, B), \
+        per_node(tgt.mask, 1, B)
+    P = points.shape[1]
     dev = orig.device
+    if isinstance(tgt.n_points, torch.Tensor):
+        n = tgt.n_points.expand(B)                      # [B] per node
+    else:
+        n = torch.full((B,), int(tgt.n_points), dtype=torch.long, device=dev)
+    n1 = n[:, None]
 
-    dists = torch.linalg.vector_norm(tgt.points[None] - orig[:, None], dim=-1)
-    dists = torch.where(tgt.mask[None], dists,
-                        torch.full((), 1e9, dtype=dists.dtype, device=dev))
+    dists = torch.linalg.vector_norm(points - orig[:, None], dim=-1)
+    dists = torch.where(mask, dists, torch.full((), 1e9, dtype=dists.dtype, device=dev))
     closest = torch.argmin(dists, dim=-1)               # [B], first minimum
 
     travel = torch.clamp(cur_vel, min=min_vel) * tar_time_ahead
     seg_len = torch.linalg.vector_norm(
-        torch.roll(tgt.points, -1, dims=0) - tgt.points, dim=-1)  # seg i: i -> i+1
+        torch.roll(points, -1, dims=1) - points, dim=-1)  # seg i: i -> i+1
     idx = torch.arange(P, device=dev)
-    ahead = (idx[None] >= closest[:, None]) & (idx[None] < n - 1)
-    cum = torch.cumsum(torch.where(ahead, seg_len[None], torch.zeros_like(seg_len)), dim=-1)
+    ahead = (idx[None] >= closest[:, None]) & (idx[None] < n1 - 1)
+    cum = torch.cumsum(torch.where(ahead, seg_len, torch.zeros_like(seg_len)), dim=-1)
     prev = torch.gather(cum, 1, torch.clamp(closest - 1, min=0)[:, None])[:, 0]
     base = torch.where(closest > 0, prev, torch.zeros_like(prev))
     rel_cum = cum - base[:, None]
     reached = ahead & (rel_cum >= travel[:, None])
     any_reach = reached.any(dim=-1)
     first = torch.argmax(reached.to(torch.uint8), dim=-1)   # first True
-    j = torch.where(any_reach, first + 1, torch.full_like(first, n - 1))
-    j = torch.where(j >= n - 1, torch.full_like(j, n - 2), j)
-    j = torch.clamp(j, 5, max(n - 6, 5))
+    j = torch.where(any_reach, first + 1, n - 1)
+    j = torch.where(j >= n - 1, n - 2, j)
+    j = torch.minimum(torch.clamp(j, min=5), torch.clamp(n - 6, min=5))
 
     start = j - 5
+    b = torch.arange(B, device=dev)[:, None]
     pts_idx = torch.clamp(start, 0, P - 11)[:, None] + torch.arange(11, device=dev)
     info_idx = torch.clamp(start + 1, 0, P - 10)[:, None] + torch.arange(10, device=dev)
-    pts = tgt.points[pts_idx]                          # [B, 11, 2]
-    info = tgt.info[info_idx]                          # [B, 10, 12]
+    pts = points[b, pts_idx]                           # [B, 11, 2]
+    info = info[b, info_idx]                           # [B, 10, 12]
 
-    ctrln = (pts - orig[:, None]) @ rot                # scene frame
+    ctrln = mm(pts - orig[:, None], rot)               # scene frame
     anch_pos = ctrln.mean(dim=1)
     span = ctrln[:, -1] - ctrln[:, 0]
     anch_vec = span / torch.linalg.vector_norm(span, dim=-1, keepdim=True)
     vx, vy = anch_vec[:, 0], anch_vec[:, 1]
     anch_rot = torch.stack([torch.stack([vx, -vy], -1), torch.stack([vy, vx], -1)], -2)
-    ctrln_i = (ctrln - anch_pos[:, None]) @ anch_rot
+    ctrln_i = mm(ctrln - anch_pos[:, None], anch_rot)
     ctrs = (ctrln_i[:, :-1] + ctrln_i[:, 1:]) / 2.0
     vecs = ctrln_i[:, 1:] - ctrln_i[:, :-1]
     tgt_nodes = torch.cat([ctrs, vecs, info.to(ctrs.dtype)], dim=-1)  # [B, 10, 16]

@@ -145,13 +145,21 @@ def build_cost_indices(parent: np.ndarray, duration: np.ndarray, end_flag: np.nd
 
 
 def gather_cost_nodes(slots, norm_prob, cost_slot, cost_step, node_mask,
-                      actor_mask, dtype=torch.float32) -> NodeCostData:
-    """Per-cost-node data gathered from the tree slots. cost_slot,
-    cost_step, node_mask [T, MNC]; scenario-node step i maps to hist index
-    OBS_LEN + i. Slots hold float64 covariances; `dtype` is the solve
-    precision."""
+                      actor_mask, scene, dtype=torch.float32) -> NodeCostData:
+    """Per-cost-node data gathered from the tree slots of S scenes. slots,
+    norm_prob and actor_mask carry a leading scene axis [S, ...]; cost_slot,
+    cost_step, node_mask are [T, MNC] and `scene` [T] names each tree's
+    scene, whose slots cost_slot indexes: the trees of S scenes stay one
+    flat batch, the form the solver, the selection cost and the re-solve's
+    index_select take. Scenario-node step i maps to hist index OBS_LEN + i.
+    Slots hold float64 covariances; `dtype` is the solve precision."""
     OBS = 50
     t = OBS + cost_step
+    MN = norm_prob.shape[-1]
+    cost_slot = cost_slot + MN * scene[:, None]
+    slots = type(slots)(*(x.flatten(0, 1) for x in slots))
+    norm_prob = norm_prob.reshape(-1)
+    exo_valid = actor_mask.index_select(0, scene)[:, None, 1:]   # [T, 1, A-1]
     pos_t = slots.pos[cost_slot, :, t].to(dtype)     # [T, MNC, A, 2]
     cov_t = slots.cov[cost_slot, :, t].to(dtype)     # [T, MNC, A]
     return NodeCostData(
@@ -160,7 +168,7 @@ def gather_cost_nodes(slots, norm_prob, cost_slot, cost_step, node_mask,
         ego_cov=cov_t[:, :, 0],
         exo_mean=pos_t[:, :, 1:],
         exo_cov=cov_t[:, :, 1:],
-        exo_mask=node_mask[..., None] & actor_mask[1:],
+        exo_mask=node_mask[..., None] & exo_valid,
     )
 
 
@@ -252,10 +260,16 @@ def evaluate_traj_tree(xs, us, node_mask, n_nodes, x0, eval_seg_start,
     mean over tree nodes (including the x0 root) of comfort + efficiency +
     target distance terms, at the eval-segment dtype (float64 in
     production: the argmin over trees is a discrete decision).
-    xs [T, MN, 6], us [T, MN, 2], node_mask [T, MN], n_nodes [T]."""
+    xs [T, MN, 6], us [T, MN, 2], node_mask [T, MN], n_nodes [T]; x0
+    [T, 6] and the lane [T, P-1, ...] per tree, target_vel [T] or a float
+    the trees share."""
     dtype = eval_seg_start.dtype
     xs, us, x0 = xs.to(dtype), us.to(dtype), x0.to(dtype)
-    target_vel = torch.as_tensor(target_vel, dtype=dtype, device=xs.device)
+    # [..., 1]: a node axis against the nodes' [T, MN] and the root's [T, 1]
+    target_vel = torch.as_tensor(target_vel, dtype=dtype, device=xs.device)[..., None]
+    # a node axis before the segments
+    eval_seg_start, eval_seg_end, eval_seg_mask = (
+        s[:, None] for s in (eval_seg_start, eval_seg_end, eval_seg_mask))
     comfort_acc_w, comfort_str_w, eff_w, tgt_w = cfg_weights
 
     def node_cost(x, u):
@@ -265,5 +279,5 @@ def evaluate_traj_tree(xs, us, node_mask, n_nodes, x0, eval_seg_start,
 
     costs = torch.where(node_mask, node_cost(xs, us), torch.zeros((), dtype=dtype,
                                                                   device=xs.device))
-    root_cost = node_cost(x0, torch.zeros(2, dtype=dtype, device=xs.device))
+    root_cost = node_cost(x0[..., None, :], torch.zeros(2, dtype=dtype, device=xs.device))[..., 0]
     return (costs.sum(-1) + root_cost) / (n_nodes + 1)

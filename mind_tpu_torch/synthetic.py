@@ -12,6 +12,9 @@ tensors.
 vector map in the log_map_archive JSON schema and a Scenario of 110 frames
 at 10 Hz, which pass through the port's data layer (StaticMap.from_json,
 SemanticMap, ArgoAgentLoader.trajs_info_of) like a scenario read from disk.
+
+`fusion_inputs` is a seeded random call of the fusion-layer core (weights,
+node, edge), for holding its kernels against their plain versions.
 """
 
 from __future__ import annotations
@@ -264,3 +267,18 @@ def write_synthetic_map(map_json: dict, data_root, seq_id: str) -> Path:
     with open(path, "w") as f:
         json.dump(map_json, f)
     return path
+
+
+def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0):
+    """(FusionWeights, node [B, N, D], edge [B, N, N, D]) of float32 random
+    values from `seed`, drawn on the CPU and moved to `device`; LayerNorm
+    gains near 1."""
+    from mind_tpu_torch.ops.fusion_attention import FusionWeights
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rn = lambda *s, sc=0.08: (torch.randn(*s, generator=g) * sc).to(device)
+    w = FusionWeights(**{
+        f: (rn(D, D) if f.startswith("w") else
+            1 + rn(D, sc=0.1) if f.endswith("_g") else rn(D, sc=0.1))
+        for f in FusionWeights._fields})
+    return w, rn(B, N, D, sc=1.0), rn(B, N, N, D, sc=0.5)

@@ -106,8 +106,10 @@ def test_aime_matches_jax(nets, pipeline):
                                   ang=torch.tensor(ang, dtype=td),
                                   vel=torch.tensor(vel, dtype=td),
                                   observed=torch.ones((A, 50), dtype=torch.bool))
-    t_state, t_meta, rounds = taime.aime_grow_tree(
-        net, tcfg, t_buf, torch.tensor(types), torch.tensor(amask), t_lane, t_tgt)
+    t_state, t_meta, rounds = taime.aime_grow_tree(net, tcfg, *taime.scene_axis(
+        t_buf, torch.tensor(types), torch.tensor(amask), t_lane, t_tgt))
+    one = lambda t: type(t)(*(one(x) for x in t)) if isinstance(t, tuple) else t[0]
+    t_state, t_meta = one(t_state), one(t_meta)
 
     end = np.asarray(meta.end_flag)
     assert rounds >= 1 and end.sum() > 1

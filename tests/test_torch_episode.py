@@ -4,7 +4,9 @@ of test_torch_sim.py (128 cost nodes, 4 line-search steps; the planner
 enabled after 0.3 s) and the same network weights: the precomputed schedule,
 the whole episode at float64 against mind_tpu's `lax.scan` and against the
 port's own Simulator loop, segmented against whole, the truncation at a
-failed cycle, the Monte-Carlo start states and the run_sim --episode CLI.
+failed cycle, the Monte-Carlo start states and the run_sim --episode CLI;
+two scenarios in one batch and the Monte-Carlo schedule against mind_tpu's
+vmapped runners (the Monte-Carlo runner is in test_torch_monte_carlo.py).
 """
 
 import numpy as np
@@ -37,25 +39,29 @@ def ego(sim):
     return next(a for a in sim.agents if a.id == "AV")
 
 
-def make_sims(world, pipeline="float64", solve="float64", ticks=HORIZON):
+def make_sims(world, pipeline="float64", solve="float64", ticks=HORIZON, target_velocity=None):
     """Both packages' initialized Simulators (mind_tpu first) with the AV's
-    planner enabled after ENABLE seconds and the same weights."""
+    planner enabled after ENABLE seconds and the same weights; the AV asked
+    for `target_velocity` (CL_AGENT's by default)."""
     import mind_tpu.data.loader as jloader
     from mind_tpu.config import ClAgentConfig, SimConfig
     from mind_tpu.sim.simulator import Simulator
 
     jcfg, tcfg = planner_cfgs(world.n_lanes, pipeline, solve)
     common = dict(sim_name="demo_1", seq_id=SEQ_ID, data_root=str(world.root))
+    agent = dict(CL_AGENT, enable_timestep=ENABLE)
+    if target_velocity is not None:
+        agent["target_velocity"] = target_velocity
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(jloader, "load_scenario", lambda path: world.jscenario)
-        jsim = Simulator(SimConfig(cl_agents=[ClAgentConfig(enable_timestep=ENABLE, **CL_AGENT)],
-                                   **common), planner_cfg=jcfg, max_steps=ticks)
+        jsim = Simulator(SimConfig(cl_agents=[ClAgentConfig(**agent)], **common),
+                         planner_cfg=jcfg, max_steps=ticks)
         jsim.init_sim()
     finally:
         mp.undo()
-    tsim = TSimulator(TSimConfig(cl_agents=[TClAgentConfig(enable_timestep=ENABLE, **CL_AGENT)],
-                                 **common), planner_cfg=tcfg, max_steps=ticks, device=CPU,
+    tsim = TSimulator(TSimConfig(cl_agents=[TClAgentConfig(**agent)], **common),
+                      planner_cfg=tcfg, max_steps=ticks, device=CPU,
                       scenario=world.syn.scenario)
     tsim.init_sim()
     share_weights(ego(jsim), ego(tsim))
@@ -193,7 +199,8 @@ def test_to_result_truncates_at_fail_cycle():
 
 def test_monte_carlo_starts_match_jax(world, episodes64):
     """perturb_ego_starts equals mind_tpu's for one seed; build_mc_inputs
-    sets each copy's cycle-0 ego to its start and enables it at tick 0."""
+    stacks the copies' schedules, each copy's cycle-0 ego at its start and
+    enabled at tick 0."""
     from mind_tpu.sim.episode import perturb_ego_starts
 
     base = np.array([12.0, -3.0, 5.0, 0.3])
@@ -208,15 +215,14 @@ def test_monte_carlo_starts_match_jax(world, episodes64):
     starts = tepisode.perturb_ego_starts(
         base_inp.ego_replay[0, 0].numpy(), 3, 0.5, 0.25,
         ego(tsim).planner.cfg.scen_tree.tar_dist_thres, 7)
-    for inp, start in zip(copies, starts):
+    assert copies.enable_tick == 0 and copies.slot_states.shape[0] == 3
+    for i, start in enumerate(starts):
+        inp = tepisode.lane_inputs(copies, i)
         assert inp.enable_tick == 0
         np.testing.assert_array_equal(inp.slot_states[0, 0].numpy(), start)
         np.testing.assert_array_equal(inp.ego_replay[0, 0].numpy(), start)
         np.testing.assert_array_equal(inp.slot_states[1:].numpy(), base_inp.slot_states[1:].numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tepisode.run_episode_monte_carlo(tsim, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tepisode.run_episodes_batched([tsim])
+        np.testing.assert_array_equal(inp.types.numpy(), base_inp.types.numpy())
 
 
 def test_run_sim_episode_cli(world, tmp_path, capsys):
@@ -234,3 +240,85 @@ def test_run_sim_episode_cli(world, tmp_path, capsys):
                               "--device", "cpu", "--max-steps", "15", "--episode"])
     assert metrics["ticks"] == 15 and metrics["plan_calls"] == 0 and metrics["fail_cycle"] == -1
     assert "metrics:" in capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def batched_episodes64(world):
+    """Two scenarios (the world's, the AV asked for 8 and for 6 m/s) through
+    both packages' run_episodes_batched at float64."""
+    from mind_tpu.sim.episode import run_episodes_batched
+
+    pairs = [make_sims(world, target_velocity=v) for v in (8.0, 6.0)]
+    want = run_episodes_batched([j for j, _ in pairs], HORIZON)
+    phases = []
+    got = tepisode.run_episodes_batched([t for _, t in pairs], HORIZON, phases=phases)
+    return want, got, phases, [t for _, t in pairs]
+
+
+def test_episodes_batched_match_jax(batched_episodes64, episodes64):
+    """Per scenario: the same cycles plan and succeed with the same
+    iteration counts as mind_tpu's batched program, the ego within 1e-4 m
+    (float64: sums in another order); the scenarios' plans differ. The
+    8 m/s scenario against its own run_episode: within 1e-6 m (the network
+    sums in another order in a batch of another size)."""
+    want, got, phases, _ = batched_episodes64
+    assert len(got) == len(want) == 2
+    for s, (w, g) in enumerate(zip(want, got)):
+        assert g.fail_cycle == w.fail_cycle == -1 and g.plan_calls == w.plan_calls == 3, s
+        np.testing.assert_array_equal(g.planned, np.asarray(w.planned))
+        np.testing.assert_array_equal(g.plan_ok, np.asarray(w.plan_ok))
+        np.testing.assert_array_equal(g.iterations, np.asarray(w.iterations))
+        np.testing.assert_allclose(g.ego_states, w.ego_states, rtol=0, atol=1e-4)
+    assert np.abs(got[0].ego_states[-1] - got[1].ego_states[-1]).max() > 1e-3
+    # one phase record per cycle of the batch
+    assert [("solve" in p) for p in phases] == got[0].planned.tolist()
+    single = episodes64[1]
+    np.testing.assert_array_equal(got[0].iterations, single.iterations)
+    np.testing.assert_allclose(got[0].ego_states, single.ego_states, rtol=0, atol=1e-6)
+
+
+def test_episodes_batched_checks_its_inputs(batched_episodes64):
+    """The batch needs one enable tick, one configuration and one set of
+    weights (each broken in turn on the second scenario, then restored)."""
+    *_, tsims = batched_episodes64
+    other = ego(tsims[1])
+    run = lambda: tepisode.run_episodes_batched(tsims, HORIZON)
+    other.enable_timestep, keep = 0.5, other.enable_timestep
+    try:
+        with pytest.raises(ValueError, match="enable tick"):
+            run()
+    finally:
+        other.enable_timestep = keep
+    tt = other.planner.cfg.traj_tree
+    tt.max_iterations += 1
+    other.planner._init_programs()
+    try:
+        with pytest.raises(ValueError, match="configuration"):
+            run()
+    finally:
+        tt.max_iterations -= 1
+        other.planner._init_programs()
+    w = next(other.planner.net.parameters())
+    keep = w.detach().clone()
+    with torch.no_grad():
+        w.add_(1.0)
+    try:
+        with pytest.raises(ValueError, match="weights"):
+            run()
+    finally:
+        with torch.no_grad():
+            w.copy_(keep)
+
+
+def test_build_mc_inputs_matches_jax(world):
+    """The stacked Monte-Carlo schedule equals mind_tpu's to the bit."""
+    from mind_tpu.sim.episode import build_mc_inputs
+
+    jsim, tsim = make_sims(world)
+    want = build_mc_inputs(jsim, 3, seed=5, horizon=HORIZON)
+    got = tepisode.build_mc_inputs(tsim, 3, seed=5, horizon=HORIZON)
+    for f in ("slot_states", "present", "active", "ego_replay", "types"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert got.enable_tick == 0 and np.asarray(want.enable_tick).tolist() == [0, 0, 0]
+    assert got.target_vel == float(np.asarray(want.target_vel)[0])

@@ -88,8 +88,9 @@ def test_cost_topology_matches_jax():
     meta = make_meta()
     kw = dict(max_trees=6, max_cost_nodes=64, max_levels=32, max_width=8)
     want = device_cost_topology(*map(jnp.asarray, meta), **kw)
-    got = t_cost_topology(*map(torch.tensor, meta), **kw)
-    assert int(got.n_trees) == int(want.n_trees) == 2
+    # the port lays out S scenes' trees: one scene here
+    got = t_cost_topology(*(torch.tensor(m)[None] for m in meta), **kw)
+    assert got.n_trees.tolist() == [int(want.n_trees)] == [2]
     for name in ("cost_slot", "cost_step", "tree_mask"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)

@@ -26,13 +26,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
 from mind_tpu_torch.ops import fusion_attention as fa  # noqa: E402
+from mind_tpu_torch.synthetic import fusion_inputs  # noqa: E402
 
 D, H = 128, 8
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
 def make_inputs(b, n, dev, variant, edge_dtype):
-    w, node, edge = cs.kernel_inputs(fa, dev, b, n, D)
+    w, node, edge = fusion_inputs(b, n, D, dev)
     mask = (torch.arange(n, device=dev) < n - 5)[None].expand(b, -1).contiguous()
     if variant == "bfloat16":
         w = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))

@@ -2,13 +2,18 @@
 plan cycles of the port on chip_smoke.py's synthetic scene.
 
     python3 tools/profile_plan_cycle.py [--cycles 2] [--demo] [--episode] [--out plan_profile.json]
+    python3 tools/profile_plan_cycle.py --episode --time [--demo] [--root DIR]
 
 `--demo` profiles the demo planner configuration (bf16 network) instead of
 the float32 defaults. `--episode` profiles steady planning cycles of the
 episode runner (sim/episode.py) instead: chip_smoke.py's closed-loop
 scenario (synthetic_av2(0), planner enabled after 1 s), a whole warm
 episode first, then the cycles from cycle 12 on with the carry of the
-cycles before them.
+cycles before them. `--episode --time` runs no profiler: it times
+run_episode_timed over 150 ticks (a warm call, then the timed one) and
+prints the ticks per second and the planning cycle's mean phase times in
+ms, with mind_tpu_torch imported from `--root DIR` (default: this
+checkout), to compare two checkouts in one call.
 
 Runs one warm-up cycle, then profiles `--cycles` cycles (CPU + CUDA
 activities) and prints one JSON object: per cycle the host wall time and
@@ -24,6 +29,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -78,32 +84,59 @@ def emit(result, out):
                          check=True).stdout.strip())
 
 
-def profile_episode(args) -> int:
-    """Steady planning cycles of the episode runner under torch.profiler."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
+def episode_sim(demo: bool, ticks: int, data_root):
+    """chip_smoke.py's closed-loop Simulator (synthetic_av2(0), the planner
+    on after 1 s, the AV asked for 8 m/s), its map written under
+    data_root, initialized; and its planner configuration."""
     from mind_tpu_torch.config import (DEFAULT_WEIGHTS, ClAgentConfig, PlannerConfig, SimConfig,
                                        planner_config_for_demo)
-    from mind_tpu_torch.sim import episode
     from mind_tpu_torch.sim.simulator import Simulator
     from mind_tpu_torch.synthetic import synthetic_av2, write_synthetic_map
 
-    if args.demo:
+    if demo:
         cfg = planner_config_for_demo("demo_1")
     else:
         cfg = PlannerConfig()
         cfg.ckpt_path = str(DEFAULT_WEIGHTS)
     syn = synthetic_av2(cs.SEED)
+    write_synthetic_map(syn.map_json, data_root, cs.SEQ_ID)
+    sim = Simulator(SimConfig(sim_name="demo_1", seq_id=cs.SEQ_ID, data_root=data_root,
+                              cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
+                                                       target_velocity=cs.TARGET_VELOCITY)]),
+                    planner_cfg=cfg, max_steps=ticks, scenario=syn.scenario)
+    sim.init_sim()
+    return sim, cfg
+
+
+def time_episode(args) -> int:
+    """run_episode_timed over 150 ticks: ticks per second and the planning
+    cycle's mean phase times."""
+    import numpy as np
+
+    from mind_tpu_torch.sim import episode
+
+    with tempfile.TemporaryDirectory() as root:
+        sim, _ = episode_sim(args.demo, 150, root)
+        phases = []
+        res, wall = episode.run_episode_timed(sim, phases=phases)
+    planning = [p for p in phases if "solve" in p]
+    keys = ("obs", "aime", "cost_topology", "solve", "selection", "propagate")
+    print(json.dumps({
+        "root": args.root, "device": torch.cuda.get_device_name(0),
+        "ticks_per_s": len(res.ego_states) / wall, "plan_calls": res.plan_calls,
+        "planning_cycle_ms": {k: float(np.mean([p[k] * 1e3 for p in planning])) for k in keys}}))
+    return 0
+
+
+def profile_episode(args) -> int:
+    """Steady planning cycles of the episode runner under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mind_tpu_torch.sim import episode
+
     first = 12   # two cycles after the planner is enabled (cycle 10)
     with tempfile.TemporaryDirectory() as root:
-        write_synthetic_map(syn.map_json, root, cs.SEQ_ID)
-        sim = Simulator(SimConfig(sim_name="demo_1", seq_id=cs.SEQ_ID, data_root=root,
-                                  cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
-                                                           target_velocity=cs.TARGET_VELOCITY)]),
-                        planner_cfg=cfg, max_steps=5 * (first + args.cycles), scenario=syn.scenario)
-        sim.init_sim()
+        sim, cfg = episode_sim(args.demo, 5 * (first + args.cycles), root)
         episode.run_episode(sim)    # warm: kernel builds, graph captures, allocator
         _, inp, statics, run, carry = episode._episode_setup(sim, None, None)
         carry, _ = run(episode._slice_cycles(inp, 0, first), statics, carry, 0)
@@ -125,7 +158,7 @@ def profile_episode(args) -> int:
             (rec,) = phases
             cycles.append({"cycle": c, "wall_ms": wall * 1e3, "rounds": rec.get("rounds"),
                            "phases_ms": {k: v * 1e3 for k, v in rec.items()
-                                         if k not in ("cycle", "rounds")},
+                                         if isinstance(v, float)},
                            "device_kernels": len(kernels), "device_busy_ms": busy / 1e3,
                            "device_busy_share": busy / 1e3 / (wall * 1e3)})
     emit({"device": torch.cuda.get_device_name(0), "path": "episode",
@@ -142,10 +175,19 @@ def main() -> int:
     ap.add_argument("--episode", action="store_true",
                     help="profile planning cycles of the episode runner")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--time", action="store_true",
+                    help="with --episode: time run_episode_timed, no profiler")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="with --time: import mind_tpu_torch from this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_plan_cycle: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.time and not args.episode:
+        ap.error("--time times the episode runner: pass --episode")
+    if args.time:
+        sys.path.insert(0, str(Path(args.root).resolve()))
+        return time_episode(args)
     if args.episode:
         return profile_episode(args)
     from torch.profiler import ProfilerActivity, profile
