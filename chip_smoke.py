@@ -64,7 +64,20 @@ result line):
      0 and 15 against run_episode on their own schedules (as in 11);
  13. tree scale: parallel_tree_solve of 1024 random branching trees on a
      one-device mesh, timed, against four slices of 256 solved alone;
- 14. print per-phase times, the kernel table and the card.
+ 14. training: PlannerConfig()'s float32 network at full width from
+     init_scene_pred(seed=0), one batch of four synthetic AV2 scenarios
+     (seeds 0-3) through the data layer and scenario_to_batch, AdamW(3e-4):
+     (a) kernel A launched 6 times per training forward; (b) the whole
+     network's gradients through the kernel's autograd Function against
+     autograd through the plain version, each parameter within 1e-3 in
+     relative norm, none missing or zero; (c) the same for kernel B at one
+     call; (d) 20 steps, finite losses, the last below the first; (e) the
+     first two losses and the first gradients against the same steps on the
+     CPU; (f) save, restore, one step equal to one step without the round
+     trip, to the bit; the timed steps' forward / backward / optimizer ms,
+     scenes per second, peak memory and the backward's share in the plain
+     recompute of the 6 layer cores;
+ 15. print per-phase times, the kernel table and the card.
 
 Phase 2 holds both kernels at B = 8, 32 and 128, the batches the paths give
 them.
@@ -121,6 +134,15 @@ TOL_NATIVE = 1e-7
 # staged plans, float64 integration on the device against the host): the
 # BASELINE.json rollout budget, metres
 TOL_EPISODE_EGO = 1e-3
+# training: a parameter's gradient through the kernel's autograd Function
+# (kernel forward, plain recompute backward) against autograd through the
+# plain version, in relative norm; the card's first steps against the CPU's
+TOL_GRAD = 1e-3
+TOL_TRAIN_LOSS = 1e-4
+TRAIN_STEPS, TRAIN_WARM, TRAIN_LR = 20, 3, 3e-4
+# the decoder's target-lane branch (target RPE and target embedding), which
+# feeds mode 0 alone (reference network.py:506-508)
+TARGET_BRANCH = ("SceneDecoder_0.MLPBlock_0.", "SceneDecoder_0.MLPBlock_1.")
 SEQ_ID = "synthetic"
 # the AV logs 5 m/s behind a leader at 3 m/s; asked for 8 m/s (the demo
 # configurations set a target velocity too), every plan has to accelerate
@@ -976,6 +998,259 @@ def phase_tree_scale():
 
 
 
+def grad_gaps(names, got, want, exempt_unused, noise, zero=()):
+    """Per parameter: relative-norm gap of `got` against `want` (lists of
+    gradients or None, in `names` order). The unused parameters must have
+    none in both; the shift-invariant ones (exact gradient zero) must be
+    rounding noise in both, below 1e-6 of the whole gradient's norm; those
+    in `zero` exactly zero in both; every other one must be there, not all
+    zero, and within TOL_GRAD. Returns {name: gap} of the compared ones;
+    raises on any failure."""
+    total = sum(float(w.double().pow(2).sum()) for w in want if w is not None) ** 0.5
+    gaps, bad = {}, {}
+    for name, g, w in zip(names, got, want):
+        if name in exempt_unused:
+            if g is not None or w is not None:
+                bad[name] = "unused, yet has a gradient"
+        elif g is None or w is None:
+            bad[name] = "no gradient"
+        elif name in noise:
+            if max(float(g.float().norm()), float(w.float().norm())) >= 1e-6 * total:
+                bad[name] = "exact gradient zero, yet above rounding noise"
+        elif name in zero:
+            if bool(g.any()) or bool(w.any()):
+                bad[name] = "expected all zero: no scene trains mode 0"
+        elif not bool(g.any()):
+            bad[name] = "all-zero gradient"
+        else:
+            gaps[name] = float((g.float() - w.float()).norm() / w.float().norm())
+            if not gaps[name] <= TOL_GRAD:
+                bad[name] = f"gap {gaps[name]:.3e}"
+    if bad:
+        raise RuntimeError(f"gradients disagree: {dict(list(bad.items())[:12])} "
+                           f"({len(bad)} parameters)")
+    return gaps
+
+
+def bf16_call_grads(fa, dev):
+    """(c) Kernel B at one call (B = 8, N = 129, bf16 weights, a bf16 node
+    and edge as the first layer gets them), update_edge on and off: the
+    gradients of every input through the Function against autograd through
+    the bf16 plain version, on the card."""
+    from mind_tpu_torch.synthetic import fusion_inputs
+
+    bf16 = torch.bfloat16
+    w, node, edge = fusion_inputs(8, 129, 128, dev, SEED + 1)
+    mask = torch.ones(8, 129, dtype=torch.bool, device=dev)
+    mask[:, 40:48] = False
+    w = fa.FusionWeights(*(t.to(bf16).requires_grad_() for t in w))
+    node, edge = node.to(bf16).requires_grad_(), edge.to(bf16).requires_grad_()
+    inputs, names = (node, edge, *w), ("node", "edge", *fa.FusionWeights._fields)
+    out = {}
+    for ue in (True, False):
+        runs = []
+        for core in (fa.fused_edge_attention, fa.fused_edge_attention_bf16_ref):
+            before = fa.fused_edge_attention.launches_by_variant["bfloat16"]
+            o, e = core(node, edge, mask, w, 8, ue)
+            loss = (o ** 2).mean() + (e * e.detach().cos()).mean()
+            runs.append((fa.fused_edge_attention.launches_by_variant["bfloat16"] - before,
+                         torch.autograd.grad(loss, inputs, allow_unused=True)))
+        (n_fn, got), (n_ref, want) = runs
+        if (n_fn, n_ref) != (1, 0):
+            raise RuntimeError(f"bf16 gradient check: {n_fn} and {n_ref} launches, 1 and 0 expected")
+        unused = set() if ue else {"we", "be", "ln_e1_g", "ln_e1_b", "ln_e2_g", "ln_e2_b"}
+        gaps = grad_gaps(names, got, want, unused, ("bk",))   # the key bias: exact gradient 0
+        out[f"update_edge_{str(ue).lower()}"] = max(gaps.values())
+    log(f"[train] kernel B, one call at B = 8: largest gradient gap {out}")
+    return out
+
+
+def training_batch(cfg, dev, synthetic_av2):
+    """Four synthetic AV2 scenarios (seeds 0-3) through the data layer and
+    scenario_to_batch, on `dev`: the training batch of the four demos."""
+    from mind_tpu_torch.data.loader import ArgoAgentLoader
+    from mind_tpu_torch.data.semantic_map import SemanticMap
+    from mind_tpu_torch.models.data_pipeline import stack_batches
+    from mind_tpu_torch.synthetic import write_synthetic_map
+    from mind_tpu_torch.train_weights import scene_batch
+
+    scenes = []
+    with tempfile.TemporaryDirectory() as root:
+        for seed in range(4):
+            syn = synthetic_av2(seed)
+            smp = SemanticMap().load_from_argo2(
+                write_synthetic_map(syn.map_json, root, f"{SEQ_ID}-{seed}"))
+            scenes.append(scene_batch(smp, ArgoAgentLoader.trajs_info_of(syn.scenario, smp),
+                                      cfg, dev))
+    return stack_batches(scenes)
+
+
+def phase_training(fa, dev, synthetic_av2):
+    """14. Train PlannerConfig()'s float32 network on four synthetic
+    scenarios: checks (a)-(f) of the module docstring, and the timed steps.
+    Returns (kernel A's launches in the 20 steps, summary)."""
+    from mind_tpu_torch.config import PlannerConfig
+    from mind_tpu_torch.models import checkpoint as ckpt
+    from mind_tpu_torch.models import scene_pred, train
+    from mind_tpu_torch.models.weights import unused_edge_params
+    from mind_tpu_torch.synthetic import fusion_inputs
+
+    cfg = PlannerConfig()
+    t0 = time.perf_counter()
+    batch = training_batch(cfg, dev, synthetic_av2)
+    B = batch.actors.shape[0]
+    summary = {"scenes": B, "batch_s": time.perf_counter() - t0,
+               "actors": batch.actor_mask.sum(1).tolist(),
+               "lanes": batch.lane_mask.sum(1).tolist(),
+               "targets": int(batch.gt_mask.sum())}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # (f) compares two runs to the bit
+    try:
+        summary["kernel_b_grad_gap"] = bf16_call_grads(fa, dev)
+
+        # (b) the whole network's gradients, kernel Function against plain
+        net = train.init_scene_pred(cfg.net, seed=0, device=dev)
+        names, params = zip(*net.named_parameters())
+        exempt, noise = set(unused_edge_params(cfg.net)), set(train.shift_invariant_params(cfg.net))
+
+        def grads(core):
+            scene_pred.fused_edge_attention = core
+            try:
+                cls_prob, reg, _ = net(*batch[:7])
+                loss = train.scene_loss(cls_prob, reg, batch.gt_pos, batch.gt_mask).mean()
+                modes = train.winning_modes(reg.detach(), batch.gt_pos, batch.gt_mask)
+                return (float(loss.detach()), modes.tolist(),
+                        torch.autograd.grad(loss, params, allow_unused=True))
+            finally:
+                scene_pred.fused_edge_attention = fa.fused_edge_attention
+
+        fa.reset_launch_counts()
+        loss_fn, modes, g_fn = grads(fa.fused_edge_attention)
+        one_forward = dict(fa.fused_edge_attention.launches_by_variant)
+        loss_plain, modes_plain, g_plain = grads(fa.fused_edge_attention_ref)
+        if one_forward != {"float32": cfg.net.n_scene_layer, "bfloat16": 0} or \
+                fa.fused_edge_attention.launches != cfg.net.n_scene_layer:
+            raise RuntimeError(f"(a) one training forward launched {one_forward}, the plain "
+                               f"one {fa.fused_edge_attention.launches} in all")
+        if modes != modes_plain:
+            raise RuntimeError(f"(b) winning modes {modes} against plain {modes_plain}")
+        # the target lane enters mode 0 only: its branch learns from no scene
+        # whose winning mode is another
+        target = set() if 0 in modes else {n for n in names if n.startswith(TARGET_BRANCH)}
+        gaps = grad_gaps(names, g_fn, g_plain, exempt, noise, target)
+        fusion = [n for n in gaps if ".RelaFusionLayer_" in n and n.rsplit(".", 1)[1]
+                  in scene_pred._FUSION_PARAMS.values()]
+        if len(fusion) != 20 * cfg.net.n_scene_layer - len(exempt) - cfg.net.n_scene_layer:
+            raise RuntimeError(f"(b) {len(fusion)} fusion-core tensors compared")
+        summary["grad_vs_plain"] = {
+            "loss": [loss_fn, loss_plain], "winning_modes": modes,
+            "target_branch_zero": len(target), "tensors": len(gaps), "max_gap": max(gaps.values()),
+            "fusion_core_tensors": len(fusion), "fusion_core_max_gap": max(gaps[n] for n in fusion),
+            "largest": sorted(gaps.items(), key=lambda kv: -kv[1])[:3]}
+        log("[train] (b) gradients, kernel Function against plain: "
+            + json.dumps(summary["grad_vs_plain"]))
+        del g_plain
+
+        # (e) the same two steps on the CPU
+        cpu = torch.device("cpu")
+        t = time.perf_counter()
+        net_cpu = train.init_scene_pred(cfg.net, seed=0, device=cpu)
+        step_cpu = train.make_train_step(net_cpu, train.adamw(net_cpu.parameters(), TRAIN_LR))
+        batch_cpu = batch.to(cpu)
+        cpu_losses = [float(step_cpu(batch_cpu))]
+        g_cpu = [None if n in exempt else p.grad.clone() for n, p in net_cpu.named_parameters()]
+        cpu_losses.append(float(step_cpu(batch_cpu)))
+        summary["cpu_two_steps_s"] = time.perf_counter() - t
+        cpu_gaps = grad_gaps(names, [g.cpu() if g is not None else None for g in g_fn], g_cpu,
+                             exempt, noise, target)
+        del net_cpu, step_cpu, batch_cpu, g_cpu, g_fn
+
+        # (d) 20 steps, the launch counts set to 0 just before and read just after
+        optimizer = train.adamw(net.parameters(), TRAIN_LR)
+        step = train.make_train_step(net, optimizer)
+        losses, times, events = [], {}, []
+        vjp = fa.fused_edge_attention_vjp
+
+        def timed_vjp(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = vjp(*a, **kw)
+            e.record()
+            events.append((s, e))
+            return out
+
+        fa.reset_launch_counts()
+        try:
+            for i in range(TRAIN_STEPS):
+                if i == TRAIN_WARM:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    fa.fused_edge_attention_vjp = timed_vjp
+                losses.append(step(batch, times=times if i >= TRAIN_WARM else None))
+        finally:
+            fa.fused_edge_attention_vjp = vjp
+        torch.cuda.synchronize()
+        launches = dict(fa.fused_edge_attention.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        timed = TRAIN_STEPS - TRAIN_WARM
+        ms = {k: v * 1e3 / timed for k, v in times.items()}
+        recompute_ms = sum(s.elapsed_time(e) for s, e in events) / timed
+        with torch.no_grad():
+            w, node, edge = fusion_inputs(B, 129, 128, dev, SEED)
+            mask = torch.ones(B, 129, dtype=torch.bool, device=dev)
+            kernel_ms = [cuda_time_ms(lambda: fa.fused_edge_attention(node, edge, mask, w, 8, ue))
+                         for ue in (True, False)]
+            del w, node, edge
+        kernel_fwd_ms = (cfg.net.n_scene_layer - 1) * kernel_ms[0] + kernel_ms[1]
+        step_ms = sum(ms.values())
+        summary.update({
+            "losses": losses, "cpu_losses": cpu_losses,
+            "cpu_gap": {"loss": [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)],
+                        "grad_max": max(cpu_gaps.values())},
+            "launches": launches, "timed_steps": timed,
+            "step_ms": step_ms, "ms": ms, "scenes_per_s": B * 1e3 / step_ms,
+            "peak_memory_gb": peak / 1e9,
+            "recompute_ms": recompute_ms, "recompute_share_of_backward":
+                recompute_ms / ms["backward"],
+            "recomputes_per_step": len(events) / timed,
+            "kernel_a_forward_ms_6_layers": kernel_fwd_ms,
+            "kernel_a_ms_per_call": kernel_ms})
+        log("[train] " + json.dumps({k: summary[k] for k in (
+            "losses", "cpu_losses", "cpu_gap", "launches", "step_ms", "ms", "scenes_per_s",
+            "peak_memory_gb", "recompute_ms", "recompute_share_of_backward",
+            "kernel_a_forward_ms_6_layers")}))
+        if launches != {"float32": cfg.net.n_scene_layer * TRAIN_STEPS, "bfloat16": 0}:
+            raise RuntimeError(f"(a) {launches} launches in {TRAIN_STEPS} training steps")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise RuntimeError(f"(d) losses not finite or not falling: {losses}")
+        if not all(g <= TOL_TRAIN_LOSS for g in summary["cpu_gap"]["loss"]):
+            raise RuntimeError(f"(e) card and CPU losses disagree: {summary['cpu_gap']}")
+        if len(events) != cfg.net.n_scene_layer * timed:
+            raise RuntimeError(f"{len(events)} plain recomputes in {timed} backward passes")
+
+        # (f) save -> restore -> one step, against one step without the round trip
+        with tempfile.TemporaryDirectory() as d:
+            ckpt.save_params(d, net, step=TRAIN_STEPS, opt_state=optimizer)
+            loss_on = step(batch)
+            net2 = train.init_scene_pred(cfg.net, seed=1, device=dev)
+            net2.load_state_dict(ckpt.load_params(d, net2))
+            opt2 = ckpt.load_opt_state(d, train.adamw(net2.parameters(), TRAIN_LR))
+            loss_back = train.make_train_step(net2, opt2)(batch)
+        same = torch.equal(loss_on, loss_back) and all(
+            torch.equal(a, b) for a, b in zip(net.state_dict().values(), net2.state_dict().values()))
+        summary["restore_equal"] = same
+        log(f"[train] (f) restored step equal to the continued one, to the bit: {same}")
+        if not same:
+            raise RuntimeError(f"(f) restored step differs: loss {float(loss_back)} against "
+                               f"{float(loss_on)}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del net, net2, optimizer, opt2, batch
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t0
+    return launches["float32"], summary
+
 
 def main() -> int:
     global T0
@@ -1089,23 +1364,26 @@ def main() -> int:
                                                           synthetic_av2)
         mc_launches, monte_carlo = phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn)
     scale = phase_tree_scale()
+    train_launches, training = phase_training(fa, dev, synthetic_av2)
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
-                                      "float32_loop": loop32_launches}
+                                      "float32_loop": loop32_launches,
+                                      "training": train_launches}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
                                       "closed_loop": loop_launches, "episode": episode_launches,
                                       "batched_episode": batched_launches,
                                       "monte_carlo": mc_launches}
-    entries[0]["launches"] += loop32_launches
+    entries[0]["launches"] += loop32_launches + train_launches
     entries[1]["launches"] += loop_launches + episode_launches + batched_launches + mc_launches
 
-    # 14. report
+    # 15. report
     log("[phases] " + json.dumps({"float32": cycles32, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
                                   "float32_loop": loop32, "exec_resolve": execs,
                                   "graph_vs_eager": graph, "episode": episode,
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
-                                  "tree_scale": scale, "seconds": time.perf_counter() - T0}))
+                                  "tree_scale": scale, "training": training,
+                                  "seconds": time.perf_counter() - T0}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -138,15 +138,22 @@ class Res1d(nn.Module):
 def linear_upsample2(x):
     """Length-doubling linear interpolation matching
     F.interpolate(scale_factor=2, mode='linear', align_corners=False),
-    written out as in the JAX package. x: [..., T, C] -> [..., 2T, C]."""
+    written out as in the JAX package. x: [..., T, C] -> [..., 2T, C].
+
+    Output k interpolates between rows lo = max(k - 1, 0) // 2 and
+    hi = min(lo + 1, T - 1). Both are taken as slices of x with each row
+    doubled, not by index_select: that one's gradient on the card is an
+    atomic scatter, whose sums come out in another order at every run."""
     T = x.shape[-2]
     src = ((torch.arange(2 * T, device=x.device, dtype=torch.float32) + 0.5) / 2.0
            - 0.5).to(x.dtype)
     lo = torch.clamp(torch.floor(src).long(), 0, T - 1)
-    hi = torch.clamp(lo + 1, 0, T - 1)
     w = torch.clamp(src - lo.to(x.dtype), 0.0, 1.0)
-    xl = x.index_select(-2, lo)
-    xh = x.index_select(-2, hi)
+    x2 = x.unsqueeze(-2).expand(x.shape[:-1] + (2, x.shape[-1])).reshape(
+        x.shape[:-2] + (2 * T, x.shape[-1]))                  # row r at 2r and 2r + 1
+    h1 = min(1, T - 1)
+    xl = torch.cat([x[..., :1, :], x2[..., :-1, :]], dim=-2)
+    xh = torch.cat([x[..., h1:h1 + 1, :], x2[..., 2:, :], x[..., -1:, :]], dim=-2)
     return xl + (xh - xl) * w[:, None]
 
 

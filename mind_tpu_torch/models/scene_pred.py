@@ -1,9 +1,10 @@
 """ScenePredNet in PyTorch (port of mind_tpu/models/scene_pred.py).
 
 Joint multi-agent multi-modal scene prediction: conv-FPN actor encoder,
-PointNet lane encoder, edge-conditioned fusion transformer and a Bezier
-regression decoder. The forward is batched over a leading axis of AIME
-branch nodes (the JAX package vmaps the unbatched module).
+PointNet lane encoder, edge-conditioned fusion transformer and a
+regression decoder with the three heads of cfg.param_out: 'bezier' (the
+demos' head), 'monomial' and 'none'. The forward is batched over a leading
+axis of AIME branch nodes (the JAX package vmaps the unbatched module).
 
 Inputs (B = batch of tree nodes):
   actors     [B, A, To, 14]   history features, time-major (To = obs_len - 2)
@@ -17,10 +18,12 @@ Inputs (B = batch of tree nodes):
 Outputs:
   cls [B, M]            mode probabilities (softmax)
   reg [B, A, M, F, 5]   positions (2) + exp(cov) (2) + unused 5th channel
-  vel [B, A, M, F, 2]   velocities from the Bezier derivative matrix
+  vel [B, A, M, F, 2]   velocities from the head's derivative (matrix or differences)
 
 The fusion-layer core goes through ops.fusion_attention.fused_edge_attention:
-the CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
+the CUDA kernel for CUDA tensors, the plain twin for CPU tensors; under
+grad mode through its autograd Function, whose backward differentiates the
+plain version (models/train.py trains the float32 network).
 
 Under cfg.compute_dtype == "bfloat16" (the policy of
 mind_tpu/models/scene_pred.py::make_batched_apply) the parameters are held in
@@ -201,14 +204,38 @@ def bezier_Tp(n_order: int, n_step: int) -> np.ndarray:
     ], axis=1)
 
 
+def monomial_T(n_order: int, n_step: int) -> np.ndarray:
+    ts = np.linspace(0.0, 1.0, n_step, endpoint=True)
+    return np.stack([ts**i for i in range(n_order + 1)], axis=1)
+
+
+def monomial_Tp(n_order: int, n_step: int) -> np.ndarray:
+    ts = np.linspace(0.0, 1.0, n_step, endpoint=True)
+    return np.stack([(i + 1) * ts**i for i in range(n_order)], axis=1)
+
+
+def _central_gradient(x):
+    """Gradient along axis -2: central differences inside, one-sided at the
+    edges (torch.gradient with unit spacing, as the JAX package writes it)."""
+    fwd = x[..., 1:, :] - x[..., :-1, :]
+    central = (x[..., 2:, :] - x[..., :-2, :]) / 2.0
+    return torch.cat([fwd[..., :1, :], central, fwd[..., -1:, :]], dim=-2)
+
+
+_CURVES = {"bezier": (bezier_T, bezier_Tp), "monomial": (monomial_T, monomial_Tp)}
+
+
 class SceneDecoder(nn.Module):
-    """cls token -> M modes; per-actor Bezier control-point regression
-    (reference network.py:343-556, param_out='bezier')."""
+    """cls token -> M modes; per-actor trajectory regression (reference
+    network.py:343-556). param_out picks the head: 'bezier' (control points
+    of an order-n Bezier curve), 'monomial' (coefficients of a polynomial
+    in t) or 'none' (the F positions themselves, velocities by central
+    differences)."""
 
     def __init__(self, cfg: NetConfig):
         super().__init__()
-        if cfg.param_out != "bezier":
-            raise NotImplementedError(f"param_out={cfg.param_out!r} is not ported")
+        if cfg.param_out not in ("bezier", "monomial", "none"):
+            raise NotImplementedError(f"param_out={cfg.param_out!r}")
         self.cfg = cfg
         H, M = cfg.d_embed, cfg.num_modes
         self.MLPBlock_0 = MLPBlock(20, (H,))
@@ -220,12 +247,14 @@ class SceneDecoder(nn.Module):
         self.MLPBlock_4 = MLPBlock(H, (H, H))
         self.Dense_0 = Dense(H, 1)
         self.MLPBlock_5 = MLPBlock(H, (H, H))
-        self.Dense_1 = Dense(H, (cfg.bezier_order + 1) * 5)
-        F_ = cfg.pred_len
-        self.register_buffer("mat_T", torch.tensor(
-            bezier_T(cfg.bezier_order, F_), dtype=torch.float32), persistent=False)
-        self.register_buffer("mat_Tp", torch.tensor(
-            bezier_Tp(cfg.bezier_order, F_), dtype=torch.float32), persistent=False)
+        # every head regresses (n_param + 1) * 5 numbers per mode and actor;
+        # 'none' reads them as F steps (reference network.py:408-447)
+        self.n_param = cfg.pred_len - 1 if cfg.param_out == "none" else cfg.bezier_order
+        self.Dense_1 = Dense(H, (self.n_param + 1) * 5)
+        if cfg.param_out in _CURVES:
+            for name, fn in zip(("mat_T", "mat_Tp"), _CURVES[cfg.param_out]):
+                self.register_buffer(name, torch.tensor(
+                    fn(cfg.bezier_order, cfg.pred_len), dtype=torch.float32), persistent=False)
 
     def forward(self, ctx, actors, tgt_feat, tgt_rpe):
         # ctx [B, D], actors [B, A, D], tgt_feat [B, D], tgt_rpe [B, 20]
@@ -235,7 +264,7 @@ class SceneDecoder(nn.Module):
             x.to(torch.float32) for x in (ctx, actors, tgt_feat, tgt_rpe))
         cfg = self.cfg
         H, M, F_ = cfg.d_embed, cfg.num_modes, cfg.pred_len
-        K = cfg.bezier_order + 1
+        K = self.n_param + 1
         B, A = actors.shape[:2]
 
         tgt_rpe_e = self.MLPBlock_0(tgt_rpe)
@@ -261,15 +290,24 @@ class SceneDecoder(nn.Module):
         cov_param = param[..., 2:].permute(0, 2, 1, 3, 4)    # [B, A, M, K, 3]
 
         curve = lambda mat, p: per_scene(lambda q: torch.einsum("fk,bamkd->bamfd", mat, q), p)
-        reg = curve(self.mat_T, reg_param)
-        vel = curve(self.mat_Tp, torch.diff(reg_param, dim=3)) / (F_ * 0.1)
-        cov = curve(self.mat_T, cov_param)
+        if cfg.param_out == "none":
+            reg, cov = reg_param, cov_param
+            vel = _central_gradient(reg) / 0.1
+        else:
+            reg = curve(self.mat_T, reg_param)
+            d_param = (torch.diff(reg_param, dim=3) if cfg.param_out == "bezier"
+                       else reg_param[:, :, :, 1:])
+            vel = curve(self.mat_Tp, d_param) / (F_ * 0.1)
+            cov = curve(self.mat_T, cov_param)
         reg_out = torch.cat([reg, torch.exp(cov)], dim=-1)   # [B, A, M, F, 5]
         return cls_prob, reg_out, vel
 
 
 class ScenePredNet(nn.Module):
-    """Full scene predictor over a batch of padded scenes."""
+    """Full scene predictor over a batch of padded scenes, with the decoder
+    head cfg.param_out ('bezier', 'monomial' or 'none'). Its state_dict
+    comes from the flax archive, the reference torch layout or the port's
+    own checkpoints (models/weights.py::load_scene_pred)."""
 
     def __init__(self, cfg: NetConfig):
         super().__init__()

@@ -24,6 +24,22 @@ The kernels are built with nvcc at first use into `_build/` beside this file
 (listed in .gitignore), one shared library with a C interface per source,
 compiled side by side and loaded with ctypes. A library's name carries a hash
 of its source and of the shared header, so an edited kernel is rebuilt.
+
+Gradients. A kernel writes into buffers of its own, which autograd cannot
+see, so under grad mode (an input or weight that requires grad)
+`fused_edge_attention` goes through `FusedEdgeAttentionFn`:
+
+- forward: the same dispatch as without grad (the variant's kernel on CUDA
+  tensors, its plain version on CPU tensors); it saves only the inputs and
+  weights, none of the [B, N, N, 128] intermediates;
+- backward (`fused_edge_attention_vjp`): recomputes the core from those
+  inputs with the variant's plain version and returns torch.autograd.grad
+  of it. That is the gradient the JAX package's training takes: jax.grad
+  cannot pass pallas_call, so it differentiates fused_edge_attention_ref.
+  Here the plain version is the formula of the backward only; every
+  training forward launches the kernel. There is no backward kernel.
+
+Under no_grad (every serving path) the Function is not entered.
 """
 
 from __future__ import annotations
@@ -305,17 +321,75 @@ def fused_edge_attention(node, edge, key_mask, w: FusionWeights, n_head: int,
     Both outputs are float32; with `update_edge=False` a float32 input edge is
     returned as it is and a bfloat16 one is written out as float32.
 
-    A CUDA tensor launches its kernel or raises on anything it does not take."""
+    A CUDA tensor launches its kernel or raises on anything it does not take.
+    Under grad mode, with an input or weight that requires grad, the call
+    goes through FusedEdgeAttentionFn (module docstring)."""
     variant = {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(w.wm_e.dtype)
     if variant is None:
         raise TypeError(f"weights have dtype {w.wm_e.dtype}: float32 or bfloat16 expected")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (node, edge, *w)):
+        return FusedEdgeAttentionFn.apply(node, edge, key_mask, n_head, update_edge, variant, *w)
+    return _dispatch(variant, node, edge, key_mask, w, n_head, update_edge)
+
+
+def _dispatch(variant, node, edge, key_mask, w, n_head, update_edge):
     if node.device.type == "cpu":
-        ref = fused_edge_attention_ref if variant == "float32" else fused_edge_attention_bf16_ref
-        return ref(node, edge, key_mask, w, n_head, update_edge)
+        return _PLAIN[variant](node, edge, key_mask, w, n_head, update_edge)
     if node.device.type != "cuda":
         raise ValueError(f"unsupported device {node.device}")
     launch = _launch_f32 if variant == "float32" else _launch_bf16
     return launch(node, edge, key_mask, w, n_head, update_edge)
+
+
+_PLAIN = {"float32": fused_edge_attention_ref, "bfloat16": fused_edge_attention_bf16_ref}
+
+
+def fused_edge_attention_vjp(variant, node, edge, key_mask, w, n_head, update_edge,
+                             g_out, g_edge, needs):
+    """Gradients of the layer core with respect to (node, edge, *w): the
+    variant's plain version recomputed from the inputs and differentiated
+    by autograd against the output gradients g_out, g_edge (None where an
+    output has none). `needs` says, per input, whether its gradient is
+    wanted; the others, and inputs the core does not use (the edge update's
+    weights without the edge update), get None."""
+    leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip((node, edge, *w), needs)]
+    with torch.enable_grad():
+        out, edge_new = _PLAIN[variant](leaves[0], leaves[1], key_mask,
+                                        FusionWeights(*leaves[2:]), n_head, update_edge)
+    pairs = [(o, g) for o, g in ((out, g_out), (edge_new, g_edge))
+             if g is not None and o.requires_grad]
+    wrt = [t for t in leaves if t.requires_grad]
+    if not pairs or not wrt:
+        return [None] * len(leaves)
+    grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                     allow_unused=True))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+class FusedEdgeAttentionFn(torch.autograd.Function):
+    """The layer core under autograd: forward as `fused_edge_attention`
+    dispatches it (kernel on CUDA tensors, plain version on CPU tensors),
+    backward `fused_edge_attention_vjp`. apply(node, edge, key_mask, n_head,
+    update_edge, variant, *weights); variant "float32" takes any float type
+    on the CPU (the plain formula is type-generic; gradcheck runs it in
+    float64), and its kernel only float32."""
+
+    @staticmethod
+    def forward(ctx, node, edge, key_mask, n_head, update_edge, variant, *w):
+        ctx.n_head, ctx.update_edge, ctx.variant = n_head, update_edge, variant
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(node, edge, key_mask, *w)
+        return _dispatch(variant, node, edge, key_mask, FusionWeights(*w), n_head, update_edge)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out, g_edge):
+        node, edge, key_mask, *w = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        grads = fused_edge_attention_vjp(ctx.variant, node, edge, key_mask, w, ctx.n_head,
+                                         ctx.update_edge, g_out, g_edge,
+                                         (needs[0], needs[1], *needs[6:]))
+        return (grads[0], grads[1], None, None, None, None, *grads[2:])
 
 
 fused_edge_attention.launches = 0          # calls that launched a kernel, both variants

@@ -498,13 +498,13 @@ class MINDPlanner:
                            torch.tensor(evm, device=dev))
 
     def _init_network(self):
-        """ScenePredNet in eval mode on the planner's device: the weights of
-        the `.npz` archive at cfg.ckpt_path (written by
-        tools/export_flax_weights.py), or seeded weights without a path."""
+        """ScenePredNet in eval mode on the planner's device, its weights
+        picked by cfg.ckpt_path as the JAX planner picks them: a directory
+        is the port's checkpoints (models/checkpoint.py), an `.npz` the flax
+        archive, any other path a reference torch checkpoint, whose absence
+        leaves the weights seeded from cfg.seed, as no path does
+        (models/weights.py::load_scene_pred)."""
         cfg = self.cfg
-        if cfg.ckpt_path and not str(cfg.ckpt_path).endswith(".npz"):
-            raise ValueError(f"ckpt_path {cfg.ckpt_path!r}: the port reads only the .npz "
-                             "archive written by tools/export_flax_weights.py")
         return load_scene_pred(cfg.net, cfg.ckpt_path or None, self.device, seed=cfg.seed)
 
     def _init_programs(self):

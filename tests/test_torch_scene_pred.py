@@ -6,6 +6,7 @@ import ast
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from mind_tpu_torch.config import DEFAULT_WEIGHTS, NetConfig as TNetConfig
@@ -154,6 +155,40 @@ def test_weight_archive_equals_orbax_checkpoint():
     for k, v in ref.items():
         assert arc[k].dtype == np.float32, k
         np.testing.assert_array_equal(arc[k], np.asarray(jax.device_get(v)), err_msg=k)
+
+
+@pytest.mark.parametrize("param_out", ["bezier", "monomial", "none"])
+def test_decoder_heads_match_flax(param_out):
+    """Each param_out head of the port's SceneDecoder against the JAX
+    package's on the same random context, actor, target and RPE inputs,
+    with its parameters (the Dense_1 of the 'none' head regresses F * 5
+    numbers): 1e-5 absolute + relative."""
+    import jax
+    import jax.numpy as jnp
+    from mind_tpu.config import NetConfig
+    from mind_tpu.models.scene_pred import SceneDecoder as JSceneDecoder
+
+    from mind_tpu_torch.models.scene_pred import SceneDecoder
+
+    small = dict(SMALL, pred_len=12)
+    jcfg = NetConfig(**small, param_out=param_out)
+    rng = np.random.default_rng(4)
+    B, A, H = 3, 5, small["d_embed"]
+    inputs = [rng.normal(0, 1, s).astype(np.float32)
+              for s in ((B, H), (B, A, H), (B, small["d_lane"]), (B, 20))]
+    dec = JSceneDecoder(jcfg)
+    params = dec.init(jax.random.PRNGKey(2), *(jnp.asarray(x[0]) for x in inputs))
+    want = jax.vmap(lambda *a: dec.apply(params, *a))(*map(jnp.asarray, inputs))
+    net = SceneDecoder(TNetConfig(**small, param_out=param_out))
+    net.load_state_dict(params_from_flax(flat(params)), strict=True)
+    k = 12 if param_out == "none" else jcfg.bezier_order + 1
+    assert net.Dense_1.weight.shape == (k * 5, H)
+    with torch.no_grad():
+        got = net(*map(torch.from_numpy, inputs))
+    for g, w, name in zip(got, want, ("cls", "reg", "vel")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{param_out} {name}")
 
 
 def _kernel_launch_calls(tree):
