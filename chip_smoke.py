@@ -70,11 +70,15 @@ result line):
      (a) kernel A launched 6 times per training forward; (b) the whole
      network's gradients through the kernel's autograd Function against
      autograd through the plain version, each parameter within 1e-3 in
-     relative norm, none missing or zero; (c) the same for kernel B at one
+     relative norm, none missing or zero, and the decoder's target branch
+     (which only a scene won by mode 0 trains) the same way under the loss
+     with mode 0 as every scene's winner; (c) the same for kernel B at one
      call; (d) 20 steps, finite losses, the last below the first; (e) the
      first two losses and the first gradients against the same steps on the
      CPU; (f) save, restore, one step equal to one step without the round
-     trip, to the bit; the timed steps' forward / backward / optimizer ms,
+     trip, to the bit, under deterministic cuDNN (set for (f) alone; the
+     other checks and the timing run cuDNN's default algorithms); the timed
+     steps' forward / backward / optimizer ms,
      scenes per second, peak memory and the backward's share in the plain
      recompute of the 6 layer cores;
  15. print per-phase times, the kernel table and the card.
@@ -1103,133 +1107,151 @@ def phase_training(fa, dev, synthetic_av2):
                "actors": batch.actor_mask.sum(1).tolist(),
                "lanes": batch.lane_mask.sum(1).tolist(),
                "targets": int(batch.gt_mask.sum())}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True   # (f) compares two runs to the bit
-    try:
-        summary["kernel_b_grad_gap"] = bf16_call_grads(fa, dev)
+    summary["kernel_b_grad_gap"] = bf16_call_grads(fa, dev)
 
-        # (b) the whole network's gradients, kernel Function against plain
-        net = train.init_scene_pred(cfg.net, seed=0, device=dev)
-        names, params = zip(*net.named_parameters())
-        exempt, noise = set(unused_edge_params(cfg.net)), set(train.shift_invariant_params(cfg.net))
+    # (b) the whole network's gradients, kernel Function against plain
+    net = train.init_scene_pred(cfg.net, seed=0, device=dev)
+    names, params = zip(*net.named_parameters())
+    exempt, noise = set(unused_edge_params(cfg.net)), set(train.shift_invariant_params(cfg.net))
 
-        def grads(core):
-            scene_pred.fused_edge_attention = core
-            try:
-                cls_prob, reg, _ = net(*batch[:7])
-                loss = train.scene_loss(cls_prob, reg, batch.gt_pos, batch.gt_mask).mean()
-                modes = train.winning_modes(reg.detach(), batch.gt_pos, batch.gt_mask)
-                return (float(loss.detach()), modes.tolist(),
-                        torch.autograd.grad(loss, params, allow_unused=True))
-            finally:
-                scene_pred.fused_edge_attention = fa.fused_edge_attention
+    branch = [n for n in names if n.startswith(TARGET_BRANCH)]
+    branch_params = [p for n, p in zip(names, params) if n in branch]
 
-        fa.reset_launch_counts()
-        loss_fn, modes, g_fn = grads(fa.fused_edge_attention)
-        one_forward = dict(fa.fused_edge_attention.launches_by_variant)
-        loss_plain, modes_plain, g_plain = grads(fa.fused_edge_attention_ref)
-        if one_forward != {"float32": cfg.net.n_scene_layer, "bfloat16": 0} or \
-                fa.fused_edge_attention.launches != cfg.net.n_scene_layer:
-            raise RuntimeError(f"(a) one training forward launched {one_forward}, the plain "
-                               f"one {fa.fused_edge_attention.launches} in all")
-        if modes != modes_plain:
-            raise RuntimeError(f"(b) winning modes {modes} against plain {modes_plain}")
-        # the target lane enters mode 0 only: its branch learns from no scene
-        # whose winning mode is another
-        target = set() if 0 in modes else {n for n in names if n.startswith(TARGET_BRANCH)}
-        gaps = grad_gaps(names, g_fn, g_plain, exempt, noise, target)
-        fusion = [n for n in gaps if ".RelaFusionLayer_" in n and n.rsplit(".", 1)[1]
-                  in scene_pred._FUSION_PARAMS.values()]
-        if len(fusion) != 20 * cfg.net.n_scene_layer - len(exempt) - cfg.net.n_scene_layer:
-            raise RuntimeError(f"(b) {len(fusion)} fusion-core tensors compared")
-        summary["grad_vs_plain"] = {
-            "loss": [loss_fn, loss_plain], "winning_modes": modes,
-            "target_branch_zero": len(target), "tensors": len(gaps), "max_gap": max(gaps.values()),
-            "fusion_core_tensors": len(fusion), "fusion_core_max_gap": max(gaps[n] for n in fusion),
-            "largest": sorted(gaps.items(), key=lambda kv: -kv[1])[:3]}
-        log("[train] (b) gradients, kernel Function against plain: "
-            + json.dumps(summary["grad_vs_plain"]))
-        del g_plain
-
-        # (e) the same two steps on the CPU
-        cpu = torch.device("cpu")
-        t = time.perf_counter()
-        net_cpu = train.init_scene_pred(cfg.net, seed=0, device=cpu)
-        step_cpu = train.make_train_step(net_cpu, train.adamw(net_cpu.parameters(), TRAIN_LR))
-        batch_cpu = batch.to(cpu)
-        cpu_losses = [float(step_cpu(batch_cpu))]
-        g_cpu = [None if n in exempt else p.grad.clone() for n, p in net_cpu.named_parameters()]
-        cpu_losses.append(float(step_cpu(batch_cpu)))
-        summary["cpu_two_steps_s"] = time.perf_counter() - t
-        cpu_gaps = grad_gaps(names, [g.cpu() if g is not None else None for g in g_fn], g_cpu,
-                             exempt, noise, target)
-        del net_cpu, step_cpu, batch_cpu, g_cpu, g_fn
-
-        # (d) 20 steps, the launch counts set to 0 just before and read just after
-        optimizer = train.adamw(net.parameters(), TRAIN_LR)
-        step = train.make_train_step(net, optimizer)
-        losses, times, events = [], {}, []
-        vjp = fa.fused_edge_attention_vjp
-
-        def timed_vjp(*a, **kw):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = vjp(*a, **kw)
-            e.record()
-            events.append((s, e))
-            return out
-
-        fa.reset_launch_counts()
+    def grads(core):
+        """The scene loss's gradients, and the target branch's of the
+        same loss with mode 0 as every scene's winner (scene_loss over
+        mode 0 alone)."""
+        scene_pred.fused_edge_attention = core
         try:
-            for i in range(TRAIN_STEPS):
-                if i == TRAIN_WARM:
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    fa.fused_edge_attention_vjp = timed_vjp
-                losses.append(step(batch, times=times if i >= TRAIN_WARM else None))
+            cls_prob, reg, _ = net(*batch[:7])
+            loss = train.scene_loss(cls_prob, reg, batch.gt_pos, batch.gt_mask).mean()
+            loss_mode0 = train.scene_loss(cls_prob[..., :1], reg[..., :1, :, :],
+                                          batch.gt_pos, batch.gt_mask).mean()
+            modes = train.winning_modes(reg.detach(), batch.gt_pos, batch.gt_mask)
+            return (float(loss.detach()), modes.tolist(),
+                    torch.autograd.grad(loss, params, allow_unused=True, retain_graph=True),
+                    torch.autograd.grad(loss_mode0, branch_params))
         finally:
-            fa.fused_edge_attention_vjp = vjp
-        torch.cuda.synchronize()
-        launches = dict(fa.fused_edge_attention.launches_by_variant)
-        peak = torch.cuda.max_memory_allocated()
-        losses = [float(x) for x in losses]
-        timed = TRAIN_STEPS - TRAIN_WARM
-        ms = {k: v * 1e3 / timed for k, v in times.items()}
-        recompute_ms = sum(s.elapsed_time(e) for s, e in events) / timed
-        with torch.no_grad():
-            w, node, edge = fusion_inputs(B, 129, 128, dev, SEED)
-            mask = torch.ones(B, 129, dtype=torch.bool, device=dev)
-            kernel_ms = [cuda_time_ms(lambda: fa.fused_edge_attention(node, edge, mask, w, 8, ue))
-                         for ue in (True, False)]
-            del w, node, edge
-        kernel_fwd_ms = (cfg.net.n_scene_layer - 1) * kernel_ms[0] + kernel_ms[1]
-        step_ms = sum(ms.values())
-        summary.update({
-            "losses": losses, "cpu_losses": cpu_losses,
-            "cpu_gap": {"loss": [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)],
-                        "grad_max": max(cpu_gaps.values())},
-            "launches": launches, "timed_steps": timed,
-            "step_ms": step_ms, "ms": ms, "scenes_per_s": B * 1e3 / step_ms,
-            "peak_memory_gb": peak / 1e9,
-            "recompute_ms": recompute_ms, "recompute_share_of_backward":
-                recompute_ms / ms["backward"],
-            "recomputes_per_step": len(events) / timed,
-            "kernel_a_forward_ms_6_layers": kernel_fwd_ms,
-            "kernel_a_ms_per_call": kernel_ms})
-        log("[train] " + json.dumps({k: summary[k] for k in (
-            "losses", "cpu_losses", "cpu_gap", "launches", "step_ms", "ms", "scenes_per_s",
-            "peak_memory_gb", "recompute_ms", "recompute_share_of_backward",
-            "kernel_a_forward_ms_6_layers")}))
-        if launches != {"float32": cfg.net.n_scene_layer * TRAIN_STEPS, "bfloat16": 0}:
-            raise RuntimeError(f"(a) {launches} launches in {TRAIN_STEPS} training steps")
-        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-            raise RuntimeError(f"(d) losses not finite or not falling: {losses}")
-        if not all(g <= TOL_TRAIN_LOSS for g in summary["cpu_gap"]["loss"]):
-            raise RuntimeError(f"(e) card and CPU losses disagree: {summary['cpu_gap']}")
-        if len(events) != cfg.net.n_scene_layer * timed:
-            raise RuntimeError(f"{len(events)} plain recomputes in {timed} backward passes")
+            scene_pred.fused_edge_attention = fa.fused_edge_attention
 
-        # (f) save -> restore -> one step, against one step without the round trip
+    fa.reset_launch_counts()
+    loss_fn, modes, g_fn, g0_fn = grads(fa.fused_edge_attention)
+    one_forward = dict(fa.fused_edge_attention.launches_by_variant)
+    loss_plain, modes_plain, g_plain, g0_plain = grads(fa.fused_edge_attention_ref)
+    if one_forward != {"float32": cfg.net.n_scene_layer, "bfloat16": 0} or \
+            fa.fused_edge_attention.launches != cfg.net.n_scene_layer:
+        raise RuntimeError(f"(a) one training forward launched {one_forward}, the plain "
+                           f"one {fa.fused_edge_attention.launches} in all")
+    if modes != modes_plain:
+        raise RuntimeError(f"(b) winning modes {modes} against plain {modes_plain}")
+    # the target lane enters mode 0 only: its branch learns from no scene
+    # whose winning mode is another
+    target = set() if 0 in modes else set(branch)
+    gaps = grad_gaps(names, g_fn, g_plain, exempt, noise, target)
+    # the branch's gradients where mode 0 wins every scene
+    branch_gaps = grad_gaps(branch, g0_fn, g0_plain, set(), set())
+    if len(branch_gaps) != 12:
+        raise RuntimeError(f"(b) {len(branch_gaps)} target-branch tensors compared")
+    fusion = [n for n in gaps if ".RelaFusionLayer_" in n and n.rsplit(".", 1)[1]
+              in scene_pred._FUSION_PARAMS.values()]
+    if len(fusion) != 20 * cfg.net.n_scene_layer - len(exempt) - cfg.net.n_scene_layer:
+        raise RuntimeError(f"(b) {len(fusion)} fusion-core tensors compared")
+    summary["grad_vs_plain"] = {
+        "loss": [loss_fn, loss_plain], "winning_modes": modes,
+        "target_branch_zero": len(target), "tensors": len(gaps), "max_gap": max(gaps.values()),
+        "target_branch_mode0_tensors": len(branch_gaps),
+        "target_branch_mode0_max_gap": max(branch_gaps.values()),
+        "fusion_core_tensors": len(fusion), "fusion_core_max_gap": max(gaps[n] for n in fusion),
+        "largest": sorted(gaps.items(), key=lambda kv: -kv[1])[:3]}
+    log("[train] (b) gradients, kernel Function against plain: "
+        + json.dumps(summary["grad_vs_plain"]))
+    del g_plain, g0_fn, g0_plain
+
+    # (e) the same two steps on the CPU
+    cpu = torch.device("cpu")
+    t = time.perf_counter()
+    net_cpu = train.init_scene_pred(cfg.net, seed=0, device=cpu)
+    step_cpu = train.make_train_step(net_cpu, train.adamw(net_cpu.parameters(), TRAIN_LR))
+    batch_cpu = batch.to(cpu)
+    cpu_losses = [float(step_cpu(batch_cpu))]
+    g_cpu = [None if n in exempt else p.grad.clone() for n, p in net_cpu.named_parameters()]
+    cpu_losses.append(float(step_cpu(batch_cpu)))
+    summary["cpu_two_steps_s"] = time.perf_counter() - t
+    cpu_gaps = grad_gaps(names, [g.cpu() if g is not None else None for g in g_fn], g_cpu,
+                         exempt, noise, target)
+    del net_cpu, step_cpu, batch_cpu, g_cpu, g_fn
+
+    # (d) 20 steps, the launch counts set to 0 just before and read just after
+    optimizer = train.adamw(net.parameters(), TRAIN_LR)
+    step = train.make_train_step(net, optimizer)
+    losses, times, events = [], {}, []
+    vjp = fa.fused_edge_attention_vjp
+
+    def timed_vjp(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = vjp(*a, **kw)
+        e.record()
+        events.append((s, e))
+        return out
+
+    fa.reset_launch_counts()
+    try:
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_WARM:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fa.fused_edge_attention_vjp = timed_vjp
+            losses.append(step(batch, times=times if i >= TRAIN_WARM else None))
+    finally:
+        fa.fused_edge_attention_vjp = vjp
+    torch.cuda.synchronize()
+    launches = dict(fa.fused_edge_attention.launches_by_variant)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    timed = TRAIN_STEPS - TRAIN_WARM
+    ms = {k: v * 1e3 / timed for k, v in times.items()}
+    recompute_ms = sum(s.elapsed_time(e) for s, e in events) / timed
+    with torch.no_grad():
+        w, node, edge = fusion_inputs(B, 129, 128, dev, SEED)
+        mask = torch.ones(B, 129, dtype=torch.bool, device=dev)
+        kernel_ms = [cuda_time_ms(lambda: fa.fused_edge_attention(node, edge, mask, w, 8, ue))
+                     for ue in (True, False)]
+        del w, node, edge
+    kernel_fwd_ms = (cfg.net.n_scene_layer - 1) * kernel_ms[0] + kernel_ms[1]
+    step_ms = sum(ms.values())
+    summary.update({
+        "losses": losses, "cpu_losses": cpu_losses,
+        "cpu_gap": {"loss": [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)],
+                    "grad_max": max(cpu_gaps.values()),
+                    "largest": sorted(cpu_gaps.items(), key=lambda kv: -kv[1])[:5]},
+        "launches": launches, "timed_steps": timed,
+        "step_ms": step_ms, "ms": ms, "scenes_per_s": B * 1e3 / step_ms,
+        "peak_memory_gb": peak / 1e9,
+        "recompute_ms": recompute_ms, "recompute_share_of_backward":
+            recompute_ms / ms["backward"],
+        "recomputes_per_step": len(events) / timed,
+        "kernel_a_forward_ms_6_layers": kernel_fwd_ms,
+        "kernel_a_ms_per_call": kernel_ms})
+    log("[train] " + json.dumps({k: summary[k] for k in (
+        "losses", "cpu_losses", "cpu_gap", "launches", "step_ms", "ms", "scenes_per_s",
+        "peak_memory_gb", "recompute_ms", "recompute_share_of_backward",
+        "kernel_a_forward_ms_6_layers")}))
+    if launches != {"float32": cfg.net.n_scene_layer * TRAIN_STEPS, "bfloat16": 0}:
+        raise RuntimeError(f"(a) {launches} launches in {TRAIN_STEPS} training steps")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError(f"(d) losses not finite or not falling: {losses}")
+    if not all(g <= TOL_TRAIN_LOSS for g in summary["cpu_gap"]["loss"]):
+        raise RuntimeError(f"(e) card and CPU losses disagree: {summary['cpu_gap']}")
+    if len(events) != cfg.net.n_scene_layer * timed:
+        raise RuntimeError(f"{len(events)} plain recomputes in {timed} backward passes")
+
+    # (f) save -> restore -> one step, against one step without the round
+    # trip; only here are cuDNN's algorithms held to deterministic ones, so
+    # that two runs of a step can be equal to the bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
         with tempfile.TemporaryDirectory() as d:
             ckpt.save_params(d, net, step=TRAIN_STEPS, opt_state=optimizer)
             loss_on = step(batch)
@@ -1237,15 +1259,15 @@ def phase_training(fa, dev, synthetic_av2):
             net2.load_state_dict(ckpt.load_params(d, net2))
             opt2 = ckpt.load_opt_state(d, train.adamw(net2.parameters(), TRAIN_LR))
             loss_back = train.make_train_step(net2, opt2)(batch)
-        same = torch.equal(loss_on, loss_back) and all(
-            torch.equal(a, b) for a, b in zip(net.state_dict().values(), net2.state_dict().values()))
-        summary["restore_equal"] = same
-        log(f"[train] (f) restored step equal to the continued one, to the bit: {same}")
-        if not same:
-            raise RuntimeError(f"(f) restored step differs: loss {float(loss_back)} against "
-                               f"{float(loss_on)}")
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(loss_on, loss_back) and all(
+        torch.equal(a, b) for a, b in zip(net.state_dict().values(), net2.state_dict().values()))
+    summary["restore_equal"] = same
+    log(f"[train] (f) restored step equal to the continued one, to the bit: {same}")
+    if not same:
+        raise RuntimeError(f"(f) restored step differs: loss {float(loss_back)} against "
+                           f"{float(loss_on)}")
     del net, net2, optimizer, opt2, batch
     torch.cuda.empty_cache()
     summary["seconds"] = time.perf_counter() - t0

@@ -2,8 +2,7 @@
 JAX package's scripts/train_demo_weights.py).
 
 Usage: python -m mind_tpu_torch.train_weights --data-root PATH --out DIR
-       [--steps 600] [--lr 3e-4] [--device cpu] [--npz FILE]
-       [--net KEY=VALUE,...]   # NetConfig fields over PlannerConfig().net
+       [--steps 600] [--lr 3e-4] [--device cpu]
 
 One batch of the four configs/demo_{1..4}.json scenarios (their AV2 map and
 scenario files under --data-root), each through the data layer and
@@ -13,7 +12,7 @@ PlannerConfig()'s network (float32, full width) from init_scene_pred with
 the config's seed; AdamW from step 0, the winner-takes-all scene loss; the
 loss printed every 50 steps. The result is saved as a checkpoint under
 --out/<steps>/ (models/checkpoint.py, which MINDPlanner reads from a
-directory) and, with --npz, as the flat flax archive too.
+directory; checkpoint.save_flax_npz writes the flat flax archive from it).
 
 Training runs on the CUDA card unless --device names another device.
 Reading a scenario parquet needs pandas with a parquet engine.
@@ -22,7 +21,6 @@ Reading a scenario parquet needs pandas with a parquet engine.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -34,7 +32,7 @@ from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.config import PlannerConfig, SimConfig
 from mind_tpu_torch.data.loader import ArgoAgentLoader, TrajBundle
 from mind_tpu_torch.data.semantic_map import SemanticMap, build_lane_graph, lane_graph_features
-from mind_tpu_torch.models.checkpoint import save_flax_npz, save_params
+from mind_tpu_torch.models.checkpoint import save_params
 from mind_tpu_torch.models.data_pipeline import scenario_to_batch, stack_batches
 from mind_tpu_torch.models.train import Batch, adamw, init_scene_pred, make_train_step
 from mind_tpu_torch.planner.planner import type_onehot
@@ -99,35 +97,19 @@ def train(net, batch: Batch, steps: int, lr: float, log=print):
     return [float(x) for x in losses], optimizer
 
 
-def net_overrides(text: str) -> dict:
-    """"key=value,..." -> NetConfig field values, typed as the defaults."""
-    fields = {f.name: f for f in dataclasses.fields(PlannerConfig().net)}
-    out = {}
-    for item in filter(None, text.split(",")):
-        key, value = item.split("=", 1)
-        if key not in fields:
-            raise SystemExit(f"error: NetConfig has no field {key!r}")
-        kind = type(getattr(PlannerConfig().net, key))
-        out[key] = value.lower() in ("1", "true") if kind is bool else kind(value)
-    return out
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description="train ScenePredNet on the demo scenarios")
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--data-root", required=True, help="directory holding the AV2 scenario folders")
     ap.add_argument("--out", required=True, help="checkpoint directory (steps below it)")
-    ap.add_argument("--npz", default=None, help="also write the flat flax archive here")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
-    ap.add_argument("--net", default="", help="NetConfig fields to change, key=value,...")
     args = ap.parse_args(argv)
     for path in DEMOS:
         if not path.is_file():
             sys.exit(f"error: config file not found: {path}")
 
     cfg = PlannerConfig()
-    cfg.net = dataclasses.replace(cfg.net, **net_overrides(args.net))
     device = resolve_device(args.device)
     batch = demo_batch(args.data_root, cfg, device, log=lambda s: print(s, flush=True))
     net = init_scene_pred(cfg.net, seed=cfg.seed, device=device)
@@ -135,8 +117,6 @@ def main(argv=None):
                               log=lambda s: print(s, flush=True))
     out = save_params(args.out, net, step=args.steps, opt_state=optimizer)
     print("saved:", out, flush=True)
-    if args.npz:
-        print("saved:", save_flax_npz(args.npz, net), flush=True)
     return losses
 
 

@@ -114,10 +114,10 @@ def test_scene_loss_matches_jax_with_ties():
     assert abs(other[2] - got[2]) > 1e-3
 
 
-def test_train_step_gradients_match_jax(jax_tiny):
-    """The port's loss and gradients against jax.value_and_grad of JAX's
-    loss_fn: its train step with an optimizer that hands the gradients
-    back as its state."""
+def train_step_against_jax(jax_tiny, jbatch):
+    """The port's loss and gradients on `jbatch` against jax.value_and_grad
+    of JAX's loss_fn: its train step with an optimizer that hands the
+    gradients back as its state. Returns the port's {name: gradient}."""
     import jax
     import optax
     from mind_tpu.models.train import make_train_step
@@ -125,10 +125,9 @@ def test_train_step_gradients_match_jax(jax_tiny):
     capture = optax.GradientTransformation(
         init=lambda p: p, update=lambda g, s, p=None: (jax.tree.map(jax.numpy.zeros_like, g), g))
     _, step = make_train_step(jax_tiny.cfg, capture)
-    _, jgrads, jloss = jax.jit(step)(jax_tiny.params, capture.init(jax_tiny.params),
-                                     jax_tiny.batch)
+    _, jgrads, jloss = jax.jit(step)(jax_tiny.params, capture.init(jax_tiny.params), jbatch)
     net = port_net(jax_tiny.params)
-    loss = ttrain.loss_fn(net, port_batch(jax_tiny.batch))
+    loss = ttrain.loss_fn(net, port_batch(jbatch))
     names, params = zip(*net.named_parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     assert rel(loss.item(), float(jloss)) < 1e-5
@@ -143,6 +142,32 @@ def test_train_step_gradients_match_jax(jax_tiny):
     assert sorted(unused) == sorted(f"FusionNet_0.RelaFusionLayer_1.{n}" for n in (
         "w_edge", "b_edge", "ln_e1_scale", "ln_e1_bias", "ln_e2_scale", "ln_e2_bias"))
     assert all(g is not None for n, g in zip(names, grads) if "RelaFusionLayer_0" in n)
+    return got
+
+
+def test_train_step_gradients_match_jax(jax_tiny):
+    train_step_against_jax(jax_tiny, jax_tiny.batch)
+
+
+TARGET_BRANCH = ("SceneDecoder_0.MLPBlock_0.", "SceneDecoder_0.MLPBlock_1.")
+
+
+def test_train_step_gradients_match_jax_when_mode_0_wins(jax_tiny):
+    """The decoder puts the target lane into mode 0 only, so its target
+    branch learns only from scenes whose winning mode is 0. Here the ground
+    truth is mode 0's prediction moved by 0.01 m (away from |x|'s kink at 0),
+    so mode 0 wins every scene and the branch's gradients are nonzero and
+    held against JAX's like every other."""
+    rng = np.random.default_rng(2)
+    batch = port_batch(jax_tiny.batch)
+    with torch.no_grad():
+        _, reg, _ = port_net(jax_tiny.params)(*batch[:7])
+    gt = reg[..., 0, :, :2].numpy() + 0.01 * rng.choice([-1.0, 1.0], reg[..., 0, :, :2].shape)
+    jbatch = jax_tiny.batch._replace(gt_pos=gt.astype(np.float32))
+    assert ttrain.winning_modes(reg, torch.from_numpy(jbatch.gt_pos), batch.gt_mask).eq(0).all()
+    got = train_step_against_jax(jax_tiny, jbatch)
+    branch = [n for n in got if n.startswith(TARGET_BRANCH)]
+    assert len(branch) == 12 and all(bool(got[n].any()) for n in branch)
 
 
 @pytest.mark.parametrize("opt", ["adam", "adamw"])
@@ -343,31 +368,41 @@ def test_scenario_to_batch_matches_jax(tmp_path, monkeypatch):
     assert all(x.shape[0] == 2 and torch.equal(x[1], y[0]) for x, y in zip(two, got))
 
 
-def test_train_weights_cli(tmp_path, capsys):
+def test_train_weights_cli(tmp_path, capsys, monkeypatch):
     """python -m mind_tpu_torch.train_weights for 3 steps on the CPU, on
     parquet files of four synthetic AV2 scenarios written under the demo
-    configurations' sequence ids, with a narrow network."""
+    configurations' sequence ids, with PlannerConfig's network narrowed to
+    the tiny one."""
     pytest.importorskip("pandas")
     pytest.importorskip("pyarrow")
+    import dataclasses
     import json
 
     from mind_tpu_torch import train_weights
-    from mind_tpu_torch.models.checkpoint import steps
+    from mind_tpu_torch.config import PlannerConfig
+    from mind_tpu_torch.models.checkpoint import load_params, steps
     from mind_tpu_torch.synthetic import synthetic_av2, write_synthetic_map
     from test_torch_data import SMALL_ROAD, scenario_frame
 
+    def tiny_planner_config():
+        cfg = PlannerConfig()
+        cfg.net = dataclasses.replace(cfg.net, **{k: v for k, v in TINY.items() if k != "pred_len"})
+        return cfg
+
+    monkeypatch.setattr(train_weights, "PlannerConfig", tiny_planner_config)
     for d, path in enumerate(train_weights.DEMOS):
         seq = json.loads(open(path).read())["seq_id"]
         syn = synthetic_av2(d, **SMALL_ROAD)
         write_synthetic_map(syn.map_json, tmp_path, seq)
         scenario_frame(syn.scenario).to_parquet(tmp_path / seq / f"scenario_{seq}.parquet")
-    out, npz = tmp_path / "ckpt", tmp_path / "w.npz"
-    net = ",".join(f"{k}={v}" for k, v in TINY.items() if k != "pred_len")
+    out = tmp_path / "ckpt"
     losses = train_weights.main(["--steps", "3", "--data-root", str(tmp_path), "--out", str(out),
-                                 "--device", "cpu", "--npz", str(npz), "--net", net])
+                                 "--device", "cpu"])
     text = capsys.readouterr().out
     assert "demo_4: batch built" in text and "step 0: loss" in text and "step 2: loss" in text
     assert len(losses) == 3 and np.isfinite(losses).all() and losses[-1] < losses[0]
-    assert steps(out) == [3] and npz.is_file()
-    with pytest.raises(SystemExit, match="no field"):
-        train_weights.main(["--data-root", ".", "--out", str(out), "--net", "width=3"])
+    assert steps(out) == [3]
+    like = ttrain.init_scene_pred(tiny_planner_config().net, seed=1, device=CPU)
+    restored = load_params(out, like)
+    assert set(restored) == set(like.state_dict())
+    assert not all(torch.equal(restored[k], v) for k, v in like.state_dict().items())
