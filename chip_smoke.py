@@ -4,6 +4,8 @@
 
 Phases, in order (any failure ends the run with a non-zero exit and no
 result line):
+  0. probe: utils/device_health.py::probe_once() (a bf16 product on the card
+     in a fresh subprocess) must return True;
   1. build both CUDA kernels (mind_tpu_torch/ops/csrc/fusion_attention.cu,
      float32, and fusion_attention_bf16.cu, bf16 operands on the tensor
      cores; sm_90a, one nvcc per source, side by side) from the checkout;
@@ -18,6 +20,12 @@ result line):
      synthetic scene (48 actor slots, 80 lane segments, 256-point target
      lane), rolling the observation window between cycles; the first cycle
      is held against the same cycle on the CPU through the plain version;
+ 4a. host tree: ScenarioTreeGenerator.branch_aime (planner/scenario_tree.py,
+     the tree bookkeeping on the host) against aime_grow_tree on the same
+     filled window, both on the card with the float32 network: the same
+     number of trees, the same multiset of (duration, norm_prob to 1e-4),
+     root-child trajectories within 2e-3 m, kernel A launched 6 times per
+     round;
   5. demo path: the same cycles under planner_config_for_demo("demo_1")
      (bf16 network); one ScenePredNet forward on the path's first AIME
      inputs is held, kernel against plain, on the card;
@@ -62,6 +70,18 @@ result line):
      timed, with its peak device memory: every copy finite, kernel B
      launched 6 times per round, segments of 4 equal to it to the bit, copies
      0 and 15 against run_episode on their own schedules (as in 11);
+ 12a. parity playback: parity/runner.py::run_parity_episode_playback on the
+     loop's scenario under the demo configuration (read from
+     configs/demo_1.json; 150 ticks, planner on after 1 s): the episode's
+     recorded controls against the float64 mirror (parity/host_planner.py)
+     planning from the same inputs with the planner's network on the card:
+     zero ok flips, mean per-cycle rollout deviation within 1e-3 m
+     (PARITY_TRACES.md section 1), kernel B launched 6 times per AIME round
+     and per mirror forward; the plans compared, the deviations and the
+     mirror's seconds per plan are printed;
+ 12b. parity resync: run_parity_demo_resync on the same scenario (demo_1's
+     4 s enable time, 230 ticks, at least 5 plans of the staged planner with
+     the mirror in tandem): the same criterion and launch check;
  13. tree scale: parallel_tree_solve of 1024 random branching trees on a
      one-device mesh, timed, against four slices of 256 solved alone;
  14. training: PlannerConfig()'s float32 network at full width from
@@ -84,7 +104,7 @@ result line):
  15. print per-phase times, the kernel table and the card.
 
 Phase 2 holds both kernels at B = 8, 32 and 128, the batches the paths give
-them.
+them. The kernels line counts each kernel's launches by path.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
@@ -148,6 +168,15 @@ TRAIN_STEPS, TRAIN_WARM, TRAIN_LR = 20, 3, 3e-4
 # feeds mode 0 alone (reference network.py:506-508)
 TARGET_BRANCH = ("SceneDecoder_0.MLPBlock_0.", "SceneDecoder_0.MLPBlock_1.")
 SEQ_ID = "synthetic"
+# the host tree generator against the device AIME: root-child trajectories,
+# metres (tests/test_aime.py:119)
+TOL_HOST_TREE = 2e-3
+# parity: mean per-cycle rollout deviation against the float64 mirror, metres
+# (PARITY_TRACES.md section 1's criterion)
+TOL_PARITY_MEAN = 1e-3
+# the resynced parity run: demo_1 enables the planner at 4 s (tick 200)
+RESYNC_TICKS = 230
+OBS = 50
 # the AV logs 5 m/s behind a leader at 3 m/s; asked for 8 m/s (the demo
 # configurations set a target velocity too), every plan has to accelerate
 TARGET_VELOCITY = 8.0
@@ -1274,6 +1303,155 @@ def phase_training(fa, dev, synthetic_av2):
     return launches["float32"], summary
 
 
+def phase_probe():
+    """The card's health probe (utils/device_health.py): a 128x128 bf16
+    product in a fresh subprocess, within its timeout."""
+    from mind_tpu_torch.utils import device_health
+
+    t = time.perf_counter()
+    ok = device_health.probe_once()
+    log(f"[probe] device_health.probe_once() = {ok} in {time.perf_counter() - t:.2f} s")
+    if not ok:
+        raise RuntimeError("the device health probe failed")
+    return time.perf_counter() - t
+
+
+class CallCounter:
+    """A function or method, counting its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        return self.fn(*a, **kw)
+
+    def __get__(self, obj, objtype=None):     # bind like the method it wraps
+        return self if obj is None else lambda *a, **kw: self(obj, *a, **kw)
+
+
+def phase_host_tree(cfg, net, scene, aime, scene_statics, fa, dev):
+    """ScenarioTreeGenerator.branch_aime (host bookkeeping, planner/
+    scenario_tree.py) against aime_grow_tree, both on the card, from the
+    same filled window of the float32 path's scene, with the checks of
+    tests/test_aime.py:70-119: the same number of trees, the same multiset
+    of (duration, norm_prob rounded to 1e-4), root-child trajectories within
+    2e-3 m; kernel A launched 6 times per round of the host generator (the
+    counts set to 0 just before branch_aime and read just after)."""
+    from mind_tpu_torch.planner.scenario_tree import ScenarioTreeGenerator
+
+    pdt = getattr(torch, cfg.pipeline_dtype)
+    buf = fill_buffer(aime, scene, pdt, dev)
+    statics = scene_statics(scene, pdt, dev)
+    types = torch.tensor(scene.types, device=dev)
+    amask = torch.tensor(scene.present, device=dev)
+    pos, ang, vel, obs = aime.nn_fill_window(buf)
+    cov = torch.full(obs.shape, 1e-5, dtype=torch.float64, device=dev)
+    counted = CallCounter(net)
+    gen = ScenarioTreeGenerator(cfg, counted, statics.lane, statics.tgt, cfg.max_actors)
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    host_trees = gen.branch_aime((pos, ang, vel, cov, obs), types, amask)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    counts = dict(fa.fused_edge_attention.launches_by_variant)
+    rounds = counted.calls
+    t = time.perf_counter()
+    state, meta, dev_rounds = aime.aime_grow_tree(net, cfg, *aime.scene_axis(
+        buf, types, amask, statics.lane, statics.tgt))
+    end = meta.end_flag[0].cpu().numpy().copy()
+    device_s = time.perf_counter() - t
+    end[0] = False   # the root, which the host trees do not hold
+    tid, dur = meta.tree_id[0].cpu().numpy(), meta.duration[0].cpu().numpy()
+    nprob, depth = meta.norm_prob[0].cpu().numpy(), state.depth[0].cpu().numpy()
+    dev_nodes = sorted((int(dur[i]), round(float(nprob[i]), 4)) for i in np.flatnonzero(end))
+    host_nodes = sorted((nd.data[1].shape[1], round(float(nd.data[0]), 4))
+                        for tr in host_trees for nd in tr.nodes.values())
+    host_rc = {(tr.get_root().data[1].shape[1], round(float(tr.get_root().data[0]), 4)):
+               tr.get_root().data[1] for tr in host_trees}
+    gap = 0.0
+    for i in np.flatnonzero(end & (depth == 1)):
+        key = (int(dur[i]), round(float(nprob[i]), 4))
+        if key not in host_rc:
+            gap = float("inf")
+            break
+        d = int(dur[i])
+        gap = max(gap, float(np.abs(state.slots.pos[0, i, :, OBS:OBS + d].cpu().numpy()
+                                    - host_rc[key]).max(initial=0.0)))
+    n_dev_trees = len({int(x) for x in tid if x >= 0})
+    summary = {"trees": len(host_trees), "device_trees": n_dev_trees,
+               "nodes": len(host_nodes), "device_nodes": len(dev_nodes), "rounds": rounds,
+               "device_rounds": dev_rounds, "root_child_gap_m": gap, "launches": counts,
+               "host_generator_s": host_s, "device_aime_s": device_s}
+    log("[host tree] " + json.dumps(summary))
+    if not host_trees or n_dev_trees != len(host_trees) or dev_nodes != host_nodes \
+            or not gap <= TOL_HOST_TREE:
+        raise RuntimeError(f"host tree generator disagrees with aime_grow_tree: {summary}")
+    if counts["float32"] != cfg.net.n_scene_layer * rounds or counts["bfloat16"] or rounds == 0:
+        raise RuntimeError(f"host tree: launches {counts} for {rounds} rounds")
+    return counts["float32"], summary
+
+
+def phase_parity(dcfg, fa, data_root, syn):
+    """The float64 mirror (parity/host_planner.py) against the port's planner
+    on the closed loop's scenario under planner_config_for_demo("demo_1")
+    (bf16 network, trained weights), the mirror sharing the planner's
+    network on the card: run_parity_episode_playback (150 ticks, planner on
+    after 1 s) and run_parity_demo_resync (demo_1's enable time of 4 s,
+    RESYNC_TICKS ticks). Each must show zero ok flips and a mean cycle
+    deviation within 1e-3 m, and kernel B launched 6 times per AIME round
+    and per mirror forward, kernel A never (counts set to 0 just before
+    each run, read just after)."""
+    from mind_tpu_torch.parity import host_planner
+    from mind_tpu_torch.parity import runner
+    from mind_tpu_torch.planner import planner as tplanner
+
+    layers = dcfg.net.n_scene_layer
+    out = {}
+    for name, run in (
+            ("parity_playback", lambda: runner.run_parity_episode_playback(
+                "demo_1", 150, data_root, enable_timestep=1.0, scenario=syn.scenario)),
+            ("parity_resync", lambda: runner.run_parity_demo_resync(
+                "demo_1", RESYNC_TICKS, data_root, scenario=syn.scenario))):
+        rounds = RoundCounter(tplanner.aime_grow_tree)
+        forwards = CallCounter(host_planner.HostRefPlanner._predict)
+        tplanner.aime_grow_tree = rounds
+        host_planner.HostRefPlanner._predict = forwards
+        try:
+            fa.reset_launch_counts()
+            t = time.perf_counter()
+            r = run()
+            wall = time.perf_counter() - t
+            counts = dict(fa.fused_edge_attention.launches_by_variant)
+        finally:
+            tplanner.aime_grow_tree = rounds.fn
+            host_planner.HostRefPlanner._predict = forwards.fn
+        plans = len(r["records"]) if "records" in r else r["plans"]
+        summary = {k: r[k] for k in ("plans_compared", "ok_mismatches", "max_cycle_dev",
+                                     "mean_cycle_dev", "max_ctrl_dev")}
+        summary.update(plans=plans, device_rounds=rounds.rounds,
+                       mirror_forwards=forwards.calls, launches=counts, wall_s=wall)
+        if name == "parity_playback":
+            summary.update(episode_wall_s=r["episode_wall_s"], mirror_wall_s=r["mirror_wall_s"],
+                           mirror_s_per_plan=r["mirror_wall_s"] / max(plans, 1),
+                           fail_cycle=r["fail_cycle"])
+        else:
+            summary.update(ticks=r["ticks"], host_failures=r["host_failures"])
+        log(f"[{name}] " + json.dumps(summary))
+        if r["ok_mismatches"] or not r["plans_compared"] or \
+                not r["mean_cycle_dev"] <= TOL_PARITY_MEAN or r["plans_compared"] != plans:
+            raise RuntimeError(f"{name}: parity criterion failed: {summary}")
+        if name == "parity_resync" and plans < 5:
+            raise RuntimeError(f"{name}: {plans} plans, fewer than 5")
+        launched = layers * (rounds.rounds + forwards.calls)
+        if counts["bfloat16"] != launched or counts["float32"] or not rounds.rounds \
+                or not forwards.calls:
+            raise RuntimeError(f"{name}: launches {counts} for {rounds.rounds} AIME rounds and "
+                               f"{forwards.calls} mirror forwards")
+        out[name] = (counts["bfloat16"], summary)
+    return out
+
+
 def main() -> int:
     global T0
     T0 = time.perf_counter()
@@ -1287,6 +1465,7 @@ def main() -> int:
     from mind_tpu_torch.models import scene_pred
     from mind_tpu_torch.models.weights import load_scene_pred
     from mind_tpu_torch.ops import fusion_attention as fa
+    from mind_tpu_torch.parity import runner
     from mind_tpu_torch.planner import aime_device as aime
     from mind_tpu_torch.planner import planner as tplanner
     from mind_tpu_torch.planner.trajectory_tree import make_cost_params
@@ -1299,6 +1478,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
+    probe_s = phase_probe()
     cfg = PlannerConfig()
     A, L = cfg.max_actors, cfg.max_lanes
     scene = synthetic_scene(SEED, A, L, n_agents=40)
@@ -1338,6 +1518,10 @@ def main() -> int:
             np.abs(out_cpu[:2] - out0[:2]).max() > 1e-3:
         raise RuntimeError(f"card plan {out0} (tree {best0}) disagrees with the CPU "
                            f"plan {out_cpu} (tree {int(report['best'])})")
+
+    # 4a. the host tree generator against the device AIME, float32 network
+    host_tree_launches, host_tree = phase_host_tree(cfg, net, scene, aime, scene_statics, fa,
+                                                    dev)
 
     # 5. demo path: the bf16 network of the demo planner configuration
     dcfg = planner_config_for_demo("demo_1")
@@ -1385,25 +1569,34 @@ def main() -> int:
         batched_launches, batched = phase_batched_episode(loop_mods, dcfg, fa, data_root,
                                                           synthetic_av2)
         mc_launches, monte_carlo = phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn)
+        # 12a-b. the float64 mirror against the planner, on demo_1's configuration
+        # file with the loop's scenario: the map under demo_1's seq_id
+        write_synthetic_map(syn.map_json, data_root,
+                            SimConfig.from_json(runner.CONFIGS / "demo_1.json").seq_id)
+        parity = phase_parity(dcfg, fa, data_root, syn)
     scale = phase_tree_scale()
     train_launches, training = phase_training(fa, dev, synthetic_av2)
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
+                                      "host_tree": host_tree_launches,
                                       "float32_loop": loop32_launches,
                                       "training": train_launches}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
                                       "closed_loop": loop_launches, "episode": episode_launches,
                                       "batched_episode": batched_launches,
-                                      "monte_carlo": mc_launches}
-    entries[0]["launches"] += loop32_launches + train_launches
-    entries[1]["launches"] += loop_launches + episode_launches + batched_launches + mc_launches
+                                      "monte_carlo": mc_launches,
+                                      **{k: v[0] for k, v in parity.items()}}
+    for e in entries:
+        e["launches"] = sum(e["launches_by_path"].values())
 
     # 15. report
-    log("[phases] " + json.dumps({"float32": cycles32, "demo_bf16": cycles16,
+    log("[phases] " + json.dumps({"probe_s": probe_s, "float32": cycles32,
+                                  "host_tree": host_tree, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
                                   "float32_loop": loop32, "exec_resolve": execs,
                                   "graph_vs_eager": graph, "episode": episode,
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
+                                  **{k: v[1] for k, v in parity.items()},
                                   "tree_scale": scale, "training": training,
                                   "seconds": time.perf_counter() - T0}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

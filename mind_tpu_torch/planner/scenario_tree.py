@@ -1,23 +1,34 @@
-"""Decode of one AIME round (port of mind_tpu/planner/scenario_tree.py).
+"""AIME rounds with host bookkeeping (port of mind_tpu/planner/scenario_tree.py).
 
 `_decode_node` turns the network outputs of B branch nodes into their M
 candidate child hists and flags: denormalization to the global frame,
 covariance accumulation, probability and target-lane prune, greedy
 bearing-topology merge and the branch-time rule (reference
 scenario_tree.py:281-412,592-611). The JAX package vmaps it over nodes;
-here B is a leading axis. The host-side ScenarioTreeGenerator is not
-ported.
+here B is a leading axis.
+
+`ScenarioTreeGenerator` grows a tree with the host keeping the tree
+bookkeeping (parent ids, depth, slot allocation) and the device keeping
+the trajectories in fixed node slots: each round is one batched scene
+preparation, network forward and decode over the B branch slots, then one
+host read of the keep / probability / branch-time flags. The device path
+(aime_device.aime_grow_tree) does the bookkeeping on the device as well;
+the two give the same trees.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mind_tpu_torch.common.batch_invariant import mv
 from mind_tpu_torch.common.geometry import points_polyline_dist
-from mind_tpu_torch.planner.scene_prep import (OBS_LEN, SceneInputs, TargetLaneStatic, per_node,
+from mind_tpu_torch.common.tree import Node, Tree
+from mind_tpu_torch.config import PlannerConfig
+from mind_tpu_torch.planner.scene_prep import (OBS_LEN, LaneGraphStatic, SceneInputs,
+                                               TargetLaneStatic, per_node, prepare_node_inputs,
                                                rot_of)
 
 SEQ_LEN = 110  # obs 50 + pred 60
@@ -157,3 +168,233 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
         tgt_pts=inputs.tgt_pts,
         prob=prob, keep=keep_final, t_b=t_b, mode_prob=cls,
     )
+
+
+class ScenarioTreeGenerator:
+    """Host orchestrator around the batched AIME round (reference
+    scenario_tree.py:38-108). `net` is the ScenePredNet; the statics and
+    the root window live on its device."""
+
+    def __init__(self, cfg: PlannerConfig, net, lane_static: LaneGraphStatic,
+                 tgt_static: TargetLaneStatic, max_actors: int):
+        self.cfg = cfg
+        self.scen_cfg = cfg.scen_tree
+        self.net = net
+        self.lane_static = lane_static
+        self.tgt_static = tgt_static
+        self.A = max_actors
+        self.B = cfg.scen_tree.max_branch_nodes
+        self.MN = cfg.scen_tree.max_tree_nodes
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _round(self, win_pos, win_ang, win_vel, win_cov, win_obs, actor_type, actor_mask, probs,
+               cur_ts) -> RoundOutputs:
+        """Scene prep, one network forward and the decode of the B branch
+        slots."""
+        scen_cfg = self.scen_cfg
+        prep = prepare_node_inputs(win_pos, win_ang, win_vel, win_obs, actor_type, actor_mask,
+                                   self.lane_static, self.tgt_static, scen_cfg.tar_time_ahead)
+        f32 = torch.float32
+        cls, reg, vel = self.net(prep.actors.to(f32), prep.actor_mask, prep.lanes.to(f32),
+                            prep.lane_mask, prep.rpe.to(f32), prep.tgt_nodes.to(f32),
+                            prep.tgt_rpe.to(f32))
+        return _decode_node(cls, reg, vel, prep, win_pos, win_ang, win_vel, win_cov, probs,
+                            cur_ts, actor_mask, self.tgt_static, scen_cfg)
+
+    @staticmethod
+    def _windows(slots: NodeSlots, ids, durations):
+        """Obs windows of the next round's branch nodes: window =
+        hist[:, d : d+50] (update_obser semantics); d is clamped so the
+        window fits, as a dynamic slice clamps it."""
+        d = torch.clamp(durations, 0, PRED_LEN)
+        t_idx = d[:, None, None] + torch.arange(OBS_LEN, device=d.device)   # [B, 1, 50]
+
+        def one(arr):
+            w = arr[ids]                                       # [B, A, 110, ...]
+            idx = t_idx.expand(w.shape[:2] + (OBS_LEN,))
+            if w.dim() == 4:
+                idx = idx[..., None].expand(w.shape[:2] + (OBS_LEN, w.shape[-1]))
+            return torch.gather(w, 2, idx)
+
+        return one(slots.pos), one(slots.ang), one(slots.vel), one(slots.cov)
+
+    # ------------------------------------------------------------------
+    def branch_aime(self, root_window, actor_type, actor_mask) -> List[Tree]:
+        """Grow the scenario tree; returns host scenario trees (one per
+        surviving root child, probabilities renormalized) whose node data is
+        [prob, traj [A,dur,2], cov [A,dur], tgt_pts] like the reference's
+        get_scenario_tree export (scenario_tree.py:208-272). root_window is
+        (pos, ang, vel, cov, observed) of [A, 50, ...] on the device."""
+        A, B, MN = self.A, self.B, self.MN
+        win_pos0, win_ang0, win_vel0, win_cov0, win_obs0 = root_window
+        dev = win_pos0.device
+
+        # host tree bookkeeping
+        tree = Tree()
+        tree.add_node(Node(0, None, {"end": False, "terminated": False}))
+        node_meta = {0: {"prob": 1.0, "cur_t": 0, "t_b": 0, "duration": 0}}
+        next_slot = 1  # slot 0 unused (root has no trajectory)
+
+        dtype = win_pos0.dtype
+        kw = dict(dtype=dtype, device=dev)
+        slots = NodeSlots(
+            pos=torch.zeros((MN, A, SEQ_LEN, 2), **kw),
+            ang=torch.zeros((MN, A, SEQ_LEN), **kw),
+            vel=torch.zeros((MN, A, SEQ_LEN, 2), **kw),
+            # f64 like the device path: covariance carries decisions
+            cov=torch.full((MN, A, SEQ_LEN), 1e-5, dtype=torch.float64, device=dev),
+            tgt_pts=torch.zeros((MN, 11, 2), **kw),
+        )
+
+        # round state: windows for the branch set
+        def pad_b(x):
+            return x[None].expand((B,) + x.shape)
+
+        win_pos, win_ang, win_vel = pad_b(win_pos0), pad_b(win_ang0), pad_b(win_vel0)
+        win_cov, win_obs = pad_b(win_cov0), pad_b(win_obs0)
+        branch_keys = [0]
+        probs = np.zeros(B, np.float64)
+        probs[0] = 1.0
+        cur_ts = np.zeros(B, np.int64)
+
+        for _depth in range(self.scen_cfg.max_depth):
+            out = self._round(win_pos, win_ang, win_vel, win_cov, win_obs, actor_type,
+                              actor_mask, torch.tensor(probs, device=dev),
+                              torch.tensor(cur_ts, device=dev))
+            # the round's one host read
+            keep, prob, t_b = (x.cpu().numpy() for x in (out.keep, out.prob, out.t_b))
+
+            # assemble children on host; copy their hists into slots
+            scatter_src = []  # (b, m) per new node
+            scatter_dst = []
+            new_branch = []   # (key, cur_t_new, duration)
+            for bi, parent_key in enumerate(branch_keys):
+                made_child = False
+                for m in range(keep.shape[1]):
+                    if not keep[bi, m]:
+                        continue
+                    if next_slot >= MN:
+                        break
+                    key = next_slot
+                    next_slot += 1
+                    made_child = True
+                    cur_t = int(cur_ts[bi])
+                    tb = int(t_b[bi, m])
+                    child_depth = tree.get_node(parent_key).depth + 1
+                    is_end = tb >= PRED_LEN
+                    end_t = PRED_LEN if is_end else tb
+                    duration = end_t - cur_t
+                    tree.add_node(Node(key, parent_key, {"end": False, "terminated": False}))
+                    node_meta[key] = {"prob": float(prob[bi, m]), "cur_t": cur_t, "t_b": tb,
+                                      "duration": duration}
+                    scatter_src.append((bi, m))
+                    scatter_dst.append(key)
+                    if is_end:
+                        tree.get_node(key).data["end"] = True
+                    elif child_depth >= self.scen_cfg.max_depth:
+                        tree.get_node(key).data["terminated"] = True
+                    else:
+                        new_branch.append((key, end_t, duration))
+                if not made_child:
+                    tree.get_node(parent_key).data["terminated"] = True
+
+            if scatter_dst:
+                src = torch.tensor(scatter_src, device=dev)
+                src_b, src_m = src[:, 0], src[:, 1]
+                dst = torch.tensor(scatter_dst, device=dev)
+                slots.pos[dst] = out.pos[src_b, src_m]
+                slots.ang[dst] = out.ang[src_b, src_m]
+                slots.vel[dst] = out.vel[src_b, src_m]
+                slots.cov[dst] = out.cov[src_b, src_m]
+                slots.tgt_pts[dst] = out.tgt_pts[src_b].to(dtype)
+
+            if not new_branch:
+                break
+
+            # overflow: keep the highest-probability branch nodes
+            if len(new_branch) > B:
+                new_branch.sort(key=lambda kd: -node_meta[kd[0]]["prob"])
+                for key, _, _ in new_branch[B:]:
+                    tree.get_node(key).data["end"] = True  # degrade to end node
+                new_branch = new_branch[:B]
+
+            ids = np.zeros(B, np.int64)
+            durs = np.zeros(B, np.int64)
+            probs = np.zeros(B, np.float64)
+            cur_ts = np.zeros(B, np.int64)
+            branch_keys = []
+            for i, (key, end_t, duration) in enumerate(new_branch):
+                ids[i] = key
+                durs[i] = duration
+                probs[i] = node_meta[key]["prob"]
+                cur_ts[i] = end_t
+                branch_keys.append(key)
+            # pad inactive slots with the first entry (masked by probs = 0)
+            ids[len(new_branch):] = ids[0]
+            durs[len(new_branch):] = durs[0]
+
+            win_pos, win_ang, win_vel, win_cov = self._windows(
+                slots, torch.tensor(ids, device=dev), torch.tensor(durs, device=dev))
+            win_obs = torch.ones((B, A, OBS_LEN), dtype=torch.float32, device=dev)
+
+        return self._export(tree, node_meta, slots)
+
+    # ------------------------------------------------------------------
+    def _export(self, tree: Tree, node_meta, slots: NodeSlots) -> List[Tree]:
+        """Mark end paths, renormalize probabilities, split per root child
+        (reference get_scenario_tree)."""
+        # mark ancestors of end nodes
+        for key in list(tree.nodes):
+            if tree.get_node(key).data.get("end"):
+                k = key
+                while k is not None:
+                    tree.get_node(k).data["end"] = True
+                    k = tree.get_node(k).parent_key
+
+        root = tree.get_root()
+        end_children = [k for k in root.children_keys if tree.get_node(k).data.get("end")]
+        if not end_children:
+            return []
+
+        # pull hists for all end-flagged nodes in one transfer each
+        flagged = [k for k in tree.nodes if k != 0 and tree.get_node(k).data.get("end")]
+        ids = torch.tensor(flagged, device=slots.pos.device)
+        pos_h = slots.pos[ids].cpu().numpy()
+        cov_h = slots.cov[ids].cpu().numpy()
+        tgt_h = slots.tgt_pts[ids].cpu().numpy()
+        hist = {k: i for i, k in enumerate(flagged)}
+
+        # renormalized probability per node (BFS from root)
+        norm_prob = {0: 1.0}
+        queue = [0]
+        while queue:
+            k = queue.pop(0)
+            kids = [c for c in tree.get_node(k).children_keys if tree.get_node(c).data.get("end")]
+            total = sum(node_meta[c]["prob"] for c in kids)
+            for c in kids:
+                norm_prob[c] = node_meta[c]["prob"] / total * norm_prob[k]
+                queue.append(c)
+
+        def node_payload(k):
+            i = hist[k]
+            d = node_meta[k]["duration"]
+            # padded actor axis; pair with the plan's actor_mask
+            traj = pos_h[i][:, OBS_LEN:OBS_LEN + d]    # [A, d, 2]
+            cov = cov_h[i][:, OBS_LEN:OBS_LEN + d]     # [A, d]
+            return [norm_prob[k], traj, cov, tgt_h[i]]
+
+        scen_trees = []
+        for rc in end_children:
+            st = Tree()
+            st.add_node(Node(rc, None, node_payload(rc)))
+            queue = [rc]
+            while queue:
+                k = queue.pop(0)
+                for c in tree.get_node(k).children_keys:
+                    if not tree.get_node(c).data.get("end"):
+                        continue
+                    st.add_node(Node(c, k, node_payload(c)))
+                    queue.append(c)
+            scen_trees.append(st)
+        return scen_trees

@@ -141,10 +141,11 @@ class Simulator:
         return np.array(out)
 
     def render_video(self):
-        """None when rendering is off; rendering itself (mind_tpu/viz) is
-        not ported and raises."""
+        """Render recorded frames; returns the video path (an MJPEG .avi
+        where ffmpeg is not installed), None if rendering is off. Needs
+        matplotlib and PIL; without them it raises their ImportError."""
         if not self.config.render:
             return None
-        raise NotImplementedError(
-            "rendering (mind_tpu/viz) is not ported: ROADMAP.md queue A item 7; "
-            "run with render off (--no-render)")
+        from mind_tpu_torch.viz.render import render_frames_to_video
+
+        return render_frames_to_video(self)

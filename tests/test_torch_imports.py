@@ -43,7 +43,10 @@ def test_every_port_module_is_covered():
         "native/__init__.py", "sim/episode.py", "parallel/__init__.py", "parallel/mesh.py",
         "parallel/scale.py", "parallel/multi_scenario.py", "parallel/monte_carlo.py",
         "models/train.py", "models/data_pipeline.py", "models/checkpoint.py",
-        "models/weights.py", "train_weights.py"}
+        "models/weights.py", "train_weights.py", "parity/__init__.py", "parity/host_scene.py",
+        "parity/host_ilqr.py", "parity/host_planner.py", "parity/runner.py", "parity_run.py",
+        "planner/scenario_tree.py", "viz/render.py", "viz/video.py",
+        "utils/device_health.py"}
 
 
 def test_native_source_is_the_ports_own():

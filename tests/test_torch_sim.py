@@ -7,6 +7,9 @@ the metrics and the run_sim CLI. Nothing in mind_tpu changes: its loader
 gets the scenario through a monkeypatched load_scenario.
 """
 
+import importlib.util
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,7 @@ from mind_tpu_torch.sim import replay as treplay
 from mind_tpu_torch.sim import state_io as tstate_io
 from mind_tpu_torch.sim.simulator import Simulator as TSimulator
 from mind_tpu_torch.utils.metrics import Metrics as TMetrics, profile_trace as t_profile_trace
+from mind_tpu_torch.viz.video import probe_avi
 from test_torch_data import SEQ_ID, scenario_frame
 from test_torch_planner import CL_AGENT, CPU, World, planner_cfgs, share_weights
 
@@ -323,24 +327,35 @@ def test_entry_points_need_a_device_without_gpu(world, tmp_path):
         t_run_sim.main(["--config", str(path), "--data-root", str(world.root)])
 
 
-def test_run_sim_cli(world, tmp_path, capsys):
+def test_run_sim_cli(world, tmp_path, capsys, monkeypatch):
     """The CLI on a parquet of the synthetic scenario, on the CPU, with the
     demo planner configuration at full width. The planner is enabled after
-    the 12 ticks that run, so it takes observations and makes no plan."""
+    the 12 ticks that run, so it takes observations and makes no plan. With
+    rendering on it writes the 12 frames as an MJPEG AVI, or raises the
+    ImportError of matplotlib or PIL where they are missing."""
     pytest.importorskip("pandas")
     pytest.importorskip("pyarrow")
     scenario_frame(world.syn.scenario).to_parquet(
         world.root / SEQ_ID / f"scenario_{SEQ_ID}.parquet")
     path = tmp_path / "sim.json"
-    path.write_text('{"sim_name": "demo_1", "seq_id": "%s", "render": true, "cl_agents": '
-                    '[{"id": "AV", "enable_timestep": 4.0, "agent": "agent:MINDAgent"}]}' % SEQ_ID)
+    out_dir = tmp_path / "out"
+    path.write_text('{"sim_name": "demo_1", "seq_id": "%s", "render": true, "num_threads": 1, '
+                    '"output_dir": "%s", "cl_agents": [{"id": "AV", "enable_timestep": 4.0, '
+                    '"agent": "agent:MINDAgent"}]}' % (SEQ_ID, out_dir))
     args = ["--config", str(path), "--data-root", str(world.root), "--device", "cpu",
             "--max-steps", "12"]
     metrics = t_run_sim.main(args + ["--no-render"])
     assert metrics["ticks"] == 12 and metrics["plan_calls"] == 0
     assert "metrics:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not ported"):
+    assert not out_dir.exists()
+    monkeypatch.setattr(shutil, "which", lambda name: None)     # no ffmpeg: the AVI writer
+    if importlib.util.find_spec("matplotlib") and importlib.util.find_spec("PIL"):
         t_run_sim.main(args)                       # render: true in the config
+        info = probe_avi(str(out_dir / f"{SEQ_ID}_demo_1.avi"))
+        assert info["frames"] == 12 and info["jpeg_ok"]
+    else:
+        with pytest.raises(ImportError):
+            t_run_sim.main(args)
     episode = t_run_sim.main(args[:-1] + ["10", "--episode"])   # render on: --episode turns it off
     assert episode["ticks"] == 10 and episode["plan_calls"] == 0 and episode["fail_cycle"] == -1
     assert episode["wall_time_s"] > 0
