@@ -31,6 +31,9 @@ result line):
      inputs is held, kernel against plain, on the card;
   6. closed loop: the port's Simulator on the seeded synthetic AV2 scenario
      (a three-lane road as a log_map_archive map and a 110-frame Scenario,
+     built by synthetic.py::demo_scenario under configs/demo_1.json with each
+     phase's own planner configuration, AV target velocity, enable time and
+     ticks, as are the sims of phases 7-12b;
      through the data layer, load_agents, MINDAgent and MINDPlanner.plan on
      the staged path with exported trees) under the demo configuration at
      full width, 150 ticks of 20 ms with the planner enabled after 1 s: 20
@@ -101,7 +104,20 @@ result line):
      steps' forward / backward / optimizer ms,
      scenes per second, peak memory and the backward's share in the plain
      recompute of the 6 layer cores;
- 15. print per-phase times, the kernel table and the card.
+ 15. bench: python -m mind_tpu_torch.bench --synthetic --steps 250 over its
+     per-demo, phase-split, batched and host-loop sections (the Monte-Carlo
+     sweep is phase 12's) in a subprocess: exit code 0, the final line with
+     the JAX package's bench.py keys and the twin's, every section without
+     an error, every demo with 10 plans and, as every batched scene, no
+     failed cycle, the host loop with 10 plans, every time and rate finite
+     and positive, 0 < MFU < 1, and in every section kernel B launched a
+     positive multiple of 6 times and kernel A never;
+ 16. print per-phase times, the benchmark's final and section lines, the
+     kernel table and the card.
+
+The kernels' bounds and the benchmark's MFU divide by the card's peak rates
+from mind_tpu_torch/utils/device_specs.py, which raises on a card it does
+not know.
 
 Phase 2 holds both kernels at B = 8, 32 and 128, the batches the paths give
 them. The kernels line counts each kernel's launches by path.
@@ -114,6 +130,7 @@ card's name and power limit from nvidia-smi, and before that one JSON line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -124,9 +141,8 @@ import torch
 
 N_CYCLES = 2
 SEED = 0
-PEAK_F32_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense bf16 on the tensor cores
-PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
+# the card's peak rates (mind_tpu_torch/utils/device_specs.py), set in main
+PEAKS = None
 # float32 kernel vs its plain version: float32 sums in another order
 TOL_KERNEL = 2e-4
 # bf16 kernel vs its plain version: sums in another order, and a float32
@@ -253,18 +269,18 @@ def kernel_cases(fa, dev, key_mask):
             continue
         if variant == "float32":
             args, ref = (node, edge, key_mask, w), fa.fused_edge_attention_ref
-            tol, tol_mean, peak = TOL_KERNEL, TOL_KERNEL, PEAK_F32_FLOPS
+            tol, tol_mean, peak = TOL_KERNEL, TOL_KERNEL, PEAKS.f32_flops
             nbytes = fa.fused_edge_attention_bytes(B, N, D, ue)
         else:
             x, e = (node.to(bf16), edge.to(bf16)) if edge_type == "bfloat16" else (node, edge)
             args, ref = (x, e, key_mask, w16), fa.fused_edge_attention_bf16_ref
-            tol, tol_mean, peak = TOL_KERNEL_BF16, TOL_KERNEL_BF16_MEAN, PEAK_BF16_FLOPS
+            tol, tol_mean, peak = TOL_KERNEL_BF16, TOL_KERNEL_BF16_MEAN, PEAKS.bf16_flops
             nbytes = fa.fused_edge_attention_bytes(B, N, D, ue, e.element_size(),
                                                    x.element_size(), 2)
         flops = fa.fused_edge_attention_flops(B, N, D, ue, variant)
         label = f"B={B} {variant} node,edge={edge_type} update_edge={ue}"
         r = check_case(fa, ref, args, H, ue, tol, tol_mean, label)
-        t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_HBM_BYTES
+        t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAKS.hbm_bytes
         r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
                  bound_by="operations" if t_ops > t_bytes else "bytes")
         log(f"[kernel] {label}: max_abs_err={r['max_abs_err']:.3e} "
@@ -536,17 +552,23 @@ def run_path(name, variant, cfg, net, scene, mods, aime, scene_statics, kine_pro
     return counts[variant], cycles, first
 
 
-def run_loop(name, mods, planner_cfg, enable, ticks, device, data_root, scenario):
+def loop_sim(planner_cfg, enable, ticks, data_root, seed=SEED, target_velocity=TARGET_VELOCITY,
+             device=None):
+    """demo_1's configuration on the synthetic AV2 scenario of `seed`
+    (synthetic.py::demo_scenario) with this phase's planner configuration,
+    AV target velocity, enable time (s) and ticks, on `device` (None: the
+    card)."""
+    from mind_tpu_torch.synthetic import demo_scenario
+
+    return demo_scenario("demo_1", seed, data_root, ticks=ticks, planner_cfg=planner_cfg,
+                         enable_timestep=enable, target_velocity=target_velocity, device=device)
+
+
+def run_loop(name, planner_cfg, enable, ticks, device, data_root):
     """The port's Simulator for `ticks` ticks on the synthetic AV2 scenario
     with the AV's planner enabled after `enable` seconds, on `device` (None:
     the card). Returns (sim, the AV's agent, per-plan records)."""
-    Simulator, SimConfig, ClAgentConfig = mods
-    cfg = SimConfig(sim_name="demo_1", seq_id=SEQ_ID, data_root=data_root,
-                    cl_agents=[ClAgentConfig(id="AV", enable_timestep=enable,
-                                             target_velocity=TARGET_VELOCITY)])
-    sim = Simulator(cfg, planner_cfg=planner_cfg, max_steps=ticks, device=device,
-                    scenario=scenario)
-    sim.init_sim()
+    sim = loop_sim(planner_cfg, enable, ticks, data_root, device=device)
     agent = next(a for a in sim.agents if a.id == "AV")
     plans, plan, timer = [], agent.plan, agent.planner.metrics.timer
 
@@ -594,11 +616,10 @@ def check_exported_trees(name, frame):
     return {k: frame[k][0].size() for k in ("scen_tree", "traj_tree")}
 
 
-def phase_closed_loop(loop_mods, dcfg, fa, data_root, syn, lane_w, origin):
+def phase_closed_loop(dcfg, fa, data_root, syn, lane_w, origin):
     """150 ticks under the demo configuration, 20 plans, on the card."""
     fa.reset_launch_counts()
-    sim, agent, plans = run_loop("loop", loop_mods, dcfg, 1.0, 150, None, data_root,
-                                 syn.scenario)
+    sim, agent, plans = run_loop("loop", dcfg, 1.0, 150, None, data_root)
     counts = dict(fa.fused_edge_attention.launches_by_variant)
     rounds = sum(r["rounds"] for r in plans)
     if len(plans) != 20:
@@ -632,11 +653,11 @@ def phase_closed_loop(loop_mods, dcfg, fa, data_root, syn, lane_w, origin):
     return counts["bfloat16"], summary, sim.ego_trajectory()
 
 
-def phase_float32_loop(loop_mods, cfg, fa, data_root, syn):
+def phase_float32_loop(cfg, fa, data_root):
     """36 ticks under the float32 defaults on the card (kernel A) and on the
     CPU (plain version): the same trees, ego within TOL_LOOP_EGO."""
     fa.reset_launch_counts()
-    sim, _, plans = run_loop("loop32", loop_mods, cfg, 0.2, 36, None, data_root, syn.scenario)
+    sim, _, plans = run_loop("loop32", cfg, 0.2, 36, None, data_root)
     counts = dict(fa.fused_edge_attention.launches_by_variant)
     rounds = sum(r["rounds"] for r in plans)
     if len(plans) != 5 or counts["float32"] != cfg.net.n_scene_layer * rounds \
@@ -644,8 +665,7 @@ def phase_float32_loop(loop_mods, cfg, fa, data_root, syn):
         raise RuntimeError(f"float32 loop: {len(plans)} plans, launches {counts} for "
                            f"{rounds} AIME rounds")
     t = time.perf_counter()
-    sim_cpu, _, plans_cpu = run_loop("loop32-cpu", loop_mods, cfg, 0.2, 36, "cpu", data_root,
-                                     syn.scenario)
+    sim_cpu, _, plans_cpu = run_loop("loop32-cpu", cfg, 0.2, 36, "cpu", data_root)
     cpu_s = time.perf_counter() - t
     if fa.fused_edge_attention.launches != counts["float32"]:
         raise RuntimeError("the CPU loop launched a kernel")
@@ -660,7 +680,7 @@ def phase_float32_loop(loop_mods, cfg, fa, data_root, syn):
     return counts["float32"], summary
 
 
-def phase_exec_resolve(loop_mods, float32_cfg, data_root, syn):
+def phase_exec_resolve(float32_cfg, data_root):
     """One plan each: float32 selection + float64 polish, + float64 scratch,
     and a pure float64 solve of the same scene (the pipeline stays float32,
     so all three grow the same scenario trees)."""
@@ -672,8 +692,7 @@ def phase_exec_resolve(loop_mods, float32_cfg, data_root, syn):
         cfg.traj_tree.solve_dtype = solve
         cfg.traj_tree.exec_solve_dtype = exec_dtype
         cfg.traj_tree.exec_resolve_mode = mode if exec_dtype else "polish"
-        _, _, plans = run_loop(f"exec-{mode}", loop_mods, cfg, 0.2, 16, None, data_root,
-                               syn.scenario)
+        _, _, plans = run_loop(f"exec-{mode}", cfg, 0.2, 16, None, data_root)
         if len(plans) != 1:
             raise RuntimeError(f"exec re-solve {mode}: {len(plans)} plans, expected 1")
         out[mode] = plans[0]
@@ -713,7 +732,7 @@ class RoundCounter:
         return state, meta, rounds
 
 
-def phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego, loop_plans):
+def phase_episode(dcfg, fa, data_root, loop_ego, loop_plans):
     """run_episode_timed on the closed loop's scenario and configuration
     (150 ticks, planner enabled after 1 s) against that loop's trajectory;
     then run_episode_segmented against the timed run. The launch counts are
@@ -722,12 +741,7 @@ def phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego, loop_plans):
     from mind_tpu_torch.planner import planner as tplanner
     from mind_tpu_torch.sim import episode
 
-    Simulator, SimConfig, ClAgentConfig = loop_mods
-    cfg = SimConfig(sim_name="demo_1", seq_id=SEQ_ID, data_root=data_root,
-                    cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
-                                             target_velocity=TARGET_VELOCITY)])
-    sim = Simulator(cfg, planner_cfg=dcfg, max_steps=150, scenario=syn.scenario)
-    sim.init_sim()
+    sim = loop_sim(dcfg, 1.0, 150, data_root)
     counter = RoundCounter(tplanner.aime_grow_tree)
     tplanner.aime_grow_tree = counter
     phases = []
@@ -772,18 +786,6 @@ def phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego, loop_plans):
         raise RuntimeError(f"segmented episode differs from the whole one: {same}")
     summary["segmented_equal"] = True
     return counts["bfloat16"], summary
-
-
-def demo_sim(loop_mods, dcfg, data_root, scenario, target_velocity=TARGET_VELOCITY, ticks=150):
-    """An initialized Simulator of one synthetic AV2 scenario under the demo
-    configuration, the AV's planner enabled after 1 s."""
-    Simulator, SimConfig, ClAgentConfig = loop_mods
-    cfg = SimConfig(sim_name="demo_1", seq_id=SEQ_ID, data_root=data_root,
-                    cl_agents=[ClAgentConfig(id="AV", enable_timestep=1.0,
-                                             target_velocity=target_velocity)])
-    sim = Simulator(cfg, planner_cfg=dcfg, max_steps=ticks, scenario=scenario)
-    sim.init_sim()
-    return sim
 
 
 def lane_trees(phases, lane):
@@ -862,7 +864,7 @@ def graph_pool_in_use():
             [b["size"] for seg in mine for b in seg["blocks"] if b["state"] == "active_allocated"])
 
 
-def phase_batched_episode(loop_mods, dcfg, fa, data_root, synthetic_av2):
+def phase_batched_episode(dcfg, fa, data_root):
     """run_episodes_batched over 4 synthetic AV2 scenarios (seeds 0-3, the AV
     asked for 8, 7, 9 and 6 m/s, so that the scenes' cost parameters
     differ; planner on after 1 s, 150 ticks), a warm call then the timed
@@ -872,8 +874,7 @@ def phase_batched_episode(loop_mods, dcfg, fa, data_root, synthetic_av2):
     from mind_tpu_torch.sim import episode
 
     speeds = (8.0, 7.0, 9.0, 6.0)
-    sims = [demo_sim(loop_mods, dcfg, data_root, synthetic_av2(seed).scenario, v)
-            for seed, v in enumerate(speeds)]
+    sims = [loop_sim(dcfg, 1.0, 150, data_root, seed, v) for seed, v in enumerate(speeds)]
     counter = RoundCounter(tplanner.aime_grow_tree)
     tplanner.aime_grow_tree = counter
     phases, first_call = [], []
@@ -933,7 +934,7 @@ def phase_batched_episode(loop_mods, dcfg, fa, data_root, synthetic_av2):
     return counts["bfloat16"], summary
 
 
-def phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn, k=16):
+def phase_monte_carlo(dcfg, fa, data_root, k=16):
     """run_episode_monte_carlo on the loop's scenario (seed 0) under the demo
     configuration: k = 16 copies in one chunk, segments of 10 cycles, a warm
     call then the timed one with the launch counts set to 0 just before and
@@ -943,7 +944,7 @@ def phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn, k=16):
     from mind_tpu_torch.planner import planner as tplanner
     from mind_tpu_torch.sim import episode
 
-    sim = demo_sim(loop_mods, dcfg, data_root, syn.scenario)
+    sim = loop_sim(dcfg, 1.0, 150, data_root)
     counter = RoundCounter(tplanner.aime_grow_tree)
     tplanner.aime_grow_tree = counter
     walls = []
@@ -1452,27 +1453,102 @@ def phase_parity(dcfg, fa, data_root, syn):
     return out
 
 
+# the benchmark twin's run (python -m mind_tpu_torch.bench): every section but
+# the Monte-Carlo sweep, which phase 12 drives; 250 ticks with the planner on
+# at 4 s give each demo 10 plans
+BENCH_SECTIONS = ("per_demo_episode", "phase_split", "batched_episode", "host_loop_demo_1")
+BENCH_STEPS, BENCH_PLANS = 250, 10
+BENCH_BUDGET_S = 420
+# the section each one's result stands under in the final line's detail
+BENCH_DETAIL = {"per_demo_episode": "per_demo_episode", "phase_split": "phase_mean_ms",
+                "batched_episode": "batched_episode", "host_loop_demo_1": "host_loop_demo_1"}
+# the JAX package's bench.py final line: its keys, and its detail's keys
+# (the twin adds device and kernel_launches)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {"per_demo_episode", "batched_episode", "monte_carlo_episode",
+                     "host_loop_demo_1", "phase_mean_ms", "mfu", "net_flops_per_fwd_b8",
+                     "wall_s_total", "window_accounting", "device", "kernel_launches"}
+
+
+def positive(x):
+    return isinstance(x, (int, float)) and np.isfinite(x) and x > 0
+
+
+def phase_bench():
+    """(bench) python -m mind_tpu_torch.bench --synthetic --steps 250 over
+    BENCH_SECTIONS in a subprocess (its own CUDA context; the twin counts
+    each section's kernel launches from 0), with its final line's checks,
+    each fatal: exit code 0; the final line parses with bench.py's keys and
+    the twin's; every section present without an error; every demo with
+    10 plans and no failed cycle, the batched run's scenes without one, the
+    host loop with 10 plans; every time and rate finite and positive;
+    0 < MFU < 1; in every section kernel B launched 6 times per network
+    forward (a positive multiple of 6) and kernel A never. Returns ({variant: launches
+    over the sections}, {"final": the final line, "wall_s": seconds})."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "mind_tpu_torch.bench", "--synthetic", "--steps",
+           str(BENCH_STEPS), "--sections", ",".join(BENCH_SECTIONS)]
+    log("[bench] " + " ".join(cmd[1:]))
+    t = time.perf_counter()
+    p = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=BENCH_BUDGET_S + 60,
+                       env={**os.environ, "MIND_TPU_BENCH_BUDGET_S": str(BENCH_BUDGET_S)})
+    wall = time.perf_counter() - t
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not lines:
+        raise RuntimeError(f"bench: exit code {p.returncode}; stdout ends {p.stdout[-2000:]}")
+    final = json.loads(lines[-1])
+    detail = final["detail"]
+    if set(final) != BENCH_KEYS or set(detail) != BENCH_DETAIL_KEYS:
+        raise RuntimeError(f"bench: final line keys {sorted(final)}, detail {sorted(detail)}")
+    bad = {s: detail[BENCH_DETAIL[s]] for s in BENCH_SECTIONS
+           if "error" in detail[BENCH_DETAIL[s]]}
+    if bad:
+        raise RuntimeError(f"bench: sections failed: {bad}")
+    rows = detail["per_demo_episode"]
+    batched, host, split = (detail[k] for k in ("batched_episode", "host_loop_demo_1",
+                                                  "phase_mean_ms"))
+    if sorted(rows) != ["demo_1", "demo_2", "demo_3", "demo_4"] or any(
+            r["fail_cycle"] != -1 or r["plan_calls"] != BENCH_PLANS for r in rows.values()) \
+            or batched["fail_cycles"] != [-1] * 4 or host["plan_calls"] != BENCH_PLANS:
+        raise RuntimeError(f"bench: failed cycles or plan counts: {rows}, batched "
+                           f"{batched['fail_cycles']}, host loop {host['plan_calls']}")
+    times = [final["value"], *(r[k] for r in rows.values() for k in ("steps_per_s", "wall_s")),
+             batched["agg_steps_per_s"], batched["wall_s"], host["steps_per_s"], host["wall_s"],
+             *host["phase_mean_ms"].values(), split["net_flops_per_fwd"],
+             *(v for k, v in split.items() if k.endswith("_ms"))]
+    if not all(positive(x) for x in times) or not 0 < detail["mfu"] < 1:
+        raise RuntimeError(f"bench: a time or rate is not finite and positive, or the MFU "
+                           f"{detail['mfu']} is not in (0, 1): {times}")
+    launches = detail["kernel_launches"]
+    if sorted(launches) != sorted(BENCH_SECTIONS) or any(
+            n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6
+            for n in launches.values()):
+        raise RuntimeError(f"bench: kernel launches by section {launches}")
+    log(f"[bench] {wall:.1f} s of command; launches by section {json.dumps(launches)}")
+    return ({v: sum(n[v] for n in launches.values()) for v in ("float32", "bfloat16")},
+            {"final": final, "wall_s": wall})
+
+
 def main() -> int:
-    global T0
+    global T0, PEAKS
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
     from mind_tpu_torch.common.kinematics import kine_propagate
-    from mind_tpu_torch.config import (DEFAULT_WEIGHTS, ClAgentConfig, PlannerConfig, SimConfig,
-                                       planner_config_for_demo)
+    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig, planner_config_for_demo
     from mind_tpu_torch.models import scene_pred
     from mind_tpu_torch.models.weights import load_scene_pred
     from mind_tpu_torch.ops import fusion_attention as fa
-    from mind_tpu_torch.parity import runner
     from mind_tpu_torch.planner import aime_device as aime
     from mind_tpu_torch.planner import planner as tplanner
     from mind_tpu_torch.planner.trajectory_tree import make_cost_params
-    from mind_tpu_torch.sim.simulator import Simulator
     from mind_tpu_torch.synthetic import (AV2_ORIGIN, LANE_W, scene_statics, synthetic_av2,
-                                          synthetic_scene, write_synthetic_map)
+                                          synthetic_scene)
+    from mind_tpu_torch.utils import device_specs
 
+    PEAKS = device_specs.peaks(torch.cuda.get_device_name(0))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1548,7 +1624,6 @@ def main() -> int:
     # 6.-10. the closed loop through Simulator / MINDAgent / MINDPlanner on the
     # synthetic AV2 scenario; the map goes through a file as a real one does
     syn = synthetic_av2(SEED)
-    loop_mods = (Simulator, SimConfig, ClAgentConfig)
 
     def float32_cfg():
         """The float32 defaults with the trained weights."""
@@ -1557,39 +1632,37 @@ def main() -> int:
         return c
 
     with tempfile.TemporaryDirectory() as data_root:
-        write_synthetic_map(syn.map_json, data_root, SEQ_ID)
-        loop_launches, loop, loop_ego = phase_closed_loop(loop_mods, dcfg, fa, data_root, syn,
+        loop_launches, loop, loop_ego = phase_closed_loop(dcfg, fa, data_root, syn,
                                                           LANE_W, AV2_ORIGIN)
-        loop32_launches, loop32 = phase_float32_loop(loop_mods, float32_cfg(), fa, data_root,
-                                                     syn)
-        execs = phase_exec_resolve(loop_mods, float32_cfg, data_root, syn)
+        loop32_launches, loop32 = phase_float32_loop(float32_cfg(), fa, data_root)
+        execs = phase_exec_resolve(float32_cfg, data_root)
         graph = phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev)
-        episode_launches, episode = phase_episode(loop_mods, dcfg, fa, data_root, syn, loop_ego,
+        episode_launches, episode = phase_episode(dcfg, fa, data_root, loop_ego,
                                                   loop["plan_calls"])
-        batched_launches, batched = phase_batched_episode(loop_mods, dcfg, fa, data_root,
-                                                          synthetic_av2)
-        mc_launches, monte_carlo = phase_monte_carlo(loop_mods, dcfg, fa, data_root, syn)
+        batched_launches, batched = phase_batched_episode(dcfg, fa, data_root)
+        mc_launches, monte_carlo = phase_monte_carlo(dcfg, fa, data_root)
         # 12a-b. the float64 mirror against the planner, on demo_1's configuration
-        # file with the loop's scenario: the map under demo_1's seq_id
-        write_synthetic_map(syn.map_json, data_root,
-                            SimConfig.from_json(runner.CONFIGS / "demo_1.json").seq_id)
+        # file with the loop's scenario, whose map loop_sim wrote under demo_1's seq_id
         parity = phase_parity(dcfg, fa, data_root, syn)
     scale = phase_tree_scale()
     train_launches, training = phase_training(fa, dev, synthetic_av2)
+    bench_launches, bench = phase_bench()
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "host_tree": host_tree_launches,
                                       "float32_loop": loop32_launches,
-                                      "training": train_launches}
+                                      "training": train_launches,
+                                      "bench": bench_launches["float32"]}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
                                       "closed_loop": loop_launches, "episode": episode_launches,
                                       "batched_episode": batched_launches,
                                       "monte_carlo": mc_launches,
-                                      **{k: v[0] for k, v in parity.items()}}
+                                      **{k: v[0] for k, v in parity.items()},
+                                      "bench": bench_launches["bfloat16"]}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
 
-    # 15. report
+    # 16. report
     log("[phases] " + json.dumps({"probe_s": probe_s, "float32": cycles32,
                                   "host_tree": host_tree, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
@@ -1598,7 +1671,12 @@ def main() -> int:
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
                                   **{k: v[1] for k, v in parity.items()},
                                   "tree_scale": scale, "training": training,
+                                  "bench_wall_s": bench["wall_s"],
                                   "seconds": time.perf_counter() - T0}))
+    # the benchmark's final line, then one line per section
+    log("[bench] final line: " + json.dumps(bench["final"]))
+    for name in BENCH_SECTIONS:
+        log(f"[bench] {name}: " + json.dumps(bench["final"]["detail"][BENCH_DETAIL[name]]))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]

@@ -17,6 +17,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 DEFAULT_WEIGHTS = Path(__file__).resolve().parent / "weights" / "scene_pred_demo_600.npz"
+# the demos' sim configurations, configs/demo_*.json at the repository's root
+CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
 
 @dataclass

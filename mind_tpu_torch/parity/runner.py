@@ -17,29 +17,13 @@ the global frame by adding the origin on the host, in float64.
 from __future__ import annotations
 
 import time
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from mind_tpu_torch.synthetic import demo_scenario
+
 DATA_ROOT = "data"
-CONFIGS = Path(__file__).resolve().parent.parent.parent / "configs"
-
-
-def _demo_sim(demo: str, max_steps: int, data_root: str, pcfg, device, scenario,
-              enable_timestep: Optional[float] = None):
-    """An initialized Simulator of configs/<demo>.json with rendering off."""
-    from mind_tpu_torch.config import SimConfig
-    from mind_tpu_torch.sim.simulator import Simulator
-
-    cfg = SimConfig.from_json(CONFIGS / f"{demo}.json", data_root=data_root)
-    cfg.render = False
-    if enable_timestep is not None:  # short-horizon harness testing
-        cfg.cl_agents[0].enable_timestep = enable_timestep
-    sim = Simulator(cfg, planner_cfg=pcfg, max_steps=max_steps, device=device,
-                    scenario=scenario)
-    sim.init_sim()
-    return sim
 
 
 def _ego(sim):
@@ -100,7 +84,8 @@ def run_parity_demo(demo: str, max_steps: int,
             pcfg.traj_tree.exec_solve_dtype = exec_solve_dtype
         if exec_resolve_mode is not None:
             pcfg.traj_tree.exec_resolve_mode = exec_resolve_mode
-        return _demo_sim(demo, max_steps, data_root, pcfg, device, scenario)
+        return demo_scenario(demo, None, data_root, ticks=max_steps, planner_cfg=pcfg,
+                             device=device, scenario=scenario)
 
     sim_dev = make_sim()
     sim_host = make_sim()
@@ -227,7 +212,8 @@ def run_parity_episode_playback(demo: str, max_steps: int,
     pcfg = planner_cfg or planner_config_for_demo(demo)
     if solve_dtype is not None:
         pcfg.traj_tree.solve_dtype = solve_dtype
-    sim = _demo_sim(demo, max_steps, data_root, pcfg, device, scenario, enable_timestep)
+    sim = demo_scenario(demo, None, data_root, ticks=max_steps, planner_cfg=pcfg, device=device,
+                        scenario=scenario, enable_timestep=enable_timestep)
     ego = _ego(sim)
     dev_pl = ego.planner
 
@@ -304,7 +290,8 @@ def run_playback_diagnostic(demo: str, max_steps: int,
     from mind_tpu_torch.sim.episode import build_episode_inputs, run_episode
 
     pcfg = planner_cfg or planner_config_for_demo(demo)
-    sim = _demo_sim(demo, max_steps, data_root, pcfg, device, scenario, enable_timestep)
+    sim = demo_scenario(demo, None, data_root, ticks=max_steps, planner_cfg=pcfg, device=device,
+                        scenario=scenario, enable_timestep=enable_timestep)
     ego = _ego(sim)
     dev_pl = ego.planner
     dev_pl.export_trees = True  # staged path exposes meta + tree costs
@@ -431,7 +418,8 @@ def run_parity_demo_resync(demo: str, max_steps: int,
     pcfg = planner_config_for_demo(demo)
     if solve_dtype is not None:
         pcfg.traj_tree.solve_dtype = solve_dtype
-    sim = _demo_sim(demo, max_steps, data_root, pcfg, device, scenario)
+    sim = demo_scenario(demo, None, data_root, ticks=max_steps, planner_cfg=pcfg, device=device,
+                        scenario=scenario)
     ego = _ego(sim)
     dev_pl = ego.planner
     # the staged (export) path runs the same AIME and solve as the fused and

@@ -179,9 +179,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from mind_tpu_torch.common.device import resolve_device
-    from mind_tpu_torch.config import SimConfig
+    from mind_tpu_torch.config import CONFIGS, SimConfig
     from mind_tpu_torch.parity.runner import (
-        CONFIGS,
         run_parity_demo,
         run_parity_demo_resync,
         run_parity_episode_playback,

@@ -13,6 +13,9 @@ vector map in the log_map_archive JSON schema and a Scenario of 110 frames
 at 10 Hz, which pass through the port's data layer (StaticMap.from_json,
 SemanticMap, ArgoAgentLoader.trajs_info_of) like a scenario read from disk.
 
+`demo_scenario` is an initialized Simulator of one demo's configuration,
+on this road (from a seed) or on the demo's own AV2 log.
+
 `fusion_inputs` is a seeded random call of the fusion-layer core (weights,
 node, edge), for holding its kernels against their plain versions.
 """
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -267,6 +270,41 @@ def write_synthetic_map(map_json: dict, data_root, seq_id: str) -> Path:
     with open(path, "w") as f:
         json.dump(map_json, f)
     return path
+
+
+def demo_scenario(demo: str, seed: Optional[int], data_root, *, ticks: Optional[int] = None,
+                  planner_cfg=None, enable_timestep: Optional[float] = None,
+                  target_velocity: Optional[float] = None, device=None,
+                  scenario: Optional[Scenario] = None):
+    """An initialized Simulator of configs/<demo>.json with rendering off:
+    the demo's own AV binding (target velocity, enable time, seq_id) and
+    `planner_config_for_demo(demo)` unless `planner_cfg` is given, over
+    `ticks` ticks (the configuration's 500 by default). `enable_timestep`
+    and `target_velocity` replace the configuration's where given.
+
+    With a `seed`, synthetic_av2(seed) stands in for the demo's log: its map
+    is written under data_root/<seq_id> and the scenario is passed in
+    memory. Without one, the map is read from data_root/<seq_id> and the
+    tracks from `scenario` or else from the demo's scenario parquet there;
+    a missing file raises."""
+    from mind_tpu_torch.config import CONFIGS, SimConfig, planner_config_for_demo
+    from mind_tpu_torch.sim.simulator import Simulator
+
+    cfg = SimConfig.from_json(CONFIGS / f"{demo}.json", data_root=str(data_root))
+    cfg.render = False
+    agent = cfg.cl_agents[0]
+    if enable_timestep is not None:
+        agent.enable_timestep = enable_timestep
+    if target_velocity is not None:
+        agent.target_velocity = target_velocity
+    if seed is not None:
+        syn = synthetic_av2(seed)
+        write_synthetic_map(syn.map_json, data_root, cfg.seq_id)
+        scenario = syn.scenario
+    sim = Simulator(cfg, planner_cfg=planner_cfg or planner_config_for_demo(demo),
+                    max_steps=ticks, device=device, scenario=scenario)
+    sim.init_sim()
+    return sim
 
 
 def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0):
