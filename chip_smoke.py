@@ -112,6 +112,22 @@ result line):
      failed cycle, the host loop with 10 plans, every time and rate finite
      and positive, 0 < MFU < 1, and in every section kernel B launched a
      positive multiple of 6 times and kernel A never;
+ 15a. dist: the shards at the same time, one process per shard
+     (mind_tpu_torch/parallel/launch.py, the rank workloads of
+     parallel/dryrun.py), at full width with the trained weights. (a)-(c)
+     two ranks on the one card (gloo): the Monte-Carlo sweep of phase 12's
+     scenario under the demo configuration, K = 8 copies in chunks of 4
+     (2 per rank), 150 ticks; phase 13's 1024 trees, 2 x 512; 5 float32
+     training steps of phase 14's batch, 2 scenes per rank (cuDNN held to
+     deterministic algorithms in the ranks and here). Each rank's copies,
+     trees, losses and parameters equal to the sequential two-shard mesh's
+     in this process, to the bit; kernel B launched by the ranks' sweeps as
+     often as by the sequential one, kernel A 6 times per training forward.
+     One rank on nccl trains on the whole batch, equal to the bit to the
+     unsharded step. (d) with two cards or more, one rank per card on nccl
+     against the sequential mesh across two cards, the same way; with one
+     card a line says it was not run. Copy-ticks/s of the ranks and of the
+     one process, the tree solve's ms, each rank's step ms and launches;
  16. print per-phase times, the benchmark's final and section lines, the
      kernel table and the card.
 
@@ -1529,6 +1545,209 @@ def phase_bench():
             {"final": final, "wall_s": wall})
 
 
+# (dist): the Monte-Carlo sweep of phase 12's scenario under the demo
+# configuration, K copies in chunks of DIST_PER_RANK copies per rank, over
+# DIST_TICKS ticks; phase 13's tree batch; DIST_TRAIN_STEPS float32 training
+# steps of phase 14's batch (2 scenes per rank)
+DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 150
+DIST_TRAIN_STEPS = 5
+DIST_TIMEOUT_S = 600
+
+
+def dist_jobs(spec, net_cfg, batch):
+    """The rank workloads of (dist) (mind_tpu_torch/parallel/dryrun.py)."""
+    return [("collectives_on_device", {}),
+            ("monte_carlo", dict(spec=spec, k=DIST_K, chunk=DIST_PER_RANK, seg_cycles=10)),
+            ("tree_solve", dict(n_trees=1024, n_nodes=24, max_nodes=32, max_levels=24,
+                                max_width=4, n_exo=4, max_iterations=10, timed=True)),
+            ("train", dict(net_cfg=net_cfg, batch=batch, steps=DIST_TRAIN_STEPS,
+                           lr=TRAIN_LR, deterministic_cudnn=True))]
+
+
+def dist_sequential(fa, mesh, spec, net_cfg, batch, dev):
+    """The same three workloads on a sequential mesh in this process: the
+    Monte-Carlo sweep timed with its launch counts, the tree solve (a first
+    call that captures, then the timed one), and the training steps under
+    deterministic cuDNN (as the ranks run them)."""
+    from mind_tpu_torch.models import train
+    from mind_tpu_torch.parallel.scale import make_tree_batch, parallel_tree_solve
+    from mind_tpu_torch.planner.ilqr import ILQRConfig
+    from mind_tpu_torch.sim.episode import run_episode_monte_carlo
+
+    out = {}
+    sim = spec.build(dev)
+    walls = []
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    out["results"] = run_episode_monte_carlo(sim, k=DIST_K, chunk=DIST_PER_RANK, seg_cycles=10,
+                                             mesh=mesh, chunk_walls=walls)
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t, chunk_walls=walls,
+               launches=dict(fa.fused_edge_attention.launches_by_variant))
+    del sim
+    tree = make_tree_batch(1024, 24, 32, 24, 4, 4, device=mesh.devices[0])
+    solve = lambda: parallel_tree_solve(mesh, *tree, ILQRConfig(max_iterations=10))
+    solve()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    us, J = solve()
+    torch.cuda.synchronize()
+    out.update(tree_ms=(time.perf_counter() - t) * 1e3, us=us.cpu(), J=J.cpu())
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = train.init_scene_pred(net_cfg, 0, dev)
+        step = train.make_train_step(net, train.adamw(net.parameters(), TRAIN_LR), mesh=mesh)
+        b = batch.to(dev)
+        out["losses"] = [step(b).item() for _ in range(DIST_TRAIN_STEPS)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["params"] = {k: p.detach().cpu() for k, p in net.named_parameters()}
+    return out
+
+
+def hold_dist(label, ranks, seq):
+    """Each rank's copies, trees and training equal to the sequential
+    mesh's, to the bit, and the parameters equal across ranks; kernel B
+    launched by the ranks' sweeps as often as by the sequential one (the
+    same shards), 6 per AIME round, kernel A never; kernel A 6 times per
+    training forward, B never. Returns the summary of the comparison."""
+    for r, rank in enumerate(ranks):
+        mc, tree, tr = rank["monte_carlo"], rank["tree_solve"], rank["train"]
+        if len(mc["results"]) != DIST_K:
+            raise RuntimeError(f"{label}: rank {r} holds {len(mc['results'])} copies")
+        for i, (a, b) in enumerate(zip(mc["results"], seq["results"])):
+            for f in ("ego_states", "plan_ok", "planned", "iterations", "controls"):
+                if not np.array_equal(getattr(a, f), getattr(b, f)):
+                    raise RuntimeError(f"{label}: rank {r}'s copy {i} {f} differs from the "
+                                       "sequential mesh's")
+            if (a.fail_cycle, a.plan_calls) != (b.fail_cycle, b.plan_calls):
+                raise RuntimeError(f"{label}: rank {r}'s copy {i} fails or plans otherwise")
+        if not (torch.equal(tree["us"], seq["us"]) and torch.equal(tree["J"], seq["J"])):
+            raise RuntimeError(f"{label}: rank {r}'s tree solve differs from the sequential one")
+        if tr["losses"] != seq["losses"] or any(not torch.equal(tr["params"][k], v)
+                                                for k, v in seq["params"].items()):
+            raise RuntimeError(f"{label}: rank {r}'s training differs from the sequential "
+                               f"mesh's: losses {tr['losses']} against {seq['losses']}")
+        if not all(np.isfinite(x.ego_states).all() for x in mc["results"]):
+            raise RuntimeError(f"{label}: a copy's states are not finite")
+        n = mc["launches"]
+        if n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6 or \
+                tr["launches"] != {"float32": 6 * DIST_TRAIN_STEPS, "bfloat16": 0}:
+            raise RuntimeError(f"{label}: rank {r}'s launches: sweep {n}, training "
+                               f"{tr['launches']}")
+    total = sum(rank["monte_carlo"]["launches"]["bfloat16"] for rank in ranks)
+    if total != seq["launches"]["bfloat16"] or seq["launches"]["float32"] != 0:
+        raise RuntimeError(f"{label}: the ranks launched kernel B {total} times, the "
+                           f"sequential sweep {seq['launches']}")
+    ticks = DIST_K * DIST_TICKS
+    rank_wall = max(rank["monte_carlo"]["wall_s"] for rank in ranks)
+    last = lambda walls: (walls[-1][1] - walls[-1][0]) * DIST_TICKS / walls[-1][2]
+    return {"sweep_wall_s": {"ranks": rank_wall, "one_process": seq["wall_s"]},
+            "copy_ticks_per_s": {"ranks": ticks / rank_wall, "one_process": ticks / seq["wall_s"]},
+            "last_chunk_copy_ticks_per_s": {
+                "ranks": min(last(rank["monte_carlo"]["chunk_walls"]) for rank in ranks),
+                "one_process": last(seq["chunk_walls"])},
+            "chunk_walls_s": {"ranks": [[w[2] for w in rank["monte_carlo"]["chunk_walls"]]
+                                        for rank in ranks],
+                              "one_process": [w[2] for w in seq["chunk_walls"]]},
+            "rank_build_s": [rank["monte_carlo"]["build_s"] for rank in ranks],
+            "tree_ms": {"ranks": ranks[0]["tree_solve"]["ms"], "one_process": seq["tree_ms"]},
+            "train_step_ms_per_rank": [{k: 1e3 * v / rank["train"]["timed_steps"]
+                                        for k, v in rank["train"]["times"].items()}
+                                       for rank in ranks],
+            "rank_job_s": [rank["seconds"] for rank in ranks],
+            "train_losses": seq["losses"],
+            "launches_by_rank": [{"monte_carlo": rank["monte_carlo"]["launches"],
+                                  "train": rank["train"]["launches"]} for rank in ranks],
+            "one_process_launches": seq["launches"]}
+
+
+def phase_dist(dcfg, fa, synthetic_av2):
+    """(dist) the shards run at the same time, one process per shard
+    (parallel/launch.py): (a)-(c) two ranks on the one card (gloo) run the
+    Monte-Carlo sweep, the 1024-tree solve (2 x 512) and 5 training steps,
+    each held to the bit against the sequential two-shard mesh here; (c)
+    also one rank on nccl (the whole batch) against the unsharded step; (d)
+    with two cards or more, one rank per card on nccl against the
+    sequential mesh across the two cards. Returns ({variant: the ranks'
+    launches}, summary)."""
+    from mind_tpu_torch.config import PlannerConfig
+    from mind_tpu_torch.parallel.launch import launch
+    from mind_tpu_torch.parallel.mesh import make_mesh
+    from mind_tpu_torch.synthetic import demo_spec
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = PlannerConfig()
+    batch = training_batch(cfg, torch.device("cpu"), synthetic_av2)
+    target = "mind_tpu_torch.parallel.dryrun:workloads"
+    summary = {}
+    launches = {"float32": 0, "bfloat16": 0}
+    with tempfile.TemporaryDirectory() as data_root:
+        spec = demo_spec("demo_1", SEED, data_root, ticks=DIST_TICKS, planner_cfg=dcfg,
+                         enable_timestep=1.0, target_velocity=TARGET_VELOCITY)
+        jobs = dist_jobs(spec, cfg.net, batch)
+        torch.cuda.empty_cache()
+        t, t_epoch = time.perf_counter(), time.time()
+        ranks = launch(target, DIST_RANKS, args=(jobs,), ranks_per_card=DIST_RANKS,
+                       timeout=DIST_TIMEOUT_S)
+        summary["launch_s"] = time.perf_counter() - t
+        summary["rank_start_s"] = [rank["seconds"]["start"] - t_epoch for rank in ranks]
+        seq = dist_sequential(fa, make_mesh(DIST_RANKS, device=dev), spec, cfg.net, batch, dev)
+        summary["gloo_on_the_card"] = ranks[0]["collectives_on_device"]
+        summary["one_card"] = hold_dist("dist (a)-(c)", ranks, seq)
+        for rank in ranks:
+            for job in ("monte_carlo", "train"):
+                for v, n in rank[job]["launches"].items():
+                    launches[v] += n
+        # (c) nccl: one rank, the whole batch, against the unsharded step
+        t = time.perf_counter()
+        train_job = [j for j in jobs if j[0] == "train"]
+        nccl = launch(target, 1, args=(train_job,), backend="nccl", timeout=DIST_TIMEOUT_S)[0]
+        summary["nccl_launch_s"] = time.perf_counter() - t
+        from mind_tpu_torch.models import train
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            net = train.init_scene_pred(cfg.net, 0, dev)
+            step = train.make_train_step(net, train.adamw(net.parameters(), TRAIN_LR))
+            b = batch.to(dev)
+            want = [step(b).item() for _ in range(DIST_TRAIN_STEPS)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if nccl["train"]["losses"] != want or any(
+                not torch.equal(nccl["train"]["params"][k], p.detach().cpu())
+                for k, p in net.named_parameters()):
+            raise RuntimeError(f"dist (c): the nccl rank's training differs from the unsharded "
+                               f"step: {nccl['train']['losses']} against {want}")
+        launches["float32"] += nccl["train"]["launches"]["float32"]
+        summary["nccl_train"] = {"losses": want, "launches": nccl["train"]["launches"],
+                                 "step_ms": {k: 1e3 * v / nccl["train"]["timed_steps"]
+                                             for k, v in nccl["train"]["times"].items()},
+                                 "rank_job_s": nccl["seconds"]}
+        # (d) one rank per card on nccl, and the sequential mesh across two cards
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            t = time.perf_counter()
+            ranks = launch(target, 2, args=(jobs,), timeout=DIST_TIMEOUT_S)
+            summary["cards_launch_s"] = time.perf_counter() - t
+            seq = dist_sequential(fa, make_mesh(2), spec, cfg.net, batch, dev)
+            summary["nccl_on_the_cards"] = ranks[0]["collectives_on_device"]
+            summary["two_cards"] = hold_dist("dist (d)", ranks, seq)
+            for rank in ranks:
+                for job in ("monte_carlo", "train"):
+                    for v, n in rank[job]["launches"].items():
+                        launches[v] += n
+        else:
+            log(f"[dist] (d) not run: {cards} CUDA device; one rank per card on nccl and the "
+                "sequential mesh across cards need two")
+            summary["two_cards"] = f"not run: {cards} CUDA device"
+    summary["seconds"] = time.perf_counter() - t_phase
+    log("[dist] " + json.dumps(summary))
+    return launches, summary
+
+
 def main() -> int:
     global T0, PEAKS
     T0 = time.perf_counter()
@@ -1647,18 +1866,21 @@ def main() -> int:
     scale = phase_tree_scale()
     train_launches, training = phase_training(fa, dev, synthetic_av2)
     bench_launches, bench = phase_bench()
+    dist_launches, dist = phase_dist(dcfg, fa, synthetic_av2)
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "host_tree": host_tree_launches,
                                       "float32_loop": loop32_launches,
                                       "training": train_launches,
-                                      "bench": bench_launches["float32"]}
+                                      "bench": bench_launches["float32"],
+                                      "dist": dist_launches["float32"]}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
                                       "closed_loop": loop_launches, "episode": episode_launches,
                                       "batched_episode": batched_launches,
                                       "monte_carlo": mc_launches,
                                       **{k: v[0] for k, v in parity.items()},
-                                      "bench": bench_launches["bfloat16"]}
+                                      "bench": bench_launches["bfloat16"],
+                                      "dist": dist_launches["bfloat16"]}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
 
@@ -1671,7 +1893,7 @@ def main() -> int:
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
                                   **{k: v[1] for k, v in parity.items()},
                                   "tree_scale": scale, "training": training,
-                                  "bench_wall_s": bench["wall_s"],
+                                  "bench_wall_s": bench["wall_s"], "dist": dist,
                                   "seconds": time.perf_counter() - T0}))
     # the benchmark's final line, then one line per section
     log("[bench] final line: " + json.dumps(bench["final"]))

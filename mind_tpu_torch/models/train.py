@@ -29,7 +29,8 @@ import torch
 from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.config import NetConfig
 from mind_tpu_torch.models.scene_pred import ScenePredNet
-from mind_tpu_torch.parallel.mesh import Mesh, shard_rollouts, tree_map
+from mind_tpu_torch.parallel.mesh import (DistMesh, all_reduce_sum, mesh_size,
+                                          shard_rollouts, tree_map)
 
 
 class Batch(NamedTuple):
@@ -120,37 +121,50 @@ def _sync(device):
     return time.perf_counter()
 
 
-def make_train_step(net: ScenePredNet, optimizer, mesh: Optional[Mesh] = None):
+def make_train_step(net: ScenePredNet, optimizer, mesh=None):
     """train_step(batch, times=None) -> loss (a 0-d tensor): forward, the
     mean scene loss, backward, one optimizer step over `net`'s parameters.
 
-    With `mesh`, the batch's leading axis is cut into one shard per device
+    With a `Mesh`, the batch's leading axis is cut into one shard per device
     (parallel/mesh.py::shard_rollouts); each shard runs on its device with
     the parameters copied there, and its loss, weighted by its share of the
     batch, is back-propagated into the one set of gradients of `net`'s
-    parameters, before one optimizer step. The shards run one after another
-    (the counterpart of mind_tpu/models/train.py::dp_shardings, where XLA
-    sums the gradients over the chips).
+    parameters, before one optimizer step. The shards run one after another.
+
+    With a `DistMesh` (one rank of parallel/launch.py; `net` and the whole
+    batch on the rank's device), the rank runs forward and backward on its
+    own shard with the same weighting, the gradients are summed over the
+    ranks (`all_reduce_sum`) before the optimizer step, so every rank keeps
+    the same parameters, and the returned loss is the global one.
+
+    Both are the counterpart of mind_tpu/models/train.py::dp_shardings,
+    where XLA sums the gradients over the chips.
 
     With a dict `times`, the step synchronizes the device between its
-    phases and adds their seconds under "forward", "backward", "optimizer".
+    phases and adds their seconds under "forward", "backward", "optimizer"
+    and, on a `DistMesh`, "all_reduce" (the gradients' sum over the ranks).
     """
     if net.cfg.compute_dtype != "float32":
         raise ValueError("only the float32 network is trained (as in the JAX package)")
     params = [p for p in net.parameters() if p.requires_grad]
     device = params[0].device
+    ranked = isinstance(mesh, DistMesh)
 
     def shard_losses(batch):
-        """(loss, share of the batch) per shard, made one at a time, so a
-        shard's activations are freed by its backward before the next runs."""
+        """(loss, share of the batch) per shard this process runs, made one
+        at a time, so a shard's activations are freed by its backward
+        before the next runs."""
         if mesh is None:
             yield loss_fn(net, batch), 1.0
             return
-        shards = shard_rollouts(mesh, batch)
-        for dev, shard in zip(mesh.devices, shards):
+        share = 1.0 / mesh_size(mesh)
+        if ranked:
+            yield loss_fn(net, shard_rollouts(mesh, batch)[0]), share
+            return
+        for dev, shard in zip(mesh.devices, shard_rollouts(mesh, batch)):
             state = {k: v.to(dev) for k, v in (*net.named_parameters(), *net.named_buffers())}
             replica = lambda *inputs: torch.func.functional_call(net, state, inputs)
-            yield loss_fn(replica, shard), 1.0 / len(shards)
+            yield loss_fn(replica, shard), share
 
     def train_step(batch: Batch, times: Optional[dict] = None):
         clock = (lambda: _sync(device)) if times is not None else (lambda: 0.0)
@@ -168,6 +182,13 @@ def make_train_step(net: ScenePredNet, optimizer, mesh: Optional[Mesh] = None):
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if ranked:
+            total = total.reshape(1)
+            all_reduce_sum(mesh, [p.grad for p in params] + [total])
+            total = total[0]
+            t_sum = clock()
+            spent["all_reduce"] = t_sum - t
+            t = t_sum
         optimizer.step()
         if times is not None:
             spent["optimizer"] = clock() - t

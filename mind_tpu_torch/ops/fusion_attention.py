@@ -180,12 +180,12 @@ def _library_path(variant: str) -> Path:
     return _BUILD_DIR / f"lib{_SRCS[variant].stem}_{h.hexdigest()[:12]}.so"
 
 
-def build_kernels() -> dict:
-    """Compile both kernels (once per source hash, the two nvcc runs side by
-    side) and load them; returns {"float32": CDLL, "bfloat16": CDLL}. Raises
-    on any build failure; never returns a library that did not build."""
-    if build_kernels.libs is not None:
-        return build_kernels.libs
+def compile_kernels() -> dict:
+    """Compile both kernels where their libraries are missing (once per
+    source hash, the two nvcc runs side by side); returns {variant: path}.
+    Runs nvcc only: it neither loads a library nor touches a card, so a
+    process can build for others it starts (parallel/launch.py). Raises on
+    any build failure."""
     paths = {v: _library_path(v) for v in _SRCS}
     missing = [v for v, so in paths.items() if not so.exists()]
     if missing:
@@ -206,6 +206,16 @@ def build_kernels() -> dict:
                 raise RuntimeError(f"nvcc failed on {_SRCS[v].name} ({rc}):\n{err}")
             build_kernels.log[v] = err
             os.replace(tmp, paths[v])
+    return paths
+
+
+def build_kernels() -> dict:
+    """Compile both kernels (compile_kernels) and load them; returns
+    {"float32": CDLL, "bfloat16": CDLL}. Raises on any build failure;
+    never returns a library that did not build."""
+    if build_kernels.libs is not None:
+        return build_kernels.libs
+    paths = compile_kernels()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = {v: ctypes.CDLL(str(so)) for v, so in paths.items()}
     fn = libs["float32"].fused_edge_attention_f32
@@ -263,12 +273,15 @@ def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
     # scratch of the call's three launches: per-token projections, folded keys,
     # per-head softmax-weighted memory
     sp, tp, qk, ctx = new(B * N, D), new(B * N, D), new(B * N, n_head, D), new(B * N, n_head, D)
-    err = lib.fused_edge_attention_f32(
-        node.data_ptr(), edge.data_ptr(), key_mask.data_ptr(),
-        *(t.data_ptr() for t in w),
-        sp.data_ptr(), tp.data_ptr(), qk.data_ptr(), ctx.data_ptr(),
-        out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the launch and its cudaFuncSetAttribute apply to the current device:
+    # make it the tensors' one
+    with torch.cuda.device(dev):
+        err = lib.fused_edge_attention_f32(
+            node.data_ptr(), edge.data_ptr(), key_mask.data_ptr(),
+            *(t.data_ptr() for t in w),
+            sp.data_ptr(), tp.data_ptr(), qk.data_ptr(), ctx.data_ptr(),
+            out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_attention launch failed: CUDA error {err}")
     _launched("float32")
@@ -295,13 +308,14 @@ def _launch_bf16(node, edge, key_mask, w, n_head, update_edge):
     write_cast = not update_edge and edge.dtype != f32
     edge_out = new(B, N, N, D) if update_edge or write_cast else edge
     sp, tp, q, attn = (new(B * N, D) for _ in range(4))
-    err = lib.fused_edge_attention_bf16(
-        node.data_ptr(), int(node.dtype == bf16), edge.data_ptr(), int(edge.dtype == bf16),
-        key_mask.data_ptr(),
-        *(t.data_ptr() for t in w),
-        sp.data_ptr(), tp.data_ptr(), q.data_ptr(), attn.data_ptr(),
-        out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge), int(write_cast),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # as in _launch_f32
+        err = lib.fused_edge_attention_bf16(
+            node.data_ptr(), int(node.dtype == bf16), edge.data_ptr(), int(edge.dtype == bf16),
+            key_mask.data_ptr(),
+            *(t.data_ptr() for t in w),
+            sp.data_ptr(), tp.data_ptr(), q.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge), int(write_cast),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_attention (bf16) launch failed: CUDA error {err}")
     _launched("bfloat16")

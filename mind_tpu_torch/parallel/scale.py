@@ -1,10 +1,11 @@
 """Scale-out workload (port of mind_tpu/parallel/scale.py): a batch of
 randomized contingency trees with full iLQR, the tree axis cut into one
-shard per mesh device.
+shard per mesh shard.
 
 The solver (planner/ilqr.py) takes a batch axis of trees; each shard is one
-batched solve on its device (one CUDA graph per iteration on a card), and
-the results are gathered on the mesh's first device.
+batched solve on its device (one CUDA graph per iteration on a card). The
+shards of a `Mesh` run in turn in one process, those of a `DistMesh` at the
+same time, one rank each (parallel/launch.py).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.ops.potential import CostParams, NodeCostData
-from mind_tpu_torch.parallel.mesh import Mesh, replicate, shard_rollouts
+from mind_tpu_torch.parallel.mesh import gather_shards, replicate, shard_rollouts
 from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology, build_topology, ilqr_solve
 
 
@@ -108,14 +109,16 @@ def make_tree_batch(n_trees: int, n_nodes: int, max_nodes: int,
     return topo, nodes, params, x0
 
 
-def parallel_tree_solve(mesh: Mesh, topo: TreeTopology, nodes: NodeCostData,
+def parallel_tree_solve(mesh, topo: TreeTopology, nodes: NodeCostData,
                         params: CostParams, x0,
                         ilqr_cfg: ILQRConfig = ILQRConfig(max_iterations=20)):
     """Solve a [n_trees] batch of contingency problems, the trees cut into
-    one contiguous shard per mesh device, each shard one batched solve from
-    zero controls on its device (one after another: a concurrent run across
-    cards waits for a machine with more than one, ROADMAP.md). Returns (us
-    [n_trees, MN, 2], J [n_trees]) on the mesh's first device.
+    one contiguous shard per mesh shard, each shard one batched solve from
+    zero controls on its device. On a `Mesh` the shards run one after
+    another and (us [n_trees, MN, 2], J [n_trees]) come back on its first
+    device; on a `DistMesh` each rank solves its own shard at the same time
+    as the others, and every rank gets the whole (us, J) in tree order on
+    its device (parallel/mesh.py::gather_shards).
 
     `topo` may be one TreeTopology shared by all trees, or a batched one
     (leaves with a leading [n_trees] axis, as make_tree_batch gives) with
@@ -124,11 +127,10 @@ def parallel_tree_solve(mesh: Mesh, topo: TreeTopology, nodes: NodeCostData,
     MN = topo.parent.shape[-1]
     if topo.parent.dim() == 1:
         topo = TreeTopology(*(x[None].expand((n,) + x.shape) for x in topo))
-    shards = shard_rollouts(mesh, (topo, nodes, x0))
-    us_all, J_all = [], []
-    for (topo_i, nodes_i, x0_i), params_i in zip(shards, replicate(mesh, params)):
+    parts = []
+    for (topo_i, nodes_i, x0_i), params_i in zip(shard_rollouts(mesh, (topo, nodes, x0)),
+                                                 replicate(mesh, params)):
         us0 = torch.zeros((x0_i.shape[0], MN, 2), dtype=x0_i.dtype, device=x0_i.device)
         _, us, info = ilqr_solve(topo_i, x0_i, us0, nodes_i, params_i, ilqr_cfg)
-        us_all.append(us.to(mesh.devices[0]))
-        J_all.append(info["J"].to(mesh.devices[0]))
-    return torch.cat(us_all), torch.cat(J_all)
+        parts.append((us, info["J"]))
+    return gather_shards(mesh, parts)

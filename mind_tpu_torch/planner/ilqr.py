@@ -412,7 +412,10 @@ class _GraphCache:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             side = self.streams.setdefault(dev, torch.cuda.Stream(device=dev))
-            g = self.graphs[key] = _GraphedIteration(inp, st, cfg, n_levels, self.pool, side)
+            # the capture (torch.cuda.graph) and its warm-up belong to the
+            # current device: make it the state's one
+            with torch.cuda.device(dev):
+                g = self.graphs[key] = _GraphedIteration(inp, st, cfg, n_levels, self.pool, side)
         return g
 
 

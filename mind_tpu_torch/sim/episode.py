@@ -56,7 +56,8 @@ import torch
 
 from mind_tpu_torch.common.kinematics import kine_propagate
 from mind_tpu_torch.ops.potential import CostParams
-from mind_tpu_torch.parallel.mesh import tree_map
+from mind_tpu_torch.parallel.mesh import (DistMesh, gather_shards, local_shards, mesh_size,
+                                          rank0_decides, tree_map)
 from mind_tpu_torch.planner.aime_device import DeviceObsBuffer, obs_buffer_update
 from mind_tpu_torch.planner.planner import _PhaseClock, batched_plan_core, type_onehot
 from mind_tpu_torch.planner.scene_prep import LaneGraphStatic, TargetLaneStatic
@@ -591,11 +592,17 @@ def run_episode_monte_carlo(sim, k: int = 64, pos_sigma: float = 0.5,
     (epoch seconds) bounds the sweep: no new chunk starts past it, and the
     copies done are returned. `chunk_walls`, if given, receives one (lo, hi,
     wall_s) per chunk, and `phases` the per-cycle records of run_episode's,
-    one per cycle of each chunk (and shard) in turn. `mesh` (parallel.mesh.make_mesh) splits each chunk of
-    `chunk` copies per device into one shard per device, planned on that
-    device with its own replica of the network; the shards run one after
-    another (a concurrent run across cards waits for a machine with more
-    than one, ROADMAP.md)."""
+    one per cycle of each chunk (and shard this process runs) in turn.
+
+    `mesh` splits each chunk of `chunk` copies per shard into one shard of
+    `chunk` copies per mesh shard (parallel/mesh.py). On a `Mesh` each
+    shard is planned on its device with its own replica of the network, one
+    after another. On a `DistMesh` every rank builds the same K perturbed
+    starts from the seed, plans its own shard of each chunk on its device
+    (`sim` built there) at the same time as the others, and gets every
+    copy's result, in copy order; rank 0 decides the deadline for all, so
+    every rank stops at the same chunk. `chunk_walls` and `phases` are each
+    rank's own."""
     from mind_tpu_torch.sim.agents import MINDAgent
 
     if seg_cycles < 1:
@@ -605,33 +612,39 @@ def run_episode_monte_carlo(sim, k: int = 64, pos_sigma: float = 0.5,
     inp_b = build_mc_inputs(sim, k, pos_sigma, vel_sigma, seed, horizon)
     A = inp_b.types.shape[-2]
     pdt = torch_dtype(pl.cfg.pipeline_dtype)
-    devices = [pl.device] if mesh is None else list(mesh.devices)
-    chunk = chunk * len(devices)
+    if mesh is None:
+        n_shards, shards = 1, [(0, pl.device)]
+    else:
+        n_shards, shards = mesh_size(mesh), local_shards(mesh)
+        if isinstance(mesh, DistMesh) and not _same_device(mesh.device, pl.device):
+            raise ValueError(f"rank {mesh.rank} runs on {mesh.device}, its planner on {pl.device}")
+    chunk = chunk * n_shards
     runs = {}
-    for d in dict.fromkeys(devices):   # one runner per distinct device
-        p = pl if _same_device(d, pl.device) else _planner_on(pl, d)
-        runs[d] = (p, _make_core(p, ego.veh_param, sim.sim_step), build_episode_statics(p))
+    for _, d in shards:
+        if d not in runs:   # one runner per distinct device
+            p = pl if _same_device(d, pl.device) else _planner_on(pl, d)
+            runs[d] = (p, _make_core(p, ego.veh_param, sim.sim_step), build_episode_statics(p))
     results: List[EpisodeResult] = []
     for lo in range(0, k, chunk):
-        if deadline is not None and results and time.time() > deadline:
+        if rank0_decides(mesh, deadline is not None and results and time.time() > deadline):
             break
         t_chunk = time.perf_counter()
         hi = min(lo + chunk, k)
-        if (hi - lo) % len(devices):
+        if (hi - lo) % n_shards:
             raise ValueError(f"a chunk of {hi - lo} copies does not divide over "
-                             f"{len(devices)} devices; pick k and chunk multiples of the mesh size")
-        per = (hi - lo) // len(devices)
-        for i, d in enumerate(devices):
+                             f"{n_shards} devices; pick k and chunk multiples of the mesh size")
+        per = (hi - lo) // n_shards
+        parts = []
+        for i, d in shards:
             p, run, st = runs[d]
             inp = tree_map(lambda x: x.to(d), _slice_lanes(inp_b, lo + i * per, lo + (i + 1) * per))
             carry = _init_episode_carry(A, pdt, d, per)
             outs = _run_segments(run, inp, _shared_statics(st, per), carry, seg_cycles, phases)
-            results.extend(_lane_result(p, outs, j) for j in range(per))
+            parts.append([_lane_result(p, outs, j) for j in range(per)])
+        results.extend(parts[0] if mesh is None else gather_shards(mesh, parts))
         if chunk_walls is not None:
             chunk_walls.append((lo, hi, time.perf_counter() - t_chunk))
     return results
-
-
 
 
 def _same_device(a, b) -> bool:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -149,3 +149,40 @@ class Simulator:
         from mind_tpu_torch.viz.render import render_frames_to_video
 
         return render_frames_to_video(self)
+
+
+class SimSpec(NamedTuple):
+    """What it takes to build the same initialized Simulator in another
+    process (a rank of parallel/launch.py): the configuration, the planner
+    configuration that overrides the file's, the ticks, the in-memory
+    scenario and, per closed-loop agent id, network weights to load over
+    its planner's (CPU tensors). All of it pickles; the map is read from
+    config.map_path on the same machine."""
+
+    config: SimConfig
+    planner_cfg: Optional[PlannerConfig] = None
+    max_steps: Optional[int] = None
+    scenario: Optional[Scenario] = None
+    net_states: Optional[Dict[str, dict]] = None
+
+    @classmethod
+    def of(cls, sim: Simulator) -> "SimSpec":
+        """The spec of an initialized Simulator, its planners' current
+        weights included."""
+        states = {a.id: {k: v.detach().cpu() for k, v in a.planner.net.state_dict().items()}
+                  for a in sim.agents if isinstance(a, CustomizedAgent) and a.planner is not None}
+        return cls(sim.config, sim._planner_cfg_override, sim.sim_horizon, sim._scenario,
+                   states or None)
+
+    def build(self, device=None) -> Simulator:
+        """An initialized Simulator on `device` (the card unless the caller
+        passes the CPU) with the spec's weights loaded."""
+        sim = Simulator(self.config, planner_cfg=self.planner_cfg, max_steps=self.max_steps,
+                        device=device, scenario=self.scenario)
+        sim.init_sim()
+        for a in sim.agents:
+            state = (self.net_states or {}).get(a.id)
+            if state is not None:
+                a.planner.net.load_state_dict(state)
+                a.planner.net.apply_compute_dtype()
+        return sim

@@ -287,8 +287,19 @@ def demo_scenario(demo: str, seed: Optional[int], data_root, *, ticks: Optional[
     memory. Without one, the map is read from data_root/<seq_id> and the
     tracks from `scenario` or else from the demo's scenario parquet there;
     a missing file raises."""
+    return demo_spec(demo, seed, data_root, ticks=ticks, planner_cfg=planner_cfg,
+                     enable_timestep=enable_timestep, target_velocity=target_velocity,
+                     scenario=scenario).build(device)
+
+
+def demo_spec(demo: str, seed: Optional[int], data_root, *, ticks: Optional[int] = None,
+              planner_cfg=None, enable_timestep: Optional[float] = None,
+              target_velocity: Optional[float] = None, scenario: Optional[Scenario] = None):
+    """demo_scenario's Simulator as a sim/simulator.py::SimSpec, built by
+    no one yet (the map is written already): each rank of a distributed
+    run builds it on its own device."""
     from mind_tpu_torch.config import CONFIGS, SimConfig, planner_config_for_demo
-    from mind_tpu_torch.sim.simulator import Simulator
+    from mind_tpu_torch.sim.simulator import SimSpec
 
     cfg = SimConfig.from_json(CONFIGS / f"{demo}.json", data_root=str(data_root))
     cfg.render = False
@@ -301,10 +312,7 @@ def demo_scenario(demo: str, seed: Optional[int], data_root, *, ticks: Optional[
         syn = synthetic_av2(seed)
         write_synthetic_map(syn.map_json, data_root, cfg.seq_id)
         scenario = syn.scenario
-    sim = Simulator(cfg, planner_cfg=planner_cfg or planner_config_for_demo(demo),
-                    max_steps=ticks, device=device, scenario=scenario)
-    sim.init_sim()
-    return sim
+    return SimSpec(cfg, planner_cfg or planner_config_for_demo(demo), ticks, scenario)
 
 
 def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0):

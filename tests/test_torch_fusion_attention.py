@@ -238,3 +238,60 @@ def test_cuda_bf16_kernel_matches_plain():
         tfa.fused_edge_attention(node.double(), edge, mask, w, H)
     with pytest.raises(TypeError):   # bias / LayerNorm vectors must be bf16 too
         tfa.fused_edge_attention(node, edge, mask, w._replace(bm=w.bm.float()), H)
+
+
+class _StubLibrary:
+    """Stands in for a built kernel library on the CPU: records, at each
+    launch, the device the caller made current and the stream it passed."""
+
+    def __init__(self, current):
+        self.current, self.calls = current, []
+
+    def _launch(self, *args):
+        self.calls.append((self.current[-1] if self.current else None, args[-1]))
+        return 0
+
+    fused_edge_attention_f32 = fused_edge_attention_bf16 = _launch
+    fused_edge_attention_width = fused_edge_attention_bf16_width = lambda self: D
+    fused_edge_attention_heads = fused_edge_attention_bf16_heads = lambda self: H
+
+
+@pytest.mark.parametrize("variant", ["float32", "bfloat16"])
+def test_launch_runs_under_the_tensors_device(variant, monkeypatch):
+    """Each launch wrapper makes the tensors' device current around the
+    library call (a launch, and its cudaFuncSetAttribute, apply to the
+    current device: on a second card, a launch from the first one's context
+    into the second one's stream fails) and passes that device's stream.
+    The library, torch.cuda.device and torch.cuda.current_stream are stubs,
+    so the wrappers run on CPU tensors."""
+    import contextlib
+
+    current = []
+
+    @contextlib.contextmanager
+    def device(d):
+        current.append(torch.device(d))
+        try:
+            yield
+        finally:
+            current.pop()
+
+    streams = {}
+    lib = _StubLibrary(current)
+    monkeypatch.setattr(tfa, "build_kernels", lambda: {"float32": lib, "bfloat16": lib})
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: streams.setdefault(
+        torch.device(d), type("Stream", (), {"cuda_stream": 1000 + len(streams)})()))
+    w = torch_weights(weights_np(1))
+    node, edge, mask = map(torch.tensor, inputs_np(2, 1, 8))
+    launch = tfa._launch_f32
+    if variant == "bfloat16":
+        w = tfa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
+        launch = tfa._launch_bf16
+    before = tfa.fused_edge_attention.launches_by_variant[variant]
+    for update_edge in (True, False):
+        launch(node, edge, mask, w, H, update_edge)
+    tfa.fused_edge_attention.launches_by_variant[variant] = before
+    tfa.fused_edge_attention.launches -= 2
+    cpu = torch.device("cpu")
+    assert lib.calls == [(cpu, streams[cpu].cuda_stream)] * 2 and current == []

@@ -33,7 +33,7 @@ def test_port_file_imports_no_jax(path):
 
 
 def test_every_port_module_is_covered():
-    assert len(FILES) >= 49
+    assert len(FILES) >= 63
     covered = {str(p.relative_to(ROOT / "mind_tpu_torch")) for p in FILES[:-1]}
     assert covered >= {
         "ops/fusion_attention.py", "planner/planner.py", "planner/trajectory_tree.py",
@@ -46,7 +46,8 @@ def test_every_port_module_is_covered():
         "models/weights.py", "train_weights.py", "parity/__init__.py", "parity/host_scene.py",
         "parity/host_ilqr.py", "parity/host_planner.py", "parity/runner.py", "parity_run.py",
         "planner/scenario_tree.py", "viz/render.py", "viz/video.py",
-        "utils/device_health.py", "utils/device_specs.py", "bench.py"}
+        "utils/device_health.py", "utils/device_specs.py", "bench.py", "parallel/launch.py",
+        "parallel/dryrun.py"}
 
 
 def test_native_source_is_the_ports_own():
