@@ -112,7 +112,22 @@ result line):
      failed cycle, the host loop with 10 plans, every time and rate finite
      and positive, 0 < MFU < 1, and in every section kernel B launched a
      positive multiple of 6 times and kernel A never;
- 15a. dist: the shards at the same time, one process per shard
+ 15a. scripts: the drivers of mind_tpu_torch/scripts/ (the JAX package's
+     scripts/*.py) through their main([...]) in this process, on synthetic
+     scenes at 230 ticks (6 plans a demo), outputs in a temporary
+     directory: run_all_demos in both modes on demos 1 and 2 (PASS, the
+     report written; its episode mode once more as a subprocess, the CLI);
+     parity_run's free run of demo_1 under native_bal and its log through
+     bench_north_star (finite rows; the verdict printed, not held);
+     bench_strict on demo_1 (no failed cycle, the float32 plan count);
+     bench_exec_ab's five policies (finite rates, no failed cycle);
+     bench_forward_split in bf16 and float32 and bench_fusion (the
+     variant's kernel 6 times per FusionNet pass, the other never, kernel
+     against plain within TOL_NET_CLS / TOL_NET_POS); diag_playback on
+     demo_1 (the JAX field names, finite deviations). Each driver's
+     launches, counted from 0 around it, equal what its rows record, and
+     the demo configuration's runs launch kernel B in multiples of 6;
+ 15b. dist: the shards at the same time, one process per shard
      (mind_tpu_torch/parallel/launch.py, the rank workloads of
      parallel/dryrun.py), at full width with the trained weights. (a)-(c)
      two ranks on the one card (gloo): the Monte-Carlo sweep of phase 12's
@@ -1545,6 +1560,206 @@ def phase_bench():
             {"final": final, "wall_s": wall})
 
 
+# (scripts): the drivers of mind_tpu_torch/scripts/ on synthetic scenes, 230
+# ticks with the planner on at 4 s (6 plans a demo; at 250 ticks and 50
+# bench_fusion forwards a path the phase took 195 s on an H100)
+SCRIPTS_STEPS, SCRIPTS_PLANS = 230, 6
+SCRIPTS_FUSION_REPS = 10
+SCRIPTS_TIMEOUT_S = 300
+
+
+def demo_launches(name, n):
+    """Launches by the demo configuration's drivers: kernel B a positive
+    multiple of 6 (6 fusion layers per forward), kernel A never."""
+    if n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6:
+        raise RuntimeError(f"scripts {name}: kernel launches {n}")
+
+
+def add_launches(total, n):
+    for v in total:
+        total[v] += n[v]
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def run_driver(fa, name, main, argv):
+    """One driver's main(argv) in this process, the launch counts set to 0
+    just before and read just after; exit code 0 or raise. Returns (its
+    launches by variant, seconds)."""
+    log(f"[scripts] {name} " + " ".join(argv))
+    fa.reset_launch_counts()
+    t = time.perf_counter()
+    rc = main(argv)
+    wall = time.perf_counter() - t
+    n = dict(fa.fused_edge_attention.launches_by_variant)
+    if rc != 0:
+        raise RuntimeError(f"scripts {name}: exit code {rc}")
+    return n, wall
+
+
+def phase_scripts(fa):
+    """(scripts) the drivers' main([...]) in this process on synthetic_av2
+    scenes at 230 ticks, outputs in a temporary directory, each check
+    fatal: run_all_demos (both modes, demos 1 and 2; and its episode mode
+    once more as a subprocess, the CLI itself) PASS with 6 plans a demo and
+    the report written; parity_run's free run of demo_1 under native_bal,
+    its log fed to bench_north_star (demo_1): finite rows, the verdict
+    printed, not held; bench_strict (demo_1): no failed cycle and
+    run_all_demos' float32 plan count; bench_exec_ab: the five variants with
+    finite rates and no failed cycle; bench_forward_split in bf16 and
+    float32 and bench_fusion (10 forwards a window): the variant's kernel
+    launched 6 times per FusionNet pass, the other never, kernel against plain within
+    TOL_NET_CLS / TOL_NET_POS; diag_playback (demo_1, 3 worst cycles): the
+    JAX field names, finite deviations. Every run of the demo configuration
+    launches kernel B in multiples of 6 and kernel A never, and its counts
+    equal the launches its rows record. Returns ({variant: launches}, summary)."""
+    import contextlib
+
+    from mind_tpu_torch import parity_run
+    from mind_tpu_torch.scripts import (bench_exec_ab, bench_forward_split, bench_fusion,
+                                        bench_north_star, bench_strict, diag_playback,
+                                        run_all_demos)
+
+    t_phase = time.perf_counter()
+    total = {"float32": 0, "bfloat16": 0}
+    summary = {"seconds": {}}
+    steps = ["--steps", str(SCRIPTS_STEPS), "--synthetic"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = lambda name: os.path.join(tmp, name)
+
+        def driver(name, mod, argv):
+            n, wall = run_driver(fa, name, mod.main, argv)
+            summary["seconds"][name] = wall
+            add_launches(total, n)
+            return n
+
+        # run_all_demos: both modes in this process, the episode mode as a CLI
+        n = driver("run_all_demos", run_all_demos, [
+            "--mode", "both", "--demos", "1,2", *steps, "--json-out", out("host.json"),
+            "--episode-json", out("episode.json"), "--report", out("DEMOS.md")])
+        demo_launches("run_all_demos", n)
+        ep_rows = read_json(out("episode.json"))["rows"]
+        rows = read_json(out("host.json"))
+        report = open(out("DEMOS.md")).read()
+        for mode, rs in (("episode", ep_rows), ("host", rows)):
+            if [r["demo"] for r in rs] != ["demo_1", "demo_2"] or any(
+                    r["ticks"] != SCRIPTS_STEPS or r["plan_calls"] != SCRIPTS_PLANS
+                    or r["plan_failures"] or not positive(r["steps_per_sec"]) for r in rs):
+                raise RuntimeError(f"scripts run_all_demos: {mode} rows {rs}")
+        if "**Result: PASS**" not in report or "## Fused-episode mode" not in report:
+            raise RuntimeError(f"scripts run_all_demos: report {report[:2000]}")
+        row_n = {v: sum(r["launches"][v] for r in ep_rows + rows) for v in total}
+        if row_n != n:
+            raise RuntimeError(f"scripts run_all_demos: rows record {row_n}, counted {n}")
+        summary["run_all_demos"] = {"episode": ep_rows, "host": rows}
+        cmd = [sys.executable, "-m", "mind_tpu_torch.scripts.run_all_demos", "--mode",
+               "episode", "--demos", "1", *steps, "--episode-json", out("cli.json")]
+        log("[scripts] " + " ".join(cmd[1:]))
+        t = time.perf_counter()
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=SCRIPTS_TIMEOUT_S)
+        summary["seconds"]["run_all_demos_cli"] = time.perf_counter() - t
+        (cli,) = read_json(out("cli.json"))["rows"] if p.returncode == 0 else (None,)
+        if p.returncode != 0 or "EPISODE DEMOS PASS" not in p.stdout or \
+                cli["plan_calls"] != SCRIPTS_PLANS:
+            raise RuntimeError(f"scripts run_all_demos CLI: exit code {p.returncode}, "
+                               f"stdout ends {p.stdout[-2000:]}")
+        demo_launches("run_all_demos CLI", cli["launches"])
+        add_launches(total, cli["launches"])
+
+        # the north star: native_bal's free-run parity, then its throughput
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        with open(out("free.log"), "w") as f, contextlib.redirect_stdout(f):
+            parity_run.main(["--demos", "1", "--skip", "playback", "resync", "--free-modes",
+                             "native_bal", "--synthetic"])
+        summary["seconds"]["parity_run_free"] = time.perf_counter() - t
+        n = dict(fa.fused_edge_attention.launches_by_variant)
+        demo_launches("parity_run", n)
+        add_launches(total, n)
+        n = driver("bench_north_star", bench_north_star, [
+            "--policy", "native_bal", "--demos", "1", *steps, "--free-log", out("free.log"),
+            "--out", out("north_star.json")])
+        demo_launches("bench_north_star", n)
+        ns = read_json(out("north_star.json"))
+        (thr,), free = ns["throughput"], ns.get("free_run", [])
+        if thr["plan_calls"] != SCRIPTS_PLANS or not positive(thr["steps_per_sec"]) or \
+                len(free) != 1 or not np.isfinite(free[0]["max_dev_cl"]) or \
+                thr["launches"] != n:
+            raise RuntimeError(f"scripts bench_north_star: {ns}")
+        summary["north_star"] = {k: ns[k] for k in (
+            "worst_steps_per_sec", "worst_vs_baseline", "throughput_ok_50x", "parity_ok_1e3",
+            "north_star")}
+        summary["north_star"].update(free_run_max_dev_cl=free[0]["max_dev_cl"],
+                                     phase_mean_ms=thr["phase_mean_ms"])
+
+        # strict float64 against the float32 episode of run_all_demos
+        n = driver("bench_strict", bench_strict, ["--demos", "1", *steps,
+                                                  "--out", out("strict.json")])
+        demo_launches("bench_strict", n)
+        (strict,) = read_json(out("strict.json"))["per_demo"]
+        if strict["fail_cycle"] != -1 or strict["plan_calls"] != ep_rows[0]["plan_calls"] or \
+                not positive(strict["steps_per_s"]) or strict["launches"] != n:
+            raise RuntimeError(f"scripts bench_strict: {strict}, float32 {ep_rows[0]}")
+        summary["strict"] = dict(strict, float32_steps_per_s=ep_rows[0]["steps_per_sec"])
+
+        # the precision-policy matrix
+        n = driver("bench_exec_ab", bench_exec_ab, [*steps, "--out", out("exec_ab.json")])
+        demo_launches("bench_exec_ab", n)
+        ab = read_json(out("exec_ab.json"))
+        names = [v[0] for v in bench_exec_ab.VARIANTS]
+        if sorted(ab) != sorted(names) or any(
+                r["fail_cycle"] != -1 or r["plan_calls"] != SCRIPTS_PLANS
+                or not positive(r["steps_per_s"]) for r in ab.values()) or \
+                {v: sum(r["launches"][v] for r in ab.values()) for v in total} != n:
+            raise RuntimeError(f"scripts bench_exec_ab: {ab}")
+        summary["exec_ab"] = ab
+
+        # the forward split in both variants, and the kernel against the plain core
+        for dtype, variant, other in (("bfloat16", "bfloat16", "float32"),
+                                      ("float32", "float32", "bfloat16")):
+            name = f"bench_forward_split_{dtype}"
+            n = driver(name, bench_forward_split, ["--compute-dtype", dtype,
+                                                   "--out", out(name + ".json")])
+            r = read_json(out(name + ".json"))
+            gap = r["kernel_vs_plain"]
+            if n[variant] != 6 * r["fusion_passes"] or not r["fusion_passes"] or n[other] or \
+                    r["launches"] != n or not gap["cls_prob"] < TOL_NET_CLS or \
+                    not gap["positions_m"] < TOL_NET_POS or not positive(r["full_fwd_ms"]):
+                raise RuntimeError(f"scripts {name}: launches {n}, {r}")
+            summary[name] = r
+        n = driver("bench_fusion", bench_fusion, ["--reps", str(SCRIPTS_FUSION_REPS),
+                                                  "--out", out("fusion.json")])
+        r = read_json(out("fusion.json"))
+        gap = r["kernel_vs_plain"]
+        if n != {"float32": 6 * r["kernel_forwards"], "bfloat16": 0} or r["launches"] != n or \
+                not gap["cls_prob"] < TOL_NET_CLS or not gap["positions_m"] < TOL_NET_POS:
+            raise RuntimeError(f"scripts bench_fusion: launches {n}, {r}")
+        summary["bench_fusion"] = r
+
+        # the playback parity's stage-by-stage dump
+        n = driver("diag_playback", diag_playback, [
+            "--demo", "demo_1", *steps, "--worst", "3", "--out", out("diag.json")])
+        demo_launches("diag_playback", n)
+        diag = read_json(out("diag.json"))
+        fields = ("cycle", "cycle_dev", "ctrl_dev", "n_trees_dev", "n_trees_host",
+                  "n_end_nodes_dev", "n_end_nodes_host", "best_dev", "best_host",
+                  "selection_margin_dev", "selection_margin_host")
+        if not diag["worst"] or any(k not in r for r in diag["worst"] for k in fields) or \
+                not all(np.isfinite(r["cycle_dev"]) and np.isfinite(r["ctrl_dev"])
+                        for r in diag["worst"]) or diag["launches"] != n:
+            raise RuntimeError(f"scripts diag_playback: {json.dumps(diag)[:3000]}")
+        summary["diag_playback"] = {"fail_cycle": diag["fail_cycle"],
+                                    "worst": [{k: r[k] for k in fields} for r in diag["worst"]]}
+    summary["launches"] = dict(total)
+    summary["seconds"]["phase"] = time.perf_counter() - t_phase
+    log("[scripts] " + json.dumps(summary))
+    return total, summary
+
+
 # (dist): the Monte-Carlo sweep of phase 12's scenario under the demo
 # configuration, K copies in chunks of DIST_PER_RANK copies per rank, over
 # DIST_TICKS ticks; phase 13's tree batch; DIST_TRAIN_STEPS float32 training
@@ -1866,6 +2081,7 @@ def main() -> int:
     scale = phase_tree_scale()
     train_launches, training = phase_training(fa, dev, synthetic_av2)
     bench_launches, bench = phase_bench()
+    scripts_launches, scripts = phase_scripts(fa)
     dist_launches, dist = phase_dist(dcfg, fa, synthetic_av2)
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
@@ -1873,6 +2089,7 @@ def main() -> int:
                                       "float32_loop": loop32_launches,
                                       "training": train_launches,
                                       "bench": bench_launches["float32"],
+                                      "scripts": scripts_launches["float32"],
                                       "dist": dist_launches["float32"]}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
                                       "closed_loop": loop_launches, "episode": episode_launches,
@@ -1880,6 +2097,7 @@ def main() -> int:
                                       "monte_carlo": mc_launches,
                                       **{k: v[0] for k, v in parity.items()},
                                       "bench": bench_launches["bfloat16"],
+                                      "scripts": scripts_launches["bfloat16"],
                                       "dist": dist_launches["bfloat16"]}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
@@ -1893,7 +2111,8 @@ def main() -> int:
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
                                   **{k: v[1] for k, v in parity.items()},
                                   "tree_scale": scale, "training": training,
-                                  "bench_wall_s": bench["wall_s"], "dist": dist,
+                                  "bench_wall_s": bench["wall_s"],
+                                  "scripts_s": scripts["seconds"], "dist": dist,
                                   "seconds": time.perf_counter() - T0}))
     # the benchmark's final line, then one line per section
     log("[bench] final line: " + json.dumps(bench["final"]))

@@ -338,8 +338,8 @@ def section_mc(sim, section_deadline=None):
 
 def _warm_host_loop(sim, av):
     """Warm the planner by a 12-tick run with it on from tick 0, then
-    rewind the sim to its start (state_io) with a fresh observation window
-    and timer."""
+    rewind the sim to its start (state_io) with a fresh observation window,
+    timer and counters."""
     from mind_tpu_torch.planner.planner import ObsBuffer
     from mind_tpu_torch.sim.state_io import load_sim_state, save_sim_state
 
@@ -358,6 +358,7 @@ def _warm_host_loop(sim, av):
     pl.obs_buffer = ObsBuffer(pl.cfg.max_actors, origin=pl.origin, dtype=pl.cfg.pipeline_dtype,
                               device=pl.device)
     pl.metrics.timer.reset()
+    pl.metrics.counters.clear()
     sim.sim_horizon = horizon
     sim.metrics.update(plan_calls=0, plan_time_s=0.0)
 

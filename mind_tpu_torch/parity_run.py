@@ -4,7 +4,7 @@ package's scripts/parity_run.py; the BASELINE.json north star).
 
 Usage: python -m mind_tpu_torch.parity_run [--demos 1,2,3,4] [--steps 500]
        [--report FILE] [--skip free|resync|playback ...]
-       [--free-modes production,fast_f32,strict] [--data-root PATH]
+       [--free-modes production,fast_f32,strict] [--data-root PATH | --synthetic]
        [--device cpu]
 
 Three certifications per demo, all against the mirror
@@ -24,7 +24,9 @@ on the demo planner configuration (bf16 network):
 
 The demos' AV2 map and scenario files are read under --data-root
 (<seq_id>/log_map_archive_<seq_id>.json and scenario_<seq_id>.parquet;
-reading the parquet needs pandas with a parquet engine). The planners run on
+reading the parquet needs pandas with a parquet engine); with --synthetic,
+synthetic_av2 seeds 0-3 stand in for demo_1..4's logs (their maps written
+in a temporary directory, the scenarios passed in memory). The planners run on
 the CUDA card unless --device names another device. The report (--report)
 has the layout of the JAX package's PARITY_TRACES.md.
 """
@@ -174,17 +176,14 @@ def main(argv=None):
                     help=f"comma list from {sorted(FREE_MODES)}")
     ap.add_argument("--data-root", default="data",
                     help="directory holding the AV2 scenario folders")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="synthetic_av2 seeds 0-3 in place of demo_1..4's AV2 logs")
     ap.add_argument("--device", default=None,
                     help="torch device of the planners (default: the CUDA card)")
     args = ap.parse_args(argv)
 
     from mind_tpu_torch.common.device import resolve_device
-    from mind_tpu_torch.config import CONFIGS, SimConfig
-    from mind_tpu_torch.parity.runner import (
-        run_parity_demo,
-        run_parity_demo_resync,
-        run_parity_episode_playback,
-    )
+    from mind_tpu_torch.scripts import scene_root
 
     device = resolve_device(args.device)
     demos = [f"demo_{d.strip()}" for d in args.demos.split(",")]
@@ -192,7 +191,21 @@ def main(argv=None):
     for m in free_modes:
         if m not in FREE_MODES:
             ap.error(f"unknown free mode {m!r}")
-    common = dict(data_root=args.data_root, device=device)
+    with scene_root(args) as root:
+        args.data_root = root
+        return _run(args, device, demos, free_modes)
+
+
+def _run(args, device, demos, free_modes):
+    from mind_tpu_torch.config import CONFIGS, SimConfig
+    from mind_tpu_torch.parity.runner import (
+        run_parity_demo,
+        run_parity_demo_resync,
+        run_parity_episode_playback,
+    )
+    from mind_tpu_torch.scripts import demo_log
+
+    scenarios = {demo: demo_log(args, demo, args.data_root) for demo in demos}
 
     def show(r):
         print({k: (round(v, 8) if isinstance(v, float) else v)
@@ -202,14 +215,16 @@ def main(argv=None):
     if "playback" not in args.skip:
         for demo in demos:
             print(f"=== {demo} episode playback ({args.steps} steps) ===", flush=True)
-            r = run_parity_episode_playback(demo, args.steps, **common)
+            r = run_parity_episode_playback(demo, args.steps, args.data_root, device=device,
+                                            scenario=scenarios[demo])
             r.pop("records")
             play_rows.append(r)
             show(r)
     if "resync" not in args.skip:
         for demo in demos:
             print(f"=== {demo} resynced per-cycle ({args.steps} steps) ===", flush=True)
-            s = run_parity_demo_resync(demo, args.steps, **common)
+            s = run_parity_demo_resync(demo, args.steps, args.data_root, device=device,
+                                       scenario=scenarios[demo])
             sync_rows.append(s)
             show(s)
     if "free" not in args.skip:
@@ -218,7 +233,8 @@ def main(argv=None):
             free_steps = int(round(cfg.cl_agents[0].enable_timestep / cfg.sim_step)) + CL_STEPS
             for mode in free_modes:
                 print(f"=== {demo} free-run, {mode} ===", flush=True)
-                r = run_parity_demo(demo, free_steps, **common, **FREE_MODES[mode])
+                r = run_parity_demo(demo, free_steps, args.data_root, device=device,
+                                    scenario=scenarios[demo], **FREE_MODES[mode])
                 free_rows.setdefault(mode, []).append(r)
                 show(r)
 
