@@ -33,12 +33,27 @@ result line):
      (a three-lane road as a log_map_archive map and a 110-frame Scenario,
      built by synthetic.py::demo_scenario under configs/demo_1.json with each
      phase's own planner configuration, AV target velocity, enable time and
-     ticks, as are the sims of phases 7-12b;
+     ticks, as are the sims of phases 7-12b), here read from the committed
+     AV2-format log of synthetic_av2(0) (tests/fixtures/av2_synthetic: the
+     map JSON and the scenario parquet, read by data/parquet.py and held
+     equal to the scenario built in memory; the read's ms printed);
      through the data layer, load_agents, MINDAgent and MINDPlanner.plan on
      the staged path with exported trees) under the demo configuration at
      full width, 150 ticks of 20 ms with the planner enabled after 1 s: 20
      plans; per-plan wall time with the planner's phases, ticks per second
      and the share of the loop's wall time outside plan() are printed;
+ 6b. demo command: python -m mind_tpu_torch.run_sim --config <the fixture's
+     demo_1_synthetic.json, its output in a temporary folder> --data-root
+     tests/fixtures/av2_synthetic --max-steps 150, rendering on, as a
+     subprocess: exit code 0, phase 6's plan count, no failed plan, an MJPEG
+     AVI of 150 JPEG frames of 1200 x 1200 (probe_avi); then run_sim.main
+     on the same arguments and --no-render in this process: kernel B
+     launched a positive multiple of 6 times and kernel A never, the ego
+     within 1e-6 m of phase 6's (whether it is equal to the bit is
+     printed); the parquet read ms, render seconds a frame (8 frames one
+     after another here; drawn and encoded with the configuration's
+     num_threads workers in the command), PNG read and JPEG encode ms a
+     frame and the command's ticks/s, with the card's name and power limit;
   7. float32 loop: 36 ticks under the float32 defaults with the planner
      enabled after 0.2 s (5 plans, float32 kernel), on the card and again
      on the CPU through the plain version: ego states within 1e-3 m, the
@@ -110,11 +125,13 @@ result line):
      the JAX package's bench.py keys and the twin's, every section without
      an error, every demo with 10 plans and, as every batched scene, no
      failed cycle, the host loop with 10 plans, every time and rate finite
-     and positive, 0 < MFU < 1, and in every section kernel B launched a
-     positive multiple of 6 times and kernel A never;
+     and positive, 0 < MFU < 1, in every section kernel B launched a
+     positive multiple of 6 times and kernel A never, and no demo's timed
+     run capturing a CUDA graph (every demo is warmed first; the captures of
+     each warm run are printed);
  15a. scripts: the drivers of mind_tpu_torch/scripts/ (the JAX package's
      scripts/*.py) through their main([...]) in this process, on synthetic
-     scenes at 230 ticks (6 plans a demo), outputs in a temporary
+     scenes at 215 ticks (3 plans a demo), outputs in a temporary
      directory: run_all_demos in both modes on demos 1 and 2 (PASS, the
      report written; its episode mode once more as a subprocess, the CLI);
      parity_run's free run of demo_1 under native_bal and its log through
@@ -132,7 +149,7 @@ result line):
      parallel/dryrun.py), at full width with the trained weights. (a)-(c)
      two ranks on the one card (gloo): the Monte-Carlo sweep of phase 12's
      scenario under the demo configuration, K = 8 copies in chunks of 4
-     (2 per rank), 150 ticks; phase 13's 1024 trees, 2 x 512; 5 float32
+     (2 per rank), 100 ticks; phase 13's 1024 trees, 2 x 512; 5 float32
      training steps of phase 14's batch, 2 scenes per rank (cuDNN held to
      deterministic algorithms in the ranks and here). Each rank's copies,
      trees, losses and parameters equal to the sequential two-shard mesh's
@@ -229,6 +246,18 @@ OBS = 50
 TARGET_VELOCITY = 8.0
 REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
 T0 = 0.0
+# the committed AV2-format log of synthetic_av2(0) under demo_1's sequence id
+# and its configuration (tools/write_av2_fixture.py)
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "av2_synthetic")
+FIXTURE_CONFIG = os.path.join(FIXTURE, "demo_1_synthetic.json")
+# (6b) the demo command against phase 6's in-process loop on the same scene
+# and configuration: the same float64 values through the parquet, metres
+TOL_COMMAND_EGO = 1e-6
+LOOP_TICKS = 150
+DEMO_FRAME = 1200                 # pixels: render_png's figsize 12 at 100 dpi
+SERIAL_FRAMES = 8                 # frames drawn again in this process, timed
+COMMAND_TIMEOUT_S = 600
 
 
 def log(*a):
@@ -595,11 +624,12 @@ def loop_sim(planner_cfg, enable, ticks, data_root, seed=SEED, target_velocity=T
                          enable_timestep=enable, target_velocity=target_velocity, device=device)
 
 
-def run_loop(name, planner_cfg, enable, ticks, device, data_root):
+def run_loop(name, planner_cfg, enable, ticks, device, data_root, seed=SEED):
     """The port's Simulator for `ticks` ticks on the synthetic AV2 scenario
-    with the AV's planner enabled after `enable` seconds, on `device` (None:
-    the card). Returns (sim, the AV's agent, per-plan records)."""
-    sim = loop_sim(planner_cfg, enable, ticks, data_root, device=device)
+    of `seed` (None: the log under data_root) with the AV's planner enabled
+    after `enable` seconds, on `device` (None: the card). Returns (sim, the
+    AV's agent, per-plan records)."""
+    sim = loop_sim(planner_cfg, enable, ticks, data_root, seed=seed, device=device)
     agent = next(a for a in sim.agents if a.id == "AV")
     plans, plan, timer = [], agent.plan, agent.planner.metrics.timer
 
@@ -647,10 +677,28 @@ def check_exported_trees(name, frame):
     return {k: frame[k][0].size() for k in ("scen_tree", "traj_tree")}
 
 
-def phase_closed_loop(dcfg, fa, data_root, syn, lane_w, origin):
-    """150 ticks under the demo configuration, 20 plans, on the card."""
+def scenario_fields(scn):
+    return (scn.scenario_id, scn.focal_track_id, scn.city_name,
+            [(t.track_id, t.object_type, t.category, t.object_states) for t in scn.tracks])
+
+
+def phase_closed_loop(dcfg, fa, syn, lane_w, origin):
+    """150 ticks under the demo configuration, 20 plans, on the card, on the
+    committed AV2 log of synthetic_av2(0): its parquet read by
+    data/parquet.py must equal the scenario built in memory, field by
+    field."""
+    from mind_tpu_torch.config import CONFIGS, SimConfig
+    from mind_tpu_torch.data.av2 import load_scenario
+
+    seq_id = SimConfig.from_json(os.path.join(CONFIGS, "demo_1.json")).seq_id
+    t = time.perf_counter()
+    scenario = load_scenario(os.path.join(FIXTURE, seq_id, f"scenario_{seq_id}.parquet"))
+    parquet_ms = (time.perf_counter() - t) * 1e3
+    if scenario_fields(scenario) != scenario_fields(syn.scenario):
+        raise RuntimeError("closed loop: the committed parquet does not read to "
+                           "synthetic_av2(0)'s scenario")
     fa.reset_launch_counts()
-    sim, agent, plans = run_loop("loop", dcfg, 1.0, 150, None, data_root)
+    sim, agent, plans = run_loop("loop", dcfg, 1.0, LOOP_TICKS, None, FIXTURE, seed=None)
     counts = dict(fa.fused_edge_attention.launches_by_variant)
     rounds = sum(r["rounds"] for r in plans)
     if len(plans) != 20:
@@ -679,9 +727,126 @@ def phase_closed_loop(dcfg, fa, data_root, syn, lane_w, origin):
         "rounds": rounds, "launches": counts, "ego_advance_m": along,
         "ego_lateral_max_m": lateral, "last_plan_tree_sizes": trees,
         "tracks": len(sim.agents), "lane_segments": syn.n_graph_segments,
+        "parquet_read_ms": parquet_ms,
     }
     log("[loop] " + json.dumps(summary))
     return counts["bfloat16"], summary, sim.ego_trajectory()
+
+
+def probe_video(name, path, ticks):
+    from mind_tpu_torch.viz.video import probe_avi
+
+    info = probe_avi(path)
+    if not (info["frames"] == info["index_entries"] == ticks and info["jpeg_ok"]
+            and (info["width"], info["height"]) == (DEMO_FRAME, DEMO_FRAME)):
+        raise RuntimeError(f"{name}: {path}: {info}, expected {ticks} JPEG frames of "
+                           f"{DEMO_FRAME}x{DEMO_FRAME}")
+    return info
+
+
+def phase_demo_command(fa, loop, loop_ego, card):
+    """(6b) the demo command as its users run it, on the committed log with
+    rendering on: python -m mind_tpu_torch.run_sim --config <the fixture's
+    configuration, its output in a temporary directory> --data-root
+    tests/fixtures/av2_synthetic --max-steps 150, as a subprocess: exit code
+    0, phase 6's plan count and no failed plan, an MJPEG AVI of 150 JPEG
+    frames of 1200 x 1200. Then run_sim.main on the same arguments in this
+    process with --no-render (drawing launches nothing on the card), the
+    launch counts set to 0 just before: kernel B a positive multiple of 6
+    times, kernel A never, phase 6's plan count, the ego within
+    TOL_COMMAND_EGO of phase 6's; SERIAL_FRAMES of its frames drawn one
+    after another, read back and JPEG-encoded, timed. Returns (kernel B's
+    launches, summary)."""
+    import ast
+    import re
+
+    from mind_tpu_torch import run_sim
+    from mind_tpu_torch.sim.simulator import Simulator
+    from mind_tpu_torch.viz import jpeg, raster, render
+
+    cfg = json.load(open(FIXTURE_CONFIG))
+    summary = {"ticks": LOOP_TICKS, "render_workers": min(cfg["num_threads"], LOOP_TICKS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "demo_1.json")
+        with open(path, "w") as f:
+            json.dump(dict(cfg, output_dir=os.path.join(tmp, "out")), f)
+        args = ["--config", path, "--data-root", FIXTURE, "--max-steps", str(LOOP_TICKS)]
+
+        # the command in its own process
+        cmd = [sys.executable, "-m", "mind_tpu_torch.run_sim", *args]
+        log("[demo command] " + " ".join(cmd[1:]))
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=COMMAND_TIMEOUT_S,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        summary["command_s"] = time.perf_counter() - t
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("metrics:")]
+        video = re.search(r"^video: (\S+) \((\d+) frames drawn and encoded in ([\d.]+) s\)$",
+                          p.stdout, re.M)
+        if p.returncode != 0 or len(lines) != 1 or video is None:
+            raise RuntimeError(f"demo command: exit code {p.returncode}; stdout ends "
+                               f"{p.stdout[-2000:]}")
+        metrics = ast.literal_eval(lines[0][len("metrics:"):].strip())
+        if metrics["ticks"] != LOOP_TICKS or metrics["plan_calls"] != loop["plan_calls"] or \
+                "plan failed" in p.stdout:
+            raise RuntimeError(f"demo command: {metrics} against the loop's "
+                               f"{loop['plan_calls']} plans; stdout ends {p.stdout[-2000:]}")
+        summary["command_ticks_per_s"] = metrics["ticks"] / metrics["wall_time_s"]
+        summary["command_video"] = probe_video("demo command", video.group(1), LOOP_TICKS)
+        summary["draw_and_encode_s_per_frame_pool"] = float(video.group(3)) / LOOP_TICKS
+
+        # the same arguments through run_sim.main here: launches and trajectory
+        sims = []
+        run = Simulator.run_sim
+
+        def recorded(self):
+            sims.append(self)
+            return run(self)
+
+        Simulator.run_sim = recorded
+        try:
+            fa.reset_launch_counts()
+            metrics = run_sim.main(args + ["--no-render"])
+            counts = dict(fa.fused_edge_attention.launches_by_variant)
+        finally:
+            Simulator.run_sim = run
+        (sim,) = sims
+        agent = next(a for a in sim.agents if a.id == "AV")
+        if metrics["plan_calls"] != loop["plan_calls"] or \
+                agent.planner.metrics.counters.get("plan_failures", 0):
+            raise RuntimeError(f"demo command in this process: {metrics}")
+        if counts["bfloat16"] <= 0 or counts["bfloat16"] % 6 or counts["float32"]:
+            raise RuntimeError(f"demo command: kernel launches {counts}")
+        ego = sim.ego_trajectory()
+        gap = float(np.abs(ego - loop_ego).max()) if ego.shape == loop_ego.shape else np.inf
+        if not gap <= TOL_COMMAND_EGO:
+            raise RuntimeError(f"demo command: ego {ego.shape} against the loop's "
+                               f"{loop_ego.shape}, {gap} m apart (limit {TOL_COMMAND_EGO})")
+        summary.update(launches=counts, ego_gap_m=gap,
+                       ego_bit_equal=bool(np.array_equal(ego, loop_ego)))
+        # frames of this run drawn one after another, read back, encoded
+        frames = np.linspace(0, LOOP_TICKS - 1, SERIAL_FRAMES).astype(int)
+        t = time.perf_counter()
+        for i in frames:
+            render.render_png(sim, int(i), tmp)
+        summary["render_s_per_frame_serial"] = (time.perf_counter() - t) / len(frames)
+        t = time.perf_counter()
+        rgb = [raster.read_png(os.path.join(tmp, f"frame_{i:03d}.png"))[..., :3] for i in frames]
+        summary["png_read_ms_per_frame"] = (time.perf_counter() - t) / len(frames) * 1e3
+        t = time.perf_counter()
+        for x in rgb:
+            jpeg.encode_jpeg(x, 85)
+        summary["jpeg_encode_ms_per_frame"] = (time.perf_counter() - t) / len(frames) * 1e3
+    summary["parquet_read_ms"] = loop["parquet_read_ms"]
+    summary["card"] = card
+    log("[demo command] " + json.dumps(summary))
+    log(f"[demo command] parquet read {loop['parquet_read_ms']:.2f} ms; render "
+        f"{summary['render_s_per_frame_serial']:.3f} s a frame serial; drawn and encoded "
+        f"{summary['draw_and_encode_s_per_frame_pool']:.3f} s a frame with "
+        f"{summary['render_workers']} workers; JPEG encode "
+        f"{summary['jpeg_encode_ms_per_frame']:.1f} ms a frame; the command "
+        f"{summary['command_ticks_per_s']:.2f} ticks/s ({card})")
+    return counts["bfloat16"], summary
 
 
 def phase_float32_loop(cfg, fa, data_root):
@@ -1514,7 +1679,8 @@ def phase_bench():
     10 plans and no failed cycle, the batched run's scenes without one, the
     host loop with 10 plans; every time and rate finite and positive;
     0 < MFU < 1; in every section kernel B launched 6 times per network
-    forward (a positive multiple of 6) and kernel A never. Returns ({variant: launches
+    forward (a positive multiple of 6) and kernel A never; no CUDA graph
+    captured in a demo's timed run. Returns ({variant: launches
     over the sections}, {"final": the final line, "wall_s": seconds})."""
     torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "mind_tpu_torch.bench", "--synthetic", "--steps",
@@ -1550,6 +1716,10 @@ def phase_bench():
     if not all(positive(x) for x in times) or not 0 < detail["mfu"] < 1:
         raise RuntimeError(f"bench: a time or rate is not finite and positive, or the MFU "
                            f"{detail['mfu']} is not in (0, 1): {times}")
+    captures = {d: (r["graph_captures_warm"], r["graph_captures"]) for d, r in rows.items()}
+    log(f"[bench] CUDA graph captures (warm run, timed run) by demo: {json.dumps(captures)}")
+    if any(timed != 0 for _, timed in captures.values()):
+        raise RuntimeError(f"bench: a timed run captured CUDA graphs: {captures}")
     launches = detail["kernel_launches"]
     if sorted(launches) != sorted(BENCH_SECTIONS) or any(
             n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6
@@ -1560,10 +1730,11 @@ def phase_bench():
             {"final": final, "wall_s": wall})
 
 
-# (scripts): the drivers of mind_tpu_torch/scripts/ on synthetic scenes, 230
-# ticks with the planner on at 4 s (6 plans a demo; at 250 ticks and 50
-# bench_fusion forwards a path the phase took 195 s on an H100)
-SCRIPTS_STEPS, SCRIPTS_PLANS = 230, 6
+# (scripts): the modules of mind_tpu_torch/scripts/ on synthetic scenes, 215
+# ticks with the planner on at 4 s (3 plans a demo; at 250 ticks and 50
+# bench_fusion forwards a path the phase took 195 s on an H100, at 230 ticks
+# and 10 forwards 108-130 s)
+SCRIPTS_STEPS, SCRIPTS_PLANS = 215, 3
 SCRIPTS_FUSION_REPS = 10
 SCRIPTS_TIMEOUT_S = 300
 
@@ -1602,9 +1773,9 @@ def run_driver(fa, name, main, argv):
 
 def phase_scripts(fa):
     """(scripts) the drivers' main([...]) in this process on synthetic_av2
-    scenes at 230 ticks, outputs in a temporary directory, each check
+    scenes at 215 ticks, outputs in a temporary directory, each check
     fatal: run_all_demos (both modes, demos 1 and 2; and its episode mode
-    once more as a subprocess, the CLI itself) PASS with 6 plans a demo and
+    once more as a subprocess, the CLI itself) PASS with 3 plans a demo and
     the report written; parity_run's free run of demo_1 under native_bal,
     its log fed to bench_north_star (demo_1): finite rows, the verdict
     printed, not held; bench_strict (demo_1): no failed cycle and
@@ -1764,7 +1935,7 @@ def phase_scripts(fa):
 # configuration, K copies in chunks of DIST_PER_RANK copies per rank, over
 # DIST_TICKS ticks; phase 13's tree batch; DIST_TRAIN_STEPS float32 training
 # steps of phase 14's batch (2 scenes per rank)
-DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 150
+DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 100
 DIST_TRAIN_STEPS = 5
 DIST_TIMEOUT_S = 600
 
@@ -1983,23 +2154,33 @@ def main() -> int:
     from mind_tpu_torch.utils import device_specs
 
     PEAKS = device_specs.peaks(torch.cuda.get_device_name(0))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
     probe_s = phase_probe()
+    laps = {"probe": time.perf_counter() - T0}
+
+    def lap(name):
+        """Seconds of the phase that just ended, since the previous lap."""
+        laps[name] = time.perf_counter() - T0 - sum(laps.values())
     cfg = PlannerConfig()
     A, L = cfg.max_actors, cfg.max_lanes
     scene = synthetic_scene(SEED, A, L, n_agents=40)
 
     # 1. build
     phase_build(fa)
+    lap("build")
 
     # 2. kernels vs plain at the main path's shapes and token mask
     token_mask = torch.tensor(np.concatenate([scene.present, scene.lane_mask, [True]]),
                               device=dev)
     entries = phase_kernel_check(fa, dev, token_mask)
+    lap("kernels")
 
     # 3. trained weights
     t = time.perf_counter()
@@ -2011,6 +2192,7 @@ def main() -> int:
     mods = (tplanner, make_cost_params)
     common = (scene, mods, aime, scene_statics, kine_propagate, fa, dev)
     entries[0]["launches"], cycles32, first = run_path("plan", "float32", cfg, net, *common)
+    lap("float32_path")
 
     # the first cycle again on the CPU, through the plain version
     out0, best0, buf0 = first
@@ -2032,6 +2214,7 @@ def main() -> int:
     # 4a. the host tree generator against the device AIME, float32 network
     host_tree_launches, host_tree = phase_host_tree(cfg, net, scene, aime, scene_statics, fa,
                                                     dev)
+    lap("cpu_reference_and_host_tree")
 
     # 5. demo path: the bf16 network of the demo planner configuration
     dcfg = planner_config_for_demo("demo_1")
@@ -2054,9 +2237,12 @@ def main() -> int:
     if not all(torch.isfinite(x).all() for x in got) or \
             not net_err["cls_prob"] < TOL_NET_CLS or not net_err["positions_m"] < TOL_NET_POS:
         raise RuntimeError(f"bf16 network: kernel and plain disagree: {net_err}")
+    lap("demo_path")
 
     # 6.-10. the closed loop through Simulator / MINDAgent / MINDPlanner on the
-    # synthetic AV2 scenario; the map goes through a file as a real one does
+    # synthetic AV2 scenario: phases 6 and 6b read the committed log (map and
+    # parquet), the others write the map to a temporary folder and pass the
+    # scenario in memory
     syn = synthetic_av2(SEED)
 
     def float32_cfg():
@@ -2065,24 +2251,38 @@ def main() -> int:
         c.ckpt_path = str(DEFAULT_WEIGHTS)
         return c
 
+    loop_launches, loop, loop_ego = phase_closed_loop(dcfg, fa, syn, LANE_W, AV2_ORIGIN)
+    lap("closed_loop")
+    command_launches, command = phase_demo_command(fa, loop, loop_ego, card)
+    lap("demo_command")
     with tempfile.TemporaryDirectory() as data_root:
-        loop_launches, loop, loop_ego = phase_closed_loop(dcfg, fa, data_root, syn,
-                                                          LANE_W, AV2_ORIGIN)
         loop32_launches, loop32 = phase_float32_loop(float32_cfg(), fa, data_root)
+        lap("float32_loop")
         execs = phase_exec_resolve(float32_cfg, data_root)
+        lap("exec_resolve")
         graph = phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev)
+        lap("graph_vs_eager")
         episode_launches, episode = phase_episode(dcfg, fa, data_root, loop_ego,
                                                   loop["plan_calls"])
+        lap("episode")
         batched_launches, batched = phase_batched_episode(dcfg, fa, data_root)
+        lap("batched_episode")
         mc_launches, monte_carlo = phase_monte_carlo(dcfg, fa, data_root)
+        lap("monte_carlo")
         # 12a-b. the float64 mirror against the planner, on demo_1's configuration
         # file with the loop's scenario, whose map loop_sim wrote under demo_1's seq_id
         parity = phase_parity(dcfg, fa, data_root, syn)
+        lap("parity")
     scale = phase_tree_scale()
+    lap("tree_scale")
     train_launches, training = phase_training(fa, dev, synthetic_av2)
+    lap("training")
     bench_launches, bench = phase_bench()
+    lap("bench")
     scripts_launches, scripts = phase_scripts(fa)
+    lap("scripts")
     dist_launches, dist = phase_dist(dcfg, fa, synthetic_av2)
+    lap("dist")
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "host_tree": host_tree_launches,
@@ -2092,7 +2292,9 @@ def main() -> int:
                                       "scripts": scripts_launches["float32"],
                                       "dist": dist_launches["float32"]}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
-                                      "closed_loop": loop_launches, "episode": episode_launches,
+                                      "closed_loop": loop_launches,
+                                      "demo_command": command_launches,
+                                      "episode": episode_launches,
                                       "batched_episode": batched_launches,
                                       "monte_carlo": mc_launches,
                                       **{k: v[0] for k, v in parity.items()},
@@ -2106,6 +2308,7 @@ def main() -> int:
     log("[phases] " + json.dumps({"probe_s": probe_s, "float32": cycles32,
                                   "host_tree": host_tree, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
+                                  "demo_command": command,
                                   "float32_loop": loop32, "exec_resolve": execs,
                                   "graph_vs_eager": graph, "episode": episode,
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
@@ -2114,15 +2317,13 @@ def main() -> int:
                                   "bench_wall_s": bench["wall_s"],
                                   "scripts_s": scripts["seconds"], "dist": dist,
                                   "seconds": time.perf_counter() - T0}))
+    log("[phase seconds] " + json.dumps(laps))
     # the benchmark's final line, then one line per section
     log("[bench] final line: " + json.dumps(bench["final"]))
     for name in BENCH_SECTIONS:
         log(f"[bench] {name}: " + json.dumps(bench["final"]["detail"][BENCH_DETAIL[name]]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"kernels": entries}))
-    print(smi)
+    print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -16,7 +16,8 @@ runner's steps/s (sim/episode.py::run_episode).
 
 Sections, in SECTION_ORDER:
 - per_demo_episode: run_episode per demo on a warm runner (one untimed
-  run of demo_1 first: kernel builds, CUDA graph captures, allocator);
+  run of every demo first: kernel builds, each demo's CUDA graph captures,
+  allocator), the graph captures of each warm and timed run counted;
 - phase_split: one plan cycle of demo_1 split into phases after a 12-tick
   host loop (AIME, host cost topology, warm-only and full-only tree solves,
   selection, the staged solve, the network forward at B =
@@ -277,23 +278,40 @@ def bench_phases(pl):
 # sections: each takes prebuilt, initialized Simulators
 # ---------------------------------------------------------------------------
 
+def graph_captures() -> int:
+    """CUDA graphs the tree iLQR has captured in this process so far
+    (planner/ilqr.py; none off the card)."""
+    from mind_tpu_torch.planner import ilqr
+
+    return len(ilqr._GRAPHS.graphs)
+
+
 def section_per_demo(sims):
-    """The episode runner, per demo ({demo: sim}): one untimed run of the
-    first demo warms the runner (kernel builds, CUDA graph captures); each
-    demo is then timed on one run. A failed plan raises."""
+    """The episode runner, per demo ({demo: sim}): one untimed run of every
+    demo warms the runner (kernel builds, and the CUDA graph captures that
+    each demo's own tree shapes need); each demo is then timed on one run.
+    Each row counts the graph captures of its warm run and of its timed run
+    (0 once warm). A failed plan raises."""
     from mind_tpu_torch.sim.episode import build_episode_inputs, run_episode
 
     per_demo = {}
-    run_episode(next(iter(sims.values())))
+    warm_captures = {}
+    for demo, sim in sims.items():
+        before = graph_captures()
+        run_episode(sim)
+        warm_captures[demo] = graph_captures() - before
     for demo, sim in sims.items():
         inp = build_episode_inputs(sim)
+        before = graph_captures()
         res, wall = _timed(run_episode, sim, None, inp)
         if res.fail_cycle != -1:
             raise RuntimeError(f"{demo}: plan failure at cycle {res.fail_cycle}")
         sps = len(res.ego_states) / wall
         per_demo[demo] = {"steps_per_s": sps, "vs_baseline": sps / BASELINE_STEPS_PER_SEC,
                           "wall_s": wall, "plan_calls": res.plan_calls,
-                          "fail_cycle": res.fail_cycle}
+                          "fail_cycle": res.fail_cycle,
+                          "graph_captures_warm": warm_captures[demo],
+                          "graph_captures": graph_captures() - before}
         _progress(f"episode/{demo}", per_demo[demo])
     return per_demo
 

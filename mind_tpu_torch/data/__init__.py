@@ -12,7 +12,6 @@ from mind_tpu_torch.data.av2 import (
     compute_midpoint_line,
 )
 from mind_tpu_torch.data.semantic_map import SemanticMap, LocalSemanticMap
-from mind_tpu_torch.data.loader import ArgoAgentLoader
 
 __all__ = [
     "ObjectType",
@@ -30,3 +29,13 @@ __all__ = [
     "LocalSemanticMap",
     "ArgoAgentLoader",
 ]
+
+
+def __getattr__(name):
+    # the loader imports torch; a process that only unpickles map or agent
+    # types (a render worker) does not need it
+    if name == "ArgoAgentLoader":
+        from mind_tpu_torch.data.loader import ArgoAgentLoader
+
+        return ArgoAgentLoader
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

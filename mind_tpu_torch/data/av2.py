@@ -9,8 +9,8 @@ centerlines computed as the midpoint line of the lane boundaries.
 
 Everything here is host-side numpy executed once per scenario; device code
 never sees these objects, only the padded tensors derived from them. A copy
-of mind_tpu/data/av2.py; pandas is imported only inside `load_scenario`, so a
-scenario built in memory needs none.
+of mind_tpu/data/av2.py whose scenario reader is data/parquet.py (numpy,
+zlib and a snappy decoder of its own) in place of pandas and pyarrow.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from mind_tpu_torch.data.parquet import read_parquet
 
 # Number of interpolated waypoints per lane-segment centerline; AV2's map API
 # always returns exactly this many (the reference asserts it,
@@ -80,37 +82,39 @@ def load_scenario(path: Path | str) -> Scenario:
     """Parse an AV2 scenario parquet into typed tracks.
 
     Mirrors av2 scenario_serialization.load_argoverse_scenario_parquet as the
-    reference uses it (loader.py:70): tracks in file order, states sorted by
-    timestep.
+    reference uses it (loader.py:70), and the JAX package's pandas route
+    (`groupby("track_id", sort=False)`, `sort_values("timestep")`): tracks in
+    order of first appearance, states sorted by timestep (AV2 logs hold one
+    row per track and timestep). The file is read by data/parquet.py.
     """
-    import pandas as pd
+    df = read_parquet(path)
+    scenario_id = str(df["scenario_id"][0])
+    focal_track_id = str(df["focal_track_id"][0])
+    city = str(df["city"][0]) if "city" in df else ""
 
-    df = pd.read_parquet(path)
-    scenario_id = str(df["scenario_id"].iloc[0])
-    focal_track_id = str(df["focal_track_id"].iloc[0])
-    city = str(df["city"].iloc[0]) if "city" in df.columns else ""
-
+    keys, first, inverse = np.unique(df["track_id"], return_index=True, return_inverse=True)
+    rows_of = np.argsort(inverse, kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(inverse, minlength=len(keys)))])
     tracks: List[Track] = []
-    # preserve first-appearance order of track_ids (matches av2's groupby-order
-    # semantics closely enough for the reference's index bookkeeping)
-    for track_id, g in df.groupby("track_id", sort=False):
-        g = g.sort_values("timestep")
+    for k in np.argsort(first, kind="stable"):
+        rows = rows_of[bounds[k]:bounds[k + 1]]
+        rows = rows[np.argsort(df["timestep"][rows], kind="stable")]
         states = [
             ObjectState(
-                observed=bool(r.observed),
-                timestep=int(r.timestep),
-                position=(float(r.position_x), float(r.position_y)),
-                heading=float(r.heading),
-                velocity=(float(r.velocity_x), float(r.velocity_y)),
+                observed=bool(df["observed"][r]),
+                timestep=int(df["timestep"][r]),
+                position=(float(df["position_x"][r]), float(df["position_y"][r])),
+                heading=float(df["heading"][r]),
+                velocity=(float(df["velocity_x"][r]), float(df["velocity_y"][r])),
             )
-            for r in g.itertuples()
+            for r in rows
         ]
         try:
-            obj_type = ObjectType(str(g["object_type"].iloc[0]))
+            obj_type = ObjectType(str(df["object_type"][rows[0]]))
         except ValueError:
             obj_type = ObjectType.UNKNOWN
-        cat = TrackCategory(int(g["object_category"].iloc[0]))
-        tracks.append(Track(str(track_id), states, obj_type, cat))
+        cat = TrackCategory(int(df["object_category"][rows[0]]))
+        tracks.append(Track(str(keys[k]), states, obj_type, cat))
 
     return Scenario(scenario_id, focal_track_id, city, tracks)
 

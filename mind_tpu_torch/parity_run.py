@@ -23,8 +23,8 @@ on the demo planner configuration (bf16 network):
    criterion max ego deviation <= 1e-3 m.
 
 The demos' AV2 map and scenario files are read under --data-root
-(<seq_id>/log_map_archive_<seq_id>.json and scenario_<seq_id>.parquet;
-reading the parquet needs pandas with a parquet engine); with --synthetic,
+(<seq_id>/log_map_archive_<seq_id>.json and scenario_<seq_id>.parquet,
+read by data/parquet.py); with --synthetic,
 synthetic_av2 seeds 0-3 stand in for demo_1..4's logs (their maps written
 in a temporary directory, the scenarios passed in memory). The planners run on
 the CUDA card unless --device names another device. The report (--report)

@@ -6,8 +6,8 @@ Usage: python -m mind_tpu_torch.run_sim --config configs/demo_1.json
        [--episode]   # the closed loop with its state on the device
 
 The planner runs on the CUDA card unless --device names another device;
-without a card and without --device the run fails. Reading a scenario
-parquet needs pandas with a parquet engine.
+without a card and without --device the run fails. The scenario parquet is
+read by data/parquet.py, and frames are drawn and encoded by viz/ in numpy.
 """
 
 import argparse
@@ -54,7 +54,10 @@ def main(argv=None):
     metrics = sim.run_sim()
     print("metrics:", metrics)
     if cfg.render:
-        sim.render_video()
+        t0 = time.perf_counter()
+        video = sim.render_video()
+        print(f"video: {video} ({len(sim.frames)} frames drawn and encoded in "
+              f"{time.perf_counter() - t0:.3f} s)")
     return metrics
 
 

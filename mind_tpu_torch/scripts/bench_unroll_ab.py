@@ -5,10 +5,11 @@ scripts/bench_unroll_ab.py).
     python -m mind_tpu_torch.scripts.bench_unroll_ab LABEL [demo_1 demo_2 ...] --synthetic
         [--steps 500] [--out outputs/torch/unroll_ab.json]
 
-One untimed sim/episode.py::run_episode of the first demo warms the runner;
-each demo is then timed over 3 runs, and {LABEL: {demo: {steps_per_s of the
-median wall, walls_s}}} is added to --out. Run it once per code state. A
-failed cycle raises.
+One untimed sim/episode.py::run_episode of each demo warms the runner (and
+the CUDA graphs of that demo's tree shapes); each demo is then timed over 3
+runs, and {LABEL: {demo: {steps_per_s of the median wall, walls_s, the graph
+captures of the warm and the timed runs}}} is added to --out. Run it once
+per code state. A failed cycle raises.
 """
 
 from __future__ import annotations
@@ -28,13 +29,21 @@ TIMED_RUNS = 3
 
 
 def label_row(sims: dict, steps=None) -> dict:
-    """{demo: {steps_per_s, walls_s, launches}} over `sims` ({demo: sim})."""
+    """{demo: {steps_per_s, walls_s, launches, graph_captures_warm,
+    graph_captures}} over `sims` ({demo: sim}): every demo is warmed by one
+    untimed run, then timed; the CUDA graph captures of its warm run and of
+    its timed runs (0 once warm) are counted."""
+    from mind_tpu_torch.bench import graph_captures
     from mind_tpu_torch.sim.episode import build_episode_inputs, run_episode
 
     row = {}
-    run_episode(next(iter(sims.values())), steps)  # warm
+    warm = {}
     for demo, sim in sims.items():
-        launched_before = launches()
+        before = graph_captures()
+        run_episode(sim, steps)
+        warm[demo] = graph_captures() - before
+    for demo, sim in sims.items():
+        launched_before, captured_before = launches(), graph_captures()
         inp = build_episode_inputs(sim, steps)
         walls = []
         for _ in range(TIMED_RUNS):
@@ -44,7 +53,9 @@ def label_row(sims: dict, steps=None) -> dict:
         if res.fail_cycle != -1:
             raise RuntimeError(f"{demo}: plan failure at cycle {res.fail_cycle}")
         row[demo] = {"steps_per_s": len(res.ego_states) / statistics.median(walls),
-                     "walls_s": walls, "launches": launched_since(launched_before)}
+                     "walls_s": walls, "launches": launched_since(launched_before),
+                     "graph_captures_warm": warm[demo],
+                     "graph_captures": graph_captures() - captured_before}
     return row
 
 

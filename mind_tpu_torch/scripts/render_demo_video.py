@@ -6,11 +6,10 @@ run, simulator.py:109-132).
         [--max-steps 500] [--figsize 8] [--out outputs/torch/demo_1_full.avi]
 
 Runs the Simulator loop over --max-steps ticks, draws every frame with
-viz/render.py::render_frames_to_video (matplotlib; PNG frames under the
+viz/render.py::render_frames_to_video (numpy; PNG frames under the
 output's folder, removed once assembled) and checks the result with
 viz/video.py::probe_avi: JPEG frames, at least max_steps - 1 of them. The
-default figsize 8 gives 800x800 frames (the JAX script's size budget). Without
-matplotlib or PIL it raises ImportError before running anything; where
+default figsize 8 gives 800x800 frames (the JAX script's size budget). Where
 ffmpeg is installed the renderer writes a .mov, which this driver refuses.
 """
 
@@ -41,12 +40,6 @@ def _parse(argv):
 
 def main(argv=None) -> int:
     opts = _parse(argv)
-    try:
-        import matplotlib  # noqa: F401
-        import PIL  # noqa: F401
-    except ImportError as e:
-        raise ImportError(f"render_demo_video draws frames with matplotlib and encodes them "
-                          f"with PIL, and this Python lacks one: {e}") from e
     from mind_tpu_torch.common.device import resolve_device
     from mind_tpu_torch.viz.render import render_frames_to_video
     from mind_tpu_torch.viz.video import probe_avi

@@ -10,8 +10,7 @@ target-lane selection and state hand-off.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
@@ -22,25 +21,15 @@ from mind_tpu_torch.common.geometry import (
     wrap_angle,
 )
 from mind_tpu_torch.common.kinematics import VehicleParam, kine_propagate_np
+from mind_tpu_torch.common.observation import (  # noqa: F401  (named here as in mind_tpu)
+    EGO_DISABLE_COLOR,
+    EGO_ENABLE_COLOR,
+    EXO_COLOR,
+    AgentObservation,
+)
 from mind_tpu_torch.config import PlannerConfig
-from mind_tpu_torch.data.av2 import ObjectType
 from mind_tpu_torch.data.loader import TrajBundle
 from mind_tpu_torch.data.semantic_map import SemanticMap, LocalSemanticMap
-
-
-EXO_COLOR = ("lightcoral", "indianred")
-EGO_DISABLE_COLOR = ("lightskyblue", "deepskyblue")
-EGO_ENABLE_COLOR = ("lime", "blue")
-
-
-@dataclass
-class AgentObservation:
-    id: str = ""
-    type: Optional[ObjectType] = None
-    clr: Tuple[str, str] = EXO_COLOR
-    bbox: Tuple[float, float, float] = (1.0, 1.0, 1.0)
-    state: Optional[np.ndarray] = None
-    timestep: float = 0.0
 
 
 class NonReactiveAgent:

@@ -142,8 +142,7 @@ class Simulator:
 
     def render_video(self):
         """Render recorded frames; returns the video path (an MJPEG .avi
-        where ffmpeg is not installed), None if rendering is off. Needs
-        matplotlib and PIL; without them it raises their ImportError."""
+        where ffmpeg is not installed), None if rendering is off."""
         if not self.config.render:
             return None
         from mind_tpu_torch.viz.render import render_frames_to_video

@@ -15,7 +15,6 @@ loss printed every 50 steps. The result is saved as a checkpoint under
 directory; checkpoint.save_flax_npz writes the flat flax archive from it).
 
 Training runs on the CUDA card unless --device names another device.
-Reading a scenario parquet needs pandas with a parquet engine.
 """
 
 from __future__ import annotations

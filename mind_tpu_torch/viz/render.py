@@ -1,6 +1,8 @@
-"""Visualization: per-frame 3D matplotlib scenes -> PNGs -> video (the
-port's copy of mind_tpu/viz/render.py; matplotlib is imported only where a
-frame is drawn, so a machine without it fails at the first frame).
+"""Visualization: per-frame 3D scenes -> PNGs -> video (the port's copy of
+mind_tpu/viz/render.py, with matplotlib's axes replaced by a display list:
+the drawing functions emit the primitives the JAX package's give its 3D
+axes, and viz/raster.py draws them in numpy with the same camera and
+painter's order, and writes the PNG).
 
 Re-creates the reference's rendering surface (common/visualization.py,
 simulator.py:109-219): map lane boundaries, agent footprints with heading
@@ -20,6 +22,8 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+
+from mind_tpu_torch.viz.raster import DisplayList, rasterize, write_png
 
 EXO_COLOR = ("lightcoral", "indianred")
 
@@ -65,16 +69,6 @@ def vehicle_vertices(x, y, z, yaw, length, width, height):
     return np.concatenate([low, high], axis=0)
 
 
-def reset_ax(ax):
-    ax.clear()
-    ax.grid(False)
-    ax.set_xticks([])
-    ax.set_yticks([])
-    ax.set_zticks([])
-    ax.set_axis_off()
-    ax.set_aspect("auto")
-
-
 def draw_map(ax, lane_boundaries, z=0.0):
     for bound in lane_boundaries:
         ax.plot(bound[:, 0], bound[:, 1], z, color="gray",
@@ -108,14 +102,10 @@ def _scene_of(sim_or_scene) -> RenderScene:
 
 
 def draw_agent(ax, obs, z=0.1):
-    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
-
     v = vehicle_vertices(obs.state[0], obs.state[1], z, obs.state[3],
                          obs.bbox[0], obs.bbox[1], obs.bbox[2])
-    face = [[v[0], v[1], v[2], v[3]]]
-    ax.add_collection3d(Poly3DCollection(
-        face, facecolors=obs.clr[0], edgecolors=obs.clr[1],
-        linewidths=2, alpha=0.5))
+    ax.polygon(v[:4], facecolor=obs.clr[0], edgecolor=obs.clr[1],
+               linewidth=2, alpha=0.5)
     # heading triangle
     lon = np.array([np.cos(obs.state[3]), np.sin(obs.state[3]), 0.0])
     lat = np.array([-np.sin(obs.state[3]), np.cos(obs.state[3]), 0.0])
@@ -131,8 +121,6 @@ def draw_agent(ax, obs, z=0.1):
 def draw_scen_trees(ax, scen_trees, z=0.05):
     """Uncertainty hulls per agent per scenario node
     (visualization.py:218-258 semantics via our own hull)."""
-    from mpl_toolkits.mplot3d.art3d import Poly3DCollection
-
     for tree in scen_trees:
         for node in tree.nodes.values():
             prob, traj, cov = node.data[0], node.data[1], node.data[2]
@@ -146,12 +134,11 @@ def draw_scen_trees(ax, scen_trees, z=0.05):
                 hull = convex_hull(np.concatenate(pts))
                 if len(hull) < 3:
                     continue
-                face = [np.concatenate(
-                    [hull, np.full((len(hull), 1), z)], axis=1)]
+                face = np.concatenate(
+                    [hull, np.full((len(hull), 1), z)], axis=1)
                 color = "deepskyblue" if a == 0 else "salmon"
-                ax.add_collection3d(Poly3DCollection(
-                    face, facecolors=color, edgecolors=color,
-                    alpha=min(0.08 + 0.4 * float(prob), 0.5)))
+                ax.polygon(face, facecolor=color, edgecolor=color,
+                           alpha=min(0.08 + 0.4 * float(prob), 0.5))
 
 
 def draw_traj_trees(ax, traj_trees, z=0.12, width=1.2):
@@ -170,10 +157,10 @@ def draw_traj(ax, history, z=0.05):
     ax.plot(h[:, 0], h[:, 1], z, color="white", linewidth=2, alpha=0.7)
 
 
-def render_frame(sim, frame_idx, ax):
-    """One frame (reference simulator.py:148-219), carrying forward the last
-    available trees for frames between plans. Accepts a Simulator or a
-    RenderScene."""
+def render_frame(sim, frame_idx) -> DisplayList:
+    """One frame (reference simulator.py:148-219) as a display list,
+    carrying forward the last available trees for frames between plans.
+    Accepts a Simulator or a RenderScene."""
     scene = _scene_of(sim)
     frames = scene.frames
     cfg = scene.config
@@ -188,13 +175,12 @@ def render_frame(sim, frame_idx, ax):
     traj_tree_vis = latest("traj_tree")
 
     range_3d = 15.0
-    reset_ax(ax)
+    ax = DisplayList()
     center = np.array([cfg.render_config.camera_x, cfg.render_config.camera_y])
-    ax.set_xlim([center[0] - range_3d, center[0] + range_3d])
-    ax.set_ylim([center[1] - range_3d, center[1] + range_3d])
-    ax.set_zlim([0, 2 * range_3d])
-    ax.view_init(elev=cfg.render_config.camera_elev,
-                 azim=180 + np.rad2deg(cfg.render_config.camera_yaw))
+    ax.set_view([center[0] - range_3d, center[0] + range_3d],
+                [center[1] - range_3d, center[1] + range_3d], [0, 2 * range_3d],
+                elev=cfg.render_config.camera_elev,
+                azim=180 + np.rad2deg(cfg.render_config.camera_yaw))
 
     draw_map(ax, scene.lane_boundaries)
     if scen_tree_vis is not None:
@@ -222,19 +208,14 @@ def render_frame(sim, frame_idx, ax):
         h.reverse()
         if np.linalg.norm(h[0] - h[-1]) >= 0.1:
             draw_traj(ax, h)
+    return ax
 
 
 def render_png(sim, frame_idx, img_dir, figsize=12):
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig = plt.figure(figsize=(figsize, figsize))
-    ax = fig.add_subplot(111, projection="3d")
-    render_frame(sim, frame_idx, ax)
-    plt.tight_layout()
-    plt.savefig(os.path.join(img_dir, f"frame_{frame_idx:03d}.png"))
-    plt.close(fig)
+    """Draw frame `frame_idx` at figsize x figsize inches (100 dpi) into
+    img_dir/frame_%03d.png."""
+    write_png(os.path.join(img_dir, f"frame_{frame_idx:03d}.png"),
+              rasterize(render_frame(sim, frame_idx), figsize))
 
 
 def _render_chunk(scene: RenderScene, indices, img_dir, figsize):

@@ -1,10 +1,11 @@
 """Pure-Python MJPEG/AVI video writer (the port's copy of
-mind_tpu/viz/video.py; PIL is imported only where frames are encoded).
+mind_tpu/viz/video.py, with PIL replaced by viz/raster.py's PNG reader and
+viz/jpeg.py's encoder).
 
 The reference assembles its one user-visible deliverable — a playable video —
 by shelling out to ffmpeg (reference simulator.py:128-131). Where no ffmpeg
 is installed, `write_mjpeg_avi` builds a playable AVI container directly:
-each PNG frame is JPEG-encoded with PIL and wrapped in a RIFF/AVI structure
+each PNG frame is JPEG-encoded and wrapped in a RIFF/AVI structure
 (avih + strl headers, `movi` chunk list, `idx1` index). MJPEG-in-AVI is the
 simplest container every mainstream player (VLC, mpv, ffplay, QuickTime via
 ffmpeg libs, browsers via conversion) still decodes.
@@ -15,10 +16,12 @@ AVISTREAMHEADER / BITMAPINFOHEADER layouts). No third-party code.
 
 from __future__ import annotations
 
-import io
 import os
 import struct
 from typing import Iterable, List, Tuple
+
+from mind_tpu_torch.viz.jpeg import encode_jpeg
+from mind_tpu_torch.viz.raster import read_png
 
 
 def numeric_frame_sort(names: Iterable[str], prefix: str = "frame_",
@@ -36,22 +39,15 @@ def numeric_frame_sort(names: Iterable[str], prefix: str = "frame_",
 
 
 def _jpeg_frames(png_paths: Iterable[str], quality: int) -> Tuple[List[bytes], int, int]:
-    from PIL import Image
-
     frames = []
     size = None
     for p in png_paths:
-        with Image.open(p) as im:
-            im = im.convert("RGB")
-            if size is None:
-                # JPEG wants even dimensions for some decoders; crop by <=1px
-                w, h = im.size
-                size = (w - w % 2, h - h % 2)
-            if im.size != size:
-                im = im.crop((0, 0) + size)
-            buf = io.BytesIO()
-            im.save(buf, format="JPEG", quality=quality)
-            frames.append(buf.getvalue())
+        rgb = read_png(p)[..., :3]
+        if size is None:
+            # JPEG wants even dimensions for some decoders; crop by <=1px
+            h, w = rgb.shape[:2]
+            size = (w - w % 2, h - h % 2)
+        frames.append(encode_jpeg(rgb[:size[1], :size[0]], quality))
     if size is None:
         raise ValueError("no frames")
     return frames, size[0], size[1]

@@ -110,10 +110,10 @@ def test_final_line_has_the_jax_benchs_keys_and_values():
 
 
 def test_per_demo_section_matches_run_episode(small_world, monkeypatch):
-    """(b) section_per_demo on two small sims: one warm run of the first,
-    then one timed run per demo; each timed run's ego trajectory equal to
-    the bit to the port's run_episode of the same sim (the warm run for the
-    first), and the same plan count."""
+    """(b) section_per_demo on two small sims: one warm run of each, then
+    one timed run per demo; each timed run's ego trajectory equal to the bit
+    to the warm run of the same sim, and the same plan count; no graph
+    captures (there are none off the card)."""
     sims = {d: small_sim(small_world, d) for d in ("demo_1", "demo_2")}
     runs = []
     run_episode = tepisode.run_episode
@@ -125,15 +125,55 @@ def test_per_demo_section_matches_run_episode(small_world, monkeypatch):
     monkeypatch.setattr(tepisode, "run_episode", recorded)
     out = bench.section_per_demo(sims)
     monkeypatch.undo()
-    assert list(out) == ["demo_1", "demo_2"] and len(runs) == 3
-    for (demo, sim), got, want in zip(sims.items(), runs[1:],
-                                      (runs[0], tepisode.run_episode(sims["demo_2"]))):
+    assert list(out) == ["demo_1", "demo_2"] and len(runs) == 4
+    for (demo, sim), got, want in zip(sims.items(), runs[2:], runs[:2]):
         assert want.fail_cycle == -1
         assert out[demo]["plan_calls"] == got.plan_calls == want.plan_calls == 1
         np.testing.assert_array_equal(got.ego_states, want.ego_states)
         row = out[demo]
         assert row["steps_per_s"] == pytest.approx(HORIZON / row["wall_s"])
         assert row["vs_baseline"] == pytest.approx(row["steps_per_s"] / bench.BASELINE_STEPS_PER_SEC)
+        assert row["graph_captures_warm"] == row["graph_captures"] == 0
+
+
+class _Result:
+    def __init__(self, sim):
+        self.ego_states, self.plan_calls, self.fail_cycle = [0] * 3, 1, -1
+
+
+@pytest.mark.parametrize("n_demos", [1, 4])
+def test_twin_warms_every_demo_it_times(monkeypatch, n_demos):
+    """With a counting stub of run_episode: section_per_demo and
+    bench_unroll_ab.label_row run every demo once untimed before any timed
+    run, and each row counts the graph captures of its own warm and timed
+    runs (a stub capture per run of a demo not seen before)."""
+    from mind_tpu_torch.planner import ilqr
+    from mind_tpu_torch.scripts import bench_unroll_ab
+
+    calls, timed = [], []
+    graphs = {}
+
+    def run_episode(sim, steps=None, inputs=None):
+        calls.append((sim, inputs is not None))
+        graphs.setdefault(("shape", sim), object())    # a demo's first run captures
+        return _Result(sim)
+
+    monkeypatch.setattr(tepisode, "run_episode", run_episode)
+    monkeypatch.setattr(tepisode, "build_episode_inputs", lambda sim, steps=None: "inputs")
+    monkeypatch.setattr(ilqr._GRAPHS, "graphs", graphs)
+    sims = {f"demo_{k + 1}": f"sim_{k}" for k in range(n_demos)}
+    for section in (bench.section_per_demo, bench_unroll_ab.label_row):
+        calls.clear()
+        graphs.clear()
+        out = section(sims)
+        first_timed = [c[1] for c in calls].index(True)
+        assert [c[0] for c in calls[:first_timed]] == list(sims.values())     # all warmed
+        assert all(c[1] for c in calls[first_timed:])
+        assert {c[0] for c in calls[first_timed:]} == set(sims.values())
+        assert all(out[d]["graph_captures_warm"] == 1 and out[d]["graph_captures"] == 0
+                   for d in sims), out
+        timed.append(len(calls) - first_timed)
+    assert timed == [n_demos, n_demos * bench_unroll_ab.TIMED_RUNS]
 
 
 def test_phase_split_selects_what_plan_selects(small_world, monkeypatch):

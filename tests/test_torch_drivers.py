@@ -482,12 +482,28 @@ def test_render_demo_video_writes_the_avi(small_demo_sim, world, tmp_path, monke
     assert sorted(p.name for p in out.parent.iterdir()) == ["demo_1.avi"]
 
 
-def test_render_demo_video_without_matplotlib_raises(monkeypatch):
-    from mind_tpu_torch.scripts import render_demo_video
+def test_render_demo_video_without_matplotlib_raises(small_demo_sim, world, tmp_path,
+                                                     monkeypatch):
+    """The port draws and encodes frames with numpy, so without matplotlib
+    or PIL the script runs and renders; what it still raises on is a .mov,
+    which the renderer writes where ffmpeg is installed (here a stand-in
+    that writes nothing)."""
+    import shutil
 
-    monkeypatch.setitem(sys.modules, "matplotlib", None)
-    with pytest.raises(ImportError, match="matplotlib"):
-        render_demo_video.main(["--synthetic", "--device", "cpu"])
+    from mind_tpu_torch.scripts import render_demo_video
+    from mind_tpu_torch.viz import render
+
+    for name in ("matplotlib", "mpl_toolkits", "PIL"):
+        monkeypatch.setitem(sys.modules, name, None)
+    monkeypatch.setattr(render_demo_video, "demo_sim", small_demo_sim)
+    monkeypatch.setattr(shutil, "which", lambda name: "/usr/bin/" + name)
+    ran = []
+    monkeypatch.setattr(render.subprocess, "run", lambda cmd, **kw: ran.append(cmd))
+    with pytest.raises(RuntimeError, match=r"not an MJPEG \.avi"):
+        render_demo_video.main(["--max-steps", "3", "--figsize", "2", "--data-root",
+                                str(world.root), "--device", "cpu",
+                                "--out", str(tmp_path / "demo_1.avi")])
+    assert ran and ran[0][0] == "ffmpeg"
 
 
 def test_bench_mc_and_unroll_ab_on_the_small_world(small_demo_sim, world, tmp_path,

@@ -1,6 +1,9 @@
 """The port stands on PyTorch alone: no module of mind_tpu_torch, and not
 chip_smoke.py, imports jax, flax, orbax or the JAX package mind_tpu, at top
-level or inside a function. One case per file, so each counts."""
+level or inside a function; nor pandas, pyarrow, matplotlib, mpl_toolkits,
+PIL or cv2, which the card's machine lacks (the port reads parquet, draws
+and encodes frames with numpy and zlib). One case per file and ban, so each
+counts."""
 
 import ast
 from pathlib import Path
@@ -10,6 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "mind_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "flax", "orbax", "mind_tpu")
+NOT_ON_THE_CARD = ("pandas", "pyarrow", "matplotlib", "mpl_toolkits", "PIL", "cv2")
 
 
 def imported_names(tree):
@@ -32,8 +36,15 @@ def test_port_file_imports_no_jax(path):
         assert name.split(".")[0] not in BANNED, f"{path}:{lineno} imports {name}"
 
 
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_nothing_the_card_lacks(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for lineno, name in imported_names(tree):
+        assert name.split(".")[0] not in NOT_ON_THE_CARD, f"{path}:{lineno} imports {name}"
+
+
 def test_every_port_module_is_covered():
-    assert len(FILES) >= 76
+    assert len(FILES) >= 80
     covered = {str(p.relative_to(ROOT / "mind_tpu_torch")) for p in FILES[:-1]}
     assert covered >= {
         "ops/fusion_attention.py", "planner/planner.py", "planner/trajectory_tree.py",
@@ -45,7 +56,8 @@ def test_every_port_module_is_covered():
         "models/train.py", "models/data_pipeline.py", "models/checkpoint.py",
         "models/weights.py", "train_weights.py", "parity/__init__.py", "parity/host_scene.py",
         "parity/host_ilqr.py", "parity/host_planner.py", "parity/runner.py", "parity_run.py",
-        "planner/scenario_tree.py", "viz/render.py", "viz/video.py",
+        "planner/scenario_tree.py", "viz/render.py", "viz/video.py", "viz/raster.py",
+        "viz/jpeg.py", "data/parquet.py", "common/observation.py",
         "utils/device_health.py", "utils/device_specs.py", "bench.py", "parallel/launch.py",
         "parallel/dryrun.py", *(f"scripts/{n}.py" for n in (
             "__init__", "run_all_demos", "bench_north_star", "bench_strict", "bench_exec_ab",

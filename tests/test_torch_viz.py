@@ -1,8 +1,10 @@
 """Rendering of the PyTorch port (mind_tpu_torch/viz) against mind_tpu's:
-the hull and footprint helpers equal, the same frame of one port Simulator
-drawn by both packages' render_png to equal pixels, the same PNGs to the
-same AVI bytes, and Simulator.render_video on a 5-tick run with the planner
-on (Agg backend, small figures)."""
+the hull and footprint helpers equal, the port's JPEG encoder against PIL's
+(tables, quality), its AVI against mind_tpu's writer, Simulator.render_video
+on a 5-tick run with the planner on, and run_sim with rendering in a
+process where pandas, pyarrow, matplotlib, PIL and cv2 cannot be imported,
+as on the card's machine. The frames themselves are held against
+matplotlib's in test_torch_raster.py."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ pytest.importorskip("matplotlib")
 pytest.importorskip("PIL")
 torch.set_num_threads(2)
 TICKS = 5
+CLI_TICKS = 10
 
 
 @pytest.fixture(scope="module")
@@ -59,29 +62,100 @@ def test_hull_and_vertices_equal():
                                       jrender.vehicle_vertices(*args))
 
 
-def pixels(path):
+def frame_rgb(sim, figsize=4, idx=2):
+    from mind_tpu_torch.viz import raster
+
+    return raster.rasterize(trender.render_frame(sim, idx), figsize)[..., :3]
+
+
+def psnr(a, b):
+    return 10 * np.log10(255.0 ** 2 / np.mean((a.astype(np.float64) - b) ** 2))
+
+
+@pytest.mark.parametrize("quality", [50, 85, 95])
+def test_jpeg_quant_tables_equal_pil(quality):
+    """The IJG-scaled Annex K tables, in natural order as PIL reports them,
+    and the standard Huffman tables PIL writes."""
+    import io
+
     from PIL import Image
 
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGBA"))
+    from mind_tpu_torch.viz import jpeg
+
+    buf = io.BytesIO()
+    Image.new("RGB", (16, 16), (200, 30, 90)).save(buf, format="JPEG", quality=quality)
+    with Image.open(io.BytesIO(buf.getvalue())) as im:
+        tables = im.quantization
+    luma, chroma = jpeg.quant_tables(quality)
+    assert list(tables[0]) == luma.tolist() and list(tables[1]) == chroma.tolist()
+    ours = jpeg.encode_jpeg(np.full((16, 16, 3), 128, np.uint8), quality)
+    assert header_segments(ours)[0xC4] == header_segments(buf.getvalue())[0xC4]
 
 
-def test_render_png_equal(sim, tmp_path):
-    """Frame 2 of the port's run (it carries the trees of the plan at tick 0
-    forward) drawn by both packages' render_png."""
-    from mind_tpu.viz import render as jrender
-
-    (tmp_path / "j").mkdir()
-    (tmp_path / "t").mkdir()
-    jrender.render_png(sim, 2, str(tmp_path / "j"), figsize=4)
-    trender.render_png(sim, 2, str(tmp_path / "t"), figsize=4)
-    got, want = pixels(tmp_path / "t" / "frame_002.png"), pixels(tmp_path / "j" / "frame_002.png")
-    assert got.shape == want.shape == (400, 400, 4)
-    np.testing.assert_array_equal(got, want)
-    assert len(np.unique(got.reshape(-1, 4), axis=0)) > 10   # something was drawn
+def header_segments(data):
+    """{marker byte: its segments' payloads joined} before the scan."""
+    out, pos = {}, 2
+    while data[pos + 1] != 0xDA:
+        n = int.from_bytes(data[pos + 2:pos + 4], "big")
+        out[data[pos + 1]] = out.get(data[pos + 1], b"") + data[pos + 4:pos + 2 + n]
+        pos += 2 + n
+    return out
 
 
-def test_mjpeg_avi_bytes_equal(sim, tmp_path):
+@pytest.mark.parametrize("figsize", [4, 12])
+def test_jpeg_within_1db_of_pil(sim, figsize):
+    """PIL decodes the port's JPEG of a drawn frame (quality 85, 4:2:0) to
+    within 1 dB PSNR of PIL's own encoding of the same frame."""
+    import io
+
+    from PIL import Image
+
+    from mind_tpu_torch.viz import jpeg
+
+    rgb = frame_rgb(sim, figsize)
+    with Image.open(io.BytesIO(jpeg.encode_jpeg(rgb, 85))) as im:
+        assert im.format == "JPEG" and im.size == (figsize * 100,) * 2
+        ours = np.asarray(im.convert("RGB"))
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="JPEG", quality=85)
+    with Image.open(io.BytesIO(buf.getvalue())) as im:
+        theirs = np.asarray(im.convert("RGB"))
+    assert abs(psnr(ours, rgb) - psnr(theirs, rgb)) <= 1.0, (psnr(ours, rgb), psnr(theirs, rgb))
+
+
+def test_jpeg_odd_sizes_and_stuffing():
+    """Sizes that are no multiple of 16 (edge-padded MCUs) and noise that
+    makes 0xFF bytes: PIL decodes them to the encoded size and close to the
+    input."""
+    import io
+
+    from PIL import Image
+
+    from mind_tpu_torch.viz import jpeg
+
+    rng = np.random.default_rng(1)
+    for h, w in ((8, 8), (17, 33), (50, 21)):
+        rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        data = jpeg.encode_jpeg(rgb, 85)
+        with Image.open(io.BytesIO(data)) as im:
+            assert im.size == (w, h)
+            got = np.asarray(im.convert("RGB"))
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format="JPEG", quality=85)
+        with Image.open(io.BytesIO(buf.getvalue())) as im:
+            theirs = np.asarray(im.convert("RGB"))
+        assert abs(psnr(got, rgb) - psnr(theirs, rgb)) <= 1.0
+
+
+def avi_fps(path):
+    data = open(path, "rb").read()
+    i = data.index(b"avih")
+    return 1_000_000 / int.from_bytes(data[i + 8:i + 12], "little")
+
+
+def test_mjpeg_avi_probes_as_the_jax_writer(sim, tmp_path):
+    """The port's AVI of three drawn frames against mind_tpu's writer on
+    the same PNGs: the same frames, size, index entries and frame rate."""
     from mind_tpu.viz import video as jvideo
 
     for i in range(3):
@@ -90,8 +164,11 @@ def test_mjpeg_avi_bytes_equal(sim, tmp_path):
     assert pngs == jvideo.numeric_frame_sort(str(p) for p in tmp_path.glob("frame_*.png"))
     tvideo.write_mjpeg_avi(pngs, str(tmp_path / "t.avi"), fps=25)
     jvideo.write_mjpeg_avi(pngs, str(tmp_path / "j.avi"), fps=25)
-    assert (tmp_path / "t.avi").read_bytes() == (tmp_path / "j.avi").read_bytes()
-    assert tvideo.probe_avi(str(tmp_path / "t.avi")) == jvideo.probe_avi(str(tmp_path / "j.avi"))
+    got = tvideo.probe_avi(str(tmp_path / "t.avi"))
+    assert got == jvideo.probe_avi(str(tmp_path / "j.avi"))
+    assert got["frames"] == got["index_entries"] == 3 and got["jpeg_ok"]
+    assert (got["width"], got["height"]) == (300, 300)
+    assert avi_fps(tmp_path / "t.avi") == avi_fps(tmp_path / "j.avi") == 25
 
 
 def test_render_video(sim, monkeypatch):
@@ -103,3 +180,71 @@ def test_render_video(sim, monkeypatch):
     info = tvideo.probe_avi(video)
     assert info["frames"] == info["index_entries"] == TICKS and info["jpeg_ok"]
     assert info["width"] > 0 and info["height"] > 0
+
+
+# installed by a sitecustomize on the subprocess's PYTHONPATH: the packages the
+# card's machine lacks cannot be imported, and ffmpeg is not found
+BLOCKING_SITE = """
+import importlib.abc
+import shutil
+import sys
+
+BLOCKED = {"pandas", "pyarrow", "matplotlib", "mpl_toolkits", "PIL", "cv2"}
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+_which = shutil.which
+shutil.which = lambda cmd, *a, **kw: None if cmd == "ffmpeg" else _which(cmd, *a, **kw)
+"""
+
+
+def test_run_sim_renders_on_the_cards_installation(world, tmp_path):
+    """python -m mind_tpu_torch.run_sim --device cpu with rendering on, on a
+    log written here by pandas, the planner on from tick 0, 10 ticks, two
+    spawn render workers: in a process (and its children) where pandas,
+    pyarrow, matplotlib, mpl_toolkits, PIL and cv2 raise on import. It exits
+    0 and writes an AVI that probe_avi accepts."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from test_torch_data import scenario_frame
+
+    pytest.importorskip("pandas")
+    pytest.importorskip("pyarrow")
+    scenario_frame(world.syn.scenario).to_parquet(
+        world.root / SEQ_ID / f"scenario_{SEQ_ID}.parquet")
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(BLOCKING_SITE)
+    out_dir = tmp_path / "out"
+    cfg = tmp_path / "sim.json"
+    cfg.write_text('{"sim_name": "demo_1", "seq_id": "%s", "render": true, "num_threads": 2, '
+                   '"output_dir": "%s", "render_config": {"camera_position": {"x": %r, '
+                   '"y": %r, "yaw": 0.62, "elev": 90}}, "cl_agents": [{"id": "AV", '
+                   '"enable_timestep": 0.0, "target_velocity": 8.0, "agent": "agent:MINDAgent"}]}'
+                   % (SEQ_ID, out_dir, *map(float, AV2_ORIGIN)))
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(site), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    p = subprocess.run(
+        [sys.executable, "-c", "import pandas", ], env=env, cwd=root, capture_output=True,
+        text=True, timeout=60)
+    assert p.returncode != 0 and "blocked" in p.stderr          # the hook is in place
+    p = subprocess.run(
+        [sys.executable, "-m", "mind_tpu_torch.run_sim", "--config", str(cfg), "--data-root",
+         str(world.root), "--device", "cpu", "--max-steps", str(CLI_TICKS)],
+        env=env, cwd=root, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "'plan_calls': 2" in p.stdout, p.stdout
+    info = tvideo.probe_avi(str(out_dir / f"{SEQ_ID}_demo_1.avi"))
+    assert info["frames"] == info["index_entries"] == CLI_TICKS and info["jpeg_ok"]
+    assert (info["width"], info["height"]) == (1200, 1200)

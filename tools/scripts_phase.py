@@ -1,5 +1,5 @@
 """Run chip_smoke.py's (scripts) phase alone: the drivers of
-mind_tpu_torch/scripts/ on synthetic scenes at 250 ticks, each held to its
+mind_tpu_torch/scripts/ on synthetic scenes at 215 ticks, each held to its
 checks.
 
     python3 tools/scripts_phase.py
