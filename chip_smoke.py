@@ -8,18 +8,23 @@ result line):
      in a fresh subprocess) must return True;
   1. build both CUDA kernels (mind_tpu_torch/ops/csrc/fusion_attention.cu,
      float32, and fusion_attention_bf16.cu, bf16 operands on the tensor
-     cores; sm_90a, one nvcc per source, side by side) from the checkout;
+     cores) and the graph-control library (graph_control.cu: the condition
+     kernel and the conditional-node calls; sm_90a, one nvcc per source, all
+     side by side) from the checkout;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
      both update_edge values (and both edge input types of the bf16
      variant), and time both against the card's bound; then both at
      B = 32 against each slice of 8 alone: equal to the bit (a node
-     computes in a batch of scenes what it computes alone);
+     computes in a batch of scenes what it computes alone); then the
+     condition kernel against its plain version any(mask) on masks of 1 to
+     1024 entries inside captured programs, and timed there;
   3. load the trained ScenePredNet weights from the committed archive;
   4. float32 path: plan cycles of fused_plan_core at full width on a seeded
      synthetic scene (48 actor slots, 80 lane segments, 256-point target
      lane), rolling the observation window between cycles; the first cycle
-     is held against the same cycle on the CPU through the plain version;
+     is held against the same cycle on the CPU through the plain version
+     (in the child process of phase 7, which plans on this phase's window);
  4a. host tree: ScenarioTreeGenerator.branch_aime (planner/scenario_tree.py,
      the tree bookkeeping on the host) against aime_grow_tree on the same
      filled window, both on the card with the float32 network: the same
@@ -56,7 +61,9 @@ result line):
      frame and the command's ticks/s, with the card's name and power limit;
   7. float32 loop: 36 ticks under the float32 defaults with the planner
      enabled after 0.2 s (5 plans, float32 kernel), on the card and again
-     on the CPU through the plain version: ego states within 1e-3 m, the
+     on the CPU through the plain version (that one in a child process
+     started after the probe, beside the card's phases; this phase runs
+     after 12b, when the child is done): ego states within 1e-3 m, the
      same tree at every plan;
   8. exec re-solve: one plan each with float32 selection solves and a
      float64 re-solve of the winner in polish, scratch and native mode (the
@@ -72,31 +79,47 @@ result line):
      enabled after 1 s: no failed cycle, the loop's plan count, the ego
      within 1e-3 m of the Simulator's trajectory of phase 6; kernel B
      launched 6 times per AIME round, kernel A never; then
-     run_episode_segmented in 4-cycle segments equal to it to the bit;
+     run_episode_segmented in 4-cycle segments equal to it to the bit (both
+     eager: phases= runs the cycles eagerly);
+ 10a. compiled: the episode program (sim/episode.py, one CUDA graph per
+     cycle with AIME's rounds IF nodes and the iLQR loops WHILE nodes,
+     ops/graph_control.py) on phase 10's scenario, warm (it captures) then
+     timed: every replay under torch.cuda.set_sync_debug_mode("error"),
+     ego states, controls, iterations, plan_ok and planned equal to the
+     bit to the eager loop's (phase 10's timed run), the ego within 1e-3 m
+     of the closed loop, kernel B launched only by the
+     capture and executed 6 times per AIME round the device counted, its
+     nodes in the graph (DOT) 6 per round body, 4-cycle segments equal to
+     the whole run; ticks/s compiled and eager, the planning cycle's
+     device ms, the program's build seconds, peak memory and the card's
+     busy share over one planning cycle under torch.profiler;
  11. batched episode: run_episodes_batched over four synthetic AV2 scenarios
      (seeds 0-3, the AV asked for 8, 7, 9 and 6 m/s; planner on after 1 s,
-     150 ticks, demo configuration), warm then timed: kernel B launched 6
-     times per AIME round of the batch (B = 32 nodes per round), the iLQR
-     graphs' pool holding no tensor, each scenario against its own
-     run_episode: the same failing cycle and plan count, the ego within
-     1e-3 m over the whole run; the first cycle where the two take a
-     different discrete decision (plan, ok, iteration count, tree), if
-     any, is printed; and the network's outputs for each scene's nodes in
-     a batched forward equal to its forward alone, to the bit;
+     150 ticks, demo configuration) through the compiled 'scenarios'
+     program, warm then timed: kernel B launched by the capture alone and
+     executed 6 times per device-counted AIME round of the batch (B = 32
+     nodes per round), the iLQR graphs' pool holding no tensor, each
+     scenario against its own run_episode: the same failing cycle and plan
+     count, the ego within 1e-3 m over the whole run; the first cycle where
+     the two take a different discrete decision (plan, ok, iteration
+     count), if any, is printed; and the network's outputs for each scene's
+     nodes in a batched forward equal to its forward alone, to the bit;
  12. Monte-Carlo: run_episode_monte_carlo on the loop's scenario, 16 copies
-     in one chunk (B = 128 nodes per round), segments of 10 cycles, warm then
-     timed, with its peak device memory: every copy finite, kernel B
-     launched 6 times per round, segments of 4 equal to it to the bit, copies
-     0 and 15 against run_episode on their own schedules (as in 11);
+     in one chunk (B = 128 nodes per round), segments of 10 cycles, through
+     the compiled 'copies_seg' program, warm (50 ticks) then timed, with its peak
+     device memory: every copy finite, kernel B launched and executed as in
+     11, segments of 4 equal to it to the bit over the first 100 ticks,
+     copies 0 and 15 against
+     run_episode on their own schedules (as in 11);
  12a. parity playback: parity/runner.py::run_parity_episode_playback on the
      loop's scenario under the demo configuration (read from
      configs/demo_1.json; 150 ticks, planner on after 1 s): the episode's
      recorded controls against the float64 mirror (parity/host_planner.py)
      planning from the same inputs with the planner's network on the card:
      zero ok flips, mean per-cycle rollout deviation within 1e-3 m
-     (PARITY_TRACES.md section 1), kernel B launched 6 times per AIME round
-     and per mirror forward; the plans compared, the deviations and the
-     mirror's seconds per plan are printed;
+     (PARITY_TRACES.md section 1), kernel B launched 6 times per mirror
+     forward and by the episode program's capture; the plans compared, the
+     deviations and the mirror's seconds per plan are printed;
  12b. parity resync: run_parity_demo_resync on the same scenario (demo_1's
      4 s enable time, 230 ticks, at least 5 plans of the staged planner with
      the mirror in tandem): the same criterion and launch check;
@@ -149,12 +172,14 @@ result line):
      parallel/dryrun.py), at full width with the trained weights. (a)-(c)
      two ranks on the one card (gloo): the Monte-Carlo sweep of phase 12's
      scenario under the demo configuration, K = 8 copies in chunks of 4
-     (2 per rank), 100 ticks; phase 13's 1024 trees, 2 x 512; 5 float32
+     (2 per rank), 70 ticks; phase 13's 1024 trees, 2 x 512; 5 float32
      training steps of phase 14's batch, 2 scenes per rank (cuDNN held to
      deterministic algorithms in the ranks and here). Each rank's copies,
      trees, losses and parameters equal to the sequential two-shard mesh's
-     in this process, to the bit; kernel B launched by the ranks' sweeps as
-     often as by the sequential one, kernel A 6 times per training forward.
+     in this process, to the bit; kernel B executed by the ranks' compiled
+     sweeps as often as by the sequential one (the AIME rounds their
+     programs ran, counted on the device), kernel A 6 times per training
+     forward.
      One rank on nccl trains on the whole batch, equal to the bit to the
      unsharded step. (d) with two cards or more, one rank per card on nccl
      against the sequential mesh across two cards, the same way; with one
@@ -172,7 +197,8 @@ them. The kernels line counts each kernel's launches by path.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
-{"kernels": [...]}.
+{"kernels": [...]}: both fusion kernels and the condition kernel, with the
+compiled paths' executions beside the launches.
 """
 
 from __future__ import annotations
@@ -277,9 +303,13 @@ def cuda_time_ms(fn, reps=20, warmup=3):
 
 
 def phase_build(fa):
+    from mind_tpu_torch.ops import graph_control
+
     t = time.perf_counter()
     fa.build_kernels()
-    log(f"[build] both fusion kernels built and loaded in {time.perf_counter() - t:.3f} s")
+    graph_control.load()
+    log(f"[build] both fusion kernels and the graph-control library built and loaded in "
+        f"{time.perf_counter() - t:.3f} s; CUDA versions {graph_control.load.versions}")
     for variant, text in fa.build_kernels.log.items():
         log(f"[build] nvcc, {variant}:\n{text.strip()}")
 
@@ -849,9 +879,87 @@ def phase_demo_command(fa, loop, loop_ego, card):
     return counts["bfloat16"], summary
 
 
-def phase_float32_loop(cfg, fa, data_root):
-    """36 ticks under the float32 defaults on the card (kernel A) and on the
-    CPU (plain version): the same trees, ego within TOL_LOOP_EGO."""
+def float32_cfg():
+    """The float32 defaults with the trained weights."""
+    from mind_tpu_torch.config import DEFAULT_WEIGHTS, PlannerConfig
+
+    c = PlannerConfig()
+    c.ckpt_path = str(DEFAULT_WEIGHTS)
+    return c
+
+
+def cpu_references(inbox, outbox):
+    """The CPU halves of phases 7 and 4, through the plain version, in a
+    child process beside the card's phases (start_cpu_references): puts
+    ("loop32", (the float32 loop's ego trajectory, [(tick, tree)] per
+    plan, seconds)), then, once phase 4's filled window arrives on `inbox`
+    (numpy), ("plan", (the plan's 4 numbers, its tree, seconds)); or
+    ("error", traceback)."""
+    import traceback
+
+    from mind_tpu_torch.models.weights import load_scene_pred
+    from mind_tpu_torch.planner import aime_device as aime
+    from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.planner.trajectory_tree import make_cost_params
+    from mind_tpu_torch.synthetic import scene_statics, synthetic_scene
+
+    torch.set_num_threads(4)   # the card's phases keep the other cores
+    try:
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            sim, _, plans = run_loop("loop32-cpu", float32_cfg(), 0.2, 36, "cpu", root)
+            outbox.put(("loop32", (sim.ego_trajectory(), [(r["tick"], r["tree"]) for r in plans],
+                                   time.perf_counter() - t)))
+        cfg = float32_cfg()
+        scene = synthetic_scene(SEED, cfg.max_actors, cfg.max_lanes, n_agents=40)
+        cpu = torch.device("cpu")
+        net = load_scene_pred(cfg.net, cfg.ckpt_path, cpu)
+        buf = aime.DeviceObsBuffer(*(torch.from_numpy(x) for x in inbox.get()))
+        report = {}
+        t = time.perf_counter()
+        out = plan_once((tplanner, make_cost_params), net, cfg, World(scene), buf,
+                        scene_statics(scene, getattr(torch, cfg.pipeline_dtype), cpu), cpu, report)
+        outbox.put(("plan", (out, int(report["best"]), time.perf_counter() - t)))
+    except BaseException:   # the parent raises it
+        outbox.put(("error", traceback.format_exc()))
+        raise
+
+
+class CpuReferences:
+    """cpu_references in a spawned, daemonic child (it ends with this
+    process whatever happens): `send` phase 4's window, `get` a result by
+    name."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.inbox, self.outbox, self.results = ctx.Queue(), ctx.Queue(), {}
+        self.proc = ctx.Process(target=cpu_references, args=(self.inbox, self.outbox),
+                                daemon=True)
+        self.proc.start()
+
+    def send(self, buf):
+        self.inbox.put(tuple(t.cpu().numpy() for t in buf))
+
+    def get(self, name):
+        """The child's result `name`, waiting for it; raises the child's
+        error."""
+        while name not in self.results:
+            key, value = self.outbox.get(timeout=COMMAND_TIMEOUT_S)
+            if key == "error":
+                raise RuntimeError(f"the CPU references failed:\n{value}")
+            self.results[key] = value
+        if len(self.results) == 2:
+            self.proc.join(timeout=60)
+        return self.results[name]
+
+
+def phase_float32_loop(cfg, fa, data_root, cpu_child):
+    """36 ticks under the float32 defaults on the card (kernel A), against
+    the same loop on the CPU (plain version) that `cpu_child`
+    (CpuReferences) ran beside the card's phases: the same trees, ego
+    within TOL_LOOP_EGO."""
     fa.reset_launch_counts()
     sim, _, plans = run_loop("loop32", cfg, 0.2, 36, None, data_root)
     counts = dict(fa.fused_edge_attention.launches_by_variant)
@@ -861,14 +969,12 @@ def phase_float32_loop(cfg, fa, data_root):
         raise RuntimeError(f"float32 loop: {len(plans)} plans, launches {counts} for "
                            f"{rounds} AIME rounds")
     t = time.perf_counter()
-    sim_cpu, _, plans_cpu = run_loop("loop32-cpu", cfg, 0.2, 36, "cpu", data_root)
-    cpu_s = time.perf_counter() - t
-    if fa.fused_edge_attention.launches != counts["float32"]:
-        raise RuntimeError("the CPU loop launched a kernel")
-    gap = float(np.abs(sim.ego_trajectory() - sim_cpu.ego_trajectory()).max())
-    same = [a["tick"] == b["tick"] and a["tree"] == b["tree"] for a, b in zip(plans, plans_cpu)]
+    ego_cpu, plans_cpu, cpu_s = cpu_child.get("loop32")
+    wait_s = time.perf_counter() - t
+    gap = float(np.abs(sim.ego_trajectory() - ego_cpu).max())
+    same = [(a["tick"], a["tree"]) == b for a, b in zip(plans, plans_cpu)]
     summary = {"plans": len(plans), "ego_gap_m": gap, "same_tree": same,
-               "launches": counts, "cpu_loop_s": cpu_s,
+               "launches": counts, "cpu_loop_s": cpu_s, "cpu_loop_wait_s": wait_s,
                "plan_wall_ms": [r["wall_ms"] for r in plans]}
     log("[loop32] " + json.dumps(summary))
     if len(plans_cpu) != len(plans) or not all(same) or not gap < TOL_LOOP_EGO:
@@ -917,15 +1023,38 @@ def phase_exec_resolve(float32_cfg, data_root):
 
 class RoundCounter:
     """aime_grow_tree as fused_plan_core calls it, summing the AIME rounds
-    of every call."""
+    of every eager call (one host read each). A compiled episode program's
+    warm-up and capture are not counted: its replays' rounds are counted on
+    the device (program_rounds)."""
 
     def __init__(self, fn):
         self.fn, self.rounds = fn, 0
 
     def __call__(self, *a, **kw):
+        from mind_tpu_torch.ops import graph_control
+
         state, meta, rounds = self.fn(*a, **kw)
-        self.rounds += rounds
+        if not graph_control.capturing():
+            self.rounds += int(rounds)
         return state, meta, rounds
+
+
+def program_counts():
+    """(compiled episode programs, the AIME rounds their replays ran, the
+    condition kernel's runs in them) in this process, read from the
+    device."""
+    from mind_tpu_torch.sim import episode
+
+    progs = episode.programs()
+    return (len(progs), sum(int(p.rounds) for p in progs),
+            sum(int(p.program.executions) for p in progs))
+
+
+def captured_launches(layers, depth, programs):
+    """Kernel B launches of capturing `programs` episode programs: each
+    warm-up runs all `depth` AIME rounds once eagerly and the capture
+    records them, `layers` launches a round."""
+    return 2 * layers * depth * programs
 
 
 def phase_episode(dcfg, fa, data_root, loop_ego, loop_plans):
@@ -981,31 +1110,214 @@ def phase_episode(dcfg, fa, data_root, loop_ego, loop_plans):
     if not all(same.values()) or seg.fail_cycle != res.fail_cycle:
         raise RuntimeError(f"segmented episode differs from the whole one: {same}")
     summary["segmented_equal"] = True
-    return counts["bfloat16"], summary
+    return counts["bfloat16"], summary, res
 
 
-def lane_trees(phases, lane):
-    """The tree a lane selected at each planning cycle, from the phase
-    records of run_episode (one lane) or of a batched run."""
-    return {p["cycle"]: p["best"][lane] for p in phases if "best" in p}
+def busy_us(intervals):
+    """Total length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def first_decision(got, want, got_trees, want_trees):
+def phase_condition_kernel(dev, sizes=(1, 6, 24, 64, 96, 256, 1024), K=200, reps=20):
+    """The graph-control condition kernel (ops/csrc/graph_control.cu) against
+    its plain version any(mask) at the masks the paths give it (the plan's
+    enable: 1; the solve's run mask: 6 trees a scene, 24 for 4 scenes, 96
+    for 16 copies; AIME's branch flags: 64 slots a scene, 256, 1024): in a
+    captured program, an IF node on the mask whose body writes 1, for a mask
+    all false, one with only its last entry true and a random one. Then its
+    time in a graph, K kernels and IF nodes per replay at 64 entries,
+    against mask.any() eagerly. Returns the kernel table's entry."""
+    from mind_tpu_torch.ops import graph_control as gc
+
+    hit = torch.zeros((), dtype=torch.int64, device=dev)
+    wrong = []
+    for n in sizes:
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        prog = gc.GraphProgram(lambda: gc.device_if(mask, lambda: hit.fill_(1)), dev)
+        rng = np.random.default_rng(n)
+        for case in (np.zeros(n, bool), np.arange(n) == n - 1, rng.random(n) < 0.05):
+            mask.copy_(torch.from_numpy(case))
+            hit.zero_()
+            prog.replay()
+            if bool(hit) != bool(gc.set_conditional_any_ref(mask)):
+                wrong.append((n, int(case.sum())))
+        prog.close()
+    mask = torch.arange(64, device=dev) == 63
+
+    def many():
+        for _ in range(K - 1):
+            gc.device_if(mask, lambda: None)
+        gc.device_if(mask, lambda: hit.add_(1))
+
+    prog = gc.GraphProgram(many, dev)
+    ms = cuda_time_ms(prog.replay, reps=reps) / K
+    prog.close()
+    plain_ms = cuda_time_ms(lambda: gc.set_conditional_any_ref(mask), reps=reps * 10)
+    bound_ms = 1e3 * mask.numel() / PEAKS.hbm_bytes   # the mask read once; 4 bytes out
+    entry = {"name": "set_conditional_any", "route": "cuda",
+             "source": "mind_tpu_torch/ops/csrc/graph_control.cu",
+             "replaces": "no TPU kernel: the device-side control flow of "
+                         "mind_tpu/planner/ilqr.py:327 (lax.while_loop), "
+                         "mind_tpu/planner/aime_device.py:289 and "
+                         "mind_tpu/sim/episode.py:230 (lax.cond)",
+             "launches": None, "max_abs_err": float(len(wrong)), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+             "library_ms": None,
+             "shape": f"bool mask of {mask.numel()} entries (checked at {list(sizes)})"}
+    log(f"[condition kernel] any(mask) against the plain version at {list(sizes)} entries: "
+        f"{len(wrong)} wrong {wrong}; {ms:.5f} ms a run in a graph (with its IF node), "
+        f"plain {plain_ms:.5f} ms, bound {bound_ms:.2e} ms (bytes; its launch latency sets it)")
+    if wrong:
+        raise RuntimeError(f"the condition kernel disagrees with any(mask): {wrong}")
+    return entry
+
+
+def phase_compiled(dcfg, fa, data_root, loop_ego, eager, eager_summary):
+    """(compiled) The episode program (sim/episode.py: one CUDA graph per
+    cycle with the AIME rounds and the iLQR loops as conditional nodes) on
+    phase 10's scenario and configuration: a warm call that captures, then
+    the timed one, with the launch counts set to 0 just before the warm call
+    and read after the timed one. Every replay must run under
+    set_sync_debug_mode("error"); the result must equal the eager loop's
+    (phase 10's timed run: phases= runs the cycles eagerly) to the bit and
+    stay within TOL_EPISODE_EGO of the closed loop; kernel B
+    is executed layers x the device's AIME rounds, its nodes in the graph
+    (DOT) layers per round body; segments of 4 cycles equal the whole run.
+    Prints ticks/s compiled and eager (phase 10's), the planning cycle's
+    device ms, the capture's seconds, the peak memory and the card's busy
+    share over one planning cycle under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mind_tpu_torch.ops import graph_control as gc
+    from mind_tpu_torch.sim import episode
+
+    layers, depth = dcfg.net.n_scene_layer, dcfg.scen_tree.max_depth
+    sim = loop_sim(dcfg, 1.0, 150, data_root)
+    replay, init = gc.GraphProgram.replay, gc.GraphProgram.__init__
+    modes, spans, builds = [], [], []
+
+    def timed_replay(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(self)
+        b.record()
+        spans.append((a, b))
+
+    def timed_init(self, *args, **kw):
+        t = time.perf_counter()
+        init(self, *args, **kw)
+        builds.append(time.perf_counter() - t)
+
+    gc.GraphProgram.replay, gc.GraphProgram.__init__ = timed_replay, timed_init
+    before = episode.programs()
+    try:
+        fa.reset_launch_counts()
+        gc.set_conditional_any.launches = 0
+        n0, r0, x0 = program_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        episode.run_episode(sim)
+        warm_s = time.perf_counter() - t
+        n1, r1, x1 = program_counts()
+        modes.clear()
+        spans.clear()
+        t = time.perf_counter()
+        res = episode.run_episode(sim)
+        wall = time.perf_counter() - t
+        n2, r2, x2 = program_counts()
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(fa.fused_edge_attention.launches_by_variant)
+        cond_launches = gc.set_conditional_any.launches
+        cycle_ms = [a.elapsed_time(b) for a, b in spans]
+    finally:
+        gc.GraphProgram.replay, gc.GraphProgram.__init__ = replay, init
+    fields = ("ego_states", "plan_ok", "planned", "iterations", "controls")
+    same = {f: bool(np.array_equal(getattr(res, f), getattr(eager, f))) for f in fields}
+    gap = (float(np.abs(res.ego_states[:, :2] - loop_ego[:, :2]).max())
+           if res.ego_states.shape == loop_ego.shape else float("inf"))
+    (prog,) = [p for p in episode.programs() if all(p is not q for q in before)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dot = os.path.join(tmp, "episode.dot")
+        prog.program.dot(dot)
+        text = open(dot).read()
+    kernel_b_nodes = sum("edge_attention_bf16_kernel" in line for line in text.splitlines())
+    # one planning cycle (cycle 10: the planner comes on at tick 50) under
+    # the profiler, the program replayed on an 11-cycle schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        episode.run_episode(sim, horizon=55)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = busy_us(kernels) / 1e3
+    planned = res.planned.tolist()
+    summary = {
+        "ticks": len(res.ego_states), "plan_calls": res.plan_calls, "fail_cycle": res.fail_cycle,
+        "wall_s": wall, "warm_wall_s": warm_s, "program_build_s": builds,
+        "ticks_per_s": len(res.ego_states) / wall,
+        "eager_ticks_per_s": eager_summary["ticks_per_s"],
+        "planning_cycle_device_ms_mean": float(np.mean([m for m, p in zip(cycle_ms, planned)
+                                                        if p])),
+        "non_planning_cycle_device_ms_mean": float(np.mean([m for m, p in zip(cycle_ms, planned)
+                                                            if not p])),
+        "replays": len(cycle_ms), "sync_debug_modes": sorted(set(modes)),
+        "equal_to_eager": same, "ego_gap_to_loop_m": gap,
+        "programs_captured": n2 - n0, "device_rounds_timed": r2 - r1,
+        "device_rounds_warm": r1 - r0, "condition_kernel_runs_timed": x2 - x1,
+        "condition_kernel_launches": cond_launches, "launches": counts,
+        "kernel_b_executions_timed": layers * (r2 - r1),
+        "kernel_b_nodes_in_graph": kernel_b_nodes, "peak_memory_gb": peak / 1e9,
+        "profile_one_planning_cycle": {"wall_ms": prof_wall * 1e3, "device_kernels": len(kernels),
+                                       "device_busy_ms": busy_ms,
+                                       "device_busy_share": busy_ms / (prof_wall * 1e3)},
+        "iterations": res.iterations[res.planned].tolist()}
+    log("[compiled] " + json.dumps(summary))
+    if res.fail_cycle != -1 or not gap < TOL_EPISODE_EGO or res.plan_calls != eager.plan_calls:
+        raise RuntimeError(f"compiled episode disagrees with the closed loop: {summary}")
+    if not all(same.values()):
+        raise RuntimeError(f"compiled episode differs from the eager loop: {same}")
+    if modes != [2] * len(res.planned) or len(cycle_ms) != len(res.planned):
+        raise RuntimeError(f"compiled replays ran outside sync debug mode 'error': {modes}")
+    if n2 - n0 != 1 or n2 != n1 or counts["float32"] != 0 or \
+            counts["bfloat16"] != captured_launches(layers, depth, 1) or r2 - r1 <= 0 or \
+            kernel_b_nodes != layers * depth:
+        raise RuntimeError(f"compiled episode: {n2 - n0} programs, launches {counts}, "
+                           f"{r2 - r1} device rounds, {kernel_b_nodes} kernel B nodes")
+    seg = episode.run_episode_segmented(sim, seg_cycles=4)
+    seg_same = {f: bool(np.array_equal(getattr(seg, f), getattr(res, f))) for f in fields}
+    log(f"[compiled] segmented (4-cycle segments, compiled) equal to the whole run: {seg_same}")
+    if not all(seg_same.values()) or seg.fail_cycle != res.fail_cycle:
+        raise RuntimeError(f"compiled segmented episode differs from the whole one: {seg_same}")
+    summary["segmented_equal"] = True
+    return counts["bfloat16"], layers * (r2 - r1), cond_launches, summary
+
+
+def first_decision(got, want):
     """The first cycle at which a lane of a batched run and the same
     scenario or copy run alone take a different discrete decision: plan or
-    not, plan ok, solver iteration count, selected tree. None if none."""
+    not, plan ok, solver iteration count. None if none."""
     for c in range(min(len(got.planned), len(want.planned))):
-        a = (bool(got.planned[c]), bool(got.plan_ok[c]), float(got.iterations[c]),
-             got_trees.get(c))
-        b = (bool(want.planned[c]), bool(want.plan_ok[c]), float(want.iterations[c]),
-             want_trees.get(c))
+        a = (bool(got.planned[c]), bool(got.plan_ok[c]), float(got.iterations[c]))
+        b = (bool(want.planned[c]), bool(want.plan_ok[c]), float(want.iterations[c]))
         if a != b:
             return {"cycle": c, "batched": a, "alone": b,
                     "control_gap": float(np.abs(got.controls[c] - want.controls[c]).max())}
     return None
 
 
-def against_single(got, want, got_trees, want_trees):
+def against_single(got, want):
     """A lane of a batched run against the same scenario or copy run alone:
     the failing cycles, plan counts, the ego's largest gap over the whole
     run, the first cycle at which the two take a different discrete
@@ -1016,7 +1328,7 @@ def against_single(got, want, got_trees, want_trees):
     gap = float(diff.max()) if diff is not None else float("inf")
     return {"fail_cycle": [got.fail_cycle, want.fail_cycle],
             "plan_calls": [got.plan_calls, want.plan_calls], "ego_gap_m": gap,
-            "first_decision_differing": first_decision(got, want, got_trees, want_trees),
+            "first_decision_differing": first_decision(got, want),
             "ok": got.fail_cycle == want.fail_cycle and got.plan_calls == want.plan_calls
             and gap < TOL_EPISODE_EGO}
 
@@ -1063,51 +1375,49 @@ def graph_pool_in_use():
 def phase_batched_episode(dcfg, fa, data_root):
     """run_episodes_batched over 4 synthetic AV2 scenarios (seeds 0-3, the AV
     asked for 8, 7, 9 and 6 m/s, so that the scenes' cost parameters
-    differ; planner on after 1 s, 150 ticks), a warm call then the timed
-    one, the launch counts set to 0 just before and read just after; each
-    scenario then held against its own run_episode."""
-    from mind_tpu_torch.planner import planner as tplanner
+    differ; planner on after 1 s, 150 ticks) through the compiled
+    'scenarios' program, a warm call (it captures) then the timed one, the
+    launch counts set to 0 just before and read just after: kernel B
+    launched only by the capture (program_counts, captured_launches) and
+    executed 6 times per AIME round of the batch (B = 32 nodes per round),
+    counted on the device; each scenario then held against its own
+    run_episode (its 'single' program)."""
     from mind_tpu_torch.sim import episode
 
     speeds = (8.0, 7.0, 9.0, 6.0)
     sims = [loop_sim(dcfg, 1.0, 150, data_root, seed, v) for seed, v in enumerate(speeds)]
-    counter = RoundCounter(tplanner.aime_grow_tree)
-    tplanner.aime_grow_tree = counter
-    phases, first_call = [], []
+    first_call = []
     net = sims[0].agents[[a.id for a in sims[0].agents].index("AV")].planner.net
     hook = net.register_forward_pre_hook(
         lambda m, args: first_call.append(args) if not first_call else None)
     try:
         fa.reset_launch_counts()
+        n0, _, _ = program_counts()
         t = time.perf_counter()
         episode.run_episodes_batched(sims)
         warm_s = time.perf_counter() - t
+        n1, r1, _ = program_counts()
         t = time.perf_counter()
-        res = episode.run_episodes_batched(sims, phases=phases)
+        res = episode.run_episodes_batched(sims)
         wall = time.perf_counter() - t
+        n2, r2, _ = program_counts()
         counts = dict(fa.fused_edge_attention.launches_by_variant)
     finally:
-        tplanner.aime_grow_tree = counter.fn
         hook.remove()
     pool_bytes, pool_blocks = graph_pool_in_use()
-    planning = [p for p in phases if "solve" in p]
-    timed_rounds = sum(p["rounds"] for p in planning)
-    split = {k: float(np.mean([p[k] * 1e3 for p in planning]))
-             for k in ("obs", "aime", "cost_topology", "solve", "selection", "propagate")}
+    layers, depth = dcfg.net.n_scene_layer, dcfg.scen_tree.max_depth
     summary = {
         "scenes": len(sims), "target_velocities": speeds, "wall_s": wall, "warm_wall_s": warm_s,
         "scene_ticks_per_s": sum(len(r.ego_states) for r in res) / wall,
         "plan_calls": [r.plan_calls for r in res], "fail_cycle": [r.fail_cycle for r in res],
-        "planning_cycle_ms_mean": float(np.mean([sum(p[k] for k in split) * 1e3
-                                                 for p in planning])),
-        "phases_ms_mean_planning_cycle": split, "rounds_timed_call": timed_rounds,
-        "rounds_both_calls": counter.rounds, "launches": counts,
+        "programs_captured": n2 - n0, "device_rounds_timed": r2 - r1, "launches": counts,
+        "kernel_b_executions_timed": layers * (r2 - r1),
         "graph_pool_live_bytes": pool_bytes, "graph_pool_live_blocks": pool_blocks}
     log("[batched] " + json.dumps(summary))
-    layers = dcfg.net.n_scene_layer
-    if counts["bfloat16"] != layers * counter.rounds or counts["float32"] != 0 \
-            or counter.rounds == 0 or counter.rounds != 2 * timed_rounds:
-        raise RuntimeError(f"batched episode: launches {counts} for {counter.rounds} AIME rounds")
+    if n2 - n0 != 1 or n2 != n1 or counts["float32"] != 0 or r2 - r1 <= 0 or \
+            counts["bfloat16"] != captured_launches(layers, depth, 1):
+        raise RuntimeError(f"batched episode: {n2 - n0} programs, launches {counts} for "
+                           f"{r2 - r1} device AIME rounds")
     if pool_bytes != 0:
         raise RuntimeError(f"the iLQR graphs hold {pool_bytes} bytes of tensors in their pool")
     summary["network_batch_gap"] = network_batch_gap(net, first_call[0],
@@ -1121,42 +1431,46 @@ def phase_batched_episode(dcfg, fa, data_root):
         if not np.isfinite(r.ego_states).all() or r.plan_calls == 0:
             raise RuntimeError(f"batched episode: scenario {i} planned {r.plan_calls} times, "
                                "or its ego is not finite")
-        alone = []
-        want = episode.run_episode(sim, phases=alone)
-        singles[i] = against_single(r, want, lane_trees(phases, i), lane_trees(alone, 0))
+        singles[i] = against_single(r, episode.run_episode(sim))
     summary["against_run_episode"] = singles
     log("[batched] each scenario against its run_episode: " + json.dumps(singles))
     hold_against_singles("batched episode", singles)
     return counts["bfloat16"], summary
 
 
+# the Monte-Carlo phase's segments-of-4 run covers the first 100 of the
+# 150 ticks (20 cycles, 10 planning)
+SEG_CHECK_TICKS = 100
+
+
 def phase_monte_carlo(dcfg, fa, data_root, k=16):
     """run_episode_monte_carlo on the loop's scenario (seed 0) under the demo
     configuration: k = 16 copies in one chunk, segments of 10 cycles, a warm
-    call then the timed one with the launch counts set to 0 just before and
+    call over the first 50 ticks (it captures the program) then the timed
+    one over 150, with the launch counts set to 0 just before and
     read just after, and the peak device memory of the timed chunk; then
-    segments of 4 (equal to the bit) and two copies through run_episode on
-    their own schedules (within TOL_EPISODE_EGO)."""
-    from mind_tpu_torch.planner import planner as tplanner
+    segments of 4 over the first SEG_CHECK_TICKS (equal to the bit) and two
+    copies through run_episode on their own schedules (within
+    TOL_EPISODE_EGO)."""
     from mind_tpu_torch.sim import episode
 
     sim = loop_sim(dcfg, 1.0, 150, data_root)
-    counter = RoundCounter(tplanner.aime_grow_tree)
-    tplanner.aime_grow_tree = counter
     walls = []
-    try:
-        fa.reset_launch_counts()
-        episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        phases = []
-        res = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10, chunk_walls=walls,
-                                              phases=phases)
-        wall = time.perf_counter() - t
-        counts = dict(fa.fused_edge_attention.launches_by_variant)
-    finally:
-        tplanner.aime_grow_tree = counter.fn
+    fa.reset_launch_counts()
+    n0, _, _ = program_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the warm call captures the program the timed one replays: segments of
+    # 10 cycles, here over the first 50 ticks (the same shapes)
+    episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10, horizon=50)
+    warm_peak = torch.cuda.max_memory_allocated()
+    n1, r1, _ = program_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10, chunk_walls=walls)
+    wall = time.perf_counter() - t
+    n2, r2, _ = program_counts()
+    counts = dict(fa.fused_edge_attention.launches_by_variant)
     peak = torch.cuda.max_memory_allocated()
     failed = [i for i, r in enumerate(res) if r.fail_cycle >= 0]
     summary = {"copies": len(res), "wall_s": wall, "chunk_walls": walls,
@@ -1164,26 +1478,35 @@ def phase_monte_carlo(dcfg, fa, data_root, k=16):
                "copy_ticks_per_s_full_horizon": k * 150 / wall,
                "failed_copies": len(failed), "fail_cycles": [res[i].fail_cycle for i in failed],
                "plan_calls": [r.plan_calls for r in res], "peak_memory_gb": peak / 1e9,
-               "rounds_both_calls": counter.rounds, "launches": counts}
+               "peak_memory_gb_warm_call_with_capture": warm_peak / 1e9,
+               "programs_captured": n2 - n0, "device_rounds_timed": r2 - r1,
+               "kernel_b_executions_timed": dcfg.net.n_scene_layer * (r2 - r1),
+               "launches": counts}
     log("[monte_carlo] " + json.dumps(summary))
     if len(res) != k or not all(np.isfinite(r.ego_states).all() for r in res):
         raise RuntimeError(f"monte carlo: {len(res)} copies, or a copy's states are not finite")
-    if counts["bfloat16"] != dcfg.net.n_scene_layer * counter.rounds or counts["float32"] != 0 \
-            or counter.rounds == 0:
-        raise RuntimeError(f"monte carlo: launches {counts} for {counter.rounds} AIME rounds")
-    seg = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=4)
+    if n2 - n0 != 1 or n2 != n1 or counts["float32"] != 0 or r2 - r1 <= 0 or \
+            counts["bfloat16"] != captured_launches(dcfg.net.n_scene_layer,
+                                                    dcfg.scen_tree.max_depth, 1):
+        raise RuntimeError(f"monte carlo: {n2 - n0} programs, launches {counts} for "
+                           f"{r2 - r1} device AIME rounds")
+    # segments of 4 over the first SEG_CHECK_TICKS: the same schedule's
+    # prefix, so the same cycles to the bit
+    seg = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=4,
+                                          horizon=SEG_CHECK_TICKS)
+    cycles = SEG_CHECK_TICKS // 5
     for i, (a, b) in enumerate(zip(seg, res)):
         for f in ("ego_states", "plan_ok", "planned", "iterations", "controls"):
-            if not np.array_equal(getattr(a, f), getattr(b, f)):
+            n = SEG_CHECK_TICKS if f == "ego_states" else cycles
+            if not np.array_equal(getattr(a, f), getattr(b, f)[:n]):
                 raise RuntimeError(f"monte carlo: copy {i}'s {f} differs between segments of "
                                    "4 and of 10 cycles")
     summary["segments_4_equal_10"] = True
     inp = episode.build_mc_inputs(sim, k)
     singles = {}
     for i in (0, k - 1):
-        alone = []
-        want = episode.run_episode(sim, inputs=episode.lane_inputs(inp, i), phases=alone)
-        singles[i] = against_single(res[i], want, lane_trees(phases, i), lane_trees(alone, 0))
+        want = episode.run_episode(sim, inputs=episode.lane_inputs(inp, i))
+        singles[i] = against_single(res[i], want)
     summary["against_run_episode"] = singles
     log("[monte_carlo] segments of 4 equal to 10; copies against run_episode: "
         + json.dumps(singles))
@@ -1578,7 +1901,7 @@ def phase_host_tree(cfg, net, scene, aime, scene_statics, fa, dev):
     n_dev_trees = len({int(x) for x in tid if x >= 0})
     summary = {"trees": len(host_trees), "device_trees": n_dev_trees,
                "nodes": len(host_nodes), "device_nodes": len(dev_nodes), "rounds": rounds,
-               "device_rounds": dev_rounds, "root_child_gap_m": gap, "launches": counts,
+               "device_rounds": int(dev_rounds), "root_child_gap_m": gap, "launches": counts,
                "host_generator_s": host_s, "device_aime_s": device_s}
     log("[host tree] " + json.dumps(summary))
     if not host_trees or n_dev_trees != len(host_trees) or dev_nodes != host_nodes \
@@ -1596,14 +1919,16 @@ def phase_parity(dcfg, fa, data_root, syn):
     network on the card: run_parity_episode_playback (150 ticks, planner on
     after 1 s) and run_parity_demo_resync (demo_1's enable time of 4 s,
     RESYNC_TICKS ticks). Each must show zero ok flips and a mean cycle
-    deviation within 1e-3 m, and kernel B launched 6 times per AIME round
-    and per mirror forward, kernel A never (counts set to 0 just before
-    each run, read just after)."""
+    deviation within 1e-3 m, and kernel B launched 6 times per eager AIME
+    round and per mirror forward and by each episode program's capture
+    (the playback's episode is compiled: its rounds are counted on the
+    device), kernel A never (counts set to 0 just before each run, read
+    just after)."""
     from mind_tpu_torch.parity import host_planner
     from mind_tpu_torch.parity import runner
     from mind_tpu_torch.planner import planner as tplanner
 
-    layers = dcfg.net.n_scene_layer
+    layers, depth = dcfg.net.n_scene_layer, dcfg.scen_tree.max_depth
     out = {}
     for name, run in (
             ("parity_playback", lambda: runner.run_parity_episode_playback(
@@ -1616,9 +1941,11 @@ def phase_parity(dcfg, fa, data_root, syn):
         host_planner.HostRefPlanner._predict = forwards
         try:
             fa.reset_launch_counts()
+            n0, r0, _ = program_counts()
             t = time.perf_counter()
             r = run()
             wall = time.perf_counter() - t
+            n1, r1, _ = program_counts()
             counts = dict(fa.fused_edge_attention.launches_by_variant)
         finally:
             tplanner.aime_grow_tree = rounds.fn
@@ -1626,8 +1953,9 @@ def phase_parity(dcfg, fa, data_root, syn):
         plans = len(r["records"]) if "records" in r else r["plans"]
         summary = {k: r[k] for k in ("plans_compared", "ok_mismatches", "max_cycle_dev",
                                      "mean_cycle_dev", "max_ctrl_dev")}
-        summary.update(plans=plans, device_rounds=rounds.rounds,
-                       mirror_forwards=forwards.calls, launches=counts, wall_s=wall)
+        summary.update(plans=plans, eager_rounds=rounds.rounds, programs_captured=n1 - n0,
+                       program_rounds=r1 - r0, mirror_forwards=forwards.calls,
+                       launches=counts, wall_s=wall)
         if name == "parity_playback":
             summary.update(episode_wall_s=r["episode_wall_s"], mirror_wall_s=r["mirror_wall_s"],
                            mirror_s_per_plan=r["mirror_wall_s"] / max(plans, 1),
@@ -1640,10 +1968,12 @@ def phase_parity(dcfg, fa, data_root, syn):
             raise RuntimeError(f"{name}: parity criterion failed: {summary}")
         if name == "parity_resync" and plans < 5:
             raise RuntimeError(f"{name}: {plans} plans, fewer than 5")
-        launched = layers * (rounds.rounds + forwards.calls)
-        if counts["bfloat16"] != launched or counts["float32"] or not rounds.rounds \
-                or not forwards.calls:
-            raise RuntimeError(f"{name}: launches {counts} for {rounds.rounds} AIME rounds and "
+        launched = layers * (rounds.rounds + forwards.calls) + \
+            captured_launches(layers, depth, n1 - n0)
+        if counts["bfloat16"] != launched or counts["float32"] or \
+                not rounds.rounds + (r1 - r0) or not forwards.calls:
+            raise RuntimeError(f"{name}: launches {counts} for {rounds.rounds} eager AIME rounds, "
+                               f"{n1 - n0} programs captured ({r1 - r0} rounds replayed) and "
                                f"{forwards.calls} mirror forwards")
         out[name] = (counts["bfloat16"], summary)
     return out
@@ -1935,7 +2265,7 @@ def phase_scripts(fa):
 # configuration, K copies in chunks of DIST_PER_RANK copies per rank, over
 # DIST_TICKS ticks; phase 13's tree batch; DIST_TRAIN_STEPS float32 training
 # steps of phase 14's batch (2 scenes per rank)
-DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 100
+DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 70
 DIST_TRAIN_STEPS = 5
 DIST_TIMEOUT_S = 600
 
@@ -1958,19 +2288,21 @@ def dist_sequential(fa, mesh, spec, net_cfg, batch, dev):
     from mind_tpu_torch.models import train
     from mind_tpu_torch.parallel.scale import make_tree_batch, parallel_tree_solve
     from mind_tpu_torch.planner.ilqr import ILQRConfig
-    from mind_tpu_torch.sim.episode import run_episode_monte_carlo
+    from mind_tpu_torch.sim.episode import program_rounds, run_episode_monte_carlo
 
     out = {}
     sim = spec.build(dev)
     walls = []
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    rounds = program_rounds()
     t = time.perf_counter()
     out["results"] = run_episode_monte_carlo(sim, k=DIST_K, chunk=DIST_PER_RANK, seg_cycles=10,
                                              mesh=mesh, chunk_walls=walls)
     torch.cuda.synchronize()
     out.update(wall_s=time.perf_counter() - t, chunk_walls=walls,
-               launches=dict(fa.fused_edge_attention.launches_by_variant))
+               launches=dict(fa.fused_edge_attention.launches_by_variant),
+               aime_rounds=program_rounds() - rounds)
     del sim
     tree = make_tree_batch(1024, 24, 32, 24, 4, 4, device=mesh.devices[0])
     solve = lambda: parallel_tree_solve(mesh, *tree, ILQRConfig(max_iterations=10))
@@ -1995,9 +2327,11 @@ def dist_sequential(fa, mesh, spec, net_cfg, batch, dev):
 def hold_dist(label, ranks, seq):
     """Each rank's copies, trees and training equal to the sequential
     mesh's, to the bit, and the parameters equal across ranks; kernel B
-    launched by the ranks' sweeps as often as by the sequential one (the
-    same shards), 6 per AIME round, kernel A never; kernel A 6 times per
-    training forward, B never. Returns the summary of the comparison."""
+    executed by the ranks' sweeps as often as by the sequential one (the
+    same shards: as many AIME rounds of the compiled episode programs,
+    counted on the device), launched in multiples of 6 (the programs'
+    captures), kernel A never; kernel A 6 times per training forward, B
+    never. Returns the summary of the comparison."""
     for r, rank in enumerate(ranks):
         mc, tree, tr = rank["monte_carlo"], rank["tree_solve"], rank["train"]
         if len(mc["results"]) != DIST_K:
@@ -2022,10 +2356,10 @@ def hold_dist(label, ranks, seq):
                 tr["launches"] != {"float32": 6 * DIST_TRAIN_STEPS, "bfloat16": 0}:
             raise RuntimeError(f"{label}: rank {r}'s launches: sweep {n}, training "
                                f"{tr['launches']}")
-    total = sum(rank["monte_carlo"]["launches"]["bfloat16"] for rank in ranks)
-    if total != seq["launches"]["bfloat16"] or seq["launches"]["float32"] != 0:
-        raise RuntimeError(f"{label}: the ranks launched kernel B {total} times, the "
-                           f"sequential sweep {seq['launches']}")
+    total = sum(rank["monte_carlo"]["aime_rounds"] for rank in ranks)
+    if total != seq["aime_rounds"] or not total or seq["launches"]["float32"] != 0:
+        raise RuntimeError(f"{label}: the ranks' programs ran {total} AIME rounds, the "
+                           f"sequential sweep's {seq['aime_rounds']} (launches {seq['launches']})")
     ticks = DIST_K * DIST_TICKS
     rank_wall = max(rank["monte_carlo"]["wall_s"] for rank in ranks)
     last = lambda walls: (walls[-1][1] - walls[-1][0]) * DIST_TICKS / walls[-1][2]
@@ -2046,6 +2380,8 @@ def hold_dist(label, ranks, seq):
             "train_losses": seq["losses"],
             "launches_by_rank": [{"monte_carlo": rank["monte_carlo"]["launches"],
                                   "train": rank["train"]["launches"]} for rank in ranks],
+            "aime_rounds": {"ranks": [rank["monte_carlo"]["aime_rounds"] for rank in ranks],
+                            "one_process": seq["aime_rounds"]},
             "one_process_launches": seq["launches"]}
 
 
@@ -2164,6 +2500,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     probe_s = phase_probe()
     laps = {"probe": time.perf_counter() - T0}
+    # the CPU halves of phases 7 and 4 run in a child beside the card's phases
+    cpu_child = CpuReferences()
 
     def lap(name):
         """Seconds of the phase that just ended, since the previous lap."""
@@ -2180,6 +2518,7 @@ def main() -> int:
     token_mask = torch.tensor(np.concatenate([scene.present, scene.lane_mask, [True]]),
                               device=dev)
     entries = phase_kernel_check(fa, dev, token_mask)
+    entries.append(phase_condition_kernel(dev))
     lap("kernels")
 
     # 3. trained weights
@@ -2194,22 +2533,10 @@ def main() -> int:
     entries[0]["launches"], cycles32, first = run_path("plan", "float32", cfg, net, *common)
     lap("float32_path")
 
-    # the first cycle again on the CPU, through the plain version
+    # the first cycle again on the CPU, through the plain version, in the
+    # child (held where phase 7 reads the child's results, after 12b)
     out0, best0, buf0 = first
-    cpu = torch.device("cpu")
-    net_cpu = load_scene_pred(cfg.net, DEFAULT_WEIGHTS, cpu)
-    report = {}
-    t = time.perf_counter()
-    out_cpu = plan_once(mods, net_cpu, cfg, World(scene),
-                        aime.DeviceObsBuffer(*(t.cpu() for t in buf0)),
-                        scene_statics(scene, getattr(torch, cfg.pipeline_dtype), cpu), cpu,
-                        report)
-    log(f"[reference] CPU plain plan: out={out_cpu.tolist()} best={int(report['best'])} "
-        f"in {time.perf_counter() - t:.1f} s")
-    if out_cpu[2] != out0[2] or int(report["best"]) != best0 or \
-            np.abs(out_cpu[:2] - out0[:2]).max() > 1e-3:
-        raise RuntimeError(f"card plan {out0} (tree {best0}) disagrees with the CPU "
-                           f"plan {out_cpu} (tree {int(report['best'])})")
+    cpu_child.send(buf0)
 
     # 4a. the host tree generator against the device AIME, float32 network
     host_tree_launches, host_tree = phase_host_tree(cfg, net, scene, aime, scene_statics, fa,
@@ -2245,26 +2572,21 @@ def main() -> int:
     # scenario in memory
     syn = synthetic_av2(SEED)
 
-    def float32_cfg():
-        """The float32 defaults with the trained weights."""
-        c = PlannerConfig()
-        c.ckpt_path = str(DEFAULT_WEIGHTS)
-        return c
-
     loop_launches, loop, loop_ego = phase_closed_loop(dcfg, fa, syn, LANE_W, AV2_ORIGIN)
     lap("closed_loop")
     command_launches, command = phase_demo_command(fa, loop, loop_ego, card)
     lap("demo_command")
     with tempfile.TemporaryDirectory() as data_root:
-        loop32_launches, loop32 = phase_float32_loop(float32_cfg(), fa, data_root)
-        lap("float32_loop")
         execs = phase_exec_resolve(float32_cfg, data_root)
         lap("exec_resolve")
         graph = phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev)
         lap("graph_vs_eager")
-        episode_launches, episode = phase_episode(dcfg, fa, data_root, loop_ego,
-                                                  loop["plan_calls"])
+        episode_launches, episode, eager_episode = phase_episode(dcfg, fa, data_root, loop_ego,
+                                                                 loop["plan_calls"])
         lap("episode")
+        compiled_launches, compiled_executions, cond_launches, compiled = phase_compiled(
+            dcfg, fa, data_root, loop_ego, eager_episode, episode)
+        lap("compiled")
         batched_launches, batched = phase_batched_episode(dcfg, fa, data_root)
         lap("batched_episode")
         mc_launches, monte_carlo = phase_monte_carlo(dcfg, fa, data_root)
@@ -2273,6 +2595,17 @@ def main() -> int:
         # file with the loop's scenario, whose map loop_sim wrote under demo_1's seq_id
         parity = phase_parity(dcfg, fa, data_root, syn)
         lap("parity")
+        # 7. (and phase 4's reference plan) last in this block: the child that
+        # runs their CPU halves has had the phases above to finish
+        out_cpu, best_cpu, cpu_plan_s = cpu_child.get("plan")
+        log(f"[reference] CPU plain plan: out={out_cpu.tolist()} best={best_cpu} "
+            f"in {cpu_plan_s:.1f} s (in the child)")
+        if out_cpu[2] != out0[2] or best_cpu != best0 or \
+                np.abs(out_cpu[:2] - out0[:2]).max() > 1e-3:
+            raise RuntimeError(f"card plan {out0} (tree {best0}) disagrees with the CPU "
+                               f"plan {out_cpu} (tree {best_cpu})")
+        loop32_launches, loop32 = phase_float32_loop(float32_cfg(), fa, data_root, cpu_child)
+        lap("float32_loop")
     scale = phase_tree_scale()
     lap("tree_scale")
     train_launches, training = phase_training(fa, dev, synthetic_av2)
@@ -2301,6 +2634,13 @@ def main() -> int:
                                       "bench": bench_launches["bfloat16"],
                                       "scripts": scripts_launches["bfloat16"],
                                       "dist": dist_launches["bfloat16"]}
+    # the compiled programs launch kernel B when they capture; their replays
+    # execute it layers x the device's AIME rounds
+    entries[1]["launches_by_path"]["compiled_episode"] = compiled_launches
+    entries[1]["executions_by_path"] = {"compiled_episode_timed": compiled_executions}
+    entries[2]["launches_by_path"] = {"compiled_episode": cond_launches}
+    entries[2]["executions_by_path"] = {
+        "compiled_episode_timed": compiled["condition_kernel_runs_timed"]}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
 
@@ -2311,6 +2651,7 @@ def main() -> int:
                                   "demo_command": command,
                                   "float32_loop": loop32, "exec_resolve": execs,
                                   "graph_vs_eager": graph, "episode": episode,
+                                  "compiled": compiled,
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
                                   **{k: v[1] for k, v in parity.items()},
                                   "tree_scale": scale, "training": training,

@@ -279,11 +279,13 @@ def bench_phases(pl):
 # ---------------------------------------------------------------------------
 
 def graph_captures() -> int:
-    """CUDA graphs the tree iLQR has captured in this process so far
-    (planner/ilqr.py; none off the card)."""
+    """CUDA graphs captured in this process so far: the tree iLQR's
+    (planner/ilqr.py) and the episode programs' (sim/episode.py); none off
+    the card."""
     from mind_tpu_torch.planner import ilqr
+    from mind_tpu_torch.sim import episode
 
-    return len(ilqr._GRAPHS.graphs)
+    return len(ilqr._GRAPHS.graphs) + len(episode.programs())
 
 
 def section_per_demo(sims):

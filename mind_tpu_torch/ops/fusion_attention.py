@@ -56,8 +56,11 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _COMMON = _CSRC / "fusion_common.cuh"
-_SRCS = {"float32": _CSRC / "fusion_attention.cu",
-         "bfloat16": _CSRC / "fusion_attention_bf16.cu"}
+# every CUDA source of the port, each with the headers it includes: the two
+# fusion kernels and the graph-control library (ops/graph_control.py)
+_SRCS = {"float32": (_CSRC / "fusion_attention.cu", _COMMON),
+         "bfloat16": (_CSRC / "fusion_attention_bf16.cu", _COMMON),
+         "graph_control": (_CSRC / "graph_control.cu",)}
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -176,13 +179,15 @@ def fused_edge_attention_bf16_ref(node, edge, key_mask, w: FusionWeights,
 
 
 def _library_path(variant: str) -> Path:
-    h = hashlib.sha256(_SRCS[variant].read_bytes() + _COMMON.read_bytes())
-    return _BUILD_DIR / f"lib{_SRCS[variant].stem}_{h.hexdigest()[:12]}.so"
+    files = _SRCS[variant]
+    h = hashlib.sha256(b"".join(f.read_bytes() for f in files))
+    return _BUILD_DIR / f"lib{files[0].stem}_{h.hexdigest()[:12]}.so"
 
 
 def compile_kernels() -> dict:
-    """Compile both kernels where their libraries are missing (once per
-    source hash, the two nvcc runs side by side); returns {variant: path}.
+    """Compile every CUDA source of the port (both fusion kernels and
+    csrc/graph_control.cu) where its library is missing (once per source
+    hash, one nvcc per source, all side by side); returns {name: path}.
     Runs nvcc only: it neither loads a library nor touches a card, so a
     process can build for others it starts (parallel/launch.py). Raises on
     any build failure."""
@@ -197,13 +202,13 @@ def compile_kernels() -> dict:
         for v in missing:
             tmp = paths[v].with_suffix(f".{os.getpid()}.tmp")
             procs[v] = (tmp, subprocess.Popen(
-                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRCS[v])],
+                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRCS[v][0])],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         results = {v: (tmp, proc.communicate()[1], proc.returncode)
                    for v, (tmp, proc) in procs.items()}
         for v, (tmp, err, rc) in results.items():
             if rc != 0:
-                raise RuntimeError(f"nvcc failed on {_SRCS[v].name} ({rc}):\n{err}")
+                raise RuntimeError(f"nvcc failed on {_SRCS[v][0].name} ({rc}):\n{err}")
             build_kernels.log[v] = err
             os.replace(tmp, paths[v])
     return paths
@@ -217,7 +222,7 @@ def build_kernels() -> dict:
         return build_kernels.libs
     paths = compile_kernels()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    libs = {v: ctypes.CDLL(str(so)) for v, so in paths.items()}
+    libs = {v: ctypes.CDLL(str(paths[v])) for v in ("float32", "bfloat16")}
     fn = libs["float32"].fused_edge_attention_f32
     fn.argtypes = [ptr] * 29 + [i32] * 3 + [ptr]
     fn.restype = i32

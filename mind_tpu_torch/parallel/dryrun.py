@@ -120,14 +120,15 @@ def monte_carlo(mesh, spec, k: int, chunk: int = 1, seg_cycles: int = 10,
     """run_episode_monte_carlo(mesh=<this rank>) on `spec`
     (sim/simulator.py::SimSpec) built on the rank's device: every copy's
     EpisodeResult, this rank's chunk walls, the sweep's wall seconds (the
-    ranks start it together, after a barrier), the build seconds and this
-    rank's kernel launches by variant over the sweep. With `single`, rank 0
-    then runs the same k copies as one chunk in this one process
-    (`single_results`)."""
+    ranks start it together, after a barrier), the build seconds, this
+    rank's kernel launches by variant over the sweep and the AIME rounds
+    its compiled episode programs ran (kernel B runs a layer's worth each;
+    none off the card). With `single`, rank 0 then runs the same k copies
+    as one chunk in this one process (`single_results`)."""
     import torch.distributed as dist
 
     from mind_tpu_torch.ops import fusion_attention as fa
-    from mind_tpu_torch.sim.episode import run_episode_monte_carlo
+    from mind_tpu_torch.sim.episode import program_rounds, run_episode_monte_carlo
 
     t = time.perf_counter()
     sim = spec.build(mesh.device)
@@ -136,12 +137,13 @@ def monte_carlo(mesh, spec, k: int, chunk: int = 1, seg_cycles: int = 10,
     walls = []
     dist.barrier(group=mesh.group)
     fa.reset_launch_counts()
+    rounds = program_rounds()
     t = time.perf_counter()
     res = run_episode_monte_carlo(sim, chunk=chunk, deadline=deadline, mesh=mesh,
                                   chunk_walls=walls, **kw)
     _sync(mesh)
     out = {"results": res, "chunk_walls": walls, "wall_s": time.perf_counter() - t,
-           "build_s": build_s, "launches": _launches()}
+           "build_s": build_s, "launches": _launches(), "aime_rounds": program_rounds() - rounds}
     if single and mesh.rank == 0:
         out["single_results"] = run_episode_monte_carlo(sim, chunk=k, **kw)
     return out

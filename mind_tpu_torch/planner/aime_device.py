@@ -7,11 +7,12 @@ renormalization and per-root-child tree ids all run as tensor code with
 fixed shapes, over a leading axis of S scenes (the JAX package vmaps its
 single-scene program). Each round runs the network once over the S * B
 selected nodes; every scene keeps its own branch set, slot allocation and
-dump row. The JAX package skips an empty round with lax.cond; here the
-round loop reads one flag per round on the host, for all scenes together,
-and stops at the first round in which no scene has a node to expand. A
-scene without one goes through a round unchanged, to the bit: none of its
-nodes is selected, so every write of the round lands in its dump row.
+dump row. The JAX package skips an empty round with lax.cond; here each of
+the max_depth rounds is `graph_control.device_if` on the branch flags of
+all scenes together: an IF node inside a captured program, one host read
+per round outside. A scene without a node to expand goes through a round
+unchanged, to the bit: none of its nodes is selected, so every write of the
+round lands in its dump row.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from mind_tpu_torch.common import batch_invariant
 from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.config import PlannerConfig
+from mind_tpu_torch.ops import graph_control
 from mind_tpu_torch.planner.scene_prep import (
     OBS_LEN,
     LaneGraphStatic,
@@ -180,7 +182,8 @@ def aime_grow_tree(net, cfg: PlannerConfig, buf: DeviceObsBuffer, actor_type,
     scenes or a long tensor [S]); `scene_axis` gives one scene's inputs
     that axis. `init_state` continues growing given trees (a scene whose
     branch flags are spent goes through unchanged); None starts from the
-    roots. Returns (state, meta, number of rounds run)."""
+    roots. Returns (state, meta, number of rounds run as a long tensor []
+    on the device)."""
     scen = cfg.scen_tree
     MN = scen.max_tree_nodes
     B = scen.max_branch_nodes
@@ -192,7 +195,9 @@ def aime_grow_tree(net, cfg: PlannerConfig, buf: DeviceObsBuffer, actor_type,
 
     root_pos, root_ang, root_vel, root_obs = nn_fill_window(buf)      # [S, A, 50, ...]
     root_cov = torch.full((S, A, OBS_LEN), 1e-5, dtype=torch.float64, device=dev)
-    state = _init_tree_state(cfg, S, A, dtype, dev) if init_state is None else init_state
+    # a copy of init_state: the rounds update the state in place
+    state = (_init_tree_state(cfg, S, A, dtype, dev) if init_state is None
+             else graph_control.clone(init_state))
     ar_MN = torch.arange(MN, device=dev).expand(S, MN)
     ar_obs = torch.arange(OBS_LEN, device=dev)
     s_idx = torch.arange(S, device=dev)[:, None]                      # [S, 1]
@@ -300,12 +305,15 @@ def aime_grow_tree(net, cfg: PlannerConfig, buf: DeviceObsBuffer, actor_type,
             n_nodes=torch.clamp(state.n_nodes + ok.sum(-1), max=MN),
         )
 
-    rounds = 0
+    rounds = torch.zeros((), dtype=torch.long, device=dev)
+
+    def round_in_place():
+        graph_control.assign(state, one_round(state))
+        rounds.add_(1)
+
     for _ in range(scen.max_depth):
-        if not bool(state.branch_flag.any()):   # one host read per round, all scenes
-            break
-        state = one_round(state)
-        rounds += 1
+        # lax.cond on the device's flags; a round without one is skipped
+        graph_control.device_if(state.branch_flag, round_in_place)
 
     # --- end-flag propagation to ancestors ---
     end = state.end_flag

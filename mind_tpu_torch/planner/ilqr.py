@@ -1,19 +1,23 @@
 """Batched tree-structured iLQR (port of mind_tpu/planner/ilqr.py).
 
 The JAX package vmaps a `lax.while_loop` solver over trees; here a batch
-axis G of trees is written out and the loop runs in Python until no tree is
-active. Finished trees keep their state while the others iterate, as under
-vmap. On the card the loop body (`_iterate`) is one captured CUDA graph,
-replayed REPLAYS_PER_READ times per host read of the run mask; on the CPU it
-runs eagerly, one host read per iteration.
+axis G of trees is written out and the loop runs until no tree is active.
+Finished trees keep their state while the others iterate, as under vmap.
+The loop is `graph_control.device_while` over the run mask: inside a
+captured program (the episode program, sim/episode.py) a WHILE node of
+its CUDA graph, with no host read; on the CPU an eager loop with one host
+read per iteration. On the card outside a program, the loop body
+(`_iterate`) is one captured CUDA graph, replayed REPLAYS_PER_READ times per
+host read of the run mask.
 
 - topology as index arrays: `level_table[g, l]` lists the node slots at
   tree depth l (padded with -1); `parent[g, n]` is each node's parent slot
   (-1 = attached to the root state x0);
-- forward rollout: a Python loop over depth levels (trimmed to the deepest
-  level in use, read once per solve: empty levels are no-ops), each level
-  one batched dynamics step gathered from parents, with a dump slot MN for
-  the -1 ids;
+- forward rollout: a Python loop over all depth levels of the topology
+  (as the JAX package's fixed shapes: a level that holds no node writes
+  only the dump slot MN and adds zeros in the backward sweep, so it changes
+  nothing), each level one batched dynamics step gathered from parents,
+  with the dump slot MN for the -1 ids;
 - derivatives: the analytic jacobians of the bicycle step and the cost
   expansion of ops/potential.py at (x_new, u) per node;
 - backward pass: reverse level loop with the children's value sums added
@@ -28,6 +32,7 @@ runs eagerly, one host read per iteration.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 # a tree's result must not depend on how many trees share its solve
 from mind_tpu_torch.common.batch_invariant import mm as _mm, mv as _mv
 from mind_tpu_torch.common.kinematics import ext_bicycle_jacobians, ext_bicycle_step
+from mind_tpu_torch.ops import graph_control
 from mind_tpu_torch.ops.potential import (CostParams, NodeCostData, cost_node_eval, node_aligned,
                                           tree_axis_fields)
 
@@ -67,16 +73,16 @@ def _rows(a, ids):
 
 
 def _levels_in_use(topo: TreeTopology) -> int:
-    """Number of leading levels that hold a node in any tree (one host read)."""
+    """Number of leading levels that hold a node in any tree (one host read;
+    for reports: the solve runs every level)."""
     used = (topo.level_table >= 0).any(-1).any(0)   # [LV]
     return int(used.nonzero().max()) + 1 if bool(used.any()) else 0
 
 
-def _rollout(topo: TreeTopology, x0, us, dt, wb, n_levels=None):
+def _rollout(topo: TreeTopology, x0, us, dt, wb, n_levels):
     """Tree forward rollout: xs[n] = f(xs[parent[n]] or x0, us[n]).
     topo [G, ...], x0 [G, 6], us [G, MN, 2] -> xs [G, MN, 6]."""
     G, MN = us.shape[:2]
-    n_levels = _levels_in_use(topo) if n_levels is None else n_levels
     xs = x0.new_zeros((G, MN + 1, x0.shape[-1]))
     for lv in range(n_levels):
         ids = topo.level_table[:, lv]                           # [G, W]
@@ -314,24 +320,6 @@ def _iterate(inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int) -> _State
         L_xx=derivs[5], L_uu=derivs[6])
 
 
-def _flatten(tree):
-    """The tensors of nested NamedTuples, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, tuple):
-        return [t for x in tree for t in _flatten(x)]
-    return []
-
-
-def _unflatten(tree, tensors):
-    """`tree` with its tensors replaced, in order, by those of the iterator."""
-    if isinstance(tree, torch.Tensor):
-        return next(tensors)
-    if isinstance(tree, tuple):
-        return type(tree)(*(_unflatten(x, tensors) for x in tree))
-    return tree
-
-
 def _signature(tree):
     if isinstance(tree, torch.Tensor):
         return (tuple(tree.shape), tree.dtype)
@@ -359,9 +347,8 @@ class _GraphedIteration:
     would allocate it inside and keep it there."""
 
     def __init__(self, inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int, pool, side):
-        empty = lambda t: torch.empty(t.shape, dtype=t.dtype, device=t.device)
-        self.inp = _unflatten(inp, iter([empty(t) for t in _flatten(inp)]))
-        self.state = _State(*(empty(t) for t in st))
+        self.inp = graph_control.empty_like(inp)
+        self.state = graph_control.empty_like(st)
         self.cfg, self.n_levels = cfg, n_levels
         self.load(inp, st)
         # warm up on the side stream (cuBLAS handle and workspace, allocator)
@@ -375,15 +362,11 @@ class _GraphedIteration:
             self._body()
 
     def _body(self):
-        new = _iterate(self.inp, self.state, self.cfg, self.n_levels)
-        for s, n in zip(self.state, new):
-            s.copy_(n)
+        graph_control.assign(self.state, _iterate(self.inp, self.state, self.cfg, self.n_levels))
 
     def load(self, inp: _Inputs, st: _State):
-        for s, t in zip(_flatten(self.inp), _flatten(inp)):
-            s.copy_(t)
-        for s, t in zip(self.state, st):
-            s.copy_(t)
+        graph_control.assign(self.inp, inp)
+        graph_control.assign(self.state, st)
 
     def solve(self, inp: _Inputs, st: _State) -> _State:
         self.load(inp, st)
@@ -394,8 +377,8 @@ class _GraphedIteration:
 
 
 class _GraphCache:
-    """One captured iteration per (device, solver settings, levels in use,
-    input shapes and dtypes), all in one memory pool: graphs run one at a
+    """One captured iteration per (device, solver settings, levels, input
+    shapes and dtypes), all in one memory pool: graphs run one at a
     time on the caller's stream, and none keeps a tensor in the pool. One
     side stream per device serves every warm-up and capture."""
 
@@ -422,6 +405,24 @@ class _GraphCache:
 _GRAPHS = _GraphCache()
 
 
+@functools.lru_cache(maxsize=None)
+def _alphas(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The line search's step sizes 1.1^-(i^2), i < n, made once per dtype
+    and device: a captured program cannot copy them from the host."""
+    return torch.tensor(1.1 ** (-np.arange(n, dtype=np.float64) ** 2), dtype=dtype, device=device)
+
+
+def _solve_loop(inp: _Inputs, st: _State, cfg: ILQRConfig, n_levels: int) -> _State:
+    """The iterations as a device_while over the run mask, on a copy of
+    `st` updated in place (a WHILE node inside a captured program, an
+    eager loop with one host read per iteration outside)."""
+    st = graph_control.clone(st)
+    graph_control.device_while(
+        lambda: _running(st, inp.active, cfg),
+        lambda: graph_control.assign(st, _iterate(inp, st, cfg, n_levels)))
+    return st
+
+
 def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
                params: CostParams, cfg: ILQRConfig = ILQRConfig(), active=None,
                graphed=None):
@@ -431,27 +432,30 @@ def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
     [G] bool leaves trees out whose result is not needed (they keep their
     start). Returns (xs [G, MN, 6], us [G, MN, 2], info dict of [G]).
 
-    On a CUDA device each iteration is one replay of a captured CUDA graph
-    (`_GraphedIteration`), with one host read of the run mask per
-    REPLAYS_PER_READ replays; on the CPU the same `_iterate` runs eagerly,
-    one host read per iteration. `graphed=False` runs the eager loop on the
-    card too, to hold the two against each other; a capture that fails
-    raises."""
+    The iterations run over every level of the topology (a level without
+    a node changes nothing). Inside a captured program (graph_control) they
+    are a WHILE node of its graph. Outside one, on a CUDA device each
+    iteration is one replay of a captured CUDA graph (`_GraphedIteration`),
+    with one host read of the run mask per REPLAYS_PER_READ replays; on the
+    CPU the same `_iterate` runs eagerly, one host read per iteration.
+    `graphed=False` runs the eager loop on the card too, to hold the two
+    against each other; a capture that fails raises."""
     dt, wb = cfg.dt, cfg.wheelbase
     G, MN = us_init.shape[:2]
     dt_, dev = us_init.dtype, us_init.device
+    in_program = graph_control.capturing()
     if graphed is None:
-        graphed = dev.type == "cuda"
-    if graphed and dev.type != "cuda":
-        raise ValueError(f"a graphed solve needs a CUDA device, got {dev}")
+        graphed = dev.type == "cuda" and not in_program
+    if graphed and (dev.type != "cuda" or in_program):
+        raise ValueError(f"a graphed solve needs a CUDA device outside a captured program, "
+                         f"got {dev}")
     x0 = x0.expand(G, x0.shape[-1])
-    n_levels = _levels_in_use(topo)
+    n_levels = topo.level_table.shape[-2]
     if active is None:
         active = torch.ones(G, dtype=torch.bool, device=dev)
 
     NA = cfg.n_line_search
-    alphas = torch.tensor(1.1 ** (-np.arange(NA, dtype=np.float64) ** 2),
-                          dtype=dt_, device=dev)
+    alphas = _alphas(NA, dt_, dev)
     rep = lambda t: t.repeat_interleave(NA, dim=0)     # [G, ...] -> [G*NA, ...]
     per_tree = tree_axis_fields(params)
     for f in per_tree:
@@ -475,8 +479,7 @@ def ilqr_solve(topo: TreeTopology, x0, us_init, nodes: NodeCostData,
     if graphed:
         st = _GRAPHS.get(inp, st, cfg, n_levels).solve(inp, st)
     else:
-        while bool(_running(st, active, cfg).any()):          # one host read per iteration
-            st = _iterate(inp, st, cfg, n_levels)
+        st = _solve_loop(inp, st, cfg, n_levels)
 
     info = {"iterations": st.it, "J": st.J_opt, "converged": st.converged,
             "diverged": st.diverged}

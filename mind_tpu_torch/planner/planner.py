@@ -216,7 +216,7 @@ def _plan_cycle(net, bufs, types, amasks, x0s, warm_params, full_params, target_
 
 def batched_plan_core(net, bufs, types, amasks, x0s, warm_params, full_params, target_vels,
                       lane_statics, tgt_statics, eval_segs, *, cfg, ilqr_cfg, warm_ilqr_cfg,
-                      weights, report=None):
+                      weights, report=None, rounds_out=None):
     """The plan cycle of S scenes at once (the port's counterpart of the JAX
     package's `jax.vmap(fused_plan_core)`): every argument of
     fused_plan_core with a leading scene axis S (bufs, types, amasks, x0s
@@ -227,20 +227,26 @@ def batched_plan_core(net, bufs, types, amasks, x0s, warm_params, full_params, t
     the S * MAX_TREES trees are one solve, and each scene takes the argmin
     over its own trees (inf on masked ones), with the polish/scratch exec
     re-solve of the S winners as one batch where the configuration asks for
-    one (none with 'native'). The host reads one flag per AIME round and
-    one per solve iteration for all scenes together.
+    one (none with 'native'). Eagerly the host reads one flag per AIME
+    round and one per solve iteration for all scenes together; without a
+    report nothing here reads the host otherwise, so the whole cycle can be
+    captured into a graph program (ops/graph_control.py), where those loops
+    and branches are conditional nodes.
 
     Returns float32 [S, 4]: ctrl(2), ok, max iterations. `report` as in
     fused_plan_core, with per-scene lists for "best", "iterations" and
-    "warm_iterations"."""
+    "warm_iterations". `rounds_out`, a long tensor [] on the device, has
+    the cycle's AIME rounds added to it (the episode program's count)."""
     clock = _PhaseClock(amasks.device, report)
     out, _, _, dct, info, cost_b, best, rounds = _plan_cycle(
         net, bufs, types, amasks, x0s, warm_params, full_params, target_vels, lane_statics,
         tgt_statics, eval_segs, cfg=cfg, ilqr_cfg=ilqr_cfg, warm_ilqr_cfg=warm_ilqr_cfg,
         weights=weights, clock=clock)
+    if rounds_out is not None:
+        rounds_out.add_(rounds)
     if report is not None:
         S = len(best)
-        report.update(rounds=rounds, trees=dct, tree_cost=cost_b,
+        report.update(rounds=int(rounds), trees=dct, tree_cost=cost_b,
                       best=(best - MAX_TREES * torch.arange(S, device=best.device)).tolist(),
                       iterations=_masked_max(info["iterations"], dct.tree_mask, S).tolist(),
                       warm_iterations=_masked_max(info["warm_iterations"], dct.tree_mask,
@@ -277,7 +283,8 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
         warm_ilqr_cfg=warm_ilqr_cfg, weights=weights, clock=clock)
     out, best = out[0], best[0]
     if report is not None:
-        report.update(rounds=rounds, trees=dct._replace(n_trees=dct.n_trees[0]), tree_cost=cost_b,
+        report.update(rounds=int(rounds), trees=dct._replace(n_trees=dct.n_trees[0]),
+                      tree_cost=cost_b,
                       best=best, iterations=int(_masked_max(info["iterations"], dct.tree_mask, 1)),
                       warm_iterations=int(_masked_max(info["warm_iterations"],
                                                       dct.tree_mask, 1)))
@@ -657,8 +664,9 @@ class MINDPlanner:
             packed_np = torch.cat([
                 meta.parent[0].to(f64), meta.duration[0].to(f64), meta.end_flag[0].to(f64),
                 meta.tree_id[0].to(f64), meta.norm_prob[0], meta.n_nodes.to(f64),
+                rounds.to(f64)[None],
             ]).cpu().numpy()  # the one AIME-side read after the rounds
-        self.last_rounds = rounds
+        self.last_rounds = int(packed_np[5 * MN + 1])
 
         parent = packed_np[0:MN].astype(np.int64)
         duration = packed_np[MN:2 * MN].astype(np.int64)

@@ -1,43 +1,45 @@
 """The whole closed-loop episode on the device (port of mind_tpu/sim/episode.py).
 
-The JAX package compiles the rollout into one `lax.scan` over plan cycles.
-Here the cycles are a Python loop whose state stays on the device: the
-observation window, the ego state and its control are tensors carried from
-cycle to cycle, each plan is `fused_plan_core` (its tree iLQR one CUDA graph
-per iteration on the card), and the 5 ticks of 50 Hz propagation between
-plans run as float64 tensor ops. The host reads the plan's 4 numbers once per
-planning cycle (besides the reads inside AIME and the solve), and the ego's
-recorded states once, at the end.
+The JAX package compiles the rollout into one `lax.scan` over plan cycles,
+`episode_fn_for(planner, veh_param, dt, batch)` in four modes. The port's
+`episode_fn_for` takes the same modes and runs the cycles of L lanes from
+state on the device. One cycle (`_Cycles.cycle`) holds the observation
+update, the plan under `graph_control.device_if` on the enable tick, the
+failure latch, the 5 ticks of 50 Hz propagation in float64 and the writes
+into preallocated [L, C, ...] output buffers, with the cycle index and the
+enable tick in device scalars: it reads no host value.
+
+- On the card it is captured once into a CUDA graph
+  (`graph_control.GraphProgram`): AIME's rounds are IF nodes and the iLQR
+  loops WHILE nodes inside the plan's IF node, their conditions set on the
+  device. The host enqueues a segment's replays (with every host
+  synchronization an error: torch.cuda.set_sync_debug_mode) and reads the
+  outputs once at the segment's end, where the JAX package's segmented
+  modes return. A capture that fails raises.
+- With `graphed=False`, on the CPU, or with `phases=` (per-phase times need
+  a device synchronize each), the same cycle runs eagerly: one host read
+  for the enable, one per AIME round and one per solve iteration (on the
+  card each iteration a replayed CUDA graph of its own, planner/ilqr.py).
 
 Exo agents are non-reactive, so their slot states, presence masks and the
 observation-buffer slot assignment are known ahead of time and precomputed on
-the host (`build_episode_inputs`); only the ego state, its control and the
-observation window are carried.
+the host (`build_episode_inputs`); only the ego state, its control, the
+observation window and the failure latch are carried.
 
-Semantics (those of the JAX package, held by tests/test_torch_episode.py):
+Semantics (those of the JAX package's compiled program, held by
+tests/test_torch_episode.py and test_torch_episode_program.py):
 - observations recorded at the loop start of each tick (before the update),
   ego in slot 0;
 - the observation window updates at every 10 Hz trigger from tick 0; plans
-  start once the tick reaches the enable tick (reference agent.py:261-286);
-  the host knows that tick, so a cycle before it skips the plan with a Python
-  `if` where the JAX package uses `lax.cond`;
+  run once the tick reaches the enable tick (reference agent.py:261-286);
 - up to and including the enable tick the ego is replayed from its log and
   its control is zero (reference agent.py:208-214 init_state_ctrl);
 - between plans the ego integrates the clipped kinematic bicycle at 50 Hz
   with the held control (reference agent.py:297-300);
-- a plan failure (no scenario tree, or a non-finite control) latches: the ego
-  freezes and the result is cut at the failing cycle (reference
-  simulator.py:85-89).
-
-The cycles run L lanes at once, each with its own carry (window, ego,
-control, failed latch): S scenarios (`run_episodes_batched`) or K perturbed
-copies of one (`run_episode_monte_carlo`), one `batched_plan_core` per
-planning cycle for all of them, so the host reads the plan once per cycle
-and AIME and the solve read it once per round and per iteration for all
-lanes. As in the JAX package the batch always covers every lane: a failed
-lane keeps planning in lockstep and its plans are discarded. A single
-episode (L = 1) skips the plans after its failure instead; both agree up to
-and including the failing cycle.
+- a plan failure (no scenario tree, or a non-finite control) latches: the
+  lane, a single episode included, keeps planning in lockstep with its plans
+  discarded, its ego freezes, and the result is cut at the failing cycle
+  (reference simulator.py:85-89).
 
 With `exec_resolve_mode="native"` the episode, like the JAX package's, runs
 no exec re-solve: the control is that of the selection solve.
@@ -45,6 +47,8 @@ no exec re-solve: the control is that of the selection solve.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -55,6 +59,7 @@ import numpy as np
 import torch
 
 from mind_tpu_torch.common.kinematics import kine_propagate
+from mind_tpu_torch.ops import graph_control
 from mind_tpu_torch.ops.potential import CostParams
 from mind_tpu_torch.parallel.mesh import (DistMesh, gather_shards, local_shards, mesh_size,
                                           rank0_decides, tree_map)
@@ -193,121 +198,361 @@ def build_episode_statics(planner) -> EpisodeStatics:
                           warm_params=warm_p, full_params=full_p)
 
 
-def _init_episode_carry(A: int, pipeline_dtype=torch.float64, device=None, lanes: int = 1):
-    """(observation windows, ego states, controls, failed latches) of L
-    lanes. The ego state is always float64 (the host loop integrates the ego
-    in host float64, reference agent.py:297-300); the window follows the
-    pipeline dtype. The latches live on the host: the cycle reads its plan's
-    result there anyway."""
+def _init_episode_carry(A: int, pipeline_dtype=torch.float64, device=None,
+                        lanes: Optional[int] = None):
+    """(observation window, ego state, control, failed latch) of one
+    episode, or of L lanes with a leading lane axis, all on the device. The
+    ego state is always float64 (the host loop integrates the ego in host
+    float64, reference agent.py:297-300); the window follows the pipeline
+    dtype."""
     buf = DeviceObsBuffer.create(A, pipeline_dtype, device)
-    return (DeviceObsBuffer(*(x[None].repeat((lanes,) + (1,) * x.dim()) for x in buf)),
-            torch.zeros((lanes, 4), dtype=torch.float64, device=device),
-            torch.zeros((lanes, 2), dtype=torch.float32, device=device),
-            np.zeros(lanes, bool))
+    carry = (buf, torch.zeros(4, dtype=torch.float64, device=buf.pos.device),
+             torch.zeros(2, dtype=torch.float32, device=buf.pos.device),
+             torch.zeros((), dtype=torch.bool, device=buf.pos.device))
+    if lanes is None:
+        return carry
+    return tree_map(lambda x: x[None].repeat((lanes,) + (1,) * x.dim()), carry)
 
 
 _PHASES = ("aime", "cost_topology", "solve", "selection")
-# the EpisodeInputs fields that gain the lane axis when stacked
-_LANE_FIELDS = ("slot_states", "present", "active", "ego_replay", "types")
+# the EpisodeInputs fields with a cycle axis, and those that gain the lane axis when stacked
+_CYCLE_FIELDS = ("slot_states", "present", "active", "ego_replay")
+_LANE_FIELDS = _CYCLE_FIELDS + ("types",)
 
 
-@torch.no_grad()
-def _run_cycles(inp: EpisodeInputs, st: EpisodeStatics, carry, c0: int, *, core, half, wb,
-                max_spd, max_str, dt, phases: Optional[list] = None):
-    """Plan cycles c0 .. c0 + Cseg - 1 of L lanes from `carry`: inp fields
-    [L, Cseg, ...] (types [L, A, 7]), statics with the lane axis (the
-    CostParams leaves shared or [L, ...]). Returns (carry, (rec [L, Cseg,
-    5, 4] tensor, ok, planned, iterations [L, Cseg] numpy, ctrls [L, Cseg,
-    2] tensor)). With `phases` (a list), each cycle appends its wall time
-    per phase in seconds ("obs", the plan's phases, "propagate"), each phase
-    ended by a device synchronize, its AIME rounds and each lane's selected
-    tree ("best")."""
-    buf, ego, ctrl, failed = carry
-    failed = failed.copy()
-    L = ego.shape[0]
-    dev = ego.device
-    enable = inp.enable_tick
-    eval_segs = (st.eval_seg_start, st.eval_seg_end, st.eval_seg_mask)
-    recs, oks, planned, iters, ctrls = [], [], [], [], []
-    for j in range(inp.slot_states.shape[1]):
-        c = c0 + j
-        t0 = c * TICKS_PER_PLAN
-        rec_c = {"cycle": c} if phases is not None else None
-        clock = _PhaseClock(dev, rec_c)
+class _Data(NamedTuple):
+    """What the cycles of L lanes read: the schedule [L, C, ...], the slot
+    types, the selection target velocities [L] (float64) and the statics
+    with the lane axis (tgt_static.n_points a long tensor [L]): all
+    tensors, so that a captured cycle reads them from its own buffers."""
+
+    slot_states: torch.Tensor
+    present: torch.Tensor
+    active: torch.Tensor
+    ego_replay: torch.Tensor
+    types: torch.Tensor
+    target_vel: torch.Tensor
+    statics: EpisodeStatics
+
+
+def _lane_data(inp: EpisodeInputs, st: EpisodeStatics) -> _Data:
+    L, dev = inp.types.shape[0], inp.types.device
+    as_lanes = lambda v, dtype: (v.to(dtype) if isinstance(v, torch.Tensor)
+                                 else torch.full((L,), v, dtype=dtype, device=dev))
+    tgt = st.tgt_static
+    st = st._replace(tgt_static=tgt._replace(n_points=as_lanes(tgt.n_points, torch.long)))
+    return _Data(*(getattr(inp, f) for f in _LANE_FIELDS),
+                 target_vel=as_lanes(inp.target_vel, torch.float64), statics=st)
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Every host synchronization of the device raises inside (a captured
+    segment has none)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class _Cycles:
+    """The plan cycles of L lanes, computed in place on buffers allocated
+    once: the schedule of up to `cap` cycles, the lanes' data and statics,
+    the carry, the plan's output and the outputs [L, cap, ...], with the
+    cycle index `c`, the position `j` in the buffers and the enable tick as
+    long scalars on the device, so that `cycle` reads nothing from the host
+    and can be captured whole (`run(compiled=True)`). A compiled one plans
+    with a network of its own whose weights each run copies from the
+    caller's (weights are data, as the JAX program's params: one program
+    serves every planner of its configuration). `rounds` counts the AIME
+    rounds its cycles ran, on the device."""
+
+    def __init__(self, fn: "_EpisodeFn", net, data: _Data, carry, cap: int):
+        dev = data.types.device
+        L = data.types.shape[0]
+        self.fn, self.net, self.device, self.cap = fn, net, dev, cap
+        zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
+        sched = {f: zeros(L, cap, *getattr(data, f).shape[2:], dtype=getattr(data, f).dtype)
+                 for f in _CYCLE_FIELDS}
+        self.data = graph_control.empty_like(data)._replace(**sched)
+        self.carry = graph_control.empty_like(carry)
+        self.c, self.j, self.enable, self.rounds = (zeros(dtype=torch.long) for _ in range(4))
+        self.out = zeros(L, 4)
+        self.rec = zeros(L, cap, TICKS_PER_PLAN, 4, dtype=torch.float64)
+        self.ok, self.planned = zeros(L, cap, dtype=torch.bool), zeros(L, cap, dtype=torch.bool)
+        self.iters, self.ctrls = zeros(L, cap), zeros(L, cap, 2)
+        self.program = None
+
+    def load_net(self, net):
+        """The caller's weights into this program's network (the same
+        architecture: the configuration's signature holds the network's)."""
+        mine = dict(self.net.named_parameters()) | dict(self.net.named_buffers())
+        theirs = dict(net.named_parameters()) | dict(net.named_buffers())
+        if mine.keys() != theirs.keys() or any(t.shape != theirs[k].shape for k, t in mine.items()):
+            raise ValueError("the network differs in its architecture from the program's")
+        with torch.no_grad():
+            for k, t in mine.items():
+                t.copy_(theirs[k])
+
+    def load(self, data: _Data, carry, c0: int, enable: int):
+        C = data.slot_states.shape[1]
+        for f in _CYCLE_FIELDS:
+            getattr(self.data, f)[:, :C].copy_(getattr(data, f))
+        graph_control.assign(self.data[len(_CYCLE_FIELDS):], data[len(_CYCLE_FIELDS):])
+        graph_control.assign(self.carry, carry)
+        self.c.fill_(c0)
+        self.j.zero_()
+        self.enable.fill_(enable)
+
+    def cycle(self, phase_rec: Optional[dict] = None):
+        """One plan cycle of every lane, in place. With `phase_rec` (eager
+        only) it records the cycle's wall time per phase ("obs", the plan's
+        phases, "propagate"), each phase ended by a device synchronize, its
+        AIME rounds and each lane's selected tree ("best")."""
+        fn, d, st = self.fn, self.data, self.data.statics
+        buf, ego, ctrl, failed = self.carry
+        clock = _PhaseClock(self.device, phase_rec)
+        t0 = self.c * TICKS_PER_PLAN
+        at = lambda x: x.index_select(1, self.j.reshape(1))[:, 0]
+        states, present, active, ego_rep = (at(getattr(d, f)) for f in _CYCLE_FIELDS)
         # the ego's observation: its log up to and including the enable
         # tick, the carried state after
-        states = inp.slot_states[:, j]
-        if t0 > enable:
-            states = torch.cat([ego[:, None], states[:, 1:]], dim=1)
-        ego_obs = states[:, 0]
-        buf = obs_buffer_update(buf, states, inp.present[:, j])
-        amask = inp.active[:, j] & inp.present[:, j]
-        ctrl_in = torch.zeros_like(ctrl) if t0 <= enable else ctrl
+        replay = t0 <= self.enable
+        ego_obs = torch.where(replay, states[:, 0], ego)
+        states = torch.cat([ego_obs[:, None], states[:, 1:]], dim=1)
+        graph_control.assign(buf, obs_buffer_update(buf, states, present))
+        amask = active & present
+        ctrl_in = torch.where(replay, torch.zeros_like(ctrl), ctrl)
         clock.lap("obs")
 
-        do_plan = ~failed if t0 >= enable else np.zeros(L, bool)
-        ok, its, new_ctrl = np.zeros(L, bool), np.zeros(L), ctrl_in
-        # one lane stops planning after its failure; a batch plans all lanes
-        plan_now = bool(do_plan[0]) if L == 1 else t0 >= enable
-        if plan_now:
-            # x0 and the grid origin stay float64 (two_phase_solve casts them
-            # to the solve dtype)
-            x0 = torch.cat([ego_obs, ctrl_in.to(torch.float64)], dim=-1)
-            offset = x0[:, :2] - half
-            report = {} if phases is not None else None
-            out = core(buf, inp.types, amask, x0, st.warm_params._replace(field_offset=offset),
-                       st.full_params._replace(field_offset=offset), inp.target_vel,
-                       st.lane_static, st.tgt_static, eval_segs, report=report)
-            small = out.cpu().numpy()   # the cycle's one read of the plans
-            # a non-finite control fails the plan, as in the host loop
-            ok = (small[:, 2] > 0.5) & np.isfinite(small[:, :2]).all(-1)
-            its = small[:, 3].astype(np.float64)
-            take = do_plan & ok
-            if take.any():
-                new_ctrl = torch.where(torch.as_tensor(take, device=dev)[:, None], out[:, :2],
-                                       ctrl_in)
-            failed = failed | (do_plan & ~ok)
-            if report is not None:
-                rec_c.update({k: report[k] for k in _PHASES}, rounds=report["rounds"],
+        # x0 and the grid origin stay float64 (two_phase_solve casts them to
+        # the solve dtype)
+        x0 = torch.cat([ego_obs, ctrl_in.to(torch.float64)], dim=-1)
+        offset = x0[:, :2] - fn.half
+        report = {} if phase_rec is not None else None
+        out = self.out
+        out.zero_()
+
+        def plan():
+            out.copy_(fn.core(
+                self.net, buf, d.types, amask, x0, st.warm_params._replace(field_offset=offset),
+                st.full_params._replace(field_offset=offset), d.target_vel, st.lane_static,
+                st.tgt_static, (st.eval_seg_start, st.eval_seg_end, st.eval_seg_mask),
+                report=report, rounds_out=self.rounds))
+
+        enabled = t0 >= self.enable
+        graph_control.device_if(enabled, plan)    # lax.cond on the enable tick
+        do_plan = enabled & ~failed
+        # a non-finite control fails the plan, as in the host loop
+        ok = (out[:, 2] > 0.5) & torch.isfinite(out[:, :2]).all(-1)
+        new_ctrl = torch.where((do_plan & ok)[:, None], out[:, :2], ctrl_in)
+        failed.copy_(failed | (do_plan & ~ok))
+        if report:
+            phase_rec.update({k: report[k] for k in _PHASES}, rounds=report["rounds"],
                              best=report["best"])
-                clock.t = time.perf_counter()   # "propagate" starts after the plan's read
+            clock.t = time.perf_counter()   # "propagate" starts after the plan
 
         # 5 ticks of 50 Hz propagation in float64, recording loop-start
         # states; a failed lane's ego freezes
-        s = ego
-        u = new_ctrl.to(torch.float64)
-        frozen = torch.as_tensor(failed, device=dev)[:, None] if failed.any() else None
-        rec = []
+        s, u = ego, new_ctrl.to(torch.float64)
+        moving = ~failed[:, None]
+        recs = []
         for i in range(TICKS_PER_PLAN):
             t = t0 + i
-            if t <= enable:
-                s = inp.ego_replay[:, j, i]
-            rec.append(s)
-            if t >= enable and not failed.all():
-                s_next = kine_propagate(s, u, dt, wb, max_spd, max_str)
-                s = s_next if frozen is None else torch.where(frozen, s, s_next)
-        ego, ctrl = s, new_ctrl
+            s = torch.where(t <= self.enable, ego_rep[:, i], s)
+            recs.append(s)
+            s = torch.where((t >= self.enable) & moving,
+                            kine_propagate(s, u, fn.dt, fn.wb, fn.max_spd, fn.max_str), s)
+        j = self.j.reshape(1)
+        self.rec.index_copy_(1, j, torch.stack(recs, dim=1)[:, None])
+        for buf_out, val in ((self.ok, ok), (self.planned, do_plan), (self.iters, out[:, 3]),
+                             (self.ctrls, new_ctrl)):
+            buf_out.index_copy_(1, j, val[:, None])
+        ego.copy_(s)
+        ctrl.copy_(new_ctrl)
+        self.c.add_(1)
+        self.j.add_(1)
         clock.lap("propagate")
-        if phases is not None:
-            phases.append(rec_c)
-        recs.append(torch.stack(rec, dim=1))
-        oks.append(ok)
-        planned.append(do_plan)
-        iters.append(its)
-        ctrls.append(new_ctrl)
-    outs = (torch.stack(recs, dim=1), np.stack(oks, 1), np.stack(planned, 1),
-            np.stack(iters, 1).astype(np.float32), torch.stack(ctrls, dim=1))
-    return (buf, ego, ctrl, failed), outs
+
+    def run(self, net, data: _Data, carry, c0: int, enable: int, compiled: bool,
+            phases: Optional[list] = None):
+        """Cycles c0 .. c0 + C - 1 of `data` ([L, C, ...]) from `carry` with
+        `net`'s weights: captured replays (the first call captures) or
+        eager cycles. Returns (outputs (rec [L, C, 5, 4], ok, planned,
+        iterations [L, C], ctrls [L, C, 2]) as numpy, read once, and the
+        carry after, on the device)."""
+        C = data.slot_states.shape[1]
+        if compiled and self.program is None:
+            self.load_net(net)
+            self.load(data, carry, c0, enable)   # the warm-up's inputs
+            self.program = graph_control.GraphProgram(self.cycle, self.device)
+            self.rounds.zero_()   # count the replays' rounds, not the warm-up's
+        with _no_host_sync() if compiled else contextlib.nullcontext():
+            if compiled:
+                self.load_net(net)
+            self.load(data, carry, c0, enable)
+            for k in range(C):
+                if compiled:
+                    self.program.replay()
+                else:
+                    rec = {"cycle": c0 + k} if phases is not None else None
+                    self.cycle(rec)
+                    if rec is not None:
+                        phases.append(rec)
+            carry_out = graph_control.clone(self.carry)
+        f64 = torch.float64
+        L = self.rec.shape[0]
+        flat = torch.cat([self.rec[:, :C].reshape(L, C, -1), self.ok[:, :C, None].to(f64),
+                          self.planned[:, :C, None].to(f64), self.iters[:, :C, None].to(f64),
+                          self.ctrls[:, :C].to(f64)], dim=-1).cpu().numpy()   # the one read
+        n = TICKS_PER_PLAN * 4
+        outs = (flat[..., :n].reshape(L, C, TICKS_PER_PLAN, 4), flat[..., n] > 0.5,
+                flat[..., n + 1] > 0.5, flat[..., n + 2].astype(np.float32),
+                flat[..., n + 3:].astype(np.float32))
+        return outs, carry_out
 
 
-def _make_core(planner, veh_param, dt: float):
-    cfg = planner.cfg
-    ph = cfg.traj_tree.full
-    half = 0.5 * (ph.smooth_grid_size[0] - 1) * ph.smooth_grid_res
-    core = functools.partial(batched_plan_core, planner.net, cfg=cfg, ilqr_cfg=planner.ilqr_cfg,
-                             warm_ilqr_cfg=planner.warm_ilqr_cfg, weights=planner._weights)
-    return functools.partial(_run_cycles, core=core, half=half, wb=veh_param.wb,
-                             max_spd=veh_param.max_spd, max_str=veh_param.max_str, dt=dt)
+def _compiled(device: torch.device, graphed: Optional[bool], phases) -> bool:
+    if graphed is None:
+        return device.type == "cuda" and phases is None
+    if graphed and (device.type != "cuda" or phases is not None):
+        raise ValueError(f"a compiled episode runs on a CUDA device and records no phases "
+                         f"(they synchronize the device); got {device}, phases "
+                         f"{phases is not None}")
+    return bool(graphed)
+
+
+def _signature(tree):
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), str(tree.dtype), str(tree.device))
+    if isinstance(tree, tuple):
+        return tuple(_signature(x) for x in tree)
+    return tree
+
+
+def _cfg_signature(planner, veh_param, dt: float) -> str:
+    """The configuration that shapes the episode program (the JAX package's
+    `_cfg_signature`): every PlannerConfig field but the weights' path and
+    seed (weights are data) and the phases' cost weights and bounds (cost
+    parameters, statics data); the vehicle and the step."""
+    cfg = dataclasses.asdict(planner.cfg)
+    cfg.pop("ckpt_path", None)
+    cfg.pop("seed", None)
+    for ph in ("warm", "full"):
+        phase = cfg["traj_tree"][ph]
+        cfg["traj_tree"][ph] = {k: phase[k] for k in ("smooth_grid_res", "smooth_grid_size")}
+    return json.dumps({"cfg": cfg, "veh": (veh_param.wb, veh_param.max_spd, veh_param.max_str),
+                       "dt": dt}, sort_keys=True, default=str)
+
+
+_MODES = ("single", "single_seg", "scenarios", "copies_seg")
+
+
+class _EpisodeFn:
+    """The episode program of one planner configuration in one mode (see
+    `episode_fn_for`). Its compiled cycles are kept per shapes, dtypes and
+    device (each with the largest segment it has taken), whatever the
+    network's weights."""
+
+    def __init__(self, planner, veh_param, dt: float, batch: str):
+        cfg = planner.cfg
+        ph = cfg.traj_tree.full
+        self.batch = batch
+        self.core = functools.partial(batched_plan_core, cfg=cfg, ilqr_cfg=planner.ilqr_cfg,
+                                      warm_ilqr_cfg=planner.warm_ilqr_cfg,
+                                      weights=planner._weights)
+        self.half = 0.5 * (ph.smooth_grid_size[0] - 1) * ph.smooth_grid_res
+        self.wb, self.max_spd, self.max_str = veh_param.wb, veh_param.max_spd, veh_param.max_str
+        self.dt = dt
+        self.pipeline_dtype = torch_dtype(cfg.pipeline_dtype)
+        self.programs: dict = {}
+
+    def __call__(self, net, inputs: EpisodeInputs, statics: EpisodeStatics, enable_tick,
+                 c0: int = 0, carry=None, *, graphed: Optional[bool] = None,
+                 phases: Optional[list] = None):
+        seg = self.batch.endswith("_seg")
+        if seg != (carry is not None):
+            raise TypeError(f"mode {self.batch!r} takes (net, inputs, statics, enable_tick"
+                            + (", c0, carry)" if seg else ")"))
+        one = self.batch.startswith("single")
+        inp = _lanes(inputs) if one else inputs
+        L, dev = inp.types.shape[0], inp.types.device
+        data = _lane_data(inp, statics if self.batch == "scenarios"
+                          else _shared_statics(statics, L))
+        if carry is None:
+            carry = _init_episode_carry(inp.types.shape[-2], self.pipeline_dtype, dev, L)
+        elif one:
+            carry = tree_map(lambda x: x[None], carry)
+        compiled = _compiled(dev, graphed, phases)
+        C = data.slot_states.shape[1]
+        cycles = self._program(net, data, carry) if compiled else _Cycles(self, net, data, carry, C)
+        outs, carry = cycles.run(net, data, carry, int(c0), int(enable_tick), compiled, phases)
+        if one:
+            outs = tuple(o[0] for o in outs)
+            carry = tree_map(lambda x: x[0], carry)
+        return (carry, outs) if seg else outs
+
+    def _program(self, net, data: _Data, carry) -> _Cycles:
+        """The compiled cycles for these shapes, dtypes and device, with
+        room for data's cycles (a longer segment than any before captures
+        anew), and a network of their own like `net`."""
+        C = data.slot_states.shape[1]
+        shape = data._replace(**{f: getattr(data, f)[:, :0] for f in _CYCLE_FIELDS})
+        kept = self.programs.setdefault((_signature(shape), _signature(carry)), [])
+        for cycles in kept:
+            if cycles.cap >= C:
+                return cycles
+        kept.append(_Cycles(self, copy.deepcopy(net), data, carry, C))
+        return kept[-1]
+
+
+# One episode program per (planner configuration, mode), as the JAX
+# package's jit cache: every scenario with the same paddings shares it
+_EPISODE_FN_CACHE: dict = {}
+
+
+def episode_fn_for(planner, veh_param, dt: float, batch: str = "single"):
+    """The episode program for one planner configuration (the JAX package's
+    `episode_fn_for`, with the network in the place of its params):
+
+    batch='single': fn(net, inputs, statics, enable_tick) -> outputs;
+    batch='single_seg': one SEGMENT of cycles with an explicit carry,
+        fn(net, inputs, statics, enable_tick, c0, carry) -> (carry, outputs),
+        the inputs cut to the segment's cycles;
+    batch='scenarios': inputs and statics with a leading scene axis (stacked);
+    batch='copies_seg': inputs and carry with a leading copy axis, statics
+        shared (Monte-Carlo), one segment as in 'single_seg'.
+
+    The outputs are (rec [C, 5, 4], plan_ok [C], planned [C], iterations
+    [C], controls [C, 2]) as numpy (with the leading axis in the batched
+    modes), for `_to_result`; the carry (window, ego, control, failed latch)
+    stays on the device. Every call takes `graphed` (None: the compiled
+    program on a CUDA device, the eager cycles on the CPU) and `phases` (a
+    list that receives per-cycle phase records; eager only)."""
+    if batch not in _MODES:
+        raise ValueError(batch)
+    key = (_cfg_signature(planner, veh_param, dt), batch)
+    fn = _EPISODE_FN_CACHE.get(key)
+    if fn is None:
+        fn = _EPISODE_FN_CACHE[key] = _EpisodeFn(planner, veh_param, dt, batch)
+    return fn
+
+
+def programs() -> List[_Cycles]:
+    """Every compiled episode program of this process (one CUDA graph
+    each, its replays' AIME rounds in `.rounds`, its graph in
+    `.program`)."""
+    return [c for fn in _EPISODE_FN_CACHE.values() for kept in fn.programs.values()
+            for c in kept if c.program is not None]
+
+
+def program_rounds() -> int:
+    """The AIME rounds that the compiled episode programs' replays have run
+    in this process (a host read of their device counters; 0 off the card).
+    Kernel B runs n_scene_layer times a round."""
+    return sum(int(c.rounds) for c in programs())
 
 
 def _to_result(pl, rec, ok, planned, iters, ctrls) -> EpisodeResult:
@@ -332,8 +577,7 @@ def _to_result(pl, rec, ok, planned, iters, ctrls) -> EpisodeResult:
 
 def _lanes(inp: EpisodeInputs) -> EpisodeInputs:
     """One episode's schedule as a batch of one lane."""
-    return inp._replace(**{f: getattr(inp, f)[None] for f in
-                           _LANE_FIELDS})
+    return inp._replace(**{f: getattr(inp, f)[None] for f in _LANE_FIELDS})
 
 
 def _shared_statics(st: EpisodeStatics, L: int) -> EpisodeStatics:
@@ -350,99 +594,84 @@ def _shared_statics(st: EpisodeStatics, L: int) -> EpisodeStatics:
 
 
 def _episode_setup(sim, horizon, inputs):
-    """Locate the MIND ego, build (or reuse) the schedule, and collect the
-    per-scenario statics (as one lane) and the cycle runner."""
+    """The MIND ego, its planner, the schedule (built, or `inputs`) and the
+    planner's statics."""
     from mind_tpu_torch.sim.agents import MINDAgent
 
     ego = next(a for a in sim.agents if isinstance(a, MINDAgent))
     pl = ego.planner
     inp = inputs if inputs is not None else build_episode_inputs(sim, horizon)
-    carry = _init_episode_carry(inp.types.shape[-2], torch_dtype(pl.cfg.pipeline_dtype),
-                                pl.device)
-    return (pl, _lanes(inp), _shared_statics(build_episode_statics(pl), 1),
-            _make_core(pl, ego.veh_param, sim.sim_step), carry)
-
-
-def _outputs_to_host(segs):
-    """Concatenate the segments' outputs along the cycles; the recorded
-    states and controls cross to the host here, once."""
-    rec = torch.cat([s[0] for s in segs], dim=1).cpu().numpy()
-    ctrls = torch.cat([s[4] for s in segs], dim=1).cpu().numpy()
-    ok, planned, iters = (np.concatenate([s[k] for s in segs], axis=1) for k in (1, 2, 3))
-    return rec, ok, planned, iters, ctrls
-
-
-def _lane_result(pl, outs, i: int) -> EpisodeResult:
-    return _to_result(pl, *(o[i] for o in outs))
+    return ego, pl, inp, build_episode_statics(pl)
 
 
 def run_episode(sim, horizon: Optional[int] = None, inputs: Optional[EpisodeInputs] = None,
-                phases: Optional[list] = None) -> EpisodeResult:
-    """Run one scenario's closed loop with its state on the device.
+                phases: Optional[list] = None, graphed: Optional[bool] = None) -> EpisodeResult:
+    """Run one scenario's closed loop as the episode program.
 
     `sim` must be an initialized Simulator with one MINDAgent ego. The
     returned ego trajectory matches `Simulator.run_sim()` +
     `sim.ego_trajectory()` (tests/test_torch_episode.py holds 1e-3 m).
     `inputs` optionally reuses a schedule from `build_episode_inputs(sim,
     horizon)` (or one copy's of `build_mc_inputs`, taken with
-    `lane_inputs`); `phases` (a list) receives per-cycle phase times."""
-    pl, inp, statics, run, carry = _episode_setup(sim, horizon, inputs)
-    _, out = run(inp, statics, carry, 0, phases=phases)
-    return _lane_result(pl, _outputs_to_host([out]), 0)
+    `lane_inputs`); `phases` (a list) receives per-cycle phase times and
+    runs the cycles eagerly, as `graphed=False` does."""
+    ego, pl, inp, statics = _episode_setup(sim, horizon, inputs)
+    fn = episode_fn_for(pl, ego.veh_param, sim.sim_step)
+    return _to_result(pl, *fn(pl.net, inp, statics, inp.enable_tick, graphed=graphed,
+                              phases=phases))
 
 
-def run_episode_timed(sim, horizon: Optional[int] = None, phases: Optional[list] = None):
-    """(result, wall_s): the first call absorbs warm-up (kernel builds, CUDA
-    graph captures, allocator), the second is timed. `phases` goes to the
-    timed call."""
+def run_episode_timed(sim, horizon: Optional[int] = None, phases: Optional[list] = None,
+                      graphed: Optional[bool] = None):
+    """(result, wall_s): the first call absorbs warm-up (kernel builds, the
+    program's capture, allocator), the second is timed. `phases` goes to
+    the timed call (and makes both eager)."""
     inp = build_episode_inputs(sim, horizon)
-    run_episode(sim, horizon, inputs=inp)
+    eager = False if phases is not None else graphed
+    run_episode(sim, horizon, inputs=inp, graphed=eager)
     t0 = time.perf_counter()
-    res = run_episode(sim, horizon, inputs=inp, phases=phases)
+    res = run_episode(sim, horizon, inputs=inp, phases=phases, graphed=graphed)
     return res, time.perf_counter() - t0
 
 
 def run_episode_segmented(sim, horizon: Optional[int] = None, seg_cycles: int = 10,
-                          inputs: Optional[EpisodeInputs] = None) -> EpisodeResult:
-    """`run_episode` in segments of `seg_cycles` cycles with the carry
-    handed from one to the next: the same cycles on the same data, so the
-    same result to the bit."""
+                          inputs: Optional[EpisodeInputs] = None,
+                          graphed: Optional[bool] = None) -> EpisodeResult:
+    """`run_episode` in segments of `seg_cycles` cycles ('single_seg'),
+    the carry handed from one to the next on the device: the same cycles on
+    the same data, so the same result to the bit."""
     if seg_cycles < 1:
         raise ValueError(f"seg_cycles must be >= 1, got {seg_cycles}")
-    pl, inp, statics, run, carry = _episode_setup(sim, horizon, inputs)
-    return _lane_result(pl, _run_segments(run, inp, statics, carry, seg_cycles), 0)
-
-
-def _run_segments(run, inp, statics, carry, seg_cycles: int, phases=None):
-    """All cycles of `inp` in segments of `seg_cycles`; host outputs."""
-    C = int(inp.slot_states.shape[1])
+    ego, pl, inp, statics = _episode_setup(sim, horizon, inputs)
+    fn = episode_fn_for(pl, ego.veh_param, sim.sim_step, batch="single_seg")
+    C = inp.slot_states.shape[0]
+    carry = _init_episode_carry(inp.types.shape[-2], torch_dtype(pl.cfg.pipeline_dtype), pl.device)
     segs = []
     for s0 in range(0, C, seg_cycles):
-        carry, out = run(_slice_cycles(inp, s0, min(s0 + seg_cycles, C)), statics, carry, s0,
-                         phases=phases)
+        carry, out = fn(pl.net, _slice_cycles(inp, s0, min(s0 + seg_cycles, C)), statics,
+                        inp.enable_tick, s0, carry, graphed=graphed)
         segs.append(out)
-    return _outputs_to_host(segs)
+    return _to_result(pl, *(np.concatenate([s[k] for s in segs]) for k in range(5)))
 
 
 def _slice_cycles(inp: EpisodeInputs, s0: int, s1: int) -> EpisodeInputs:
-    """The per-cycle fields [L, C, ...] cut to cycles [s0, s1)."""
-    return inp._replace(**{f: getattr(inp, f)[:, s0:s1] for f in
-                           ("slot_states", "present", "active", "ego_replay")})
+    """The per-cycle fields cut to cycles [s0, s1) ([C, ...], or [L, C,
+    ...] with a leading lane axis)."""
+    ax = inp.slot_states.dim() - 3
+    return inp._replace(**{f: getattr(inp, f).narrow(ax, s0, s1 - s0) for f in _CYCLE_FIELDS})
 
 
 def _slice_lanes(inp: EpisodeInputs, lo: int, hi: int) -> EpisodeInputs:
     """Lanes [lo, hi) of a stacked schedule."""
     tv = inp.target_vel
-    return inp._replace(**{f: getattr(inp, f)[lo:hi] for f in
-                           _LANE_FIELDS},
+    return inp._replace(**{f: getattr(inp, f)[lo:hi] for f in _LANE_FIELDS},
                         target_vel=tv[lo:hi] if isinstance(tv, torch.Tensor) else tv)
 
 
 def lane_inputs(inp: EpisodeInputs, i: int) -> EpisodeInputs:
     """Lane i of a stacked schedule as one episode's (for run_episode)."""
     tv = inp.target_vel
-    return inp._replace(**{f: getattr(inp, f)[i] for f in
-                           _LANE_FIELDS},
+    return inp._replace(**{f: getattr(inp, f)[i] for f in _LANE_FIELDS},
                         target_vel=float(tv[i]) if isinstance(tv, torch.Tensor) else tv)
 
 
@@ -536,16 +765,18 @@ def _baked_signature(pl, ego, sim) -> str:
     }, sort_keys=True, default=str)
 
 
-def run_episodes_batched(sims, horizon: Optional[int] = None,
-                         phases: Optional[list] = None) -> List[EpisodeResult]:
-    """All S scenarios' closed loops as one batch of S lanes: one
-    batched_plan_core per planning cycle, the trees of all scenarios in one
-    solve (the JAX package's "4 demos as one batched rollout").
+def run_episodes_batched(sims, horizon: Optional[int] = None, phases: Optional[list] = None,
+                         graphed: Optional[bool] = None) -> List[EpisodeResult]:
+    """All S scenarios' closed loops as one batch of S lanes, the
+    'scenarios' episode program: one batched_plan_core per planning cycle,
+    the trees of all scenarios in one solve (the JAX package's "4 demos as
+    one batched rollout").
 
     The sims must share the enable tick, every configuration value the
     batched core takes from the first planner (`_baked_signature`), and the
     network weights; each scenario keeps its own statics and cost
-    parameters. `phases` receives the per-cycle phase times of the batch."""
+    parameters. `phases` receives the per-cycle phase times of the batch
+    (eager cycles); `graphed` as in run_episode."""
     from mind_tpu_torch.sim.agents import MINDAgent
 
     egos = [next(a for a in s.agents if isinstance(a, MINDAgent)) for s in sims]
@@ -567,14 +798,10 @@ def run_episodes_batched(sims, horizon: Optional[int] = None,
             raise ValueError(f"scenario {i}'s planner holds other network weights than "
                              f"scenario 0's; run it through run_episode instead")
     dev = pls[0].device
-    inp = _stack(inps, dev)
-    statics = _stack([build_episode_statics(p) for p in pls], dev)
-    run = _make_core(pls[0], egos[0].veh_param, sims[0].sim_step)
-    carry = _init_episode_carry(inp.types.shape[-2], torch_dtype(pls[0].cfg.pipeline_dtype),
-                                dev, len(sims))
-    _, out = run(inp, statics, carry, 0, phases=phases)
-    outs = _outputs_to_host([out])
-    return [_lane_result(pls[i], outs, i) for i in range(len(sims))]
+    fn = episode_fn_for(pls[0], egos[0].veh_param, sims[0].sim_step, batch="scenarios")
+    outs = fn(pls[0].net, _stack(inps, dev), _stack([build_episode_statics(p) for p in pls], dev),
+              ticks.pop(), graphed=graphed, phases=phases)
+    return [_to_result(pls[i], *(o[i] for o in outs)) for i in range(len(sims))]
 
 
 def run_episode_monte_carlo(sim, k: int = 64, pos_sigma: float = 0.5,
@@ -582,13 +809,15 @@ def run_episode_monte_carlo(sim, k: int = 64, pos_sigma: float = 0.5,
                             horizon: Optional[int] = None, chunk: int = 4,
                             seg_cycles: int = 10, deadline: Optional[float] = None,
                             mesh=None, chunk_walls: Optional[list] = None,
-                            phases: Optional[list] = None) -> List[EpisodeResult]:
+                            phases: Optional[list] = None,
+                            graphed: Optional[bool] = None) -> List[EpisodeResult]:
     """K Monte-Carlo perturbed closed-loop episodes of one scenario, in
     chunks of `chunk` copies planned as one batch (lanes sharing the
     scenario's statics and cost parameters, each with its own grid origin).
 
-    Each chunk runs in segments of `seg_cycles` cycles with the carry handed
-    on: the same result to the bit for any segment length. `deadline`
+    Each chunk runs in segments of `seg_cycles` cycles ('copies_seg'), the
+    carry handed on on the device: the same result to the bit for any
+    segment length. `graphed` as in run_episode. `deadline`
     (epoch seconds) bounds the sweep: no new chunk starts past it, and the
     copies done are returned. `chunk_walls`, if given, receives one (lo, hi,
     wall_s) per chunk, and `phases` the per-cycle records of run_episode's,
@@ -623,7 +852,9 @@ def run_episode_monte_carlo(sim, k: int = 64, pos_sigma: float = 0.5,
     for _, d in shards:
         if d not in runs:   # one runner per distinct device
             p = pl if _same_device(d, pl.device) else _planner_on(pl, d)
-            runs[d] = (p, _make_core(p, ego.veh_param, sim.sim_step), build_episode_statics(p))
+            runs[d] = (p, build_episode_statics(p))
+    fn = episode_fn_for(pl, ego.veh_param, sim.sim_step, batch="copies_seg")
+    C = inp_b.slot_states.shape[1]
     results: List[EpisodeResult] = []
     for lo in range(0, k, chunk):
         if rank0_decides(mesh, deadline is not None and results and time.time() > deadline):
@@ -636,11 +867,16 @@ def run_episode_monte_carlo(sim, k: int = 64, pos_sigma: float = 0.5,
         per = (hi - lo) // n_shards
         parts = []
         for i, d in shards:
-            p, run, st = runs[d]
+            p, st = runs[d]
             inp = tree_map(lambda x: x.to(d), _slice_lanes(inp_b, lo + i * per, lo + (i + 1) * per))
             carry = _init_episode_carry(A, pdt, d, per)
-            outs = _run_segments(run, inp, _shared_statics(st, per), carry, seg_cycles, phases)
-            parts.append([_lane_result(p, outs, j) for j in range(per)])
+            segs = []
+            for s0 in range(0, C, seg_cycles):
+                carry, out = fn(p.net, _slice_cycles(inp, s0, min(s0 + seg_cycles, C)), st,
+                                inp.enable_tick, s0, carry, graphed=graphed, phases=phases)
+                segs.append(out)
+            outs = [np.concatenate([s[k] for s in segs], axis=1) for k in range(5)]
+            parts.append([_to_result(p, *(o[j] for o in outs)) for j in range(per)])
         results.extend(parts[0] if mesh is None else gather_shards(mesh, parts))
         if chunk_walls is not None:
             chunk_walls.append((lo, hi, time.perf_counter() - t_chunk))

@@ -10,7 +10,9 @@ triangles, scenario-tree uncertainty hulls (convex hulls of per-step circles
 — shapely replaced by a small monotone-chain hull), trajectory-tree bands,
 and history trails. Frames render in a spawn-context process pool sized by
 the sim config's `num_threads` (reference simulator.py:122-124) and ffmpeg
-assembles the video when available; `num_threads <= 1` renders serially.
+assembles the video when available; without it the workers JPEG-encode
+their frames and viz/video.py wraps them into an MJPEG AVI.
+`num_threads <= 1` renders serially.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from typing import List
 import numpy as np
 
 from mind_tpu_torch.viz.raster import DisplayList, rasterize, write_png
+from mind_tpu_torch.viz.video import jpeg_frame
+
+AVI_QUALITY = 85   # write_mjpeg_avi's default quality
 
 EXO_COLOR = ("lightcoral", "indianred")
 
@@ -218,9 +223,20 @@ def render_png(sim, frame_idx, img_dir, figsize=12):
               rasterize(render_frame(sim, frame_idx), figsize))
 
 
-def _render_chunk(scene: RenderScene, indices, img_dir, figsize):
+def _render_chunk(scene: RenderScene, indices, img_dir, figsize, jpeg_quality=None):
+    """Draw frames `indices` into img_dir: PNGs, or with `jpeg_quality` the
+    JPEGs an MJPEG AVI holds (video.jpeg_frame, frame_%03d.jpg), encoded
+    here in the worker. Returns the JPEGs' (width, height), or None."""
+    size = None
     for idx in indices:
-        render_png(scene, idx, img_dir, figsize)
+        if jpeg_quality is None:
+            render_png(scene, idx, img_dir, figsize)
+            continue
+        data, size = jpeg_frame(rasterize(render_frame(scene, idx), figsize)[..., :3],
+                                jpeg_quality)
+        with open(os.path.join(img_dir, f"frame_{idx:03d}.jpg"), "wb") as f:
+            f.write(data)
+    return size
 
 
 def render_frames_to_video(sim, figsize=12):
@@ -243,6 +259,9 @@ def render_frames_to_video(sim, figsize=12):
 
     scene = RenderScene.from_sim(sim)
     n = len(scene.frames)
+    # without ffmpeg the workers encode the AVI's JPEGs themselves
+    ffmpeg = shutil.which("ffmpeg")
+    quality = None if ffmpeg else AVI_QUALITY
     workers = min(int(getattr(sim.config, "num_threads", 1)), n)
     # spawn re-imports __main__; interactive/stdin parents have no file to
     # re-import, so fall back to serial rendering there
@@ -258,12 +277,12 @@ def render_frames_to_video(sim, figsize=12):
         chunks = [list(range(w, n, workers)) for w in range(workers)]
         ctx = mp.get_context("spawn")
         with ctx.Pool(workers) as pool:
-            pool.starmap(_render_chunk,
-                         [(scene, c, img_dir, figsize) for c in chunks])
+            sizes = pool.starmap(_render_chunk,
+                                 [(scene, c, img_dir, figsize, quality) for c in chunks])
     else:
-        _render_chunk(scene, list(range(n)), img_dir, figsize)
+        sizes = [_render_chunk(scene, list(range(n)), img_dir, figsize, quality)]
 
-    if shutil.which("ffmpeg"):
+    if ffmpeg:
         video = os.path.join(out_dir, f"{sim.seq_id}_{sim.sim_name}.mov")
         subprocess.run(
             ["ffmpeg", "-r", "25", "-i",
@@ -273,14 +292,19 @@ def render_frames_to_video(sim, figsize=12):
         shutil.rmtree(img_dir)
         return video
     # no ffmpeg: assemble a playable MJPEG AVI in pure Python (reference
-    # simulator.py:128-131's deliverable, without the dependency)
-    from mind_tpu_torch.viz.video import numeric_frame_sort, write_mjpeg_avi
+    # simulator.py:128-131's deliverable, without the dependency) from the
+    # workers' JPEGs
+    from mind_tpu_torch.viz.video import numeric_frame_sort, write_mjpeg_avi_frames
 
     video = os.path.join(out_dir, f"{sim.seq_id}_{sim.sim_name}.avi")
-
-    pngs = numeric_frame_sort(
-        os.path.join(img_dir, f) for f in os.listdir(img_dir)
-        if f.startswith("frame_") and f.endswith(".png"))
-    write_mjpeg_avi(pngs, video, fps=25)
+    jpegs = numeric_frame_sort((os.path.join(img_dir, f) for f in os.listdir(img_dir)
+                                if f.startswith("frame_") and f.endswith(".jpg")),
+                               suffix=".jpg")
+    frames = []
+    for path in jpegs:
+        with open(path, "rb") as f:
+            frames.append(f.read())
+    width, height = next(size for size in sizes if size is not None)
+    write_mjpeg_avi_frames(frames, width, height, video, fps=25)
     shutil.rmtree(img_dir)
     return video

@@ -38,6 +38,17 @@ def numeric_frame_sort(names: Iterable[str], prefix: str = "frame_",
     return sorted(names, key=key)
 
 
+def jpeg_frame(rgb, quality: int = 85) -> Tuple[bytes, Tuple[int, int]]:
+    """One frame as write_mjpeg_avi stores it: uint8 RGB [H, W, 3] cut to
+    even dimensions (by <= 1 px) and JPEG-encoded; returns (bytes, (width,
+    height)). The render workers encode their frames with it, so a video
+    assembled from their JPEGs is the one write_mjpeg_avi makes from the
+    same frames' PNGs, byte for byte."""
+    h, w = rgb.shape[:2]
+    w, h = w - w % 2, h - h % 2
+    return encode_jpeg(rgb[:h, :w], quality), (w, h)
+
+
 def _jpeg_frames(png_paths: Iterable[str], quality: int) -> Tuple[List[bytes], int, int]:
     frames = []
     size = None
@@ -56,7 +67,13 @@ def _jpeg_frames(png_paths: Iterable[str], quality: int) -> Tuple[List[bytes], i
 def write_mjpeg_avi(png_paths: List[str], out_path: str, fps: int = 25,
                     quality: int = 85) -> str:
     """Encode PNG frame files into a playable MJPEG AVI at `out_path`."""
-    frames, width, height = _jpeg_frames(png_paths, quality)
+    return write_mjpeg_avi_frames(*_jpeg_frames(png_paths, quality), out_path, fps)
+
+
+def write_mjpeg_avi_frames(frames: List[bytes], width: int, height: int, out_path: str,
+                           fps: int = 25) -> str:
+    """Wrap JPEG frames of width x height into a playable MJPEG AVI at
+    `out_path`."""
     n = len(frames)
     max_size = max(len(f) for f in frames)
 

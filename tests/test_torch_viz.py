@@ -1,6 +1,7 @@
 """Rendering of the PyTorch port (mind_tpu_torch/viz) against mind_tpu's:
 the hull and footprint helpers equal, the port's JPEG encoder against PIL's
-(tables, quality), its AVI against mind_tpu's writer, Simulator.render_video
+(tables, quality), its AVI against mind_tpu's writer (and the render
+workers' JPEGs against the PNGs' AVI, byte for byte), Simulator.render_video
 on a 5-tick run with the planner on, and run_sim with rendering in a
 process where pandas, pyarrow, matplotlib, PIL and cv2 cannot be imported,
 as on the card's machine. The frames themselves are held against
@@ -169,6 +170,25 @@ def test_mjpeg_avi_probes_as_the_jax_writer(sim, tmp_path):
     assert got["frames"] == got["index_entries"] == 3 and got["jpeg_ok"]
     assert (got["width"], got["height"]) == (300, 300)
     assert avi_fps(tmp_path / "t.avi") == avi_fps(tmp_path / "j.avi") == 25
+
+
+def test_worker_jpegs_make_the_avi_of_the_pngs(sim, tmp_path):
+    """The render workers' JPEGs (render._render_chunk with a quality) wrap
+    into the same AVI, byte for byte, as write_mjpeg_avi makes from the same
+    frames' PNGs."""
+    pngs_dir, jpegs_dir = tmp_path / "png", tmp_path / "jpg"
+    pngs_dir.mkdir()
+    jpegs_dir.mkdir()
+    assert trender._render_chunk(sim, [0, 1, 2], str(pngs_dir), 3) is None
+    size = trender._render_chunk(sim, [2, 0, 1], str(jpegs_dir), 3, trender.AVI_QUALITY)
+    assert size == (300, 300)
+    pngs = tvideo.numeric_frame_sort(str(p) for p in pngs_dir.glob("frame_*.png"))
+    tvideo.write_mjpeg_avi(pngs, str(tmp_path / "from_png.avi"), fps=25)
+    jpegs = tvideo.numeric_frame_sort((str(p) for p in jpegs_dir.glob("frame_*.jpg")),
+                                      suffix=".jpg")
+    tvideo.write_mjpeg_avi_frames([open(p, "rb").read() for p in jpegs], *size,
+                                  str(tmp_path / "from_jpg.avi"), fps=25)
+    assert (tmp_path / "from_png.avi").read_bytes() == (tmp_path / "from_jpg.avi").read_bytes()
 
 
 def test_render_video(sim, monkeypatch):

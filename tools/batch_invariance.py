@@ -216,10 +216,10 @@ def main() -> int:
         act = st_s.active[0]
         same = all(torch.equal(getattr(meta_b, f)[s], getattr(meta_s, f)[0])
                    for f in ("parent", "duration", "end_flag", "tree_id"))
-        out["aime"].append({"rounds": r_s, "meta_equal": same,
+        out["aime"].append({"rounds": int(r_s), "meta_equal": same,
                             "pos_gap": gap(state_b.slots.pos[s][act], st_s.slots.pos[0][act]),
                             "norm_prob_gap": gap(meta_b.norm_prob[s], meta_s.norm_prob[0])})
-    out["aime_rounds_batched"] = rounds_b
+    out["aime_rounds_batched"] = int(rounds_b)
 
     # 3. the solve on the batched trees, all at once and per scene
     tt = cfg.traj_tree

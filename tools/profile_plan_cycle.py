@@ -6,7 +6,7 @@ plan cycles of the port on chip_smoke.py's synthetic scene.
 
 `--demo` profiles the demo planner configuration (bf16 network) instead of
 the float32 defaults. `--episode` profiles steady planning cycles of the
-episode runner (sim/episode.py) instead: chip_smoke.py's closed-loop
+episode runner (sim/episode.py, its eager cycles) instead: chip_smoke.py's closed-loop
 scenario (synthetic_av2(0), planner enabled after 1 s), a whole warm
 episode first, then the cycles from cycle 12 on with the carry of the
 cycles before them. `--episode --time` runs no profiler: it times
@@ -41,17 +41,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 
-def busy_us(intervals):
-    """Total length of the union of [start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+busy_us = cs.busy_us
 
 
 def device_kernels(prof):
@@ -137,17 +127,21 @@ def profile_episode(args) -> int:
     first = 12   # two cycles after the planner is enabled (cycle 10)
     with tempfile.TemporaryDirectory() as root:
         sim, cfg = episode_sim(args.demo, 5 * (first + args.cycles), root)
-        episode.run_episode(sim)    # warm: kernel builds, graph captures, allocator
-        _, inp, statics, run, carry = episode._episode_setup(sim, None, None)
-        carry, _ = run(episode._slice_cycles(inp, 0, first), statics, carry, 0)
+        episode.run_episode(sim, graphed=False)   # warm: kernel builds, graph captures
+        ego, pl, inp, statics = episode._episode_setup(sim, None, None)
+        run = episode.episode_fn_for(pl, ego.veh_param, sim.sim_step, batch="single_seg")
+        carry = episode._init_episode_carry(inp.types.shape[-2],
+                                            getattr(torch, pl.cfg.pipeline_dtype), pl.device)
+        carry, _ = run(pl.net, episode._slice_cycles(inp, 0, first), statics, inp.enable_tick, 0,
+                       carry, graphed=False)
         cycles, by_name = [], {}
         for c in range(first, first + args.cycles):
             phases = []
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
-                carry, _ = run(episode._slice_cycles(inp, c, c + 1), statics, carry, c,
-                               phases=phases)
+                carry, _ = run(pl.net, episode._slice_cycles(inp, c, c + 1), statics,
+                               inp.enable_tick, c, carry, phases=phases)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
             kernels = device_kernels(prof)
