@@ -43,22 +43,44 @@ result line):
      map JSON and the scenario parquet, read by data/parquet.py and held
      equal to the scenario built in memory; the read's ms printed);
      through the data layer, load_agents, MINDAgent and MINDPlanner.plan on
-     the staged path with exported trees) under the demo configuration at
-     full width, 150 ticks of 20 ms with the planner enabled after 1 s: 20
-     plans; per-plan wall time with the planner's phases, ticks per second
-     and the share of the loop's wall time outside plan() are printed;
+     the staged path with exported trees, through the planner's compiled
+     programs) under the demo configuration at full width, 150 ticks of 20
+     ms with the planner enabled after 1 s: 20 plans; kernel B launched only
+     by the programs' captures and executed 6 times per AIME round the
+     device counted, those rounds the plans' own; per-plan wall time with
+     the planner's phases, ticks per second and the share of the loop's
+     wall time outside plan() are printed;
  6b. demo command: python -m mind_tpu_torch.run_sim --config <the fixture's
      demo_1_synthetic.json, its output in a temporary folder> --data-root
      tests/fixtures/av2_synthetic --max-steps 150, rendering on, as a
      subprocess: exit code 0, phase 6's plan count, no failed plan, an MJPEG
      AVI of 150 JPEG frames of 1200 x 1200 (probe_avi); then run_sim.main
      on the same arguments and --no-render in this process: kernel B
-     launched a positive multiple of 6 times and kernel A never, the ego
+     launched a multiple of 6 times (eagerly, or by a capture) and executed
+     by the programs' replays, kernel A never, the ego
      within 1e-6 m of phase 6's (whether it is equal to the bit is
      printed); the parquet read ms, render seconds a frame (8 frames one
      after another here; drawn and encoded with the configuration's
      num_threads workers in the command), PNG read and JPEG encode ms a
      frame and the command's ticks/s, with the card's name and power limit;
+  6c. plan programs: MINDPlanner's compiled programs (planner/programs.py:
+     AIME, the staged solve and its exec re-solve, the fused plan, each one
+     CUDA graph with AIME's rounds IF nodes and the iLQR loops WHILE nodes)
+     against graphed=False, which runs the same bodies eagerly: cell 3's
+     host loop (phase 6's compiled run, staged, and a fused one, 150 ticks)
+     and 26-tick loops under the float32 network in the float32, native
+     float64 exec (staged and fused) and polish float64 exec
+     configurations, each equal to the bit to its eager loop (every plan's
+     ok, control, selected tree, iterations, AIME rounds, the exported
+     trees, the ego); every replay under set_sync_debug_mode("error"), one
+     a program a plan; the host's reads of the device in one plan counted
+     by a TorchDispatchMode (2 staged plus the export's and the native
+     payload's, 1 fused); kernels B and A launched only by the captures and
+     executed 6 times per device-counted AIME round, the condition kernel
+     run by the replays, 6 kernel B nodes per round body in the AIME
+     program's graph (DOT); ticks/s compiled and eager, the programs and
+     their capture seconds, the weights' copy into the programs' network
+     and peak memory, with the card's name and power limit;
   7. float32 loop: 36 ticks under the float32 defaults with the planner
      enabled after 0.2 s (5 plans, float32 kernel), on the card and again
      on the CPU through the plain version (that one in a child process
@@ -166,7 +188,8 @@ result line):
      against plain within TOL_NET_CLS / TOL_NET_POS); diag_playback on
      demo_1 (the JAX field names, finite deviations). Each driver's
      launches, counted from 0 around it, equal what its rows record, and
-     the demo configuration's runs launch kernel B in multiples of 6;
+     the demo configuration's runs launch kernel B in multiples of 6 and
+     run it at least once (launched, or executed by compiled programs);
  15b. dist: the shards at the same time, one process per shard
      (mind_tpu_torch/parallel/launch.py, the rank workloads of
      parallel/dryrun.py), at full width with the trained weights. (a)-(c)
@@ -654,13 +677,17 @@ def loop_sim(planner_cfg, enable, ticks, data_root, seed=SEED, target_velocity=T
                          enable_timestep=enable, target_velocity=target_velocity, device=device)
 
 
-def run_loop(name, planner_cfg, enable, ticks, device, data_root, seed=SEED):
+def run_loop(name, planner_cfg, enable, ticks, device, data_root, seed=SEED, graphed=None,
+             export_trees=True):
     """The port's Simulator for `ticks` ticks on the synthetic AV2 scenario
     of `seed` (None: the log under data_root) with the AV's planner enabled
-    after `enable` seconds, on `device` (None: the card). Returns (sim, the
-    AV's agent, per-plan records)."""
+    after `enable` seconds, on `device` (None: the card), planning with
+    `graphed` (None: through the compiled programs on the card) on the
+    staged path (`export_trees`) or the fused one. Returns (sim, the AV's
+    agent, per-plan records)."""
     sim = loop_sim(planner_cfg, enable, ticks, data_root, seed=seed, device=device)
     agent = next(a for a in sim.agents if a.id == "AV")
+    agent.planner.graphed, agent.planner.export_trees = graphed, export_trees
     plans, plan, timer = [], agent.plan, agent.planner.metrics.timer
 
     def recorded():
@@ -672,9 +699,11 @@ def run_loop(name, planner_cfg, enable, ticks, device, data_root, seed=SEED):
                "rounds": agent.planner.last_rounds,
                **{k: (timer.totals[k] - before.get(k, 0.0)) * 1e3 for k in timer.totals}}
         if ok:
-            rec.update(ctrl=[float(c) for c in agent.ctrl], trees=agent.planner.last_n_trees,
-                       tree=res[0][0].get_root_key(),
-                       iterations=agent.planner.metrics.counters["gauge/ilqr_iterations"])
+            pl = agent.planner
+            rec.update(ctrl=[float(c) for c in agent.ctrl], best=pl.last_best,
+                       iterations=pl.metrics.counters["gauge/ilqr_iterations"])
+            if res is not None:   # the staged path's exported trees
+                rec.update(trees=pl.last_n_trees, tree=res[0][0].get_root_key())
         plans.append(rec)
         log(f"[{name} plan {len(plans) - 1}] " + json.dumps(rec))
         return ok, res
@@ -727,15 +756,15 @@ def phase_closed_loop(dcfg, fa, syn, lane_w, origin):
     if scenario_fields(scenario) != scenario_fields(syn.scenario):
         raise RuntimeError("closed loop: the committed parquet does not read to "
                            "synthetic_av2(0)'s scenario")
-    fa.reset_launch_counts()
-    sim, agent, plans = run_loop("loop", dcfg, 1.0, LOOP_TICKS, None, FIXTURE, seed=None)
-    counts = dict(fa.fused_edge_attention.launches_by_variant)
+    with KernelRuns(fa) as runs:
+        sim, agent, plans = run_loop("loop", dcfg, 1.0, LOOP_TICKS, None, FIXTURE, seed=None)
     rounds = sum(r["rounds"] for r in plans)
     if len(plans) != 20:
         raise RuntimeError(f"closed loop: {len(plans)} plans, expected 20")
-    if counts["bfloat16"] != dcfg.net.n_scene_layer * rounds or counts["bfloat16"] == 0 \
-            or counts["float32"] != 0:
-        raise RuntimeError(f"closed loop: launches {counts} for {rounds} AIME rounds")
+    held = runs.hold("closed loop", "bfloat16", dcfg.net.n_scene_layer,
+                     dcfg.scen_tree.max_depth, rounds)
+    launched, executed, cond, cond_launches = held
+    counts = runs.counts
     ego = sim.ego_trajectory()
     enabled = ego[plans[0]["tick"]:]
     along = float(enabled[-1, 0] - enabled[0, 0])
@@ -754,13 +783,15 @@ def phase_closed_loop(dcfg, fa, syn, lane_w, origin):
         "plan_wall_ms_steady_mean": float(np.mean([r["wall_ms"] for r in plans[1:]])),
         "phases_ms_steady_mean": {k: float(np.mean([r[k] for r in plans[1:]]))
                                   for k in ("aime", "flatten", "solve", "export")},
-        "rounds": rounds, "launches": counts, "ego_advance_m": along,
+        "rounds": rounds, "launches": counts, "kernel_b_executions": executed,
+        "condition_kernel_runs": cond, "condition_kernel_launches": cond_launches,
+        "ego_advance_m": along,
         "ego_lateral_max_m": lateral, "last_plan_tree_sizes": trees,
         "tracks": len(sim.agents), "lane_segments": syn.n_graph_segments,
         "parquet_read_ms": parquet_ms,
     }
     log("[loop] " + json.dumps(summary))
-    return counts["bfloat16"], summary, sim.ego_trajectory()
+    return held, summary, sim, plans
 
 
 def probe_video(name, path, ticks):
@@ -835,9 +866,8 @@ def phase_demo_command(fa, loop, loop_ego, card):
 
         Simulator.run_sim = recorded
         try:
-            fa.reset_launch_counts()
-            metrics = run_sim.main(args + ["--no-render"])
-            counts = dict(fa.fused_edge_attention.launches_by_variant)
+            with KernelRuns(fa) as runs:
+                metrics = run_sim.main(args + ["--no-render"])
         finally:
             Simulator.run_sim = run
         (sim,) = sims
@@ -845,14 +875,17 @@ def phase_demo_command(fa, loop, loop_ego, card):
         if metrics["plan_calls"] != loop["plan_calls"] or \
                 agent.planner.metrics.counters.get("plan_failures", 0):
             raise RuntimeError(f"demo command in this process: {metrics}")
-        if counts["bfloat16"] <= 0 or counts["bfloat16"] % 6 or counts["float32"]:
-            raise RuntimeError(f"demo command: kernel launches {counts}")
+        pc = agent.planner.cfg
+        held = runs.hold("demo command", "bfloat16", pc.net.n_scene_layer,
+                         pc.scen_tree.max_depth)
+        launched, executed = held[:2]
+        counts = runs.counts
         ego = sim.ego_trajectory()
         gap = float(np.abs(ego - loop_ego).max()) if ego.shape == loop_ego.shape else np.inf
         if not gap <= TOL_COMMAND_EGO:
             raise RuntimeError(f"demo command: ego {ego.shape} against the loop's "
                                f"{loop_ego.shape}, {gap} m apart (limit {TOL_COMMAND_EGO})")
-        summary.update(launches=counts, ego_gap_m=gap,
+        summary.update(launches=counts, kernel_b_executions=executed, ego_gap_m=gap,
                        ego_bit_equal=bool(np.array_equal(ego, loop_ego)))
         # frames of this run drawn one after another, read back, encoded
         frames = np.linspace(0, LOOP_TICKS - 1, SERIAL_FRAMES).astype(int)
@@ -876,7 +909,7 @@ def phase_demo_command(fa, loop, loop_ego, card):
         f"{summary['render_workers']} workers; JPEG encode "
         f"{summary['jpeg_encode_ms_per_frame']:.1f} ms a frame; the command "
         f"{summary['command_ticks_per_s']:.2f} ticks/s ({card})")
-    return counts["bfloat16"], summary
+    return held, summary
 
 
 def float32_cfg():
@@ -955,31 +988,323 @@ class CpuReferences:
         return self.results[name]
 
 
+# (plan programs): the extra configurations' loops, 26 ticks with the
+# planner on after 0.2 s (3 plans)
+PROGRAM_TICKS = 26
+
+
+class DeviceReads:
+    """Counts the host's reads of the device in a block: every op that takes
+    a CUDA tensor and gives the host a result (a copy to the CPU, .item(),
+    the truth of a tensor), through a TorchDispatchMode. A graph replay is
+    no op: what it runs is never counted."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        reads = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in tree_leaves((args, kwargs))):
+                    got = [o for o in tree_leaves(out) if o is not None]
+                    if any(not isinstance(o, torch.Tensor) or not o.is_cuda for o in got):
+                        reads.n += 1
+                        reads.ops.append(str(func))
+                return out
+
+        self.mode, self.n, self.ops = Mode(), 0, []
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def plan_reads(pl):
+    """One more plan of `pl` on its current state: the host's reads of the
+    device in it by the planner's timer phase ({"aime": n, "solve": n,
+    "export": n, ...}) and the ops that read."""
+    import contextlib
+
+    reads, by_phase = DeviceReads(), {}
+    timer = pl.metrics.timer
+    phase = timer.phase
+
+    @contextlib.contextmanager
+    def counted(name):
+        n = reads.n
+        with phase(name):
+            yield
+        by_phase[name] = by_phase.get(name, 0) + reads.n - n
+
+    timer.phase = counted
+    try:
+        with reads:
+            ok, _, _ = pl.plan()
+    finally:
+        del timer.phase
+    if not ok:
+        raise RuntimeError("plan programs: the reads' plan failed")
+    if sum(by_phase.values()) != reads.n:
+        raise RuntimeError(f"plan programs: {reads.n} reads, {by_phase} inside the phases")
+    return by_phase, reads.ops
+
+
+def same_trees(a, b) -> bool:
+    """Two exported trees: the same keys, links and payloads, to the bit."""
+    if a.bfs_keys() != b.bfs_keys():
+        return False
+    for k in a.bfs_keys():
+        na, nb = a.get_node(k), b.get_node(k)
+        if na.parent_key != nb.parent_key or len(na.data) != len(nb.data) or not all(
+                np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(na.data, nb.data)):
+            return False
+    return True
+
+
+PLAN_KEYS = ("tick", "ok", "ctrl", "best", "iterations", "rounds", "tree", "trees")
+
+
+def hold_equal_loops(name, got, want):
+    """A compiled loop (sim, plan records) against the eager one: every
+    plan's ok, control, selected tree, iteration count (warm + full on the
+    staged path, the fused read's on the fused one), AIME rounds and, on
+    the staged path, the exported trees; the ego; all to the bit."""
+    (sim_c, plans_c), (sim_e, plans_e) = got, want
+    diff = [(i, k, a.get(k), b.get(k)) for i, (a, b) in enumerate(zip(plans_c, plans_e))
+            for k in PLAN_KEYS if a.get(k) != b.get(k)]
+    trees = [r["tick"] for r in plans_e if "tree" in r and not all(
+        same_trees(sim_c.frames[r["tick"]][k][0], sim_e.frames[r["tick"]][k][0])
+        for k in ("scen_tree", "traj_tree"))]
+    ego_c, ego_e = sim_c.ego_trajectory(), sim_e.ego_trajectory()
+    if len(plans_c) != len(plans_e) or not plans_e or diff or trees or \
+            not np.array_equal(ego_c, ego_e):
+        raise RuntimeError(f"plan programs {name}: the compiled loop differs from the eager "
+                           f"one: {len(plans_c)} / {len(plans_e)} plans, plans {diff[:5]}, "
+                           f"exported trees at ticks {trees}, ego equal "
+                           f"{np.array_equal(ego_c, ego_e)}")
+    return {"plans": len(plans_e), "exported_trees_compared": sum("tree" in r for r in plans_e)}
+
+
+def phase_plan_programs(dcfg, fa, loop, loop_sim6, loop_plans6, data_root, card):
+    """(plan programs) MINDPlanner's compiled programs (planner/programs.py)
+    against graphed=False, which runs the same bodies eagerly. Cell 3's
+    Simulator host loop (the committed log, demo configuration, 150 ticks,
+    planner on after 1 s): on the staged path phase 6's run (`loop_sim6`,
+    `loop_plans6`, which captured the programs) and here a warm compiled
+    run and an eager one; on the fused path a run that captures and an
+    eager one. Then PROGRAM_TICKS-tick loops compiled and eager in three
+    more configurations with the float32 network (kernel A): the float32
+    defaults, a native float64 exec re-solve (staged and fused) and a
+    device polish re-solve in float64 (staged: its exec program). Each
+    compiled loop equal to its eager one to the bit (hold_equal_loops);
+    every replay under set_sync_debug_mode("error"), one replay per
+    program per plan; the host's reads of the device per plan
+    (DeviceReads): 2 on the staged path plus the export's (plus the
+    native payload's), 1 on the fused; kernel B or A launched only by the
+    captures and executed 6 times per AIME round the device counted, the
+    condition kernel run by the replays, the demo AIME program's graph
+    holding 6 kernel B nodes a round. Prints ticks/s compiled and eager,
+    the programs captured and their capture seconds, the per-call weight
+    copy, and the peak memory. Returns ((kernel B launches, executions),
+    (kernel A launches, executions), condition-kernel (launches, runs),
+    summary)."""
+    from mind_tpu_torch.ops import graph_control as gc
+    from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.planner import programs
+
+    layers, depth = dcfg.net.n_scene_layer, dcfg.scen_tree.max_depth
+    replay = gc.GraphProgram.replay
+    modes = []
+
+    def watched(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(self)
+
+    t_phase = time.perf_counter()
+    before = set(programs.programs())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs_b, runs_a, cond = [0, 0], [0, 0], [0, 0]
+    summary = {"card": card, "rates": {}, "configurations": {}}
+
+    def loop_runs(name, cfg, enable, ticks, root, seed, export, variant, kinds, given=None):
+        """The loop of one configuration in each of `kinds` ("compiled": its
+        programs captured in the run where they are new, "warm": captured
+        before, "eager": graphed=False), each held to its kernel runs; each
+        compiled run (and `given`, phase 6's) against the eager one."""
+        # replays a plan: the fused program; or AIME, solve and the exec
+        # re-solve where it runs on the device
+        per_plan = 1 if not export else 2 + tplanner.resolves(cfg.traj_tree,
+                                                             tplanner.ilqr_configs(cfg)[0])
+        out = dict(given or {})
+        lay, dep = cfg.net.n_scene_layer, cfg.scen_tree.max_depth
+        for kind in kinds:
+            graphed = False if kind == "eager" else None
+            n_modes = len(modes)
+            with KernelRuns(fa) as runs:
+                t = time.perf_counter()
+                sim, agent, plans = run_loop(f"{name}-{kind}", cfg, enable, ticks, None, root,
+                                             seed=seed, graphed=graphed, export_trees=export)
+                wall = time.perf_counter() - t
+            launched, executed, c, c_launched = runs.hold(
+                f"plan programs {name}", variant, lay, dep, sum(r["rounds"] for r in plans))
+            captured = runs.after[0] - runs.before[0]
+            if kind == "eager":
+                if executed or modes[n_modes:]:
+                    raise RuntimeError(f"plan programs {name}: the eager loop replayed a program")
+            elif executed <= 0 or modes[n_modes:] != [2] * (per_plan * len(plans)) or \
+                    (kind == "warm" and captured):
+                raise RuntimeError(f"plan programs {name} ({kind}): {executed} executions, "
+                                   f"{captured} programs captured; replays under sync debug "
+                                   f"modes {modes[n_modes:]} for {len(plans)} plans, {per_plan} "
+                                   f"a plan")
+            tally = runs_b if variant == "bfloat16" else runs_a
+            tally[0] += launched
+            tally[1] += executed
+            cond[0] += c_launched
+            cond[1] += c
+            out[kind] = (sim, agent, plans, wall, runs.counts)
+        rec = {}
+        for kind in out:
+            if kind != "eager":
+                rec[kind] = hold_equal_loops(f"{name} ({kind})", (out[kind][0], out[kind][2]),
+                                             (out["eager"][0], out["eager"][2]))
+        rec.update({f"{k}_ticks_per_s": ticks / out[k][3] for k in out},
+                   launches={k: out[k][4] for k in out},
+                   first_plan_ms={k: out[k][2][0]["wall_ms"] for k in out},
+                   steady_plan_ms_mean={k: float(np.mean([r["wall_ms"] for r in out[k][2][1:]]))
+                                        for k in out})
+        return rec, out[[k for k in out if k != "eager"][-1]][1].planner
+
+    gc.GraphProgram.replay = watched
+    try:
+        # cell 3, staged: phase 6's loop (which captured the programs) and a
+        # warm compiled one against an eager one
+        staged, pl_staged = loop_runs(
+            "loop", dcfg, 1.0, LOOP_TICKS, FIXTURE, None, True, "bfloat16", ("eager", "warm"),
+            given={"compiled": (loop_sim6, next(a for a in loop_sim6.agents if a.id == "AV"),
+                                loop_plans6, loop["wall_s"], loop["launches"])})
+        staged["compiled_ticks_per_s"] = loop["ticks_per_s"]   # the loop's own rate
+        fused, pl_fused = loop_runs("loop-fused", dcfg, 1.0, LOOP_TICKS, FIXTURE, None, False,
+                                    "bfloat16", ("compiled", "eager"))
+        summary["configurations"].update(loop_staged=staged, loop_fused=fused)
+        # the float32 network's configurations
+        pls = {}
+        for name, solve, exec_dtype, mode, export in (
+                ("float32", "float32", None, "polish", True),
+                ("native", "float32", "float64", "native", True),
+                ("native-fused", "float32", "float64", "native", False),
+                ("polish", "float32", "float64", "polish", True)):
+            cfg = float32_cfg()
+            cfg.traj_tree.solve_dtype = solve
+            cfg.traj_tree.exec_solve_dtype = exec_dtype
+            cfg.traj_tree.exec_resolve_mode = mode
+            summary["configurations"][name], pls[name] = loop_runs(
+                name, cfg, 0.2, PROGRAM_TICKS, data_root, SEED, export, "float32",
+                ("compiled", "eager"))
+
+        # the host's reads of the device per plan, and the replays of each
+        reads = {}
+        for name, pl in (("staged", pl_staged), ("fused", pl_fused),
+                         ("native", pls["native"]), ("native-fused", pls["native-fused"]),
+                         ("polish", pls["polish"])):
+            n_modes = len(modes)
+            by_phase, ops = plan_reads(pl)
+            if modes[n_modes:] != [2] * (len(modes) - n_modes):
+                raise RuntimeError(f"plan programs {name}: replays under sync debug modes "
+                                   f"{modes[n_modes:]}")
+            reads[name] = {"reads": by_phase, "replays": len(modes) - n_modes,
+                           "ops": sorted(set(ops))}
+    finally:
+        gc.GraphProgram.replay = replay
+    # reads by phase, and replays, of one plan: AIME's packed meta, the
+    # solve's packed result, the native payload, the export's trajectories
+    # (the winner's scenario slots, states and controls); the fused read
+    staged_reads = {"aime": 1, "flatten": 0, "solve": 1, "export": 5}
+    want = {"staged": (staged_reads, 2), "fused": ({"plan_fused": 1}, 1),
+            "native": (dict(staged_reads, exec_native=1), 2), "native-fused": (
+                {"plan_fused": 1, "exec_native": 0}, 1), "polish": (staged_reads, 3)}
+    got = {k: (r["reads"], r["replays"]) for k, r in reads.items()}
+    summary["reads_per_plan"] = reads
+    if got != want:
+        raise RuntimeError(f"plan programs: reads by phase and replays per plan {got}, "
+                           f"expected {want}: {reads}")
+
+    # the demo AIME program's graph: kernel B in every round body
+    (aime,) = [p for p in pl_staged.program_set().programs.values() if p.kind == "aime"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dot = os.path.join(tmp, "aime.dot")
+        aime.program.dot(dot)
+        text = open(dot).read()
+    kernel_b_nodes = sum("edge_attention_bf16_kernel" in line for line in text.splitlines())
+    if kernel_b_nodes != layers * depth:
+        raise RuntimeError(f"plan programs: {kernel_b_nodes} kernel B nodes in the AIME "
+                           f"program's graph, expected {layers * depth}")
+
+    # the weights' copy into the programs' network, and the check that skips it
+    ps, net = pl_staged.program_set(), pl_staged.net
+    n_tensors = len(ps.net._mine)
+    copy_ms = cuda_time_ms(lambda: ps.net.load(net, force=True), reps=20)
+    t = time.perf_counter()
+    for _ in range(200):
+        ps.net.load(net)
+    skip_us = (time.perf_counter() - t) / 200 * 1e6
+
+    progs = programs.programs()
+    summary.update(
+        programs={"in_process": len(progs), "built_in_phase": len(set(progs) - before),
+                  "capture_s": [(p.kind, p.capture_s) for p in progs]},
+        kernel_b_nodes_in_aime_graph=kernel_b_nodes,
+        weight_copy={"tensors": n_tensors, "ms": copy_ms, "skip_check_us": skip_us},
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        kernel_b=runs_b, kernel_a=runs_a, condition_kernel_runs=cond[1],
+        condition_kernel_launches=cond[0], seconds=time.perf_counter() - t_phase)
+    log("[plan programs] " + json.dumps(summary))
+    log(f"[plan programs] cell 3 staged {staged['compiled_ticks_per_s']:.2f} ticks/s compiled "
+        f"(phase 6, capturing) and {staged['warm_ticks_per_s']:.2f} warm against "
+        f"{staged['eager_ticks_per_s']:.2f} eager; fused {fused['compiled_ticks_per_s']:.2f} "
+        f"(capturing) against {fused['eager_ticks_per_s']:.2f} eager, a plan after the first "
+        f"{fused['steady_plan_ms_mean']['compiled']:.1f} ms against "
+        f"{fused['steady_plan_ms_mean']['eager']:.1f}; "
+        f"{len(progs)} programs, captured in {sum(p.capture_s for p in progs):.2f} s; weights "
+        f"copied in {copy_ms:.3f} ms ({n_tensors} tensors), the skip check {skip_us:.1f} us; "
+        f"peak {summary['peak_memory_gb']:.2f} GB ({card})")
+    return tuple(runs_b), tuple(runs_a), tuple(cond), summary
+
+
 def phase_float32_loop(cfg, fa, data_root, cpu_child):
     """36 ticks under the float32 defaults on the card (kernel A), against
     the same loop on the CPU (plain version) that `cpu_child`
     (CpuReferences) ran beside the card's phases: the same trees, ego
     within TOL_LOOP_EGO."""
-    fa.reset_launch_counts()
-    sim, _, plans = run_loop("loop32", cfg, 0.2, 36, None, data_root)
-    counts = dict(fa.fused_edge_attention.launches_by_variant)
-    rounds = sum(r["rounds"] for r in plans)
-    if len(plans) != 5 or counts["float32"] != cfg.net.n_scene_layer * rounds \
-            or counts["float32"] == 0 or counts["bfloat16"] != 0:
-        raise RuntimeError(f"float32 loop: {len(plans)} plans, launches {counts} for "
-                           f"{rounds} AIME rounds")
+    with KernelRuns(fa) as runs:
+        sim, _, plans = run_loop("loop32", cfg, 0.2, 36, None, data_root)
+    if len(plans) != 5:
+        raise RuntimeError(f"float32 loop: {len(plans)} plans")
+    held = runs.hold("float32 loop", "float32", cfg.net.n_scene_layer,
+                     cfg.scen_tree.max_depth, sum(r["rounds"] for r in plans))
+    launched, executed = held[:2]
+    counts = runs.counts
     t = time.perf_counter()
     ego_cpu, plans_cpu, cpu_s = cpu_child.get("loop32")
     wait_s = time.perf_counter() - t
     gap = float(np.abs(sim.ego_trajectory() - ego_cpu).max())
     same = [(a["tick"], a["tree"]) == b for a, b in zip(plans, plans_cpu)]
     summary = {"plans": len(plans), "ego_gap_m": gap, "same_tree": same,
-               "launches": counts, "cpu_loop_s": cpu_s, "cpu_loop_wait_s": wait_s,
+               "launches": counts, "kernel_a_executions": executed, "cpu_loop_s": cpu_s,
+               "cpu_loop_wait_s": wait_s,
                "plan_wall_ms": [r["wall_ms"] for r in plans]}
     log("[loop32] " + json.dumps(summary))
     if len(plans_cpu) != len(plans) or not all(same) or not gap < TOL_LOOP_EGO:
         raise RuntimeError(f"float32 loop: card and CPU disagree: {summary}")
-    return counts["float32"], summary
+    return held, summary
 
 
 def phase_exec_resolve(float32_cfg, data_root):
@@ -1040,21 +1365,101 @@ class RoundCounter:
 
 
 def program_counts():
-    """(compiled episode programs, the AIME rounds their replays ran, the
-    condition kernel's runs in them) in this process, read from the
+    """(compiled programs that grow AIME trees: the episode programs and the
+    planner's AIME and fused programs; the AIME rounds their replays ran;
+    the condition kernel's runs in every compiled program, the planner's
+    staged solve and exec programs too) in this process, read from the
     device."""
+    from mind_tpu_torch.planner import programs
     from mind_tpu_torch.sim import episode
 
-    progs = episode.programs()
-    return (len(progs), sum(int(p.rounds) for p in progs),
-            sum(int(p.program.executions) for p in progs))
+    eps, pls = episode.programs(), programs.programs()
+    aime = eps + [p for p in pls if p.kind in ("aime", "fused")]
+    return (len(aime), sum(int(p.rounds) for p in aime),
+            sum(int(p.program.executions) for p in eps + pls))
+
+
+def graph_programs():
+    """Every compiled program of this process: the episode programs and the
+    planner's."""
+    from mind_tpu_torch.planner import programs
+    from mind_tpu_torch.sim import episode
+
+    return episode.programs() + programs.programs()
 
 
 def captured_launches(layers, depth, programs):
-    """Kernel B launches of capturing `programs` episode programs: each
-    warm-up runs all `depth` AIME rounds once eagerly and the capture
+    """Kernel B launches of capturing `programs` AIME-growing programs:
+    each warm-up runs all `depth` AIME rounds once eagerly and the capture
     records them, `layers` launches a round."""
     return 2 * layers * depth * programs
+
+
+class KernelRuns:
+    """The fusion kernels' runs in a block: launches by variant counted from
+    0, the eager AIME rounds (RoundCounter on planner.aime_grow_tree, which
+    every plan path calls), the float64 mirror's network forwards
+    (parity/host_planner.py, which the parity drivers run beside the
+    planner), the condition kernel's launches (captures) and
+    program_counts before and after. `hold` checks them and returns
+    (launches, executions, condition-kernel runs, condition-kernel
+    launches)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def __enter__(self):
+        from mind_tpu_torch.ops import graph_control
+        from mind_tpu_torch.parity import host_planner
+        from mind_tpu_torch.planner import planner as tplanner
+
+        self.tplanner, self.cond = tplanner, graph_control.set_conditional_any
+        self.mirror = host_planner.HostRefPlanner
+        self.cond0 = self.cond.launches
+        self.counter = RoundCounter(tplanner.aime_grow_tree)
+        tplanner.aime_grow_tree = self.counter
+        self.forwards = CallCounter(self.mirror._predict)
+        self.mirror._predict = self.forwards
+        self.before = program_counts()
+        self.programs0 = set(graph_programs())
+        self.fa.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.tplanner.aime_grow_tree = self.counter.fn
+        self.mirror._predict = self.forwards.fn
+        self.counts = dict(self.fa.fused_edge_attention.launches_by_variant)
+        self.cond_launches = self.cond.launches - self.cond0
+        self.after = program_counts()
+        # the compiled programs built in the block: (kind, capture seconds)
+        self.built = [(getattr(p, "kind", "episode"), getattr(p, "capture_s", None))
+                      for p in graph_programs() if p not in self.programs0]
+
+    @property
+    def device_rounds(self):
+        return self.after[1] - self.before[1]
+
+    def hold(self, name, variant, layers, depth, rounds=None):
+        """Kernel `variant` launched `layers` times per eager AIME round and
+        per mirror forward, and captured_launches by each AIME-growing
+        program captured in the block; executed `layers` times per round
+        those programs' replays ran (counted on the device); the other
+        variant never; at least one round run, and `rounds` (the plans' own
+        count, if given) in all."""
+        other = "float32" if variant == "bfloat16" else "bfloat16"
+        captured = self.after[0] - self.before[0]
+        eager = self.counter.rounds
+        launched = layers * (eager + self.forwards.calls) + \
+            captured_launches(layers, depth, captured)
+        total = eager + self.device_rounds
+        if self.counts[variant] != launched or self.counts[other] or not total or \
+                (rounds is not None and total != rounds):
+            raise RuntimeError(f"{name}: kernel launches {self.counts} for {eager} eager AIME "
+                               f"rounds, {self.forwards.calls} mirror forwards and {captured} "
+                               f"programs captured; {self.device_rounds} "
+                               f"rounds replayed, the plans' {rounds}")
+        return (self.counts[variant], layers * self.device_rounds,
+                self.after[2] - self.before[2], self.cond_launches)
 
 
 def phase_episode(dcfg, fa, data_root, loop_ego, loop_plans):
@@ -2070,8 +2475,9 @@ SCRIPTS_TIMEOUT_S = 300
 
 
 def demo_launches(name, n):
-    """Launches by the demo configuration's drivers: kernel B a positive
-    multiple of 6 (6 fusion layers per forward), kernel A never."""
+    """Launches of the fusion kernels by a demo-configuration driver run as
+    a command (counted in its own process): kernel B a positive multiple of
+    6 times (6 fusion layers per forward), kernel A never."""
     if n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6:
         raise RuntimeError(f"scripts {name}: kernel launches {n}")
 
@@ -2086,19 +2492,32 @@ def read_json(path):
         return json.load(f)
 
 
-def run_driver(fa, name, main, argv):
+def run_driver(fa, name, main, argv, plans=True):
     """One driver's main(argv) in this process, the launch counts set to 0
-    just before and read just after; exit code 0 or raise. Returns (its
-    launches by variant, seconds)."""
+    just before and read just after (KernelRuns); exit code 0 or raise.
+    A driver that `plans` (under the demo configuration) is held to its
+    AIME rounds (KernelRuns.hold). Returns (its launches by variant,
+    seconds, the held runs or None)."""
     log(f"[scripts] {name} " + " ".join(argv))
-    fa.reset_launch_counts()
     t = time.perf_counter()
-    rc = main(argv)
+    with KernelRuns(fa) as runs:
+        rc = main(argv)
     wall = time.perf_counter() - t
-    n = dict(fa.fused_edge_attention.launches_by_variant)
     if rc != 0:
         raise RuntimeError(f"scripts {name}: exit code {rc}")
-    return n, wall
+    log(f"[scripts] {name}: compiled programs built {runs.built}")
+    return runs.counts, wall, hold_demo_runs(runs, name) if plans else None
+
+
+def hold_demo_runs(runs, name):
+    """KernelRuns.hold for kernel B under the demo configuration: launched 6
+    times per eager AIME round and by each AIME-growing program captured,
+    executed 6 times per round the replays ran, kernel A never."""
+    from mind_tpu_torch.config import planner_config_for_demo
+
+    cfg = planner_config_for_demo("demo_1")
+    return runs.hold(f"scripts {name}", "bfloat16", cfg.net.n_scene_layer,
+                     cfg.scen_tree.max_depth)
 
 
 def phase_scripts(fa):
@@ -2132,9 +2551,16 @@ def phase_scripts(fa):
     with tempfile.TemporaryDirectory() as tmp:
         out = lambda name: os.path.join(tmp, name)
 
-        def driver(name, mod, argv):
-            n, wall = run_driver(fa, name, mod.main, argv)
+        def held(name, runs):
+            summary.setdefault("kernel_b_executions", {})[name] = runs[1]
+            summary.setdefault("condition_kernel", {})[name] = {"runs": runs[2],
+                                                                "launches": runs[3]}
+
+        def driver(name, mod, argv, plans=True):
+            n, wall, runs = run_driver(fa, name, mod.main, argv, plans)
             summary["seconds"][name] = wall
+            if runs is not None:
+                held(name, runs)
             add_launches(total, n)
             return n
 
@@ -2142,7 +2568,6 @@ def phase_scripts(fa):
         n = driver("run_all_demos", run_all_demos, [
             "--mode", "both", "--demos", "1,2", *steps, "--json-out", out("host.json"),
             "--episode-json", out("episode.json"), "--report", out("DEMOS.md")])
-        demo_launches("run_all_demos", n)
         ep_rows = read_json(out("episode.json"))["rows"]
         rows = read_json(out("host.json"))
         report = open(out("DEMOS.md")).read()
@@ -2172,19 +2597,18 @@ def phase_scripts(fa):
         add_launches(total, cli["launches"])
 
         # the north star: native_bal's free-run parity, then its throughput
-        fa.reset_launch_counts()
         t = time.perf_counter()
-        with open(out("free.log"), "w") as f, contextlib.redirect_stdout(f):
+        with open(out("free.log"), "w") as f, contextlib.redirect_stdout(f), \
+                KernelRuns(fa) as runs:
             parity_run.main(["--demos", "1", "--skip", "playback", "resync", "--free-modes",
                              "native_bal", "--synthetic"])
         summary["seconds"]["parity_run_free"] = time.perf_counter() - t
-        n = dict(fa.fused_edge_attention.launches_by_variant)
-        demo_launches("parity_run", n)
+        n = runs.counts
+        held("parity_run_free", hold_demo_runs(runs, "parity_run"))
         add_launches(total, n)
         n = driver("bench_north_star", bench_north_star, [
             "--policy", "native_bal", "--demos", "1", *steps, "--free-log", out("free.log"),
             "--out", out("north_star.json")])
-        demo_launches("bench_north_star", n)
         ns = read_json(out("north_star.json"))
         (thr,), free = ns["throughput"], ns.get("free_run", [])
         if thr["plan_calls"] != SCRIPTS_PLANS or not positive(thr["steps_per_sec"]) or \
@@ -2200,7 +2624,6 @@ def phase_scripts(fa):
         # strict float64 against the float32 episode of run_all_demos
         n = driver("bench_strict", bench_strict, ["--demos", "1", *steps,
                                                   "--out", out("strict.json")])
-        demo_launches("bench_strict", n)
         (strict,) = read_json(out("strict.json"))["per_demo"]
         if strict["fail_cycle"] != -1 or strict["plan_calls"] != ep_rows[0]["plan_calls"] or \
                 not positive(strict["steps_per_s"]) or strict["launches"] != n:
@@ -2209,7 +2632,6 @@ def phase_scripts(fa):
 
         # the precision-policy matrix
         n = driver("bench_exec_ab", bench_exec_ab, [*steps, "--out", out("exec_ab.json")])
-        demo_launches("bench_exec_ab", n)
         ab = read_json(out("exec_ab.json"))
         names = [v[0] for v in bench_exec_ab.VARIANTS]
         if sorted(ab) != sorted(names) or any(
@@ -2224,7 +2646,7 @@ def phase_scripts(fa):
                                       ("float32", "float32", "bfloat16")):
             name = f"bench_forward_split_{dtype}"
             n = driver(name, bench_forward_split, ["--compute-dtype", dtype,
-                                                   "--out", out(name + ".json")])
+                                                   "--out", out(name + ".json")], plans=False)
             r = read_json(out(name + ".json"))
             gap = r["kernel_vs_plain"]
             if n[variant] != 6 * r["fusion_passes"] or not r["fusion_passes"] or n[other] or \
@@ -2233,7 +2655,7 @@ def phase_scripts(fa):
                 raise RuntimeError(f"scripts {name}: launches {n}, {r}")
             summary[name] = r
         n = driver("bench_fusion", bench_fusion, ["--reps", str(SCRIPTS_FUSION_REPS),
-                                                  "--out", out("fusion.json")])
+                                                  "--out", out("fusion.json")], plans=False)
         r = read_json(out("fusion.json"))
         gap = r["kernel_vs_plain"]
         if n != {"float32": 6 * r["kernel_forwards"], "bfloat16": 0} or r["launches"] != n or \
@@ -2244,7 +2666,6 @@ def phase_scripts(fa):
         # the playback parity's stage-by-stage dump
         n = driver("diag_playback", diag_playback, [
             "--demo", "demo_1", *steps, "--worst", "3", "--out", out("diag.json")])
-        demo_launches("diag_playback", n)
         diag = read_json(out("diag.json"))
         fields = ("cycle", "cycle_dev", "ctrl_dev", "n_trees_dev", "n_trees_host",
                   "n_end_nodes_dev", "n_end_nodes_host", "best_dev", "best_host",
@@ -2572,11 +2993,17 @@ def main() -> int:
     # scenario in memory
     syn = synthetic_av2(SEED)
 
-    loop_launches, loop, loop_ego = phase_closed_loop(dcfg, fa, syn, LANE_W, AV2_ORIGIN)
+    loop_runs, loop, loop_sim6, loop_plans6 = phase_closed_loop(dcfg, fa, syn, LANE_W,
+                                                                AV2_ORIGIN)
+    loop_ego = loop_sim6.ego_trajectory()
     lap("closed_loop")
-    command_launches, command = phase_demo_command(fa, loop, loop_ego, card)
+    command_runs, command = phase_demo_command(fa, loop, loop_ego, card)
     lap("demo_command")
     with tempfile.TemporaryDirectory() as data_root:
+        prog_b, prog_a, prog_cond, plan_progs = phase_plan_programs(
+            dcfg, fa, loop, loop_sim6, loop_plans6, data_root, card)
+        del loop_sim6, loop_plans6
+        lap("plan_programs")
         execs = phase_exec_resolve(float32_cfg, data_root)
         lap("exec_resolve")
         graph = phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev)
@@ -2604,7 +3031,7 @@ def main() -> int:
                 np.abs(out_cpu[:2] - out0[:2]).max() > 1e-3:
             raise RuntimeError(f"card plan {out0} (tree {best0}) disagrees with the CPU "
                                f"plan {out_cpu} (tree {best_cpu})")
-        loop32_launches, loop32 = phase_float32_loop(float32_cfg(), fa, data_root, cpu_child)
+        loop32_runs, loop32 = phase_float32_loop(float32_cfg(), fa, data_root, cpu_child)
         lap("float32_loop")
     scale = phase_tree_scale()
     lap("tree_scale")
@@ -2619,14 +3046,16 @@ def main() -> int:
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "host_tree": host_tree_launches,
-                                      "float32_loop": loop32_launches,
+                                      "plan_programs": prog_a[0],
+                                      "float32_loop": loop32_runs[0],
                                       "training": train_launches,
                                       "bench": bench_launches["float32"],
                                       "scripts": scripts_launches["float32"],
                                       "dist": dist_launches["float32"]}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
-                                      "closed_loop": loop_launches,
-                                      "demo_command": command_launches,
+                                      "closed_loop": loop_runs[0],
+                                      "demo_command": command_runs[0],
+                                      "plan_programs": prog_b[0],
                                       "episode": episode_launches,
                                       "batched_episode": batched_launches,
                                       "monte_carlo": mc_launches,
@@ -2634,13 +3063,28 @@ def main() -> int:
                                       "bench": bench_launches["bfloat16"],
                                       "scripts": scripts_launches["bfloat16"],
                                       "dist": dist_launches["bfloat16"]}
-    # the compiled programs launch kernel B when they capture; their replays
-    # execute it layers x the device's AIME rounds
+    # the compiled programs launch kernel B (A) when they capture; their
+    # replays execute it layers x the device's AIME rounds
     entries[1]["launches_by_path"]["compiled_episode"] = compiled_launches
-    entries[1]["executions_by_path"] = {"compiled_episode_timed": compiled_executions}
-    entries[2]["launches_by_path"] = {"compiled_episode": cond_launches}
+    entries[0]["executions_by_path"] = {"plan_programs": prog_a[1],
+                                        "float32_loop": loop32_runs[1]}
+    cond_scripts = scripts["condition_kernel"].values()
+    entries[1]["executions_by_path"] = {"compiled_episode_timed": compiled_executions,
+                                        "closed_loop": loop_runs[1],
+                                        "demo_command": command_runs[1],
+                                        "plan_programs": prog_b[1],
+                                        "scripts": sum(scripts["kernel_b_executions"].values())}
+    entries[2]["launches_by_path"] = {"compiled_episode": cond_launches,
+                                      "closed_loop": loop_runs[3],
+                                      "demo_command": command_runs[3],
+                                      "plan_programs": prog_cond[0],
+                                      "float32_loop": loop32_runs[3],
+                                      "scripts": sum(c["launches"] for c in cond_scripts)}
     entries[2]["executions_by_path"] = {
-        "compiled_episode_timed": compiled["condition_kernel_runs_timed"]}
+        "compiled_episode_timed": compiled["condition_kernel_runs_timed"],
+        "closed_loop": loop_runs[2], "demo_command": command_runs[2],
+        "plan_programs": prog_cond[1], "float32_loop": loop32_runs[2],
+        "scripts": sum(c["runs"] for c in cond_scripts)}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
 
@@ -2648,7 +3092,7 @@ def main() -> int:
     log("[phases] " + json.dumps({"probe_s": probe_s, "float32": cycles32,
                                   "host_tree": host_tree, "demo_bf16": cycles16,
                                   "demo_net_err": net_err, "closed_loop": loop,
-                                  "demo_command": command,
+                                  "demo_command": command, "plan_programs": plan_progs,
                                   "float32_loop": loop32, "exec_resolve": execs,
                                   "graph_vs_eager": graph, "episode": episode,
                                   "compiled": compiled,

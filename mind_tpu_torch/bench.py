@@ -185,38 +185,42 @@ def bench_network(pl, inputs):
 
 def bench_phases(pl):
     """One plan cycle's split on the planner's current state (the staged
-    path's AIME, host topology and solve), with the warm-only and full-only
-    tree solves and the selection timed apart; run under no_grad, as
-    MINDPlanner.plan runs. Returns the times, the tree the micro-solves
-    select and its control, and the network's inputs of the first AIME
-    round."""
+    path's AIME and solve programs, as MINDPlanner.plan runs them: compiled
+    on the card, eager on the CPU; and the host topology), with the
+    warm-only and full-only tree solves and the selection timed apart; run
+    under no_grad, as MINDPlanner.plan runs. Returns the times, the tree
+    the micro-solves select and its control, and the network's inputs of
+    the first AIME round."""
     import numpy as np
     import torch
 
     from mind_tpu_torch.ops.potential import select_trees
-    from mind_tpu_torch.planner.aime_device import aime_grow_tree, scene_axis
+    from mind_tpu_torch.planner import programs
     from mind_tpu_torch.planner.ilqr import ilqr_solve
-    from mind_tpu_torch.planner.planner import MAX_TREES, solve_and_select
+    from mind_tpu_torch.planner.planner import (MAX_TREES, AimeInputs, SolveInputs, _host_parts,
+                                                pack_trees, split_trees)
     from mind_tpu_torch.planner.trajectory_tree import (_cast, build_cost_indices,
                                                         evaluate_traj_tree, gather_cost_nodes,
                                                         torch_dtype)
 
     cfg, dev = pl.cfg, pl.device
     MN = cfg.scen_tree.max_tree_nodes
+    compiled = programs.compiled(dev, pl.graphed)
     buf = pl.obs_buffer
-    axis = scene_axis(buf.buf, buf.types_device(), buf.mask_device(buf.actor_mask()),
-                      pl.lane_static, pl.tgt_static)
-    amasks = axis[2]
+    warm_s, full_s, tgt = pl._statics()
+    aime_in = AimeInputs(buf.buf, buf.types_device(), buf.mask_device(buf.actor_mask()),
+                         pl.lane_static, tgt)
+    # the network's inputs of the first round, from one eager AIME (a
+    # replay calls no Python)
     inputs = []
     hook = pl.net.register_forward_pre_hook(lambda m, a: inputs.append(a) if not inputs else None)
     try:
-        t_aime = _timed_dev(lambda: aime_grow_tree(pl.net, cfg, *axis), dev)
+        pl._run("aime", aime_in, False)
     finally:
         hook.remove()
-    state, meta, _ = aime_grow_tree(pl.net, cfg, *axis)
-    f64 = torch.float64
-    packed = torch.cat([meta.parent[0].to(f64), meta.duration[0].to(f64),
-                        meta.end_flag[0].to(f64), meta.tree_id[0].to(f64)]).cpu().numpy()
+    t_aime = _timed_dev(lambda: pl._run("aime", aime_in, compiled), dev)
+    (slots, norm_prob, packed), aime = pl._run("aime", aime_in, compiled)
+    packed = packed.cpu().numpy()
 
     t0 = time.perf_counter()
     trees = build_cost_indices(packed[0:MN].astype(np.int64), packed[MN:2 * MN].astype(np.int64),
@@ -225,21 +229,24 @@ def bench_phases(pl):
     t_topo = time.perf_counter() - t0
     trees = trees[:MAX_TREES]
     n_real = len(trees)
-    dct = pl._upload_trees(trees + [trees[0]] * (MAX_TREES - n_real), n_real)
+    flat = torch.from_numpy(pack_trees(trees + [trees[0]] * (MAX_TREES - n_real), n_real))
+    host = pl._host_vector(pl.local_state())
+    amask = aime.inputs.amask if aime is not None else aime_in.amask
+    solve_in = SolveInputs(slots, norm_prob, amask, flat, host, warm_s, full_s, pl._eval_segs,
+                           pl._scene)
+    keep = (*slots, norm_prob, amask) if compiled else ()
+    t_solve = _timed_dev(lambda: pl._run("solve", solve_in, compiled, keep=keep), dev)
 
-    x0, warm_p, full_p, tv = pl._solve_inputs()
-    scene = torch.zeros(MAX_TREES, dtype=torch.long, device=dev)
+    dct = split_trees(flat.to(dev), cfg.traj_tree)
+    x0, offset, tv = _host_parts(host.to(dev))
+    warm_p, full_p = warm_s._replace(field_offset=offset), full_s._replace(field_offset=offset)
+    amasks, scene = amask[None], pl._scene
     segs = tuple(x[None].index_select(0, scene) for x in pl._eval_segs)
-    t_solve = _timed_dev(lambda: solve_and_select(
-        state.slots, meta.norm_prob, amasks, dct, x0[None], warm_p, full_p, tv,
-        tuple(x[None] for x in pl._eval_segs), scene, cfg=cfg, ilqr_cfg=pl.ilqr_cfg,
-        warm_ilqr_cfg=pl.warm_ilqr_cfg, weights=pl._weights), dev)
-
     # the solver's two phases alone, over the same padded tree batch, in the
     # solve dtype (two_phase_solve's casts)
     sd = torch_dtype(pl.ilqr_cfg.dtype)
     topo = dct.topo
-    nodes = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot, dct.cost_step,
+    nodes = gather_cost_nodes(slots, norm_prob, dct.cost_slot, dct.cost_step,
                               topo.node_mask, amasks, scene, dtype=sd)
     x0_t = x0[None].index_select(0, scene)
     wp = _cast(select_trees(warm_p, scene), sd)
@@ -280,12 +287,12 @@ def bench_phases(pl):
 
 def graph_captures() -> int:
     """CUDA graphs captured in this process so far: the tree iLQR's
-    (planner/ilqr.py) and the episode programs' (sim/episode.py); none off
-    the card."""
-    from mind_tpu_torch.planner import ilqr
+    (planner/ilqr.py), the episode programs' (sim/episode.py) and the
+    planner's programs (planner/programs.py); none off the card."""
+    from mind_tpu_torch.planner import ilqr, programs
     from mind_tpu_torch.sim import episode
 
-    return len(ilqr._GRAPHS.graphs) + len(episode.programs())
+    return len(ilqr._GRAPHS.graphs) + len(episode.programs()) + len(programs.programs())
 
 
 def section_per_demo(sims):

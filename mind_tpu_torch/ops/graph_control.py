@@ -235,6 +235,18 @@ def device_if(pred: torch.Tensor, body_fn: Callable[[], None]):
         rec.node(IF, pred, body_fn)
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Every host synchronization of the device raises inside (a replay of a
+    captured program has none)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
 def tensors(tree) -> list:
     """The tensors of nested tuples (NamedTuples), in field order."""
     if isinstance(tree, torch.Tensor):

@@ -11,12 +11,21 @@ device and reads four numbers. With `exec_resolve_mode="native"` the
 executed control comes from the float64 C++ re-solve of the winner tree on
 the host (mind_tpu_torch/native), fed on the fused path by the packed
 payload of `fused_plan_core(return_exec_payload=True)` in the same read.
+
+Each stage is a body that reads nothing from the host (`aime_body`,
+`solve_body` with `exec_body`, `fused_body`: the JAX planner's `_aime_fn`,
+`_solve_fn` and `_fused_fn`). On the card `plan` runs them as captured
+programs (planner/programs.py: one CUDA graph each, AIME's rounds IF nodes
+and the iLQR loops WHILE nodes, replayed with no host synchronization);
+with `graphed=False` or on the CPU it runs the same bodies eagerly, with one host read per AIME round and per iteration.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +43,16 @@ from mind_tpu_torch.data.semantic_map import (
     lane_graph_features,
 )
 from mind_tpu_torch.models.weights import load_scene_pred
-from mind_tpu_torch.ops.potential import select_trees
+from mind_tpu_torch.ops import graph_control
+from mind_tpu_torch.ops.potential import CostParams, select_trees
 from mind_tpu_torch.planner.aime_device import (
     DeviceObsBuffer,
     aime_grow_tree,
     obs_buffer_update,
     scene_axis,
 )
+from mind_tpu_torch.parallel.mesh import tree_map
+from mind_tpu_torch.planner import programs
 from mind_tpu_torch.planner.cost_topology import DeviceCostTrees, device_cost_topology
 from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology
 from mind_tpu_torch.planner.scenario_tree import NodeSlots
@@ -103,6 +115,14 @@ def resolve_exec_dtype(tt, solve_dtype: str) -> str:
     return name
 
 
+def resolves(tt, ilqr_cfg: ILQRConfig) -> bool:
+    """Whether the winners are solved again on the device: an exec dtype
+    other than the solve's, in polish or scratch mode (native runs on the
+    host)."""
+    return tt.exec_resolve_mode != "native" and resolve_exec_dtype(tt, ilqr_cfg.dtype) \
+        != ilqr_cfg.dtype
+
+
 def exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us_best,
                       warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt, scene):
     """Re-solve each scene's SELECTED tree at `tt.exec_solve_dtype` and
@@ -141,7 +161,7 @@ def exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us_best,
 
 def solve_and_select(slots, norm_prob, amask, dct: DeviceCostTrees, x0, warm_params,
                      full_params, target_vel, eval_segs, scene, *, cfg, ilqr_cfg,
-                     warm_ilqr_cfg, weights, clock=None):
+                     warm_ilqr_cfg, weights, clock=None, exec_resolve=True):
     """Two-phase solve of the trees of S scenes as one batch, selection
     cost, each scene's argmin and executed control (with the exec re-solve
     of the winners where the configuration asks for one). `scene` [S * T]
@@ -152,7 +172,10 @@ def solve_and_select(slots, norm_prob, amask, dct: DeviceCostTrees, x0, warm_par
     origins); every tree takes its scene's. Returns (xs, us, info, cost_b,
     best [S], ctrl float32 [S, 2]); `best` holds each scene's winner as an
     index into the flat batch and stays on the device. `clock` (a
-    _PhaseClock) takes the laps "solve", "selection" and "exec_resolve"."""
+    _PhaseClock) takes the laps "solve", "selection" and "exec_resolve".
+    `exec_resolve=False` leaves the re-solve out (the caller runs it:
+    MINDPlanner's compiled exec program) and returns the selection's
+    control."""
     tt = cfg.traj_tree
     clock = clock or _PhaseClock(None, None)
     topo = dct.topo
@@ -176,7 +199,7 @@ def solve_and_select(slots, norm_prob, amask, dct: DeviceCostTrees, x0, warm_par
     ctrl = xs[best, 0, 4:6].to(torch.float32)
     clock.lap("selection")
     # the native re-solve runs on the host after the plan's read (MINDPlanner)
-    if tt.exec_resolve_mode != "native" and resolve_exec_dtype(tt, ilqr_cfg.dtype) != ilqr_cfg.dtype:
+    if exec_resolve and resolves(tt, ilqr_cfg):
         ctrl = exec_resolve_ctrl(slots, norm_prob, amask, dct, best, x0, us[best],
                                  warm_params, full_params, ilqr_cfg, warm_ilqr_cfg, tt, scene)
         clock.lap("exec_resolve")
@@ -257,7 +280,7 @@ def batched_plan_core(net, bufs, types, amasks, x0s, warm_params, full_params, t
 def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
                     target_vel, lane_static, tgt_static, eval_segs, *,
                     cfg, ilqr_cfg, warm_ilqr_cfg, weights,
-                    return_exec_payload=False, report=None):
+                    return_exec_payload=False, report=None, rounds_out=None, best_out=None):
     """The whole plan cycle of one scene: AIME + cost topology + two-phase
     solve + selection (+ the polish/scratch exec re-solve where configured),
     the S = 1 case of batched_plan_core. `net` is the batched ScenePredNet
@@ -274,7 +297,9 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
     phase), the AIME rounds run ("rounds"), the cost trees ("trees", a
     DeviceCostTrees), the per-tree selection costs ("tree_cost"), the
     selected tree ("best") and the largest iteration count over the active
-    trees of the warm and the full solve ("warm_iterations", "iterations")."""
+    trees of the warm and the full solve ("warm_iterations", "iterations").
+    `rounds_out` as in batched_plan_core; `best_out`, a long tensor [] on
+    the device, receives the selected tree."""
     clock = _PhaseClock(buf.pos.device, report)
     bufs, types_s, amasks, lane_s, tgt_s = scene_axis(buf, types, amask, lane_static, tgt_static)
     out, state, meta, dct, info, cost_b, best, rounds = _plan_cycle(
@@ -282,6 +307,10 @@ def fused_plan_core(net, buf, types, amask, x0, warm_params, full_params,
         tgt_s, tuple(x[None] for x in eval_segs), cfg=cfg, ilqr_cfg=ilqr_cfg,
         warm_ilqr_cfg=warm_ilqr_cfg, weights=weights, clock=clock)
     out, best = out[0], best[0]
+    if rounds_out is not None:
+        rounds_out.add_(rounds)
+    if best_out is not None:
+        best_out.copy_(best)
     if report is not None:
         report.update(rounds=int(rounds), trees=dct._replace(n_trees=dct.n_trees[0]),
                       tree_cost=cost_b,
@@ -314,6 +343,157 @@ class _PhaseClock:
         now = time.perf_counter()
         self.report[name] = now - self.t
         self.t = now
+
+
+# ---------------------------------------------------------------------------
+# The plan's programs (the JAX MINDPlanner's jitted _aime_fn, _solve_fn,
+# _fused_fn): bodies that read nothing from the host, run eagerly or captured
+# (planner/programs.py). Each returns (outputs, AIME rounds or None).
+# ---------------------------------------------------------------------------
+
+class AimeInputs(NamedTuple):
+    """What the AIME program reads: one scene's window and statics."""
+
+    buf: DeviceObsBuffer
+    types: torch.Tensor             # [A, 7]
+    amask: torch.Tensor             # [A] bool
+    lane_static: LaneGraphStatic
+    tgt_static: TargetLaneStatic    # n_points a long tensor []
+
+
+class SolveInputs(NamedTuple):
+    """What the staged solve program reads. On the card slots, norm_prob
+    and amask are the AIME program's buffers."""
+
+    slots: NodeSlots                # [1, MN + 1, ...]
+    norm_prob: torch.Tensor         # [1, MN] float64
+    amask: torch.Tensor             # [A] bool
+    trees: torch.Tensor             # [MAX_TREES, K] long: the host-built cost trees (pack_trees)
+    host: torch.Tensor              # [9] float64: x0 (6), grid origin (2), target velocity
+    warm: CostParams                # field_offset None: the grid origin is host[6:8]
+    full: CostParams
+    eval_segs: tuple                # the selection lane's segments (start, end, mask)
+    scene: torch.Tensor             # [MAX_TREES] long zeros: every tree is the scene's
+
+
+class ExecInputs(NamedTuple):
+    """What the exec re-solve program reads: the solve program's inputs and
+    outputs."""
+
+    solve: SolveInputs
+    best: torch.Tensor              # [1] long
+    us: torch.Tensor                # [MAX_TREES, MN, 2]
+    small: torch.Tensor             # the solve's packed read
+
+
+class FusedInputs(NamedTuple):
+    """What the fused program reads."""
+
+    buf: DeviceObsBuffer
+    types: torch.Tensor
+    amask: torch.Tensor
+    host: torch.Tensor              # as SolveInputs.host
+    warm: CostParams                # field_offset None
+    full: CostParams
+    lane_static: LaneGraphStatic
+    tgt_static: TargetLaneStatic    # n_points a long tensor []
+    eval_segs: tuple
+
+
+def pack_trees(trees, n_real: int) -> np.ndarray:
+    """The host-built cost trees (MAX_TREES of them, the padding repeats
+    tree 0) as one int64 array [T, K]: parent, node mask, level table, cost
+    slot and step, and the real-tree flag, each flattened; the plan
+    uploads it in one copy and `split_trees` takes it apart on the
+    device."""
+    T = len(trees)
+    parts = [np.stack([t[0].parent for t in trees]),
+             np.stack([t[0].node_mask for t in trees]).astype(np.int64),
+             np.stack([t[0].level_table for t in trees]),
+             np.stack([t[1] for t in trees]), np.stack([t[2] for t in trees]),
+             (np.arange(T) < n_real).astype(np.int64)[:, None]]
+    return np.concatenate([p.reshape(T, -1) for p in parts], axis=1)
+
+
+def split_trees(flat: torch.Tensor, tt) -> DeviceCostTrees:
+    """pack_trees' array, on the device, as DeviceCostTrees (views, and
+    the tree mask and count computed here)."""
+    MN, LV = tt.max_cost_nodes, tt.max_depth_levels
+    T, K = flat.shape
+    W = (K - 4 * MN - 1) // LV
+    parent, mask, table, cs, st, tm = flat.split([MN, MN, LV * W, MN, MN, 1], dim=1)
+    tree_mask = tm[:, 0] > 0
+    return DeviceCostTrees(
+        topo=TreeTopology(parent=parent, node_mask=mask > 0, level_table=table.reshape(T, LV, W)),
+        cost_slot=cs, cost_step=st, tree_mask=tree_mask, n_trees=tree_mask.sum())
+
+
+def _host_parts(host: torch.Tensor):
+    """(x0 [6], grid origin [2], target velocity [1]) of a host vector."""
+    return host[:6], host[6:8], host[8:9]
+
+
+def aime_body(net, inp: AimeInputs, *, cfg):
+    """AIME on one scene (the JAX `_aime_fn`). Outputs: the state's slots
+    [1, ...], meta.norm_prob [1, MN] and the packed float64 vector the plan
+    reads after AIME: parent, duration, end_flag, tree_id, norm_prob (MN
+    each), n_nodes and the rounds run."""
+    state, meta, rounds = aime_grow_tree(net, cfg, *scene_axis(*inp))
+    f64 = torch.float64
+    packed = torch.cat([
+        meta.parent[0].to(f64), meta.duration[0].to(f64), meta.end_flag[0].to(f64),
+        meta.tree_id[0].to(f64), meta.norm_prob[0], meta.n_nodes.to(f64), rounds.to(f64)[None]])
+    return (state.slots, meta.norm_prob, packed), rounds
+
+
+def solve_body(net, inp: SolveInputs, *, cfg, ilqr_cfg, warm_ilqr_cfg, weights,
+               exec_resolve=True, clock=None):
+    """The staged solve (the JAX `_solve_fn`): the two-phase solve of the
+    host-built trees, selection, the polish/scratch exec re-solve unless
+    `exec_resolve` is False. Outputs: xs [T, MN, 6], us [T, MN, 2], best
+    [1] and the packed float64 vector the plan reads: control (2), best,
+    the largest warm + full iteration count over the real trees, the T
+    selection costs (float64, so that near-tie margins survive)."""
+    x0, offset, tv = _host_parts(inp.host)
+    dct = split_trees(inp.trees, cfg.traj_tree)
+    xs, us, info, cost_b, best, ctrl = solve_and_select(
+        inp.slots, inp.norm_prob, inp.amask[None], dct, x0[None],
+        inp.warm._replace(field_offset=offset), inp.full._replace(field_offset=offset), tv,
+        tuple(x[None] for x in inp.eval_segs), inp.scene, cfg=cfg, ilqr_cfg=ilqr_cfg,
+        warm_ilqr_cfg=warm_ilqr_cfg, weights=weights, clock=clock, exec_resolve=exec_resolve)
+    f64 = torch.float64
+    its = _masked_max(info["iterations"] + info["warm_iterations"], dct.tree_mask, 1)
+    small = torch.cat([ctrl[0].to(f64), best.to(f64), its.to(f64), cost_b])
+    return (xs, us, best, small), None
+
+
+def exec_body(net, inp: ExecInputs, *, cfg, ilqr_cfg, warm_ilqr_cfg):
+    """The staged solve's exec re-solve of the winner (the part of the JAX
+    `_solve_fn` after the selection), as a program of its own replayed
+    right after the solve's. Output: the solve's packed vector with the
+    re-solved control."""
+    s = inp.solve
+    x0, offset, _ = _host_parts(s.host)
+    ctrl = exec_resolve_ctrl(
+        s.slots, s.norm_prob, s.amask[None], split_trees(s.trees, cfg.traj_tree), inp.best,
+        x0[None], inp.us[inp.best], s.warm._replace(field_offset=offset),
+        s.full._replace(field_offset=offset), ilqr_cfg, warm_ilqr_cfg, cfg.traj_tree, s.scene)
+    return torch.cat([ctrl[0].to(torch.float64), inp.small[2:]]), None
+
+
+def fused_body(net, inp: FusedInputs, *, cfg, ilqr_cfg, warm_ilqr_cfg, weights, native):
+    """The whole plan in one program (the JAX `_fused_fn`): fused_plan_core,
+    with the exec payload in native mode. Output: its result, then the
+    selected tree and the AIME rounds run (in its dtype), for the one read."""
+    x0, offset, tv = _host_parts(inp.host)
+    rounds = torch.zeros((), dtype=torch.long, device=x0.device)
+    best = torch.zeros((), dtype=torch.long, device=x0.device)
+    out = fused_plan_core(
+        net, inp.buf, inp.types, inp.amask, x0, inp.warm._replace(field_offset=offset),
+        inp.full._replace(field_offset=offset), tv, inp.lane_static, inp.tgt_static,
+        inp.eval_segs, cfg=cfg, ilqr_cfg=ilqr_cfg, warm_ilqr_cfg=warm_ilqr_cfg,
+        weights=weights, return_exec_payload=native, rounds_out=rounds, best_out=best)
+    return torch.cat([out, best.to(out.dtype)[None], rounds.to(out.dtype)[None]]), rounds
 
 
 class ObsBuffer:
@@ -405,12 +585,17 @@ class MINDPlanner:
     update_observation / update_state_ctrl / update_target_lane / plan.
     Runs on the CUDA card unless the caller passes a CPU `device`.
     `shared_net` is a ScenePredNet in eval mode on that device, shared
-    between planners in place of loading one here."""
+    between planners in place of loading one here. `graphed` (None: on a
+    CUDA device) plans through the compiled programs (planner/programs.py);
+    False runs the same bodies eagerly, the bit-exact reference on the card;
+    True on the CPU raises."""
 
     def __init__(self, cfg: PlannerConfig, smp: SemanticMap,
                  lcl_smp: LocalSemanticMap, export_trees: bool = True,
-                 shared_net=None, device=None):
+                 shared_net=None, device=None, graphed: Optional[bool] = None):
         self.device = resolve_device(device)
+        programs.compiled(self.device, graphed)   # raises for True on the CPU
+        self.graphed = graphed
         self.cfg = cfg
         self.obs_len = cfg.obs_len
         self.smp = smp
@@ -515,11 +700,43 @@ class MINDPlanner:
         return load_scene_pred(cfg.net, cfg.ckpt_path or None, self.device, seed=cfg.seed)
 
     def _init_programs(self):
-        self.ilqr_cfg, self.warm_ilqr_cfg = ilqr_configs(self.cfg)
-        self._weights = selection_weights(self.cfg)
-        self._exec_native = self.cfg.traj_tree.exec_resolve_mode == "native"
+        """Solver settings, selection weights and the program bodies of the
+        configuration as it is now (call again after changing it), and
+        the device tensors the programs read besides the statics."""
+        cfg = copy.deepcopy(self.cfg)   # what the bodies bake, kept from later changes
+        self.ilqr_cfg, self.warm_ilqr_cfg = ilqr_configs(cfg)
+        self._weights = selection_weights(cfg)
+        self._exec_native = cfg.traj_tree.exec_resolve_mode == "native"
+        self._resolves = resolves(cfg.traj_tree, self.ilqr_cfg)
+        solver = dict(cfg=cfg, ilqr_cfg=self.ilqr_cfg, warm_ilqr_cfg=self.warm_ilqr_cfg)
+        self._bodies = {
+            "aime": functools.partial(aime_body, cfg=cfg),
+            "solve": functools.partial(solve_body, weights=self._weights, exec_resolve=False,
+                                       **solver),
+            "exec": functools.partial(exec_body, **solver),
+            "fused": functools.partial(fused_body, weights=self._weights,
+                                       native=self._exec_native, **solver)}
+        self._signature = programs.config_signature(cfg)
+        # the target lane's length as data, and the trees' scene index
+        self._n_points = torch.tensor(self.tgt_static.n_points, device=self.device)
+        self._scene = torch.zeros(MAX_TREES, dtype=torch.long, device=self.device)
         if self._exec_native:
             native.load()   # build the C++ solver now, not in the middle of a run
+
+    def program_set(self) -> programs.ProgramSet:
+        """The compiled programs of this planner's configuration and device,
+        shared with every planner of both."""
+        return programs.program_set(self._signature, self.net, self.device)
+
+    def _run(self, kind: str, inputs, compiled: bool, keep=(), **kw):
+        """The body `kind` on `inputs`: its program (copy in, replay) or
+        eagerly (host tensors uploaded first). Returns (outputs, the program
+        or None)."""
+        if compiled:
+            prog = self.program_set().program(kind, self._bodies[kind], inputs, keep)
+            return prog(self.net, inputs), prog
+        inputs = tree_map(lambda t: t.to(self.device), inputs)
+        return self._bodies[kind](self.net, inputs, **kw)[0], None
 
     def _cost_params(self):
         """Static parts of the warm/full CostParams (built once; only the
@@ -613,20 +830,23 @@ class MINDPlanner:
         s[:2] -= self.origin
         return s
 
-    def _solve_inputs(self):
-        """(x0 float64 [6], warm params, full params, target velocity) of
-        this plan, on the device. x0 stays float64: two_phase_solve casts to
-        the solve dtype, and the exec re-solve sees the unrounded state."""
-        s_loc = self.local_state()
-        x0 = torch.tensor([*s_loc, *self.ctrl], dtype=torch.float64, device=self.device)
+    def _host_vector(self, s_loc: np.ndarray) -> torch.Tensor:
+        """The plan's host values in one float64 CPU tensor [9]: x0 (the
+        local state and the control, float64: two_phase_solve casts to the
+        solve dtype, and the exec re-solve sees the unrounded state), the
+        grid origin (the one cost parameter that follows the state) and the
+        selection's target velocity, rounded to float32 as the JAX package
+        passes it."""
+        return torch.from_numpy(np.concatenate([
+            s_loc, np.asarray(self.ctrl, np.float64), self._field_offset_np(s_loc),
+            [float(np.float32(self.lcl_smp.target_velocity))]]))
+
+    def _statics(self):
+        """(warm, full CostParams without the grid origin, the target-lane
+        static with its length as a tensor)."""
         warm_p, full_p = self._cost_params()
-        # only the grid origin depends on the current state
-        offset = self._field_offset(s_loc)
-        # the selection cost takes the target velocity rounded to float32,
-        # as the JAX package passes it
-        tv = float(np.float32(self.lcl_smp.target_velocity))
-        return (x0, warm_p._replace(field_offset=offset),
-                full_p._replace(field_offset=offset), tv)
+        return (warm_p._replace(field_offset=None), full_p._replace(field_offset=None),
+                self.tgt_static._replace(n_points=self._n_points))
 
     # ------------------------------------------------------------------
     # reference public surface
@@ -643,36 +863,35 @@ class MINDPlanner:
 
     @torch.no_grad()
     def plan(self) -> Tuple[bool, Optional[np.ndarray], Optional[list]]:
+        """One plan: (ok, control, [[scenario tree], [trajectory tree]] on
+        the staged path or None). Compiled (graphed None on the card, or
+        True) it copies the inputs into the programs and replays them; it
+        reads the device once after AIME and once after the solve, then
+        what it exports (the fused path: once)."""
         cfg = self.cfg
         MN = cfg.scen_tree.max_tree_nodes
         actor_mask = self.obs_buffer.actor_mask()
         if not actor_mask[0]:
             return False, None, None  # no ego observation yet
         amask_d = self.obs_buffer.mask_device(actor_mask)
+        compiled = programs.compiled(self.device, self.graphed)
 
         if not self.export_trees:
-            return self._plan_fused(amask_d)
+            return self._plan_fused(amask_d, compiled)
 
-        # one scene: the inputs with a scene axis of 1, as fused_plan_core
-        bufs, types_s, amasks, lane_s, tgt_s = scene_axis(
-            self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d, self.lane_static,
-            self.tgt_static)
+        warm_p, full_p, tgt = self._statics()
         with self.metrics.timer.phase("aime"):
-            state, meta, rounds = aime_grow_tree(self.net, cfg, bufs, types_s, amasks, lane_s,
-                                                 tgt_s)
-            f64 = torch.float64
-            packed_np = torch.cat([
-                meta.parent[0].to(f64), meta.duration[0].to(f64), meta.end_flag[0].to(f64),
-                meta.tree_id[0].to(f64), meta.norm_prob[0], meta.n_nodes.to(f64),
-                rounds.to(f64)[None],
-            ]).cpu().numpy()  # the one AIME-side read after the rounds
+            (slots, norm_prob, packed), aime = self._run("aime", AimeInputs(
+                self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d, self.lane_static,
+                tgt), compiled)
+            packed_np = packed.cpu().numpy()  # the one AIME-side read after the rounds
         self.last_rounds = int(packed_np[5 * MN + 1])
 
         parent = packed_np[0:MN].astype(np.int64)
         duration = packed_np[MN:2 * MN].astype(np.int64)
         end_flag = packed_np[2 * MN:3 * MN] > 0.5
         tree_id = packed_np[3 * MN:4 * MN].astype(np.int64)
-        norm_prob = packed_np[4 * MN:5 * MN]
+        norm_prob_np = packed_np[4 * MN:5 * MN]
         n_nodes = int(packed_np[5 * MN])
 
         if not end_flag.any():
@@ -682,36 +901,44 @@ class MINDPlanner:
         self.last_n_nodes = n_nodes
         # AIME meta kept for stage-by-stage diagnostics
         self.last_meta = {"parent": parent, "duration": duration, "end_flag": end_flag,
-                          "tree_id": tree_id, "norm_prob": norm_prob}
+                          "tree_id": tree_id, "norm_prob": norm_prob_np}
 
         with self.metrics.timer.phase("flatten"):
             trees = build_cost_indices(parent, duration, end_flag, tree_id,
                                        cfg.traj_tree)[:MAX_TREES]
             n_real = len(trees)
-            dct = self._upload_trees(trees + [trees[0]] * (MAX_TREES - n_real), n_real)
+            packed_trees = pack_trees(trees + [trees[0]] * (MAX_TREES - n_real), n_real)
             self.last_n_trees = n_real
             self.metrics.observe("scen_trees", n_real)
             self.metrics.observe("scen_nodes", n_nodes)
 
-        x0, warm_p, full_p, tv = self._solve_inputs()
-        # phase laps (each ends in a device synchronize) only where an exec
-        # re-solve is configured, to time it apart from the selection solves
-        resolves = (not self._exec_native and resolve_exec_dtype(cfg.traj_tree, self.ilqr_cfg.dtype)
-                    != self.ilqr_cfg.dtype)
+        s_loc = self.local_state()
+        host = self._host_vector(s_loc)
+        # on the card the solve reads the AIME program's buffers in place
+        amask = aime.inputs.amask if aime is not None else amask_d
+        solve_in = SolveInputs(slots, norm_prob, amask, torch.from_numpy(packed_trees), host,
+                               warm_p, full_p, self._eval_segs, self._scene)
         laps = {}
-        scene = torch.zeros(MAX_TREES, dtype=torch.long, device=self.device)
         with self.metrics.timer.phase("solve"):
-            xs_b, us_b, info, cost_b, best_d, ctrl_d = solve_and_select(
-                state.slots, meta.norm_prob, amasks, dct, x0[None], warm_p, full_p, tv,
-                tuple(x[None] for x in self._eval_segs), scene, cfg=cfg,
-                ilqr_cfg=self.ilqr_cfg, warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights,
-                clock=_PhaseClock(self.device, laps) if resolves else None)
-            its = _masked_max(info["iterations"] + info["warm_iterations"], dct.tree_mask, 1)
-            # everything the host needs in one read; float64 so that near-tie
-            # selection margins survive
-            small = torch.cat([ctrl_d[0].to(f64), best_d.to(f64), its.to(f64),
-                               cost_b]).cpu().numpy()
-        if resolves:   # a part of "solve", kept apart as well
+            if compiled:
+                (xs_b, us_b, best_d, small_d), solve = self._run(
+                    "solve", solve_in, True, keep=(*slots, norm_prob, amask))
+                if self._resolves:
+                    # the one synchronize, which splits the re-solve's lap off
+                    torch.cuda.synchronize(self.device)
+                    t_exec = time.perf_counter()
+                    exec_in = ExecInputs(solve.inputs, best_d, us_b, small_d)
+                    small_d, _ = self._run("exec", exec_in, True,
+                                           keep=graph_control.tensors(exec_in))
+            else:
+                clock = _PhaseClock(self.device, laps) if self._resolves else None
+                (xs_b, us_b, best_d, small_d), _ = self._run(
+                    "solve", solve_in, False, exec_resolve=True, clock=clock)
+                solve = None
+            small = small_d.cpu().numpy()   # the one solve-side read
+            if compiled and self._resolves:
+                laps["exec_resolve"] = time.perf_counter() - t_exec
+        if self._resolves:   # a part of "solve", kept apart as well
             self.metrics.timer.totals["exec_resolve"] += laps["exec_resolve"]
             self.metrics.timer.counts["exec_resolve"] += 1
         ctrl = small[:2].copy()
@@ -722,12 +949,16 @@ class MINDPlanner:
 
         if self._exec_native and np.isfinite(ctrl).all():
             with self.metrics.timer.phase("exec_native"):
+                # the winner's float64 cost nodes (the JAX `_exec_gather_fn`),
+                # eagerly after the read, on the buffers the solve read
+                dct = split_trees(solve.inputs.trees if solve is not None
+                                  else solve_in.trees.to(self.device), cfg.traj_tree)
                 w = slice(best, best + 1)
-                nodes_e = gather_cost_nodes(state.slots, meta.norm_prob, dct.cost_slot[w],
-                                            dct.cost_step[w], dct.topo.node_mask[w], amasks,
-                                            scene[w], dtype=torch.float64)
+                nodes_e = gather_cost_nodes(slots, norm_prob, dct.cost_slot[w],
+                                            dct.cost_step[w], dct.topo.node_mask[w], amask[None],
+                                            self._scene[w], dtype=torch.float64)
                 nat = self._native_exec_ctrl(dct.topo.parent[best], dct.topo.node_mask[best],
-                                             nodes_e, self.local_state())
+                                             nodes_e, s_loc)
             if nat is not None:
                 ctrl = np.asarray(nat, np.float64)
 
@@ -737,46 +968,26 @@ class MINDPlanner:
 
         with self.metrics.timer.phase("export"):
             scen_tree = self._export_scen_tree(
-                NodeSlots(*(x[0] for x in state.slots)), parent, duration, end_flag, tree_id,
-                norm_prob, actor_mask, best)
+                NodeSlots(*(x[0] for x in slots)), parent, duration, end_flag, tree_id,
+                norm_prob_np, actor_mask, best)
             traj_tree = self._export_traj_tree(
                 trees[best][0], xs_b[best].cpu().numpy(), us_b[best].cpu().numpy(),
-                x0.cpu().numpy())
+                host[:6].numpy())
         return True, ctrl, [[scen_tree], [traj_tree]]
 
-    def _upload_trees(self, trees, n_real: int) -> DeviceCostTrees:
-        """Stack the host-built trees (MAX_TREES of them, the padding
-        repeats tree 0) in numpy and upload them as ONE integer tensor,
-        split on the device."""
-        T = len(trees)
-        parts = [np.stack([t[0].parent for t in trees]),
-                 np.stack([t[0].node_mask for t in trees]).astype(np.int64),
-                 np.stack([t[0].level_table for t in trees]),
-                 np.stack([t[1] for t in trees]), np.stack([t[2] for t in trees]),
-                 (np.arange(T) < n_real).astype(np.int64)[:, None]]
-        flat = torch.as_tensor(np.concatenate([p.reshape(T, -1) for p in parts], axis=1),
-                               device=self.device)
-        parent, mask, table, cs, st, tm = (
-            x.reshape(p.shape) for x, p in
-            zip(flat.split([p[0].size for p in parts], dim=1), parts))
-        tree_mask = tm[:, 0] > 0
-        return DeviceCostTrees(
-            topo=TreeTopology(parent=parent, node_mask=mask > 0, level_table=table),
-            cost_slot=cs, cost_step=st, tree_mask=tree_mask, n_trees=tree_mask.sum())
-
-    def _plan_fused(self, amask_d):
+    def _plan_fused(self, amask_d, compiled: bool):
         """Plan without exported trees: the cost trees are built on the
         device and the host reads four numbers."""
         with self.metrics.timer.phase("plan_fused"):
-            x0, warm_p, full_p, tv = self._solve_inputs()
-            out = fused_plan_core(
-                self.net, self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d,
-                x0, warm_p, full_p, tv, self.lane_static, self.tgt_static,
-                self._eval_segs, cfg=self.cfg, ilqr_cfg=self.ilqr_cfg,
-                warm_ilqr_cfg=self.warm_ilqr_cfg, weights=self._weights,
-                return_exec_payload=self._exec_native)
+            s_loc = self.local_state()
+            warm_p, full_p, tgt = self._statics()
+            out, _ = self._run("fused", FusedInputs(
+                self.obs_buffer.buf, self.obs_buffer.types_device(), amask_d,
+                self._host_vector(s_loc), warm_p, full_p, self.lane_static, tgt,
+                self._eval_segs), compiled)
             flat = out.cpu().numpy()  # the one read (with the payload in native mode)
             small = flat[:4]
+        self.last_best, self.last_rounds = int(flat[-2]), int(flat[-1])
         ctrl = small[:2].astype(np.float64)
         self.metrics.observe("ilqr_iterations", float(small[3]))
         if small[2] < 0.5 or not np.isfinite(ctrl).all():
@@ -784,7 +995,7 @@ class MINDPlanner:
             return False, None, None
         if self._exec_native:
             with self.metrics.timer.phase("exec_native"):
-                nat = self._native_exec_ctrl_flat(flat, self.local_state())
+                nat = self._native_exec_ctrl_flat(flat[:-2], s_loc)
             if nat is not None:
                 ctrl = np.asarray(nat, np.float64)
                 if not np.isfinite(ctrl).all():

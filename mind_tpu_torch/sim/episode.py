@@ -48,7 +48,6 @@ no exec re-solve: the control is that of the selection solve.
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 import functools
 import json
@@ -65,6 +64,7 @@ from mind_tpu_torch.parallel.mesh import (DistMesh, gather_shards, local_shards,
                                           rank0_decides, tree_map)
 from mind_tpu_torch.planner.aime_device import DeviceObsBuffer, obs_buffer_update
 from mind_tpu_torch.planner.planner import _PhaseClock, batched_plan_core, type_onehot
+from mind_tpu_torch.planner.programs import ProgramNet, config_signature, signature
 from mind_tpu_torch.planner.scene_prep import LaneGraphStatic, TargetLaneStatic
 from mind_tpu_torch.planner.trajectory_tree import torch_dtype
 
@@ -245,18 +245,6 @@ def _lane_data(inp: EpisodeInputs, st: EpisodeStatics) -> _Data:
                  target_vel=as_lanes(inp.target_vel, torch.float64), statics=st)
 
 
-@contextlib.contextmanager
-def _no_host_sync():
-    """Every host synchronization of the device raises inside (a captured
-    segment has none)."""
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
 class _Cycles:
     """The plan cycles of L lanes, computed in place on buffers allocated
     once: the schedule of up to `cap` cycles, the lanes' data and statics,
@@ -265,14 +253,19 @@ class _Cycles:
     long scalars on the device, so that `cycle` reads nothing from the host
     and can be captured whole (`run(compiled=True)`). A compiled one plans
     with a network of its own whose weights each run copies from the
-    caller's (weights are data, as the JAX program's params: one program
-    serves every planner of its configuration). `rounds` counts the AIME
+    caller's where they changed (planner/programs.py::ProgramNet; weights
+    are data, as the JAX program's params: one program serves every
+    planner of its configuration). `rounds` counts the AIME
     rounds its cycles ran, on the device."""
 
-    def __init__(self, fn: "_EpisodeFn", net, data: _Data, carry, cap: int):
+    def __init__(self, fn: "_EpisodeFn", net: Optional[ProgramNet], data: _Data, carry,
+                 cap: int):
         dev = data.types.device
         L = data.types.shape[0]
+        # a compiled one's own network (ProgramNet); eager cycles plan with
+        # the caller's
         self.fn, self.net, self.device, self.cap = fn, net, dev, cap
+        self.plan_net = None
         zeros = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=dev)
         sched = {f: zeros(L, cap, *getattr(data, f).shape[2:], dtype=getattr(data, f).dtype)
                  for f in _CYCLE_FIELDS}
@@ -284,17 +277,6 @@ class _Cycles:
         self.ok, self.planned = zeros(L, cap, dtype=torch.bool), zeros(L, cap, dtype=torch.bool)
         self.iters, self.ctrls = zeros(L, cap), zeros(L, cap, 2)
         self.program = None
-
-    def load_net(self, net):
-        """The caller's weights into this program's network (the same
-        architecture: the configuration's signature holds the network's)."""
-        mine = dict(self.net.named_parameters()) | dict(self.net.named_buffers())
-        theirs = dict(net.named_parameters()) | dict(net.named_buffers())
-        if mine.keys() != theirs.keys() or any(t.shape != theirs[k].shape for k, t in mine.items()):
-            raise ValueError("the network differs in its architecture from the program's")
-        with torch.no_grad():
-            for k, t in mine.items():
-                t.copy_(theirs[k])
 
     def load(self, data: _Data, carry, c0: int, enable: int):
         C = data.slot_states.shape[1]
@@ -337,7 +319,8 @@ class _Cycles:
 
         def plan():
             out.copy_(fn.core(
-                self.net, buf, d.types, amask, x0, st.warm_params._replace(field_offset=offset),
+                self.plan_net, buf, d.types, amask, x0,
+                st.warm_params._replace(field_offset=offset),
                 st.full_params._replace(field_offset=offset), d.target_vel, st.lane_static,
                 st.tgt_static, (st.eval_seg_start, st.eval_seg_end, st.eval_seg_mask),
                 report=report, rounds_out=self.rounds))
@@ -384,14 +367,14 @@ class _Cycles:
         iterations [L, C], ctrls [L, C, 2]) as numpy, read once, and the
         carry after, on the device)."""
         C = data.slot_states.shape[1]
+        if compiled:
+            self.net.load(net)
+        self.plan_net = self.net.net if compiled else net
         if compiled and self.program is None:
-            self.load_net(net)
             self.load(data, carry, c0, enable)   # the warm-up's inputs
             self.program = graph_control.GraphProgram(self.cycle, self.device)
             self.rounds.zero_()   # count the replays' rounds, not the warm-up's
-        with _no_host_sync() if compiled else contextlib.nullcontext():
-            if compiled:
-                self.load_net(net)
+        with graph_control.no_host_sync() if compiled else contextlib.nullcontext():
             self.load(data, carry, c0, enable)
             for k in range(C):
                 if compiled:
@@ -424,27 +407,12 @@ def _compiled(device: torch.device, graphed: Optional[bool], phases) -> bool:
     return bool(graphed)
 
 
-def _signature(tree):
-    if isinstance(tree, torch.Tensor):
-        return (tuple(tree.shape), str(tree.dtype), str(tree.device))
-    if isinstance(tree, tuple):
-        return tuple(_signature(x) for x in tree)
-    return tree
-
-
 def _cfg_signature(planner, veh_param, dt: float) -> str:
     """The configuration that shapes the episode program (the JAX package's
-    `_cfg_signature`): every PlannerConfig field but the weights' path and
-    seed (weights are data) and the phases' cost weights and bounds (cost
-    parameters, statics data); the vehicle and the step."""
-    cfg = dataclasses.asdict(planner.cfg)
-    cfg.pop("ckpt_path", None)
-    cfg.pop("seed", None)
-    for ph in ("warm", "full"):
-        phase = cfg["traj_tree"][ph]
-        cfg["traj_tree"][ph] = {k: phase[k] for k in ("smooth_grid_res", "smooth_grid_size")}
-    return json.dumps({"cfg": cfg, "veh": (veh_param.wb, veh_param.max_spd, veh_param.max_str),
-                       "dt": dt}, sort_keys=True, default=str)
+    `_cfg_signature`): planner/programs.py::config_signature with the
+    vehicle and the step."""
+    return config_signature(planner.cfg, veh=(veh_param.wb, veh_param.max_spd, veh_param.max_str),
+                            dt=dt)
 
 
 _MODES = ("single", "single_seg", "scenarios", "copies_seg")
@@ -487,7 +455,8 @@ class _EpisodeFn:
             carry = tree_map(lambda x: x[None], carry)
         compiled = _compiled(dev, graphed, phases)
         C = data.slot_states.shape[1]
-        cycles = self._program(net, data, carry) if compiled else _Cycles(self, net, data, carry, C)
+        cycles = (self._program(net, data, carry) if compiled
+                  else _Cycles(self, None, data, carry, C))
         outs, carry = cycles.run(net, data, carry, int(c0), int(enable_tick), compiled, phases)
         if one:
             outs = tuple(o[0] for o in outs)
@@ -500,11 +469,11 @@ class _EpisodeFn:
         anew), and a network of their own like `net`."""
         C = data.slot_states.shape[1]
         shape = data._replace(**{f: getattr(data, f)[:, :0] for f in _CYCLE_FIELDS})
-        kept = self.programs.setdefault((_signature(shape), _signature(carry)), [])
+        kept = self.programs.setdefault((signature(shape), signature(carry)), [])
         for cycles in kept:
             if cycles.cap >= C:
                 return cycles
-        kept.append(_Cycles(self, copy.deepcopy(net), data, carry, C))
+        kept.append(_Cycles(self, ProgramNet(net), data, carry, C))
         return kept[-1]
 
 

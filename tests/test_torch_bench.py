@@ -196,6 +196,30 @@ def test_phase_split_selects_what_plan_selects(small_world, monkeypatch):
     assert out["net_flops_per_fwd"] > 0 and out["net_mfu_bf16_peak"] is None
 
 
+def test_phase_split_times_the_planners_programs(small_world, monkeypatch):
+    """(c') With the plan's programs in use (forced here: on the CPU a
+    program runs its body eagerly on its buffers, where the card replays
+    its graph): the section's host loop and bench_phases run the planner's
+    AIME and staged solve programs, graph_captures counts them, and the
+    micro-solves still select what plan selects."""
+    from mind_tpu_torch.planner import programs
+
+    monkeypatch.setattr(bench, "TIMED_RUNS", 1)
+    monkeypatch.setattr(programs, "compiled", lambda *a, **kw: True)
+    sim = small_sim(small_world, "demo_1")
+    pl = bench._av(sim).planner
+    before, ran = bench.graph_captures(), set(programs.programs())
+    out = bench.section_phase_split(sim)
+    new = [p for p in programs.programs() if p not in ran]
+    assert sorted(p.kind for p in new) == ["aime", "solve"]
+    assert all(p in pl.program_set().programs.values() for p in new)
+    assert bench.graph_captures() == before + 2
+    ok, ctrl, _ = pl.plan()
+    assert ok and out["selected_tree"] == pl.last_best
+    np.testing.assert_allclose(out["selected_ctrl"], ctrl, rtol=0, atol=1e-9)
+    assert out["aime_program_ms"] > 0 and out["staged_solve_program_ms"] > 0
+
+
 @pytest.mark.parametrize("update_edge", [True, False])
 def test_flop_count_of_the_fusion_core(update_edge):
     """(d) FlopCounterMode's count of one plain fusion-core call against

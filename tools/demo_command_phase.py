@@ -31,9 +31,10 @@ if __name__ == "__main__":
                           check=True).stdout.strip().splitlines()[0]
     t = time.perf_counter()
     chip_smoke.phase_build(fa)
-    _, loop, ego = chip_smoke.phase_closed_loop(planner_config_for_demo("demo_1"), fa,
-                                                synthetic_av2(chip_smoke.SEED), LANE_W,
-                                                AV2_ORIGIN)
+    _, loop, sim, _ = chip_smoke.phase_closed_loop(planner_config_for_demo("demo_1"), fa,
+                                                   synthetic_av2(chip_smoke.SEED), LANE_W,
+                                                   AV2_ORIGIN)
+    ego = sim.ego_trajectory()
     t6 = time.perf_counter()
     chip_smoke.phase_demo_command(fa, loop, ego, card)
     print(f"phase 6: {t6 - t:.1f} s, phase 6b: {time.perf_counter() - t6:.1f} s ({card})",
