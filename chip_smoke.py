@@ -5,7 +5,8 @@
 Phases, in order (any failure ends the run with a non-zero exit and no
 result line):
   0. probe: utils/device_health.py::probe_once() (a bf16 product on the card
-     in a fresh subprocess) must return True;
+     in a fresh subprocess) must return True; it runs beside phase 1, and
+     nothing runs on the card before it has passed;
   1. build both CUDA kernels (mind_tpu_torch/ops/csrc/fusion_attention.cu,
      float32, and fusion_attention_bf16.cu, bf16 operands on the tensor
      cores) and the graph-control library (graph_control.cu: the condition
@@ -52,13 +53,14 @@ result line):
      wall time outside plan() are printed;
  6b. demo command: python -m mind_tpu_torch.run_sim --config <the fixture's
      demo_1_synthetic.json, its output in a temporary folder> --data-root
-     tests/fixtures/av2_synthetic --max-steps 150, rendering on, as a
-     subprocess: exit code 0, phase 6's plan count, no failed plan, an MJPEG
-     AVI of 150 JPEG frames of 1200 x 1200 (probe_avi); then run_sim.main
+     tests/fixtures/av2_synthetic --max-steps 100, rendering on, as a
+     subprocess: exit code 0, the plan count of phase 6's first 100 ticks
+     (10), no failed plan, an MJPEG AVI of 100 JPEG frames of 1200 x 1200
+     (probe_avi); then run_sim.main
      on the same arguments and --no-render in this process: kernel B
      launched a multiple of 6 times (eagerly, or by a capture) and executed
      by the programs' replays, kernel A never, the ego
-     within 1e-6 m of phase 6's (whether it is equal to the bit is
+     within 1e-6 m of phase 6's first 100 ticks (whether it is equal to the bit is
      printed); the parquet read ms, render seconds a frame (8 frames one
      after another here; drawn and encoded with the configuration's
      num_threads workers in the command), PNG read and JPEG encode ms a
@@ -84,9 +86,10 @@ result line):
   7. float32 loop: 36 ticks under the float32 defaults with the planner
      enabled after 0.2 s (5 plans, float32 kernel), on the card and again
      on the CPU through the plain version (that one in a child process
-     started after the probe, beside the card's phases; this phase runs
-     after 12b, when the child is done): ego states within 1e-3 m, the
-     same tree at every plan;
+     started after the probe, beside the card's phases, which then plans
+     phase 4's reference cycle and takes phase 14's two CPU training
+     steps; this phase runs after 12c, when the child is done): ego states
+     within 1e-3 m, the same tree at every plan;
   8. exec re-solve: one plan each with float32 selection solves and a
      float64 re-solve of the winner in polish, scratch and native mode (the
      native one in C++ on the host, mind_tpu_torch/native, built with g++);
@@ -128,11 +131,11 @@ result line):
      nodes in a batched forward equal to its forward alone, to the bit;
  12. Monte-Carlo: run_episode_monte_carlo on the loop's scenario, 16 copies
      in one chunk (B = 128 nodes per round), segments of 10 cycles, through
-     the compiled 'copies_seg' program, warm (50 ticks) then timed, with its peak
-     device memory: every copy finite, kernel B launched and executed as in
-     11, segments of 4 equal to it to the bit over the first 100 ticks,
-     copies 0 and 15 against
-     run_episode on their own schedules (as in 11);
+     the compiled 'copies_seg' program, warm (50 ticks) then timed (75
+     ticks), with its peak device memory: every copy finite, kernel B
+     launched and executed as in 11, segments of 4 equal to it to the bit
+     over the first 50 ticks, copies 0 and 15 against run_episode on their
+     own schedules (as in 11);
  12a. parity playback: parity/runner.py::run_parity_episode_playback on the
      loop's scenario under the demo configuration (read from
      configs/demo_1.json; 150 ticks, planner on after 1 s): the episode's
@@ -145,8 +148,30 @@ result line):
  12b. parity resync: run_parity_demo_resync on the same scenario (demo_1's
      4 s enable time, 230 ticks, at least 5 plans of the staged planner with
      the mirror in tandem): the same criterion and launch check;
+ 12c. scale-out programs: MultiScenarioSim and MonteCarloSim
+     (parallel/multi_scenario.py, monte_carlo.py: the JAX package's host
+     loops, planning through their compiled programs, parallel/programs.py:
+     the observation update and the batched plan, one CUDA graph each)
+     against graphed=False, which runs the same bodies eagerly: the four
+     scenes of 11 (150 ticks, 20 triggers of B = 32 nodes a round) and 16
+     copies of 12's scenario (50 ticks, 10 triggers, B = 128), each a warm
+     compiled run that captures, the timed compiled run (capturing nothing)
+     and the eager one: every trigger's packed plan, the plan count, the
+     terminations or failures and the egos at every tick equal to the bit;
+     in the timed compiled runs one host read of the device per trigger and
+     none per update (a TorchDispatchMode entered around those calls alone),
+     every replay under sync debug "error";
+     kernel B launched only by the captures and executed 6 times per
+     device-counted AIME round; scene- and copy-ticks/s compiled and eager,
+     the programs' capture seconds and condition-kernel runs, the peak
+     memory at K = 16 and (one trigger with its capture) at K = 64, with
+     the card's name and power limit;
  13. tree scale: parallel_tree_solve of 1024 random branching trees on a
-     one-device mesh, timed, against four slices of 256 solved alone;
+     one-device mesh through its compiled program (the whole solve one CUDA
+     graph, the iterations a WHILE node) against graphed=False (a replayed
+     iteration and a host read per iteration): us, J and the iteration
+     counts equal to the bit, both timed, the timed compiled call capturing
+     nothing and reading nothing; then four slices of 256 solved alone;
  14. training: PlannerConfig()'s float32 network at full width from
      init_scene_pred(seed=0), one batch of four synthetic AV2 scenarios
      (seeds 0-3) through the data layer and scenario_to_batch, AdamW(3e-4):
@@ -158,7 +183,8 @@ result line):
      with mode 0 as every scene's winner; (c) the same for kernel B at one
      call; (d) 20 steps, finite losses, the last below the first; (e) the
      first two losses and the first gradients against the same steps on the
-     CPU; (f) save, restore, one step equal to one step without the round
+     CPU (taken by phase 7's child on the same batch, built after phase 4,
+     beside the card's phases); (f) save, restore, one step equal to one step without the round
      trip, to the bit, under deterministic cuDNN (set for (f) alone; the
      other checks and the timing run cuDNN's default algorithms); the timed
      steps' forward / backward / optimizer ms,
@@ -195,7 +221,8 @@ result line):
      parallel/dryrun.py), at full width with the trained weights. (a)-(c)
      two ranks on the one card (gloo): the Monte-Carlo sweep of phase 12's
      scenario under the demo configuration, K = 8 copies in chunks of 4
-     (2 per rank), 70 ticks; phase 13's 1024 trees, 2 x 512; 5 float32
+     (2 per rank), 25 ticks; phase 13's 1024 trees, 2 x 512 (each rank's
+     solve its compiled program, as the sequential mesh's); 3 float32
      training steps of phase 14's batch, 2 scenes per rank (cuDNN held to
      deterministic algorithms in the ranks and here). Each rank's copies,
      trees, losses and parameters equal to the sequential two-shard mesh's
@@ -304,6 +331,8 @@ FIXTURE_CONFIG = os.path.join(FIXTURE, "demo_1_synthetic.json")
 # and configuration: the same float64 values through the parquet, metres
 TOL_COMMAND_EGO = 1e-6
 LOOP_TICKS = 150
+# the demo command's ticks: the first 100 of phase 6's loop (10 plans)
+COMMAND_TICKS = 100
 DEMO_FRAME = 1200                 # pixels: render_png's figsize 12 at 100 dpi
 SERIAL_FRAMES = 8                 # frames drawn again in this process, timed
 COMMAND_TIMEOUT_S = 600
@@ -805,19 +834,20 @@ def probe_video(name, path, ticks):
     return info
 
 
-def phase_demo_command(fa, loop, loop_ego, card):
+def phase_demo_command(fa, loop, loop_plans, loop_ego, card):
     """(6b) the demo command as its users run it, on the committed log with
     rendering on: python -m mind_tpu_torch.run_sim --config <the fixture's
     configuration, its output in a temporary directory> --data-root
-    tests/fixtures/av2_synthetic --max-steps 150, as a subprocess: exit code
-    0, phase 6's plan count and no failed plan, an MJPEG AVI of 150 JPEG
-    frames of 1200 x 1200. Then run_sim.main on the same arguments in this
-    process with --no-render (drawing launches nothing on the card), the
-    launch counts set to 0 just before: kernel B a positive multiple of 6
-    times, kernel A never, phase 6's plan count, the ego within
-    TOL_COMMAND_EGO of phase 6's; SERIAL_FRAMES of its frames drawn one
-    after another, read back and JPEG-encoded, timed. Returns (kernel B's
-    launches, summary)."""
+    tests/fixtures/av2_synthetic --max-steps COMMAND_TICKS, as a subprocess:
+    exit code 0, the plan count of phase 6's loop over those ticks and no
+    failed plan, an MJPEG AVI of COMMAND_TICKS JPEG frames of 1200 x 1200.
+    Then run_sim.main on the same arguments in this process with
+    --no-render (drawing launches nothing on the card), the launch counts
+    set to 0 just before: kernel B a positive multiple of 6 times, kernel A
+    never, that plan count, the ego within TOL_COMMAND_EGO of phase 6's
+    over those ticks; SERIAL_FRAMES of its frames drawn one after another,
+    read back and JPEG-encoded, timed. Returns (kernel B's launches,
+    summary)."""
     import ast
     import re
 
@@ -826,12 +856,15 @@ def phase_demo_command(fa, loop, loop_ego, card):
     from mind_tpu_torch.viz import jpeg, raster, render
 
     cfg = json.load(open(FIXTURE_CONFIG))
-    summary = {"ticks": LOOP_TICKS, "render_workers": min(cfg["num_threads"], LOOP_TICKS)}
+    plans = sum(r["tick"] < COMMAND_TICKS for r in loop_plans)
+    loop_ego = loop_ego[:COMMAND_TICKS]
+    summary = {"ticks": COMMAND_TICKS, "plans": plans,
+               "render_workers": min(cfg["num_threads"], COMMAND_TICKS)}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "demo_1.json")
         with open(path, "w") as f:
             json.dump(dict(cfg, output_dir=os.path.join(tmp, "out")), f)
-        args = ["--config", path, "--data-root", FIXTURE, "--max-steps", str(LOOP_TICKS)]
+        args = ["--config", path, "--data-root", FIXTURE, "--max-steps", str(COMMAND_TICKS)]
 
         # the command in its own process
         cmd = [sys.executable, "-m", "mind_tpu_torch.run_sim", *args]
@@ -848,13 +881,13 @@ def phase_demo_command(fa, loop, loop_ego, card):
             raise RuntimeError(f"demo command: exit code {p.returncode}; stdout ends "
                                f"{p.stdout[-2000:]}")
         metrics = ast.literal_eval(lines[0][len("metrics:"):].strip())
-        if metrics["ticks"] != LOOP_TICKS or metrics["plan_calls"] != loop["plan_calls"] or \
+        if metrics["ticks"] != COMMAND_TICKS or metrics["plan_calls"] != plans or \
                 "plan failed" in p.stdout:
-            raise RuntimeError(f"demo command: {metrics} against the loop's "
-                               f"{loop['plan_calls']} plans; stdout ends {p.stdout[-2000:]}")
+            raise RuntimeError(f"demo command: {metrics} against the loop's {plans} plans; "
+                               f"stdout ends {p.stdout[-2000:]}")
         summary["command_ticks_per_s"] = metrics["ticks"] / metrics["wall_time_s"]
-        summary["command_video"] = probe_video("demo command", video.group(1), LOOP_TICKS)
-        summary["draw_and_encode_s_per_frame_pool"] = float(video.group(3)) / LOOP_TICKS
+        summary["command_video"] = probe_video("demo command", video.group(1), COMMAND_TICKS)
+        summary["draw_and_encode_s_per_frame_pool"] = float(video.group(3)) / COMMAND_TICKS
 
         # the same arguments through run_sim.main here: launches and trajectory
         sims = []
@@ -872,7 +905,7 @@ def phase_demo_command(fa, loop, loop_ego, card):
             Simulator.run_sim = run
         (sim,) = sims
         agent = next(a for a in sim.agents if a.id == "AV")
-        if metrics["plan_calls"] != loop["plan_calls"] or \
+        if metrics["plan_calls"] != plans or \
                 agent.planner.metrics.counters.get("plan_failures", 0):
             raise RuntimeError(f"demo command in this process: {metrics}")
         pc = agent.planner.cfg
@@ -888,7 +921,7 @@ def phase_demo_command(fa, loop, loop_ego, card):
         summary.update(launches=counts, kernel_b_executions=executed, ego_gap_m=gap,
                        ego_bit_equal=bool(np.array_equal(ego, loop_ego)))
         # frames of this run drawn one after another, read back, encoded
-        frames = np.linspace(0, LOOP_TICKS - 1, SERIAL_FRAMES).astype(int)
+        frames = np.linspace(0, COMMAND_TICKS - 1, SERIAL_FRAMES).astype(int)
         t = time.perf_counter()
         for i in frames:
             render.render_png(sim, int(i), tmp)
@@ -922,14 +955,19 @@ def float32_cfg():
 
 
 def cpu_references(inbox, outbox):
-    """The CPU halves of phases 7 and 4, through the plain version, in a
-    child process beside the card's phases (start_cpu_references): puts
+    """The CPU halves of phases 7, 4 and 14 (e), through the plain version,
+    in a child process beside the card's phases (CpuReferences): puts
     ("loop32", (the float32 loop's ego trajectory, [(tick, tree)] per
     plan, seconds)), then, once phase 4's filled window arrives on `inbox`
-    (numpy), ("plan", (the plan's 4 numbers, its tree, seconds)); or
-    ("error", traceback)."""
+    (numpy), ("plan", (the plan's 4 numbers, its tree, seconds)), then,
+    once phase 14's training batch arrives (numpy), ("train", (the losses
+    of two training steps from init_scene_pred(seed=0), the gradients of
+    the first by parameter name (numpy, None where a parameter has none),
+    seconds)); or ("error", traceback)."""
     import traceback
 
+    from mind_tpu_torch.config import PlannerConfig
+    from mind_tpu_torch.models import train
     from mind_tpu_torch.models.weights import load_scene_pred
     from mind_tpu_torch.planner import aime_device as aime
     from mind_tpu_torch.planner import planner as tplanner
@@ -953,6 +991,15 @@ def cpu_references(inbox, outbox):
         out = plan_once((tplanner, make_cost_params), net, cfg, World(scene), buf,
                         scene_statics(scene, getattr(torch, cfg.pipeline_dtype), cpu), cpu, report)
         outbox.put(("plan", (out, int(report["best"]), time.perf_counter() - t)))
+        batch = train.Batch(*(torch.from_numpy(x) for x in inbox.get()))
+        t = time.perf_counter()
+        net = train.init_scene_pred(PlannerConfig().net, seed=0, device=cpu)
+        step = train.make_train_step(net, train.adamw(net.parameters(), TRAIN_LR))
+        losses = [float(step(batch))]
+        grads = {n: None if p.grad is None else p.grad.numpy().copy()
+                 for n, p in net.named_parameters()}
+        losses.append(float(step(batch)))
+        outbox.put(("train", (losses, grads, time.perf_counter() - t)))
     except BaseException:   # the parent raises it
         outbox.put(("error", traceback.format_exc()))
         raise
@@ -960,8 +1007,8 @@ def cpu_references(inbox, outbox):
 
 class CpuReferences:
     """cpu_references in a spawned, daemonic child (it ends with this
-    process whatever happens): `send` phase 4's window, `get` a result by
-    name."""
+    process whatever happens): `send` phase 4's window, then phase 14's
+    batch; `get` a result by name."""
 
     def __init__(self):
         import multiprocessing as mp
@@ -983,7 +1030,7 @@ class CpuReferences:
             if key == "error":
                 raise RuntimeError(f"the CPU references failed:\n{value}")
             self.results[key] = value
-        if len(self.results) == 2:
+        if len(self.results) == 3:
             self.proc.join(timeout=60)
         return self.results[name]
 
@@ -1365,16 +1412,16 @@ class RoundCounter:
 
 
 def program_counts():
-    """(compiled programs that grow AIME trees: the episode programs and the
-    planner's AIME and fused programs; the AIME rounds their replays ran;
-    the condition kernel's runs in every compiled program, the planner's
-    staged solve and exec programs too) in this process, read from the
-    device."""
+    """(compiled programs that grow AIME trees: the episode programs, the
+    planner's AIME and fused programs and the scale-out runners' batched
+    plans; the AIME rounds their replays ran; the condition kernel's runs in
+    every compiled program, the planner's staged solve and exec programs
+    and the tree solves too) in this process, read from the device."""
     from mind_tpu_torch.planner import programs
     from mind_tpu_torch.sim import episode
 
     eps, pls = episode.programs(), programs.programs()
-    aime = eps + [p for p in pls if p.kind in ("aime", "fused")]
+    aime = eps + [p for p in pls if p.kind in ("aime", "fused", "batched_plan")]
     return (len(aime), sum(int(p.rounds) for p in aime),
             sum(int(p.program.executions) for p in eps + pls))
 
@@ -1843,16 +1890,16 @@ def phase_batched_episode(dcfg, fa, data_root):
     return counts["bfloat16"], summary
 
 
-# the Monte-Carlo phase's segments-of-4 run covers the first 100 of the
-# 150 ticks (20 cycles, 10 planning)
-SEG_CHECK_TICKS = 100
+# the Monte-Carlo phase's timed run: 75 ticks (15 cycles, each planning);
+# its segments-of-4 run covers the first 50 (10 cycles: segments of 4, 4, 2)
+MC_TICKS, SEG_CHECK_TICKS = 75, 50
 
 
 def phase_monte_carlo(dcfg, fa, data_root, k=16):
     """run_episode_monte_carlo on the loop's scenario (seed 0) under the demo
     configuration: k = 16 copies in one chunk, segments of 10 cycles, a warm
     call over the first 50 ticks (it captures the program) then the timed
-    one over 150, with the launch counts set to 0 just before and
+    one over MC_TICKS, with the launch counts set to 0 just before and
     read just after, and the peak device memory of the timed chunk; then
     segments of 4 over the first SEG_CHECK_TICKS (equal to the bit) and two
     copies through run_episode on their own schedules (within
@@ -1872,7 +1919,8 @@ def phase_monte_carlo(dcfg, fa, data_root, k=16):
     n1, r1, _ = program_counts()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    res = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10, chunk_walls=walls)
+    res = episode.run_episode_monte_carlo(sim, k=k, chunk=k, seg_cycles=10, horizon=MC_TICKS,
+                                          chunk_walls=walls)
     wall = time.perf_counter() - t
     n2, r2, _ = program_counts()
     counts = dict(fa.fused_edge_attention.launches_by_variant)
@@ -1880,7 +1928,7 @@ def phase_monte_carlo(dcfg, fa, data_root, k=16):
     failed = [i for i, r in enumerate(res) if r.fail_cycle >= 0]
     summary = {"copies": len(res), "wall_s": wall, "chunk_walls": walls,
                "copy_ticks_per_s": sum(len(r.ego_states) for r in res) / wall,
-               "copy_ticks_per_s_full_horizon": k * 150 / wall,
+               "copy_ticks_per_s_full_horizon": k * MC_TICKS / wall,
                "failed_copies": len(failed), "fail_cycles": [res[i].fail_cycle for i in failed],
                "plan_calls": [r.plan_calls for r in res], "peak_memory_gb": peak / 1e9,
                "peak_memory_gb_warm_call_with_capture": warm_peak / 1e9,
@@ -1907,7 +1955,7 @@ def phase_monte_carlo(dcfg, fa, data_root, k=16):
                 raise RuntimeError(f"monte carlo: copy {i}'s {f} differs between segments of "
                                    "4 and of 10 cycles")
     summary["segments_4_equal_10"] = True
-    inp = episode.build_mc_inputs(sim, k)
+    inp = episode.build_mc_inputs(sim, k, horizon=MC_TICKS)
     singles = {}
     for i in (0, k - 1):
         want = episode.run_episode(sim, inputs=episode.lane_inputs(inp, i))
@@ -1918,27 +1966,324 @@ def phase_monte_carlo(dcfg, fa, data_root, k=16):
     hold_against_singles("monte carlo", singles)
     return counts["bfloat16"], summary
 
+# (scale-out programs): MultiScenarioSim over phase 11's four scenes (150
+# ticks, planner on after 1 s: 20 triggers) and MonteCarloSim of phase 12's
+# scenario (K = 16, 50 ticks: 10 triggers), compiled against graphed=False.
+# The warm runs capture the programs: 51 ticks of the scenes (one trigger),
+# 1 tick of the copies
+SCALEOUT_SPEEDS = (8.0, 7.0, 9.0, 6.0)
+SCALEOUT_TICKS, SCALEOUT_PLANS, SCALEOUT_WARM_TICKS = 150, 20, 51
+SCALEOUT_K, SCALEOUT_MC_TICKS = 16, 50
+
+
+def phase_scaleout_programs(dcfg, fa, data_root, card):
+    """(12c) the scale-out runners' compiled programs (parallel/programs.py:
+    the observation update and the batched plan, each one CUDA graph, AIME's
+    rounds IF nodes and the iLQR loops WHILE nodes) against graphed=False,
+    which runs the same bodies eagerly, in one process, with the demo
+    configuration and the trained weights (kernel B). (a) MultiScenarioSim
+    over phase 11's four scenes (seeds 0-3, the AV asked for 8, 7, 9 and 6
+    m/s, planner on after 1 s, 150 ticks: 20 triggers of B = 32 nodes a
+    round): a warm compiled run (it captures), the timed compiled run (it
+    captures nothing) and the eager one, equal to the bit: every trigger's
+    packed, plan_calls, terminated and the four egos at every tick. (b)
+    MonteCarloSim of phase 12's scenario, K = 16 (B = 128), 50 ticks (10
+    triggers), the same way: every trigger's packed, failed and the
+    trajectory. (c) In the timed compiled runs the host's reads of the
+    device (DeviceReads, around each update and trigger alone): one per
+    trigger, none per update; every replay under sync debug "error", one a
+    program call. (d) Kernel B launched only by
+    the captures and executed 6 times per device-counted AIME round; the
+    condition kernel's launches and runs per program. (e) Scene-ticks/s and
+    copy-ticks/s compiled against eager, the programs with their capture
+    seconds and the peak memory at K = 16, with the card's name and power
+    limit. Returns ((kernel B launches, executions), condition-kernel
+    (launches, runs), summary)."""
+    import contextlib
+    import copy
+
+    from mind_tpu_torch.ops import graph_control as gc
+    from mind_tpu_torch.parallel.monte_carlo import MonteCarloSim
+    from mind_tpu_torch.parallel.multi_scenario import MultiScenarioSim
+    from mind_tpu_torch.planner import programs
+    from mind_tpu_torch.synthetic import demo_spec
+
+    t_phase = time.perf_counter()
+    layers, depth = dcfg.net.n_scene_layer, dcfg.scen_tree.max_depth
+    specs = [demo_spec("demo_1", seed, data_root, ticks=SCALEOUT_TICKS, planner_cfg=dcfg,
+                       enable_timestep=1.0, target_velocity=v)
+             for seed, v in enumerate(SCALEOUT_SPEEDS)]
+    mc_spec = demo_spec("demo_1", SEED, data_root, ticks=SCALEOUT_TICKS, planner_cfg=dcfg,
+                        enable_timestep=1.0, target_velocity=TARGET_VELOCITY)
+
+    def multi(graphed, ticks=SCALEOUT_TICKS):
+        return MultiScenarioSim([copy.deepcopy(sp.config) for sp in specs], planner_cfg=dcfg,
+                                max_steps=ticks, scenarios=[sp.scenario for sp in specs],
+                                graphed=graphed)
+
+    def monte(graphed, ticks=SCALEOUT_MC_TICKS, k=SCALEOUT_K):
+        return MonteCarloSim(copy.deepcopy(mc_spec.config), k=k, planner_cfg=dcfg,
+                             max_steps=ticks, scenario=mc_spec.scenario, graphed=graphed)
+
+    replay, modes = gc.GraphProgram.replay, []
+
+    def watched(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(self)
+
+    runs_b, cond = [0, 0], [0, 0]
+
+    def run(name, runner, reads=False):
+        """One run of `runner` under KernelRuns: every trigger's packed, the
+        egos at every tick (MultiScenarioSim), the wall seconds, the
+        programs captured and the replays' sync debug modes; with `reads`,
+        the host's reads of the device in each update and trigger
+        (DeviceReads, entered around those calls alone)."""
+        counter = DeviceReads() if reads else None
+        counted = lambda: counter if counter else contextlib.nullcontext()
+        rec = {"packed": [], "plan_reads": [], "update_reads": [], "egos": []}
+        plan, update = runner._plan, runner.programs.update
+
+        def traced_plan(*a):
+            n = counter.n if counter else 0
+            with counted():
+                out = plan(*a)
+            rec["packed"].append(out.copy())
+            if counter:
+                rec["plan_reads"].append(counter.n - n)
+            return out
+
+        def traced_update(*a):
+            n = counter.n if counter else 0
+            with counted():
+                update(*a)
+            if counter:
+                rec["update_reads"].append(counter.n - n)
+
+        runner._plan, runner.programs.update = traced_plan, traced_update
+        if isinstance(runner, MultiScenarioSim):
+            flush = runner._flush_obs
+
+            def traced_flush():
+                rec["egos"].append(runner.ego_states())
+                flush()
+
+            runner._flush_obs = traced_flush
+        before, n_modes = set(programs.programs()), len(modes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with KernelRuns(fa) as runs:
+            t = time.perf_counter()
+            res = runner.run()
+            torch.cuda.synchronize()
+            rec["wall_s"] = time.perf_counter() - t
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        launched, executed, c, c_launched = runs.hold(f"scale-out programs {name}", "bfloat16",
+                                                      layers, depth)
+        runs_b[0] += launched
+        runs_b[1] += executed
+        cond[0] += c_launched
+        cond[1] += c
+        rec.update(result=res, launches=runs.counts, kernel_b_executions=executed,
+                   condition_kernel_runs=c, condition_kernel_launches=c_launched,
+                   captured=[(p.kind, p.capture_s) for p in programs.programs()
+                             if p not in before],
+                   modes=modes[n_modes:])
+        if runner.programs.compiled:
+            if not executed or set(rec["modes"]) != {2}:
+                raise RuntimeError(f"scale-out programs {name}: {executed} kernel B executions, "
+                                   f"replays under sync debug modes {set(rec['modes'])}")
+        elif executed or rec["modes"] or rec["captured"]:
+            raise RuntimeError(f"scale-out programs {name}: the eager run replayed a program")
+        calls = len(rec["packed"]) + len(rec["update_reads"])
+        if reads and len(rec["modes"]) != calls:
+            raise RuntimeError(f"scale-out programs {name}: {len(rec['modes'])} replays for "
+                               f"{calls} program calls")
+        return runner, rec
+
+    def equal(name, got, want, fields):
+        (rc, c), (re_, e) = got, want
+        diff = [f for f in fields if not _same(f(rc, c), f(re_, e))]
+        if diff or not e["packed"]:
+            raise RuntimeError(f"scale-out programs {name}: the compiled run differs from the "
+                               f"eager one in {diff} ({len(c['packed'])} / {len(e['packed'])} "
+                               "triggers)")
+
+    gc.GraphProgram.replay = watched
+    summary = {"card": card}
+    try:
+        # (a) MultiScenarioSim: warm (captures), timed compiled (its reads
+        # counted), eager
+        _, warm_ms = run("MultiScenarioSim warm", multi(None, SCALEOUT_WARM_TICKS))
+        got_ms = run("MultiScenarioSim", multi(None), reads=True)
+        want_ms = run("MultiScenarioSim eager", multi(False))
+        # (b) MonteCarloSim at K = 16: warm (one trigger), timed, eager
+        _, warm_mc = run("MonteCarloSim warm", monte(None, 1))
+        got_mc = run("MonteCarloSim", monte(None), reads=True)
+        want_mc = run("MonteCarloSim eager", monte(False))
+    finally:
+        gc.GraphProgram.replay = replay
+    for name, (_, rec) in (("MultiScenarioSim", got_ms), ("MonteCarloSim", got_mc)):
+        if rec["captured"]:
+            raise RuntimeError(f"scale-out programs {name}: the timed run captured "
+                               f"{rec['captured']}")
+    for name, warm, (_, rec) in (("MultiScenarioSim", warm_ms, got_ms),
+                                 ("MonteCarloSim", warm_mc, got_mc)):
+        kinds = sorted(k for k, _ in warm["captured"])
+        if kinds != ["batched_plan", "obs_update"] or \
+                rec["plan_reads"] != [1] * len(rec["packed"]) or not rec["update_reads"] or \
+                set(rec["update_reads"]) != {0}:
+            raise RuntimeError(f"scale-out programs {name}: the warm run captured {kinds}; "
+                               f"reads per trigger {rec['plan_reads']}, per update "
+                               f"{rec['update_reads']}")
+    equal("MultiScenarioSim", got_ms, want_ms, (
+        lambda r, c: c["packed"], lambda r, c: c["egos"], lambda r, c: r.ego_states(),
+        lambda r, c: c["result"]["plan_calls"], lambda r, c: c["result"]["terminated"]))
+    equal("MonteCarloSim", got_mc, want_mc, (
+        lambda r, c: c["packed"], lambda r, c: r.failed, lambda r, c: r.trajectory,
+        lambda r, c: c["result"]["plan_calls"]))
+    (ms_c, ms_rec), (_, ms_eager) = got_ms, want_ms
+    (mc_c, mc_rec), (_, mc_eager) = got_mc, want_mc
+    if ms_rec["result"]["plan_calls"] != SCALEOUT_PLANS or \
+            any(ms_rec["result"]["terminated"]) or mc_c.failed.any() or \
+            not all(np.isfinite(p).all() for p in ms_rec["packed"] + mc_rec["packed"]):
+        raise RuntimeError(f"scale-out programs: {ms_rec['result']}, failed copies "
+                           f"{int(mc_c.failed.sum())}, or a packed plan is not finite")
+    mine = [p for p in programs.programs() if p.kind in ("obs_update", "batched_plan")]
+    ticks = lambda rec, n: n * rec["result"]["ticks"] / rec["wall_s"]
+    summary.update(
+        multi_scenario={"scenes": len(SCALEOUT_SPEEDS), "ticks": SCALEOUT_TICKS,
+                        "triggers": len(ms_rec["packed"]),
+                        "scene_ticks_per_s": {"compiled": ticks(ms_rec, 4),
+                                              "eager": ticks(ms_eager, 4)},
+                        "plan_time_s": {"compiled": ms_rec["result"]["plan_time_s"],
+                                        "eager": ms_eager["result"]["plan_time_s"]},
+                        "wall_s": {"compiled": ms_rec["wall_s"], "eager": ms_eager["wall_s"]},
+                        "peak_memory_gb": ms_rec["peak_memory_gb"]},
+        monte_carlo={"copies": SCALEOUT_K, "ticks": SCALEOUT_MC_TICKS,
+                     "triggers": len(mc_rec["packed"]),
+                     "copy_ticks_per_s": {"compiled": ticks(mc_rec, SCALEOUT_K),
+                                          "eager": ticks(mc_eager, SCALEOUT_K)},
+                     "wall_s": {"compiled": mc_rec["wall_s"], "eager": mc_eager["wall_s"]},
+                     "peak_memory_gb": {"timed": mc_rec["peak_memory_gb"],
+                                        "warm_with_capture": warm_mc["peak_memory_gb"]}},
+        reads={"triggers": len(ms_rec["plan_reads"]) + len(mc_rec["plan_reads"]),
+               "per_trigger": sorted(set(ms_rec["plan_reads"] + mc_rec["plan_reads"])),
+               "updates": len(ms_rec["update_reads"]) + len(mc_rec["update_reads"]),
+               "per_update": sorted(set(ms_rec["update_reads"] + mc_rec["update_reads"]))},
+        programs=[{"kind": p.kind, "batch": int(p.inputs.host.shape[0]) if p.kind ==
+                   "batched_plan" else int(p.inputs.buf.pos.shape[0]),
+                   "capture_s": p.capture_s, "condition_kernel_runs": int(p.program.executions),
+                   "aime_rounds": int(p.rounds)} for p in mine],
+        kernel_b={"launches": runs_b[0], "executions": runs_b[1]},
+        condition_kernel={"launches": cond[0], "runs": cond[1]},
+        launches_by_run={n: r["launches"] for n, r in (
+            ("multi_warm", warm_ms), ("multi", ms_rec), ("multi_eager", ms_eager),
+            ("monte_warm", warm_mc), ("monte", mc_rec), ("monte_eager", mc_eager))},
+        seconds=time.perf_counter() - t_phase)
+    log("[scale-out programs] " + json.dumps(summary))
+    ms, mc = summary["multi_scenario"], summary["monte_carlo"]
+    log(f"[scale-out programs] MultiScenarioSim {ms['scene_ticks_per_s']['compiled']:.2f} "
+        f"scene-ticks/s compiled against {ms['scene_ticks_per_s']['eager']:.2f} eager; "
+        f"MonteCarloSim (K = {SCALEOUT_K}) {mc['copy_ticks_per_s']['compiled']:.2f} "
+        f"copy-ticks/s against {mc['copy_ticks_per_s']['eager']:.2f}; equal to the bit; "
+        f"{len(mine)} programs captured in {sum(p.capture_s for p in mine):.2f} s; peak "
+        f"{mc['peak_memory_gb']['timed']:.2f} GB at K = {SCALEOUT_K} timed, "
+        f"{mc['peak_memory_gb']['warm_with_capture']:.2f} GB with its capture ({card})")
+    return tuple(runs_b), tuple(cond), summary
+
+
+def scaleout_peak_memory(dcfg, fa, data_root, card, k=64):
+    """MonteCarloSim of phase 12c's scenario with `k` copies (64: the
+    bench's Monte-Carlo size, B = 8k nodes a round), one compiled trigger
+    that captures its programs: finite, kernel B launched by the capture
+    alone and executed 6 times per device-counted round; the peak device
+    memory and seconds, with the card. Not a phase of this script: the
+    capture holds tens of GB in the programs' pool, which the later phases
+    need (tools/scaleout_programs_phase.py runs it last)."""
+    from mind_tpu_torch.parallel.monte_carlo import MonteCarloSim
+    from mind_tpu_torch.planner import programs
+    from mind_tpu_torch.synthetic import demo_spec
+
+    spec = demo_spec("demo_1", SEED, data_root, ticks=SCALEOUT_TICKS, planner_cfg=dcfg,
+                     enable_timestep=1.0, target_velocity=TARGET_VELOCITY)
+    mc = MonteCarloSim(spec.config, k=k, planner_cfg=dcfg, max_steps=1, scenario=spec.scenario)
+    before = set(programs.programs())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with KernelRuns(fa) as runs:
+        t = time.perf_counter()
+        mc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    held = runs.hold(f"scale-out programs K = {k}", "bfloat16", dcfg.net.n_scene_layer,
+                     dcfg.scen_tree.max_depth)
+    captured = [(p.kind, p.capture_s) for p in programs.programs() if p not in before]
+    summary = {"copies": k, "peak_memory_gb_one_trigger_with_capture":
+               torch.cuda.max_memory_allocated() / 1e9, "wall_s": wall, "captured": captured,
+               "kernel_b": held[:2], "failed": int(mc.failed.sum()), "card": card}
+    log(f"[scale-out programs K = {k}] " + json.dumps(summary))
+    if sorted(kind for kind, _ in captured) != ["batched_plan", "obs_update"] or \
+            not np.isfinite(mc.ctrls).all():
+        raise RuntimeError(f"scale-out programs K = {k}: {summary}")
+    return summary
+
+
+def _same(a, b) -> bool:
+    """Equal to the bit: arrays, lists of them, or plain values."""
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
 
 def phase_tree_scale():
     """parallel_tree_solve on make_tree_batch at the JAX package's scale-test
     sizes (1024 branching trees of up to 24 of 32 cost nodes, 24 levels,
-    width 4, 4 exo agents; 10 iterations) on a one-device mesh, a first
-    call that captures, then the timed one; held against 4 slices of 256
-    solved alone: us within 1e-4, J within 1e-5 relative."""
+    width 4, 4 exo agents; 10 iterations) on a one-device mesh, compiled
+    (the default: the whole solve one program, captured at its first call,
+    the iterations a WHILE node) against graphed=False (a captured
+    iteration per replay, a host read after each): a first call of each
+    that captures, then the timed ones; us, J and the iteration counts equal
+    to the bit; the timed compiled call captures nothing and reads the
+    device never (a one-device mesh gathers on the device). Then 4 slices
+    of 256 solved alone (compiled) against the whole batch: us within 1e-4,
+    J within 1e-5 relative."""
+    import contextlib
+
     from mind_tpu_torch.parallel.mesh import make_mesh
     from mind_tpu_torch.parallel.scale import make_tree_batch, parallel_tree_solve
+    from mind_tpu_torch.planner import programs
     from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology
     from mind_tpu_torch.ops.potential import NodeCostData
 
     mesh = make_mesh(1)
     topo, nodes, params, x0 = make_tree_batch(1024, 24, 32, 24, 4, 4, device=mesh.devices[0])
     cfg = ILQRConfig(max_iterations=10)
-    parallel_tree_solve(mesh, topo, nodes, params, x0, cfg)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    us, J = parallel_tree_solve(mesh, topo, nodes, params, x0, cfg)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t) * 1e3
+
+    def solve(graphed, reads=None):
+        """(us, J, iterations) and the call's wall ms."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with reads if reads is not None else contextlib.nullcontext():
+            out = parallel_tree_solve(mesh, topo, nodes, params, x0, cfg, graphed=graphed,
+                                      with_iterations=True)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    before = set(programs.programs())
+    _, first_ms = solve(None)
+    captured = [p for p in programs.programs() if p not in before]
+    solve(False)
+    before, reads = set(programs.programs()), DeviceReads()
+    (us, J, its), ms = solve(None, reads)
+    if set(programs.programs()) != before or reads.n:
+        raise RuntimeError(f"tree scale: the timed compiled solve captured or read the device "
+                           f"({reads.n} reads: {reads.ops})")
+    want, eager_ms = solve(False)
+    equal = [torch.equal(a, b) for a, b in zip((us, J, its), want)]
     gaps = []
     for lo in range(0, 1024, 256):
         cut = lambda x: x[lo:lo + 256]
@@ -1946,14 +2291,22 @@ def phase_tree_scale():
                                         NodeCostData(*map(cut, nodes)), params, cut(x0), cfg)
         gaps.append((float((us_s - us[lo:lo + 256]).abs().max()),
                      float(((J_s - J[lo:lo + 256]).abs() / J[lo:lo + 256].abs()).max())))
-    summary = {"trees": 1024, "ms": ms, "finite": bool(torch.isfinite(us).all()
-                                                       and torch.isfinite(J).all()),
+    (prog,) = [p for p in captured if p.kind == "tree_solve"]
+    solves = [p for p in programs.programs() if p.kind == "tree_solve"]
+    summary = {"trees": 1024, "ms": ms, "eager_ms": eager_ms, "first_call_ms": first_ms,
+               "capture_s": prog.capture_s, "programs": len(solves),
+               "condition_kernel_runs": sum(int(p.program.executions) for p in solves),
+               "iterations": [int(its.min()), int(its.max())], "reads_timed": reads.n,
+               "equal_to_eager_us_J_iterations": equal,
+               "finite": bool(torch.isfinite(us).all() and torch.isfinite(J).all()),
                "slice_gaps_us_J_rel": gaps}
     log("[scale] " + json.dumps(summary))
-    if not summary["finite"] or max(g[0] for g in gaps) >= 1e-4 or max(g[1] for g in gaps) >= 1e-5:
+    log(f"[scale] 1024 trees: compiled {ms:.1f} ms against {eager_ms:.1f} ms with a replay and "
+        f"a read per iteration; captured in {prog.capture_s:.2f} s")
+    if not all(equal) or not summary["finite"] or max(g[0] for g in gaps) >= 1e-4 or \
+            max(g[1] for g in gaps) >= 1e-5:
         raise RuntimeError(f"tree scale: {summary}")
     return summary
-
 
 
 def grad_gaps(names, got, want, exempt_unused, noise, zero=()):
@@ -2043,9 +2396,11 @@ def training_batch(cfg, dev, synthetic_av2):
     return stack_batches(scenes)
 
 
-def phase_training(fa, dev, synthetic_av2):
-    """14. Train PlannerConfig()'s float32 network on four synthetic
-    scenarios: checks (a)-(f) of the module docstring, and the timed steps.
+def phase_training(fa, dev, batch, cpu_child):
+    """14. Train PlannerConfig()'s float32 network on `batch` (four
+    synthetic scenarios, training_batch): checks (a)-(f) of the module
+    docstring, and the timed steps; (e)'s CPU steps are `cpu_child`'s
+    (CpuReferences), run beside the card's phases on the same batch.
     Returns (kernel A's launches in the 20 steps, summary)."""
     from mind_tpu_torch.config import PlannerConfig
     from mind_tpu_torch.models import checkpoint as ckpt
@@ -2055,9 +2410,8 @@ def phase_training(fa, dev, synthetic_av2):
 
     cfg = PlannerConfig()
     t0 = time.perf_counter()
-    batch = training_batch(cfg, dev, synthetic_av2)
     B = batch.actors.shape[0]
-    summary = {"scenes": B, "batch_s": time.perf_counter() - t0,
+    summary = {"scenes": B,
                "actors": batch.actor_mask.sum(1).tolist(),
                "lanes": batch.lane_mask.sum(1).tolist(),
                "targets": int(batch.gt_mask.sum())}
@@ -2121,19 +2475,12 @@ def phase_training(fa, dev, synthetic_av2):
         + json.dumps(summary["grad_vs_plain"]))
     del g_plain, g0_fn, g0_plain
 
-    # (e) the same two steps on the CPU
-    cpu = torch.device("cpu")
-    t = time.perf_counter()
-    net_cpu = train.init_scene_pred(cfg.net, seed=0, device=cpu)
-    step_cpu = train.make_train_step(net_cpu, train.adamw(net_cpu.parameters(), TRAIN_LR))
-    batch_cpu = batch.to(cpu)
-    cpu_losses = [float(step_cpu(batch_cpu))]
-    g_cpu = [None if n in exempt else p.grad.clone() for n, p in net_cpu.named_parameters()]
-    cpu_losses.append(float(step_cpu(batch_cpu)))
-    summary["cpu_two_steps_s"] = time.perf_counter() - t
+    # (e) the same two steps on the CPU, in the child
+    cpu_losses, cpu_grads, summary["cpu_two_steps_s_in_child"] = cpu_child.get("train")
+    g_cpu = [None if n in exempt else torch.from_numpy(cpu_grads[n]) for n in names]
     cpu_gaps = grad_gaps(names, [g.cpu() if g is not None else None for g in g_fn], g_cpu,
                          exempt, noise, target)
-    del net_cpu, step_cpu, batch_cpu, g_cpu, g_fn
+    del cpu_grads, g_cpu, g_fn
 
     # (d) 20 steps, the launch counts set to 0 just before and read just after
     optimizer = train.adamw(net.parameters(), TRAIN_LR)
@@ -2686,8 +3033,8 @@ def phase_scripts(fa):
 # configuration, K copies in chunks of DIST_PER_RANK copies per rank, over
 # DIST_TICKS ticks; phase 13's tree batch; DIST_TRAIN_STEPS float32 training
 # steps of phase 14's batch (2 scenes per rank)
-DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 70
-DIST_TRAIN_STEPS = 5
+DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 25
+DIST_TRAIN_STEPS = 3
 DIST_TIMEOUT_S = 600
 
 
@@ -2809,7 +3156,7 @@ def hold_dist(label, ranks, seq):
 def phase_dist(dcfg, fa, synthetic_av2):
     """(dist) the shards run at the same time, one process per shard
     (parallel/launch.py): (a)-(c) two ranks on the one card (gloo) run the
-    Monte-Carlo sweep, the 1024-tree solve (2 x 512) and 5 training steps,
+    Monte-Carlo sweep, the 1024-tree solve (2 x 512) and 3 training steps,
     each held to the bit against the sequential two-shard mesh here; (c)
     also one rank on nccl (the whole batch) against the unsharded step; (d)
     with two cards or more, one rank per card on nccl against the
@@ -2919,8 +3266,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
-    probe_s = phase_probe()
-    laps = {"probe": time.perf_counter() - T0}
+    # 0. probe and 1. build side by side: the probe is a subprocess, the build
+    # nvcc's; nothing runs on the card before the probe has passed
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probe = pool.submit(phase_probe)
+        phase_build(fa)
+        probe_s = probe.result()   # raises where the probe failed
+    laps = {"probe_and_build": time.perf_counter() - T0}
     # the CPU halves of phases 7 and 4 run in a child beside the card's phases
     cpu_child = CpuReferences()
 
@@ -2930,10 +3284,6 @@ def main() -> int:
     cfg = PlannerConfig()
     A, L = cfg.max_actors, cfg.max_lanes
     scene = synthetic_scene(SEED, A, L, n_agents=40)
-
-    # 1. build
-    phase_build(fa)
-    lap("build")
 
     # 2. kernels vs plain at the main path's shapes and token mask
     token_mask = torch.tensor(np.concatenate([scene.present, scene.lane_mask, [True]]),
@@ -2958,6 +3308,13 @@ def main() -> int:
     # child (held where phase 7 reads the child's results, after 12b)
     out0, best0, buf0 = first
     cpu_child.send(buf0)
+    # phase 14's training batch, built now so that the child runs its CPU
+    # steps beside the card's phases
+    t = time.perf_counter()
+    train_batch = training_batch(PlannerConfig(), dev, synthetic_av2)
+    cpu_child.send(train_batch)
+    log(f"[train] batch of {train_batch.actors.shape[0]} scenes built in "
+        f"{time.perf_counter() - t:.2f} s and sent to the CPU child")
 
     # 4a. the host tree generator against the device AIME, float32 network
     host_tree_launches, host_tree = phase_host_tree(cfg, net, scene, aime, scene_statics, fa,
@@ -2997,7 +3354,7 @@ def main() -> int:
                                                                 AV2_ORIGIN)
     loop_ego = loop_sim6.ego_trajectory()
     lap("closed_loop")
-    command_runs, command = phase_demo_command(fa, loop, loop_ego, card)
+    command_runs, command = phase_demo_command(fa, loop, loop_plans6, loop_ego, card)
     lap("demo_command")
     with tempfile.TemporaryDirectory() as data_root:
         prog_b, prog_a, prog_cond, plan_progs = phase_plan_programs(
@@ -3022,6 +3379,9 @@ def main() -> int:
         # file with the loop's scenario, whose map loop_sim wrote under demo_1's seq_id
         parity = phase_parity(dcfg, fa, data_root, syn)
         lap("parity")
+        # 12c. the scale-out runners' compiled programs
+        scaleout_b, scaleout_cond, scaleout = phase_scaleout_programs(dcfg, fa, data_root, card)
+        lap("scaleout_programs")
         # 7. (and phase 4's reference plan) last in this block: the child that
         # runs their CPU halves has had the phases above to finish
         out_cpu, best_cpu, cpu_plan_s = cpu_child.get("plan")
@@ -3033,15 +3393,21 @@ def main() -> int:
                                f"plan {out_cpu} (tree {best_cpu})")
         loop32_runs, loop32 = phase_float32_loop(float32_cfg(), fa, data_root, cpu_child)
         lap("float32_loop")
+    from mind_tpu_torch.ops import graph_control
+
+    cond0 = graph_control.set_conditional_any.launches
     scale = phase_tree_scale()
+    scale_cond = graph_control.set_conditional_any.launches - cond0
     lap("tree_scale")
-    train_launches, training = phase_training(fa, dev, synthetic_av2)
+    train_launches, training = phase_training(fa, dev, train_batch, cpu_child)
     lap("training")
     bench_launches, bench = phase_bench()
     lap("bench")
     scripts_launches, scripts = phase_scripts(fa)
     lap("scripts")
+    cond0 = graph_control.set_conditional_any.launches
     dist_launches, dist = phase_dist(dcfg, fa, synthetic_av2)
+    dist_cond = graph_control.set_conditional_any.launches - cond0
     lap("dist")
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
@@ -3060,6 +3426,7 @@ def main() -> int:
                                       "batched_episode": batched_launches,
                                       "monte_carlo": mc_launches,
                                       **{k: v[0] for k, v in parity.items()},
+                                      "scaleout_programs": scaleout_b[0],
                                       "bench": bench_launches["bfloat16"],
                                       "scripts": scripts_launches["bfloat16"],
                                       "dist": dist_launches["bfloat16"]}
@@ -3073,17 +3440,23 @@ def main() -> int:
                                         "closed_loop": loop_runs[1],
                                         "demo_command": command_runs[1],
                                         "plan_programs": prog_b[1],
+                                        "scaleout_programs": scaleout_b[1],
                                         "scripts": sum(scripts["kernel_b_executions"].values())}
     entries[2]["launches_by_path"] = {"compiled_episode": cond_launches,
                                       "closed_loop": loop_runs[3],
                                       "demo_command": command_runs[3],
                                       "plan_programs": prog_cond[0],
                                       "float32_loop": loop32_runs[3],
-                                      "scripts": sum(c["launches"] for c in cond_scripts)}
+                                      "scaleout_programs": scaleout_cond[0],
+                                      "tree_scale": scale_cond,
+                                      "scripts": sum(c["launches"] for c in cond_scripts),
+                                      "dist_in_process": dist_cond}
     entries[2]["executions_by_path"] = {
         "compiled_episode_timed": compiled["condition_kernel_runs_timed"],
         "closed_loop": loop_runs[2], "demo_command": command_runs[2],
         "plan_programs": prog_cond[1], "float32_loop": loop32_runs[2],
+        "scaleout_programs": scaleout_cond[1],
+        "tree_scale": scale["condition_kernel_runs"],
         "scripts": sum(c["runs"] for c in cond_scripts)}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
@@ -3098,6 +3471,7 @@ def main() -> int:
                                   "compiled": compiled,
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
                                   **{k: v[1] for k, v in parity.items()},
+                                  "scaleout_programs": scaleout,
                                   "tree_scale": scale, "training": training,
                                   "bench_wall_s": bench["wall_s"],
                                   "scripts_s": scripts["seconds"], "dist": dist,

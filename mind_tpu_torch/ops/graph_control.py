@@ -330,6 +330,10 @@ class GraphProgram:
                 fn()
             caller.wait_stream(s0)
             torch.cuda.synchronize(self.device)
+            # the warm-up's cached scratch goes back to the device before the
+            # capture reserves the program's own in the pool: a large batch's
+            # two do not fit side by side
+            torch.cuda.empty_cache()
             rec = _Recording(self.device, self.executions, True)
             graph = ctypes.c_void_p()
             with _recorded(rec), torch.cuda.stream(s0), \

@@ -6,38 +6,49 @@ only the ego state, the rolling observation window and the cost-field
 origin are per copy. The K windows are one [K, A, 50, ...] buffer updated
 once per plan trigger, and the K egos integrate the kinematic bicycle in
 vectorized host numpy between plans.
+
+On a CUDA device the update and the plan are compiled programs
+(parallel/programs.py, the JAX package's `_update_fn` and `_batched_fn`):
+the update builds the K copies' states on the device from the exo states
+and the K egos, and a trigger reads the packed [K, 4] once. `graphed=False`
+runs the same bodies eagerly (the bit-exact reference on the card).
 """
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.common.kinematics import VehicleParam
 from mind_tpu_torch.config import PlannerConfig, SimConfig, planner_config_for_demo
 from mind_tpu_torch.data.loader import ArgoAgentLoader
 from mind_tpu_torch.data.semantic_map import SemanticMap
-from mind_tpu_torch.planner.aime_device import DeviceObsBuffer, obs_buffer_update
-from mind_tpu_torch.planner.planner import MINDPlanner, batched_plan_core, type_onehot
+from mind_tpu_torch.parallel.programs import RunnerPrograms, plan_statics
+from mind_tpu_torch.planner import programs
+from mind_tpu_torch.planner.aime_device import DeviceObsBuffer
+from mind_tpu_torch.planner.planner import MINDPlanner, type_onehot
 from mind_tpu_torch.planner.trajectory_tree import torch_dtype
 from mind_tpu_torch.sim.agents import MINDAgent
-from mind_tpu_torch.sim.episode import (_shared_statics, build_episode_statics,
-                                        perturb_ego_starts)
+from mind_tpu_torch.sim.episode import perturb_ego_starts
 
 
 class MonteCarloSim:
     """K perturbed ego copies of one scenario, closed loop. `scenario` (an
     in-memory Scenario) takes the place of reading sim_cfg.scenario_path;
     the planner runs on `device` (the CUDA card unless the caller passes
-    the CPU)."""
+    the CPU). `graphed` (None: on a CUDA device) updates and plans through
+    the compiled programs; False runs the same bodies eagerly; True on the
+    CPU raises."""
 
     def __init__(self, sim_cfg: SimConfig, k: int = 64, pos_sigma: float = 0.5,
                  vel_sigma: float = 0.25, planner_cfg: Optional[PlannerConfig] = None,
-                 seed: int = 0, max_steps: Optional[int] = None, device=None, scenario=None):
+                 seed: int = 0, max_steps: Optional[int] = None, device=None, scenario=None,
+                 graphed: Optional[bool] = None):
+        programs.compiled(resolve_device(device), graphed)   # raises for True on the CPU
         self.k = k
         self.sim_cfg = sim_cfg
         self.horizon = max_steps or sim_cfg.sim_horizon
@@ -78,19 +89,19 @@ class MonteCarloSim:
         types[0] = type_onehot(self.bundle.types[self.av_row][0])
         for s, r in enumerate(self.exo_rows, start=1):
             types[s] = type_onehot(self.bundle.types[r][0])
-        self._types_d = torch.as_tensor(types, device=self.device)[None].expand(k, A, 7)
+        self._types_d = torch.as_tensor(types, device=self.device)
         self.A = A
 
-        # batched window [K, A, ...]
+        # batched window [K, A, ...]; the plan shares the statics, slot
+        # types, actor mask and target velocity among the copies (the body
+        # broadcasts them), the ego, window and field origin are per copy
         buf = DeviceObsBuffer.create(A, torch_dtype(pc.pipeline_dtype), self.device)
-        self.buf = DeviceObsBuffer(*(x[None].repeat((k,) + (1,) * x.dim()) for x in buf))
-
-        # batched plan: statics shared by the copies (broadcast views), the
-        # ego, window and field origin per copy
         p = self.planner
-        self._statics = _shared_statics(build_episode_statics(p), k)
-        self._core = functools.partial(batched_plan_core, p.net, cfg=p.cfg, ilqr_cfg=p.ilqr_cfg,
-                                       warm_ilqr_cfg=p.warm_ilqr_cfg, weights=p._weights)
+        self.programs = RunnerPrograms(p, p.net, DeviceObsBuffer(
+            *(x[None].repeat((k,) + (1,) * x.dim()) for x in buf)), graphed)
+        self._statics = plan_statics(p)
+        self._tv = torch.tensor(float(np.float32(p.lcl_smp.target_velocity)),
+                                dtype=torch.float64, device=self.device)
         self.plan_calls = 0
         self.failed = np.zeros(k, bool)
         self.trajectory = []
@@ -109,11 +120,30 @@ class MonteCarloSim:
         states[:, :2] -= self.planner.origin
         return states.astype(np.float32), present
 
+    @property
+    def buf(self) -> DeviceObsBuffer:
+        """The K windows [K, A, 50, ...] as they stand."""
+        return self.programs.current_window()
+
+    def _plan(self, egos_loc: np.ndarray, present: torch.Tensor) -> np.ndarray:
+        """The batched plan of the K copies: packed [K, 4] (ctrl, ok, max
+        iterations), read once. x0 and the grid origin go up in one float32
+        host array [K, 8]; the actor mask is the update's presence (on the
+        card its program's buffer, read where it lies)."""
+        ph = self.pc.traj_tree.full
+        half = 0.5 * (ph.smooth_grid_size[0] - 1) * ph.smooth_grid_res
+        host = np.concatenate([egos_loc, self.ctrls, egos_loc[:, :2] - half],
+                              axis=1).astype(np.float32)
+        keep = ()
+        if self.programs.compiled:
+            present = self.programs.programs["obs_update"].inputs.present
+            keep = (present,)
+        return self.programs.plan(self._types_d, present, torch.from_numpy(host), self._tv,
+                                  self._statics, keep).cpu().numpy()   # the one read
+
     @torch.no_grad()
     def run(self):
-        pc = self.pc
         plan_every = 5  # 10 Hz at dt=0.02
-        dev = self.device
         t0 = time.perf_counter()
 
         for tick in range(self.horizon):
@@ -122,26 +152,12 @@ class MonteCarloSim:
                 states, present = self._exo_state(rec)
                 egos_loc = self.egos.copy()
                 egos_loc[:, :2] -= self.planner.origin
-                batched = np.repeat(states[None], self.k, axis=0)
-                batched[:, 0] = egos_loc.astype(np.float32)
-                present_d = torch.as_tensor(present, device=dev)
-                self.buf = obs_buffer_update(self.buf, torch.as_tensor(batched, device=dev),
-                                             present_d)
-
-                # plan
-                x0s = torch.as_tensor(np.concatenate([egos_loc, self.ctrls], axis=1)
-                                      .astype(np.float32), device=dev)
-                warm_p, full_p = self.planner._cost_params()
-                ph = pc.traj_tree.full
-                half = 0.5 * (ph.smooth_grid_size[0] - 1) * ph.smooth_grid_res
-                offs = torch.as_tensor((egos_loc[:, :2] - half).astype(np.float32), device=dev)
-                tv = float(np.float32(self.planner.lcl_smp.target_velocity))
-                st = self._statics
-                packed = self._core(
-                    self.buf, self._types_d, present_d[None].expand(self.k, self.A), x0s,
-                    warm_p._replace(field_offset=offs), full_p._replace(field_offset=offs), tv,
-                    st.lane_static, st.tgt_static,
-                    (st.eval_seg_start, st.eval_seg_end, st.eval_seg_mask)).cpu().numpy()
+                # the K copies' states are built on the device from the exo
+                # states and the egos (float32, as the JAX package uploads them)
+                present = torch.from_numpy(present)
+                self.programs.update(torch.from_numpy(states), present,
+                                     torch.from_numpy(egos_loc.astype(np.float32)))
+                packed = self._plan(egos_loc, present)
                 self.plan_calls += 1
                 good = (packed[:, 2] > 0.5) & np.isfinite(packed[:, :2]).all(1)
                 self.ctrls[good & ~self.failed] = packed[good & ~self.failed, :2]

@@ -6,11 +6,16 @@ plans for all egos at once. Host-side replay bookkeeping stays per scenario
 (numpy); the plan cadence is shared (equal plan rate and enable time), which
 the runner checks. The observation windows are one stacked [S, A, 50, ...]
 buffer, updated once per trigger for all scenarios.
+
+On a CUDA device the update and the plan are compiled programs
+(parallel/programs.py, the JAX package's `_obs_update` and `_batched_fn`):
+a trigger copies its small host arrays in, replays the plan's CUDA graph
+and reads the packed [S, 4] once; an update reads nothing. `graphed=False`
+runs the same bodies eagerly (the bit-exact reference on the card).
 """
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import List, Optional
 
@@ -20,10 +25,11 @@ import torch
 from mind_tpu_torch.common.device import resolve_device
 from mind_tpu_torch.config import PlannerConfig, SimConfig, planner_config_for_demo
 from mind_tpu_torch.models.weights import load_scene_pred
-from mind_tpu_torch.planner.aime_device import obs_buffer_update
-from mind_tpu_torch.planner.planner import MINDPlanner, batched_plan_core
+from mind_tpu_torch.parallel.programs import RunnerPrograms, plan_statics
+from mind_tpu_torch.planner import programs
+from mind_tpu_torch.planner.planner import MINDPlanner
 from mind_tpu_torch.sim.agents import CustomizedAgent, MINDAgent
-from mind_tpu_torch.sim.episode import _stack, build_episode_statics
+from mind_tpu_torch.sim.episode import _stack
 from mind_tpu_torch.sim.simulator import Simulator
 
 
@@ -33,13 +39,19 @@ class MultiScenarioSim:
     configuration by default); each scenario's own planner configuration
     gives its statics and cost parameters. `scenarios` (one in-memory
     Scenario per config, or None) goes to each Simulator; the planners run
-    on `device` (the CUDA card unless the caller passes the CPU)."""
+    on `device` (the CUDA card unless the caller passes the CPU). `graphed`
+    (None: on a CUDA device) updates and plans through the compiled
+    programs; False runs the same bodies eagerly; True on the CPU raises.
+    The batch plans with the first scenario's planner configuration, in
+    which every scenario's must agree (programs.config_signature)."""
 
     def __init__(self, sim_cfgs: List[SimConfig], planner_cfg: Optional[PlannerConfig] = None,
-                 max_steps: Optional[int] = None, device=None, scenarios=None):
+                 max_steps: Optional[int] = None, device=None, scenarios=None,
+                 graphed: Optional[bool] = None):
         self.planner_cfg = planner_cfg or planner_config_for_demo("demo_1")
         cfg = self.planner_cfg
         self.device = resolve_device(device)
+        programs.compiled(self.device, graphed)   # raises for True on the CPU
         if cfg.ckpt_path and not str(cfg.ckpt_path).endswith(".npz"):
             raise ValueError(f"ckpt_path {cfg.ckpt_path!r}: the port reads only the .npz "
                              "archive written by tools/export_flax_weights.py")
@@ -71,16 +83,17 @@ class MultiScenarioSim:
             raise ValueError("the egos must share the plan rate and the enable time")
 
         planners = [av.planner for av in self.avs]
-        p0 = planners[0]
-        self._core = functools.partial(batched_plan_core, net, cfg=p0.cfg, ilqr_cfg=p0.ilqr_cfg,
-                                       warm_ilqr_cfg=p0.warm_ilqr_cfg, weights=p0._weights)
+        # the batch plans with the first planner's configuration
+        if len({p._signature for p in planners}) != 1:
+            raise ValueError("the scenarios' planner configurations differ in a value the "
+                             "batched plan takes from the first one")
         self.plan_calls = 0
         self.plan_time_s = 0.0
 
         # statics never change: stacked once, every CostParams leaf per scene
-        # but the grid size
+        # but the grid size (the grid origin rides in each trigger's host array)
         dev = self.device
-        self._statics = _stack([build_episode_statics(p) for p in planners], dev)
+        self._statics = _stack([plan_statics(p) for p in planners], dev)
         self._tvs_b = torch.tensor([float(np.float32(p.lcl_smp.target_velocity))
                                     for p in planners], dtype=torch.float64, device=dev)
 
@@ -88,7 +101,8 @@ class MultiScenarioSim:
         # deferred (ObsBuffer.pending) and applied here, once per trigger
         for p in planners:
             p.obs_buffer.device_updates = False
-        self._bufs = _stack([p.obs_buffer.buf for p in planners], dev)
+        self.programs = RunnerPrograms(planners[0], net, _stack(
+            [p.obs_buffer.buf for p in planners], dev), graphed)
         self._types_b = None
         self._types_ver = None
         self._amasks_b = None
@@ -110,8 +124,12 @@ class MultiScenarioSim:
             if p.obs_buffer.pending is not None:
                 states[i], present[i] = p.obs_buffer.pending
                 p.obs_buffer.pending = None
-        self._bufs = obs_buffer_update(self._bufs, torch.as_tensor(states, device=self.device),
-                                       torch.as_tensor(present, device=self.device))
+        self.programs.update(torch.from_numpy(states), torch.from_numpy(present))
+
+    @property
+    def _bufs(self):
+        """The stacked window [S, A, 50, ...] as it stands."""
+        return self.programs.current_window()
 
     def _stacked_types(self, planners):
         ver = tuple(p.obs_buffer._ver for p in planners)
@@ -129,6 +147,18 @@ class MultiScenarioSim:
             self._amasks_key = key
         return self._amasks_b
 
+    def _plan(self, planners) -> np.ndarray:
+        """The batched plan of every scenario: packed [S, 4] (ctrl, ok, max
+        iterations), read once. x0 and the grid origin go up in one float32
+        host array [S, 8], as the JAX package uploads them (local frame)."""
+        x0s = np.stack([np.concatenate([p.local_state(), p.ctrl]) for p in planners])
+        ph = planners[0].cfg.traj_tree.full
+        half = 0.5 * (ph.smooth_grid_size[0] - 1) * ph.smooth_grid_res
+        host = np.concatenate([x0s, x0s[:, :2] - half], axis=1).astype(np.float32)
+        return self.programs.plan(self._stacked_types(planners), self._stacked_amasks(planners),
+                                  torch.from_numpy(host), self._tvs_b,
+                                  self._statics).cpu().numpy()   # the one read
+
     def _batched_plan(self, ready: List[int]):
         """One batched plan per trigger. The batch always covers ALL
         scenarios (a fixed batch, as the JAX package's one compilation);
@@ -141,21 +171,8 @@ class MultiScenarioSim:
             if av.planner.state is None:
                 av.planner.update_state_ctrl(av.state, av.ctrl)
         planners = [av.planner for av in self.avs]
-        # host-assembled small arrays, one upload each, float32 as the JAX
-        # package uploads them (local planning frame)
-        x0s = np.stack([np.concatenate([p.local_state(), p.ctrl]) for p in planners])
-        ph = planners[0].cfg.traj_tree.full
-        half = 0.5 * (ph.smooth_grid_size[0] - 1) * ph.smooth_grid_res
-        offsets = torch.as_tensor((x0s[:, :2] - half).astype(np.float32), device=self.device)
-        x0s = torch.as_tensor(x0s.astype(np.float32), device=self.device)
-        st = self._statics
         with torch.no_grad():
-            packed = self._core(
-                self._bufs, self._stacked_types(planners), self._stacked_amasks(planners), x0s,
-                st.warm_params._replace(field_offset=offsets),
-                st.full_params._replace(field_offset=offsets), self._tvs_b, st.lane_static,
-                st.tgt_static, (st.eval_seg_start, st.eval_seg_end, st.eval_seg_mask)
-            ).cpu().numpy()
+            packed = self._plan(planners)
         self.plan_calls += 1
         self.plan_time_s += time.perf_counter() - t0
 

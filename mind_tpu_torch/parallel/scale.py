@@ -3,19 +3,28 @@ randomized contingency trees with full iLQR, the tree axis cut into one
 shard per mesh shard.
 
 The solver (planner/ilqr.py) takes a batch axis of trees; each shard is one
-batched solve on its device (one CUDA graph per iteration on a card). The
-shards of a `Mesh` run in turn in one process, those of a `DistMesh` at the
-same time, one rank each (parallel/launch.py).
+batched solve on its device: on a card one compiled program, the whole
+solve one CUDA graph with the iterations a WHILE node (parallel/programs.py,
+the JAX package's `jax.jit(jax.vmap(solve))`). The shards of a `Mesh` run in
+turn in one process, those of a `DistMesh` at the same time, one rank each
+(parallel/launch.py).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from typing import Optional
+
 from mind_tpu_torch.common.device import resolve_device
+from mind_tpu_torch.ops import graph_control
 from mind_tpu_torch.ops.potential import CostParams, NodeCostData
 from mind_tpu_torch.parallel.mesh import gather_shards, replicate, shard_rollouts
+from mind_tpu_torch.parallel.programs import TreeSolveInputs, tree_solve_body
+from mind_tpu_torch.planner import programs
 from mind_tpu_torch.planner.ilqr import ILQRConfig, TreeTopology, build_topology, ilqr_solve
 
 
@@ -111,18 +120,28 @@ def make_tree_batch(n_trees: int, n_nodes: int, max_nodes: int,
 
 def parallel_tree_solve(mesh, topo: TreeTopology, nodes: NodeCostData,
                         params: CostParams, x0,
-                        ilqr_cfg: ILQRConfig = ILQRConfig(max_iterations=20)):
+                        ilqr_cfg: ILQRConfig = ILQRConfig(max_iterations=20),
+                        graphed: Optional[bool] = None, with_iterations: bool = False):
     """Solve a [n_trees] batch of contingency problems, the trees cut into
     one contiguous shard per mesh shard, each shard one batched solve from
     zero controls on its device. On a `Mesh` the shards run one after
     another and (us [n_trees, MN, 2], J [n_trees]) come back on its first
     device; on a `DistMesh` each rank solves its own shard at the same time
     as the others, and every rank gets the whole (us, J) in tree order on
-    its device (parallel/mesh.py::gather_shards).
+    its device (parallel/mesh.py::gather_shards). `with_iterations` adds
+    the iteration counts [n_trees].
 
     `topo` may be one TreeTopology shared by all trees, or a batched one
     (leaves with a leading [n_trees] axis, as make_tree_batch gives) with
-    every tree's own branching structure."""
+    every tree's own branching structure.
+
+    `graphed` (None: on a CUDA device; True on the CPU raises) solves each
+    shard through its compiled program (`programs.tree_solve_body`, cached
+    per solver settings, device and shard shapes: captured at its first
+    call, replayed with no host read inside, its inputs copied in and its
+    outputs copied out on the device); False runs the solver directly (on
+    a card one captured iteration per replay, a host read after each: the
+    bit-exact reference)."""
     n = x0.shape[0]
     MN = topo.parent.shape[-1]
     if topo.parent.dim() == 1:
@@ -130,7 +149,16 @@ def parallel_tree_solve(mesh, topo: TreeTopology, nodes: NodeCostData,
     parts = []
     for (topo_i, nodes_i, x0_i), params_i in zip(shard_rollouts(mesh, (topo, nodes, x0)),
                                                  replicate(mesh, params)):
-        us0 = torch.zeros((x0_i.shape[0], MN, 2), dtype=x0_i.dtype, device=x0_i.device)
-        _, us, info = ilqr_solve(topo_i, x0_i, us0, nodes_i, params_i, ilqr_cfg)
-        parts.append((us, info["J"]))
+        if programs.compiled(x0_i.device, graphed):
+            inputs = TreeSolveInputs(topo_i, nodes_i, params_i, x0_i)
+            # one set per solver configuration and device, as the JAX jit cache
+            prog = programs.program_set(f"tree_solve {tuple(ilqr_cfg)!r}", None,
+                                        x0_i.device).program(
+                "tree_solve", functools.partial(tree_solve_body, cfg=ilqr_cfg), inputs)
+            us, J, its = graph_control.clone(prog(None, inputs))
+        else:
+            us0 = torch.zeros((x0_i.shape[0], MN, 2), dtype=x0_i.dtype, device=x0_i.device)
+            _, us, info = ilqr_solve(topo_i, x0_i, us0, nodes_i, params_i, ilqr_cfg)
+            J, its = info["J"], info["iterations"]
+        parts.append((us, J, its) if with_iterations else (us, J))
     return gather_shards(mesh, parts)

@@ -28,7 +28,11 @@ PlannerConfig field but the weights' path and seed and the phases' cost
 weights and bounds, which are data) and device (`ProgramSet`), then per
 body and input shapes and dtypes: one program serves every planner of a
 configuration, as `sim/episode.py`'s episode programs do, whatever its map,
-target lane, target velocity, cost parameters and weights.
+target lane, target velocity, cost parameters and weights. The scale-out
+runners' programs (parallel/programs.py) live in the same sets; a body
+without a network (the tree solve) has a set without one. State that a
+set's programs carry across calls in place (a batched runner's observation
+window) is `Lent` to one holder at a time.
 """
 
 from __future__ import annotations
@@ -151,7 +155,8 @@ class PlanProgram:
     """One body on static buffers (module docstring). `rounds` counts on the
     device the AIME rounds that its replays ran (on the CPU, its eager
     runs); `program` is the GraphProgram (None before the first call and
-    on the CPU), `capture_s` the seconds its capture took."""
+    on the CPU), `capture_s` the seconds its capture took. `net` is None
+    for a body that runs no network (it then gets None)."""
 
     def __init__(self, kind: str, body: Callable, inputs, net: ProgramNet, device,
                  keep=()):
@@ -164,7 +169,7 @@ class PlanProgram:
         self.capture_s = None
 
     def _run(self):
-        out, rounds = self.body(self.net.net, self.inputs)
+        out, rounds = self.body(self.net.net if self.net is not None else None, self.inputs)
         if self.outputs is None:   # the first (eager or warm-up) run: outside the pool
             self.outputs = graph_control.empty_like(out)
         graph_control.assign(self.outputs, out)
@@ -175,7 +180,8 @@ class PlanProgram:
         """Copy `inputs` and `net`'s weights in, then run the body: a replay
         of its graph on the card (the first call captures it; a failed
         capture raises), eagerly on the CPU. Returns the output buffers."""
-        self.net.load(net)
+        if self.net is not None:
+            self.net.load(net)
         copy_in(self.inputs, inputs)
         if self.device.type != "cuda":
             self._run()
@@ -190,14 +196,52 @@ class PlanProgram:
         return self.outputs
 
 
+class Lent:
+    """Tensors that the programs of a set read and write in place across
+    calls (a batched runner's observation window), lent to one holder at a
+    time, so that the programs that address them serve every holder: a
+    holder that takes them over copies the previous holder's values out
+    into that one's own tensors (where it lives on) and its own in. While
+    one holder runs, nothing is copied. Allocated once, outside the
+    programs' pool."""
+
+    def __init__(self, like):
+        self.tensors = graph_control.empty_like(like)
+        self._holder = None   # (weakref to the holder, its own tensors)
+
+    def holds(self, holder) -> bool:
+        return self._holder is not None and self._holder[0]() is holder
+
+    def take(self, holder, own):
+        """The lent tensors, holding `holder`'s state: unless it holds them
+        already, the previous holder's state is copied out into its own
+        tensors and `own` (holder's tensors, like the lent ones) in."""
+        if self.holds(holder):
+            return self.tensors
+        if self._holder is not None and self._holder[0]() is not None:
+            graph_control.assign(self._holder[1], self.tensors)
+        graph_control.assign(self.tensors, own)
+        self._holder = (weakref.ref(holder), own)
+        return self.tensors
+
+
 class ProgramSet:
     """The programs of one configuration on one device, sharing one
-    ProgramNet."""
+    ProgramNet (None: bodies without a network), and the state they lend
+    (`lent`)."""
 
     def __init__(self, net, device):
-        self.net = ProgramNet(net)
+        self.net = ProgramNet(net) if net is not None else None
         self.device = device
         self.programs: dict = {}
+        self._lent: dict = {}
+
+    def lent(self, name: str, like) -> Lent:
+        """The set's `Lent` tensors `name` of like's shapes and dtypes."""
+        key = (name, signature(like))
+        if key not in self._lent:
+            self._lent[key] = Lent(like)
+        return self._lent[key]
 
     def program(self, kind: str, body: Callable, inputs, keep=()) -> PlanProgram:
         """The program of `kind` for inputs of these shapes and dtypes (and

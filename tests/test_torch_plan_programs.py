@@ -296,9 +296,12 @@ def test_cuda_compiled_plan_equals_eager(tmp_path):
         pytest.skip("needs an NVIDIA GPU")
     from test_torch_planner import N_OBS_FRAMES
 
+    from mind_tpu_torch.config import NetConfig
+
     dev = torch.device("cuda")
     smp, bundle, n_lanes = port_world(tmp_path)
     _, tcfg = planner_cfgs(n_lanes, "float32", "float32")
+    tcfg.net = NetConfig()   # the width and heads the card's fusion kernels are built for
 
     def agent(graphed):
         (a,) = [x for x in tagents.load_agents(bundle, smp, [TClAgentConfig(**CL_AGENT)],

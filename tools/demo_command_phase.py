@@ -1,8 +1,8 @@
 """Run chip_smoke.py's closed loop (phase 6) and demo command (phase 6b)
 alone: the kernels built, the committed AV2 log read, 150 ticks under the
 demo configuration in this process, then `python -m mind_tpu_torch.run_sim`
-with rendering on, as a subprocess and through run_sim.main, each held to
-its checks.
+with rendering on over the first 100 of them, as a subprocess and through
+run_sim.main, each held to its checks.
 
     python3 tools/demo_command_phase.py
 
@@ -31,11 +31,11 @@ if __name__ == "__main__":
                           check=True).stdout.strip().splitlines()[0]
     t = time.perf_counter()
     chip_smoke.phase_build(fa)
-    _, loop, sim, _ = chip_smoke.phase_closed_loop(planner_config_for_demo("demo_1"), fa,
-                                                   synthetic_av2(chip_smoke.SEED), LANE_W,
-                                                   AV2_ORIGIN)
+    _, loop, sim, plans = chip_smoke.phase_closed_loop(planner_config_for_demo("demo_1"), fa,
+                                                       synthetic_av2(chip_smoke.SEED), LANE_W,
+                                                       AV2_ORIGIN)
     ego = sim.ego_trajectory()
     t6 = time.perf_counter()
-    chip_smoke.phase_demo_command(fa, loop, ego, card)
+    chip_smoke.phase_demo_command(fa, loop, plans, ego, card)
     print(f"phase 6: {t6 - t:.1f} s, phase 6b: {time.perf_counter() - t6:.1f} s ({card})",
           flush=True)
