@@ -27,11 +27,19 @@ result line):
      is held against the same cycle on the CPU through the plain version
      (in the child process of phase 7, which plans on this phase's window);
  4a. host tree: ScenarioTreeGenerator.branch_aime (planner/scenario_tree.py,
-     the tree bookkeeping on the host) against aime_grow_tree on the same
-     filled window, both on the card with the float32 network: the same
-     number of trees, the same multiset of (duration, norm_prob to 1e-4),
-     root-child trajectories within 2e-3 m, kernel A launched 6 times per
-     round;
+     the tree bookkeeping on the host; each round and the next round's
+     window gather compiled programs, one replay and one read a round)
+     against graphed=False (the same bodies eagerly) and aime_grow_tree on
+     the same filled window, all on the card with the float32 network: the
+     compiled trees and node payloads equal to the eager ones to the bit;
+     against the device AIME the same number of trees, the same multiset of
+     (duration, norm_prob to 1e-4), root-child trajectories within 2e-3 m;
+     one host read a round outside the export (a TorchDispatchMode), every
+     replay under sync debug "error"; kernel A launched only by the
+     captures (2 x 6 a round program) and the eager run (6 a round),
+     executed 6 times a round by the replays (counted on the device); the
+     tree's seconds compiled and eager, capture seconds and peak memory
+     printed;
   5. demo path: the same cycles under planner_config_for_demo("demo_1")
      (bf16 network); one ScenePredNet forward on the path's first AIME
      inputs is held, kernel against plain, on the card;
@@ -120,8 +128,8 @@ result line):
      busy share over one planning cycle under torch.profiler;
  11. batched episode: run_episodes_batched over four synthetic AV2 scenarios
      (seeds 0-3, the AV asked for 8, 7, 9 and 6 m/s; planner on after 1 s,
-     150 ticks, demo configuration) through the compiled 'scenarios'
-     program, warm then timed: kernel B launched by the capture alone and
+     BATCHED_TICKS ticks, demo configuration) through the compiled
+     'scenarios' program, warm then timed: kernel B launched by the capture alone and
      executed 6 times per device-counted AIME round of the batch (B = 32
      nodes per round), the iLQR graphs' pool holding no tensor, each
      scenario against its own run_episode: the same failing cycle and plan
@@ -138,16 +146,22 @@ result line):
      own schedules (as in 11);
  12a. parity playback: parity/runner.py::run_parity_episode_playback on the
      loop's scenario under the demo configuration (read from
-     configs/demo_1.json; 150 ticks, planner on after 1 s): the episode's
+     configs/demo_1.json; PLAYBACK_TICKS ticks, planner on after 1 s): the episode's
      recorded controls against the float64 mirror (parity/host_planner.py)
-     planning from the same inputs with the planner's network on the card:
-     zero ok flips, mean per-cycle rollout deviation within 1e-3 m
-     (PARITY_TRACES.md section 1), kernel B launched 6 times per mirror
-     forward and by the episode program's capture; the plans compared, the
-     deviations and the mirror's seconds per plan are printed;
+     planning from the same inputs with the planner's network on the card,
+     each round's forward a compiled program of the planner's program set
+     (one replay and one read a round): zero ok flips, mean per-cycle
+     rollout deviation within 1e-3 m (PARITY_TRACES.md section 1); every
+     mirror forward's program output equal to the bit to the eager network
+     on the same inputs (checked inline, its launches counted apart);
+     kernel B launched only by the captures (the episode program's, the
+     forward program's: 2 x 6) and executed 6 times per AIME round and per
+     forward the replays ran (counted on the device); the plans compared,
+     the deviations, the mirror's seconds per plan and a forward's seconds
+     compiled and eager are printed;
  12b. parity resync: run_parity_demo_resync on the same scenario (demo_1's
      4 s enable time, 230 ticks, at least 5 plans of the staged planner with
-     the mirror in tandem): the same criterion and launch check;
+     the mirror in tandem): the same criterion and checks;
  12c. scale-out programs: MultiScenarioSim and MonteCarloSim
      (parallel/multi_scenario.py, monte_carlo.py: the JAX package's host
      loops, planning through their compiled programs, parallel/programs.py:
@@ -253,6 +267,7 @@ compiled paths' executions beside the launches.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -316,6 +331,10 @@ TOL_HOST_TREE = 2e-3
 TOL_PARITY_MEAN = 1e-3
 # the resynced parity run: demo_1 enables the planner at 4 s (tick 200)
 RESYNC_TICKS = 230
+# the parity playback's ticks (planner on after 1 s: 10 plans) and the batched
+# episode's (10 planning cycles; 150 each before the host-path programs
+# joined the run)
+PLAYBACK_TICKS, BATCHED_TICKS = 100, 100
 OBS = 50
 # the AV logs 5 m/s behind a leader at 3 m/s; asked for 8 m/s (the demo
 # configurations set a target velocity too), every plan has to accelerate
@@ -1447,10 +1466,11 @@ class KernelRuns:
     0, the eager AIME rounds (RoundCounter on planner.aime_grow_tree, which
     every plan path calls), the float64 mirror's network forwards
     (parity/host_planner.py, which the parity drivers run beside the
-    planner), the condition kernel's launches (captures) and
-    program_counts before and after. `hold` checks them and returns
-    (launches, executions, condition-kernel runs, condition-kernel
-    launches)."""
+    planner: compiled programs on the card, whose replays are counted on
+    the device), the condition kernel's launches (captures) and
+    program_counts and the mirror's round_programs before and after.
+    `hold` checks them and returns (launches, executions, condition-kernel
+    runs, condition-kernel launches)."""
 
     def __init__(self, fa):
         self.fa = fa
@@ -1468,6 +1488,7 @@ class KernelRuns:
         self.forwards = CallCounter(self.mirror._predict)
         self.mirror._predict = self.forwards
         self.before = program_counts()
+        self.fwd_before = round_programs(("mirror_forward",))
         self.programs0 = set(graph_programs())
         self.fa.reset_launch_counts()
         return self
@@ -1478,6 +1499,7 @@ class KernelRuns:
         self.counts = dict(self.fa.fused_edge_attention.launches_by_variant)
         self.cond_launches = self.cond.launches - self.cond0
         self.after = program_counts()
+        self.fwd_after = round_programs(("mirror_forward",))
         # the compiled programs built in the block: (kind, capture seconds)
         self.built = [(getattr(p, "kind", "episode"), getattr(p, "capture_s", None))
                       for p in graph_programs() if p not in self.programs0]
@@ -1488,24 +1510,28 @@ class KernelRuns:
 
     def hold(self, name, variant, layers, depth, rounds=None):
         """Kernel `variant` launched `layers` times per eager AIME round and
-        per mirror forward, and captured_launches by each AIME-growing
-        program captured in the block; executed `layers` times per round
-        those programs' replays ran (counted on the device); the other
-        variant never; at least one round run, and `rounds` (the plans' own
-        count, if given) in all."""
+        per eager mirror forward, captured_launches by each AIME-growing
+        program captured in the block and twice `layers` by each mirror
+        forward program captured; executed `layers` times per round those
+        programs' replays ran and per mirror forward replayed (both counted
+        on the device); the other variant never; at least one round run,
+        and `rounds` (the plans' own count, if given) in all."""
         other = "float32" if variant == "bfloat16" else "bfloat16"
         captured = self.after[0] - self.before[0]
-        eager = self.counter.rounds
-        launched = layers * (eager + self.forwards.calls) + \
-            captured_launches(layers, depth, captured)
+        fwd_captured = self.fwd_after[0] - self.fwd_before[0]
+        fwd_replayed = self.fwd_after[1] - self.fwd_before[1]
+        eager, eager_fwd = self.counter.rounds, self.forwards.calls - fwd_replayed
+        launched = layers * (eager + eager_fwd) + captured_launches(layers, depth, captured) + \
+            2 * layers * fwd_captured
         total = eager + self.device_rounds
         if self.counts[variant] != launched or self.counts[other] or not total or \
-                (rounds is not None and total != rounds):
+                eager_fwd < 0 or (rounds is not None and total != rounds):
             raise RuntimeError(f"{name}: kernel launches {self.counts} for {eager} eager AIME "
-                               f"rounds, {self.forwards.calls} mirror forwards and {captured} "
+                               f"rounds, {self.forwards.calls} mirror forwards ({fwd_replayed} "
+                               f"replayed, {fwd_captured} programs captured) and {captured} "
                                f"programs captured; {self.device_rounds} "
                                f"rounds replayed, the plans' {rounds}")
-        return (self.counts[variant], layers * self.device_rounds,
+        return (self.counts[variant], layers * (self.device_rounds + fwd_replayed),
                 self.after[2] - self.before[2], self.cond_launches)
 
 
@@ -1827,7 +1853,7 @@ def graph_pool_in_use():
 def phase_batched_episode(dcfg, fa, data_root):
     """run_episodes_batched over 4 synthetic AV2 scenarios (seeds 0-3, the AV
     asked for 8, 7, 9 and 6 m/s, so that the scenes' cost parameters
-    differ; planner on after 1 s, 150 ticks) through the compiled
+    differ; planner on after 1 s, BATCHED_TICKS ticks) through the compiled
     'scenarios' program, a warm call (it captures) then the timed one, the
     launch counts set to 0 just before and read just after: kernel B
     launched only by the capture (program_counts, captured_launches) and
@@ -1837,7 +1863,8 @@ def phase_batched_episode(dcfg, fa, data_root):
     from mind_tpu_torch.sim import episode
 
     speeds = (8.0, 7.0, 9.0, 6.0)
-    sims = [loop_sim(dcfg, 1.0, 150, data_root, seed, v) for seed, v in enumerate(speeds)]
+    sims = [loop_sim(dcfg, 1.0, BATCHED_TICKS, data_root, seed, v)
+            for seed, v in enumerate(speeds)]
     first_call = []
     net = sims[0].agents[[a.id for a in sims[0].agents].index("AV")].planner.net
     hook = net.register_forward_pre_hook(
@@ -2602,16 +2629,60 @@ class CallCounter:
         return self if obj is None else lambda *a, **kw: self(obj, *a, **kw)
 
 
+def round_programs(kinds):
+    """(programs of `kinds` that run one AIME round a replay, "tree_round"
+    the host generator's rounds and "mirror_forward" the float64 mirror's
+    forwards; the replays they ran, counted on the device) in this
+    process."""
+    from mind_tpu_torch.planner import programs
+
+    progs = [p for p in programs.programs() if p.kind in kinds]
+    return len(progs), sum(int(p.rounds) for p in progs)
+
+
+class ReplayModes:
+    """GraphProgram.replay watched in a block: the sync debug mode of each
+    replay (2: "error")."""
+
+    def __enter__(self):
+        from mind_tpu_torch.ops import graph_control as gc
+
+        self.gc, self.replay, self.modes = gc, gc.GraphProgram.replay, []
+        replay, modes = self.replay, self.modes
+
+        def watched(prog):
+            modes.append(torch.cuda.get_sync_debug_mode())
+            replay(prog)
+
+        gc.GraphProgram.replay = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.gc.GraphProgram.replay = self.replay
+
+
 def phase_host_tree(cfg, net, scene, aime, scene_statics, fa, dev):
     """ScenarioTreeGenerator.branch_aime (host bookkeeping, planner/
-    scenario_tree.py) against aime_grow_tree, both on the card, from the
-    same filled window of the float32 path's scene, with the checks of
-    tests/test_aime.py:70-119: the same number of trees, the same multiset
-    of (duration, norm_prob rounded to 1e-4), root-child trajectories within
-    2e-3 m; kernel A launched 6 times per round of the host generator (the
-    counts set to 0 just before branch_aime and read just after)."""
+    scenario_tree.py) on the card from the filled window of the float32
+    path's scene: compiled (the round and the window gather as captured
+    programs; a run that captures, then a warm one) and with
+    graphed=False, which runs the same bodies eagerly. The trees and node
+    payloads of all three, and of a fourth run whose reads DeviceReads
+    counts, equal to the bit; against aime_grow_tree from the same window
+    with the checks of tests/test_aime.py:70-119: the same number of trees,
+    the same multiset of (duration, norm_prob rounded to 1e-4), root-child
+    trajectories within 2e-3 m. A compiled tree reads the device once a
+    round outside the export and replays the round program once a round
+    and the window program between rounds, every replay under sync debug
+    "error"; kernel A launched only by the
+    captures (2 x 6 a round program captured) and by the eager run (6 a
+    round), executed 6 times a round by the replays (counted on the
+    device); the counts set to 0 just before each run, read just after.
+    Returns (kernel A launches, executions, summary)."""
+    from mind_tpu_torch.planner import programs
     from mind_tpu_torch.planner.scenario_tree import ScenarioTreeGenerator
 
+    layers = cfg.net.n_scene_layer
     pdt = getattr(torch, cfg.pipeline_dtype)
     buf = fill_buffer(aime, scene, pdt, dev)
     statics = scene_statics(scene, pdt, dev)
@@ -2619,15 +2690,60 @@ def phase_host_tree(cfg, net, scene, aime, scene_statics, fa, dev):
     amask = torch.tensor(scene.present, device=dev)
     pos, ang, vel, obs = aime.nn_fill_window(buf)
     cov = torch.full(obs.shape, 1e-5, dtype=torch.float64, device=dev)
-    counted = CallCounter(net)
-    gen = ScenarioTreeGenerator(cfg, counted, statics.lane, statics.tgt, cfg.max_actors)
-    fa.reset_launch_counts()
-    t = time.perf_counter()
-    host_trees = gen.branch_aime((pos, ang, vel, cov, obs), types, amask)
+    window = (pos, ang, vel, cov, obs)
     torch.cuda.synchronize()
-    host_s = time.perf_counter() - t
-    counts = dict(fa.fused_edge_attention.launches_by_variant)
-    rounds = counted.calls
+    torch.cuda.reset_peak_memory_stats()
+    before = set(programs.programs())
+    runs, launched, executed = {}, 0, 0
+    for name, graphed in (("capture", None), ("compiled", None), ("eager", False),
+                          ("reads", None)):
+        gen = ScenarioTreeGenerator(cfg, net, statics.lane, statics.tgt, cfg.max_actors,
+                                    graphed=graphed)
+        export, reads, in_export = gen._export, DeviceReads(), []
+
+        def counted(*a, export=export, reads=reads, in_export=in_export):
+            n = reads.n
+            out = export(*a)
+            in_export.append(reads.n - n)
+            return out
+
+        gen._export = counted
+        n0, r0 = round_programs(("tree_round",))
+        fa.reset_launch_counts()
+        with ReplayModes() as replays, reads if name == "reads" else contextlib.nullcontext():
+            t = time.perf_counter()
+            trees = gen.branch_aime(window, types, amask)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = dict(fa.fused_edge_attention.launches_by_variant)
+        n1, r1 = round_programs(("tree_round",))
+        rounds, captured, replayed = gen.last_rounds, n1 - n0, r1 - r0
+        want = 2 * layers * captured + (layers * rounds if graphed is False else 0)
+        if counts["float32"] != want or counts["bfloat16"] or not rounds or \
+                replayed != (0 if graphed is False else rounds):
+            raise RuntimeError(f"host tree ({name}): launches {counts} for {rounds} rounds, "
+                               f"{captured} round programs captured, {replayed} rounds replayed")
+        round_reads = reads.n - in_export[0]
+        if replays.modes != [2] * (0 if graphed is False else 2 * rounds - 1) or \
+                (name == "reads" and round_reads != rounds):
+            raise RuntimeError(f"host tree ({name}): {round_reads} reads for {rounds} rounds, "
+                               f"replays under sync debug modes {replays.modes}")
+        launched += counts["float32"]
+        executed += layers * replayed
+        runs[name] = {"trees": trees, "s": wall, "rounds": rounds, "reads": reads.n,
+                      "reads_in_rounds": round_reads, "replays": len(replays.modes),
+                      "captured": captured, "launches": counts["float32"],
+                      "executions": layers * replayed}
+    host_trees = runs["compiled"]["trees"]
+    equal = {k: len(runs[k]["trees"]) == len(host_trees) and all(
+        same_trees(a, b) for a, b in zip(runs[k]["trees"], host_trees))
+        for k in ("capture", "eager", "reads")}
+    if not all(equal.values()) or runs["eager"]["rounds"] != runs["compiled"]["rounds"]:
+        raise RuntimeError(f"host tree: compiled trees against the capture's and eager's "
+                           f"{equal}")
+    built = [(p.kind, p.capture_s) for p in programs.programs() if p not in before]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
     t = time.perf_counter()
     state, meta, dev_rounds = aime.aime_grow_tree(net, cfg, *aime.scene_axis(
         buf, types, amask, statics.lane, statics.tgt))
@@ -2652,65 +2768,143 @@ def phase_host_tree(cfg, net, scene, aime, scene_statics, fa, dev):
                                     - host_rc[key]).max(initial=0.0)))
     n_dev_trees = len({int(x) for x in tid if x >= 0})
     summary = {"trees": len(host_trees), "device_trees": n_dev_trees,
-               "nodes": len(host_nodes), "device_nodes": len(dev_nodes), "rounds": rounds,
-               "device_rounds": int(dev_rounds), "root_child_gap_m": gap, "launches": counts,
-               "host_generator_s": host_s, "device_aime_s": device_s}
+               "nodes": len(host_nodes), "device_nodes": len(dev_nodes),
+               "rounds": runs["compiled"]["rounds"], "device_rounds": int(dev_rounds),
+               "root_child_gap_m": gap, "equal_to_the_bit": equal,
+               "programs_built": built, "peak_memory_gb": peak,
+               "compiled_s": runs["compiled"]["s"], "eager_s": runs["eager"]["s"],
+               "capture_run_s": runs["capture"]["s"], "device_aime_s": device_s,
+               "reads": runs["reads"]["reads"],
+               "reads_in_rounds": runs["reads"]["reads_in_rounds"],
+               **{f"{k}_{f}": runs[k][f] for k in runs
+                  for f in ("replays", "launches", "executions")}}
     log("[host tree] " + json.dumps(summary))
     if not host_trees or n_dev_trees != len(host_trees) or dev_nodes != host_nodes \
             or not gap <= TOL_HOST_TREE:
         raise RuntimeError(f"host tree generator disagrees with aime_grow_tree: {summary}")
-    if counts["float32"] != cfg.net.n_scene_layer * rounds or counts["bfloat16"] or rounds == 0:
-        raise RuntimeError(f"host tree: launches {counts} for {rounds} rounds")
-    return counts["float32"], summary
+    return launched, executed, summary
 
 
-def phase_parity(dcfg, fa, data_root, syn):
+class ForwardCheck:
+    """HostRefPlanner._forward wrapped in a block: each compiled forward's
+    output (the program's buffer) against forward_body run eagerly on the
+    mirror's network from the same inputs, to the bit, inline. Times the
+    program's forward (copy in, replay, until the card is done; a call
+    that captures apart) and the eager one; the eager forwards' kernel
+    launches are counted apart (`launches`, by variant) and are no launch
+    of the path."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def __enter__(self):
+        from mind_tpu_torch.parallel.mesh import tree_map
+        from mind_tpu_torch.parity import host_planner
+        from mind_tpu_torch.planner import programs
+
+        self.hp, self.fn = host_planner, host_planner.HostRefPlanner._forward
+        self.checked, self.differ, self.program_s, self.eager_s = 0, 0, [], 0.0
+        self.capture_calls_s = []
+        self.launches = {"float32": 0, "bfloat16": 0}
+        check = self
+
+        def forward(mirror, inputs):
+            n = len(programs.programs())
+            t = time.perf_counter()
+            out = check.fn(mirror, inputs)
+            if not programs.compiled(mirror.device, mirror.graphed):
+                return out
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (check.capture_calls_s if len(programs.programs()) > n
+             else check.program_s).append(t1 - t)
+            before = dict(check.fa.fused_edge_attention.launches_by_variant)
+            with torch.no_grad():
+                want = host_planner.forward_body(mirror.net, tree_map(
+                    lambda x: x.to(mirror.device), inputs))[0]
+            check.differ += not torch.equal(out, want)
+            check.eager_s += time.perf_counter() - t1
+            check.checked += 1
+            for k, n in check.fa.fused_edge_attention.launches_by_variant.items():
+                check.launches[k] += n - before[k]
+            return out
+
+        host_planner.HostRefPlanner._forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.hp.HostRefPlanner._forward = self.fn
+
+
+def phase_parity(dcfg, fa, data_root, syn, mirror_graphed=None):
     """The float64 mirror (parity/host_planner.py) against the port's planner
     on the closed loop's scenario under planner_config_for_demo("demo_1")
     (bf16 network, trained weights), the mirror sharing the planner's
-    network on the card: run_parity_episode_playback (150 ticks, planner on
-    after 1 s) and run_parity_demo_resync (demo_1's enable time of 4 s,
-    RESYNC_TICKS ticks). Each must show zero ok flips and a mean cycle
-    deviation within 1e-3 m, and kernel B launched 6 times per eager AIME
-    round and per mirror forward and by each episode program's capture
-    (the playback's episode is compiled: its rounds are counted on the
-    device), kernel A never (counts set to 0 just before each run, read
-    just after)."""
+    network on the card and, compiled (`mirror_graphed` None), running its
+    forward through a program set of its own: run_parity_episode_playback (PLAYBACK_TICKS, planner on after 1 s) and
+    run_parity_demo_resync (demo_1's enable time of 4 s, RESYNC_TICKS
+    ticks). Each must show zero ok flips and a mean cycle deviation within
+    1e-3 m; every compiled mirror forward's output equal to the bit to the
+    eager network's on the same inputs (ForwardCheck, inline), no forward
+    eager; kernel B launched only by the captures (the playback's episode
+    program, the mirror's forward program: 2 x 6 each) and by eager AIME
+    rounds, executed 6 times per round the replays ran and per mirror
+    forward replayed (counted on the device), kernel A never (counts set
+    to 0 just before each run, read just after; the check's launches apart).
+    With mirror_graphed False every mirror forward is eager (6 launches
+    each) and none is replayed. Returns {run: (kernel B launches,
+    executions, summary)}."""
     from mind_tpu_torch.parity import host_planner
     from mind_tpu_torch.parity import runner
     from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.planner import programs
 
     layers, depth = dcfg.net.n_scene_layer, dcfg.scen_tree.max_depth
+    before = set(programs.programs())
     out = {}
     for name, run in (
             ("parity_playback", lambda: runner.run_parity_episode_playback(
-                "demo_1", 150, data_root, enable_timestep=1.0, scenario=syn.scenario)),
+                "demo_1", PLAYBACK_TICKS, data_root, enable_timestep=1.0, scenario=syn.scenario,
+                graphed=mirror_graphed)),
             ("parity_resync", lambda: runner.run_parity_demo_resync(
-                "demo_1", RESYNC_TICKS, data_root, scenario=syn.scenario))):
+                "demo_1", RESYNC_TICKS, data_root, scenario=syn.scenario,
+                graphed=mirror_graphed))):
         rounds = RoundCounter(tplanner.aime_grow_tree)
         forwards = CallCounter(host_planner.HostRefPlanner._predict)
         tplanner.aime_grow_tree = rounds
         host_planner.HostRefPlanner._predict = forwards
         try:
-            fa.reset_launch_counts()
-            n0, r0, _ = program_counts()
-            t = time.perf_counter()
-            r = run()
-            wall = time.perf_counter() - t
-            n1, r1, _ = program_counts()
-            counts = dict(fa.fused_edge_attention.launches_by_variant)
+            with ForwardCheck(fa) as check:
+                fa.reset_launch_counts()
+                n0, r0, _ = program_counts()
+                f0, q0 = round_programs(("mirror_forward",))
+                t = time.perf_counter()
+                r = run()
+                wall = time.perf_counter() - t
+                n1, r1, _ = program_counts()
+                f1, q1 = round_programs(("mirror_forward",))
+                counts = dict(fa.fused_edge_attention.launches_by_variant)
         finally:
             tplanner.aime_grow_tree = rounds.fn
             host_planner.HostRefPlanner._predict = forwards.fn
+        path = {k: counts[k] - check.launches[k] for k in counts}
+        replayed, eager_fwd = q1 - q0, forwards.calls - (q1 - q0)
         plans = len(r["records"]) if "records" in r else r["plans"]
         summary = {k: r[k] for k in ("plans_compared", "ok_mismatches", "max_cycle_dev",
                                      "mean_cycle_dev", "max_ctrl_dev")}
         summary.update(plans=plans, eager_rounds=rounds.rounds, programs_captured=n1 - n0,
                        program_rounds=r1 - r0, mirror_forwards=forwards.calls,
-                       launches=counts, wall_s=wall)
+                       mirror_programs_captured=f1 - f0, mirror_forwards_replayed=replayed,
+                       forwards_checked=check.checked, forwards_differing=check.differ,
+                       forward_program_s=float(np.mean(check.program_s or [0.0])),
+                       forward_capturing_calls_s=check.capture_calls_s,
+                       forward_eager_s=check.eager_s / max(check.checked, 1),
+                       launches=path, check_launches=check.launches, wall_s=wall)
         if name == "parity_playback":
-            summary.update(episode_wall_s=r["episode_wall_s"], mirror_wall_s=r["mirror_wall_s"],
-                           mirror_s_per_plan=r["mirror_wall_s"] / max(plans, 1),
+            mirror_s = r["mirror_wall_s"] - check.eager_s   # the inline check apart
+            summary.update(episode_wall_s=r["episode_wall_s"], mirror_wall_s=mirror_s,
+                           mirror_s_per_plan=mirror_s / max(plans, 1),
+                           mirror_forwards_per_plan=forwards.calls / max(plans, 1),
                            fail_cycle=r["fail_cycle"])
         else:
             summary.update(ticks=r["ticks"], host_failures=r["host_failures"])
@@ -2720,14 +2914,25 @@ def phase_parity(dcfg, fa, data_root, syn):
             raise RuntimeError(f"{name}: parity criterion failed: {summary}")
         if name == "parity_resync" and plans < 5:
             raise RuntimeError(f"{name}: {plans} plans, fewer than 5")
-        launched = layers * (rounds.rounds + forwards.calls) + \
-            captured_launches(layers, depth, n1 - n0)
-        if counts["bfloat16"] != launched or counts["float32"] or \
+        compiled = mirror_graphed is not False
+        if check.differ or (compiled and (eager_fwd or check.checked != forwards.calls)) or \
+                (not compiled and replayed):
+            raise RuntimeError(f"{name}: {check.differ} of {check.checked} mirror forwards "
+                               f"differ from the eager network; {eager_fwd} of "
+                               f"{forwards.calls} eager, {replayed} replayed")
+        launched = layers * (rounds.rounds + eager_fwd) + \
+            captured_launches(layers, depth, n1 - n0) + 2 * layers * (f1 - f0)
+        if path["bfloat16"] != launched or path["float32"] or \
                 not rounds.rounds + (r1 - r0) or not forwards.calls:
-            raise RuntimeError(f"{name}: launches {counts} for {rounds.rounds} eager AIME rounds, "
-                               f"{n1 - n0} programs captured ({r1 - r0} rounds replayed) and "
-                               f"{forwards.calls} mirror forwards")
-        out[name] = (counts["bfloat16"], summary)
+            raise RuntimeError(f"{name}: launches {path} for {rounds.rounds} eager AIME rounds, "
+                               f"{n1 - n0} programs captured ({r1 - r0} rounds replayed), "
+                               f"{forwards.calls} mirror forwards ({f1 - f0} programs "
+                               f"captured, {replayed} replayed)")
+        out[name] = (path["bfloat16"], layers * (r1 - r0 + replayed), summary)
+    built = [p.capture_s for p in programs.programs() if p not in before
+             and p.kind == "mirror_forward"]
+    log(f"[parity] mirror forward programs captured in {built} s")
+    out["parity_playback"][2]["mirror_programs_built"] = built
     return out
 
 
@@ -3316,9 +3521,10 @@ def main() -> int:
     log(f"[train] batch of {train_batch.actors.shape[0]} scenes built in "
         f"{time.perf_counter() - t:.2f} s and sent to the CPU child")
 
-    # 4a. the host tree generator against the device AIME, float32 network
-    host_tree_launches, host_tree = phase_host_tree(cfg, net, scene, aime, scene_statics, fa,
-                                                    dev)
+    # 4a. the host tree generator, compiled and eager, against the device AIME,
+    # float32 network
+    host_tree_launches, host_tree_executions, host_tree = phase_host_tree(
+        cfg, net, scene, aime, scene_statics, fa, dev)
     lap("cpu_reference_and_host_tree")
 
     # 5. demo path: the bf16 network of the demo planner configuration
@@ -3433,7 +3639,8 @@ def main() -> int:
     # the compiled programs launch kernel B (A) when they capture; their
     # replays execute it layers x the device's AIME rounds
     entries[1]["launches_by_path"]["compiled_episode"] = compiled_launches
-    entries[0]["executions_by_path"] = {"plan_programs": prog_a[1],
+    entries[0]["executions_by_path"] = {"host_tree": host_tree_executions,
+                                        "plan_programs": prog_a[1],
                                         "float32_loop": loop32_runs[1]}
     cond_scripts = scripts["condition_kernel"].values()
     entries[1]["executions_by_path"] = {"compiled_episode_timed": compiled_executions,
@@ -3441,6 +3648,7 @@ def main() -> int:
                                         "demo_command": command_runs[1],
                                         "plan_programs": prog_b[1],
                                         "scaleout_programs": scaleout_b[1],
+                                        **{k: v[1] for k, v in parity.items()},
                                         "scripts": sum(scripts["kernel_b_executions"].values())}
     entries[2]["launches_by_path"] = {"compiled_episode": cond_launches,
                                       "closed_loop": loop_runs[3],
@@ -3470,7 +3678,7 @@ def main() -> int:
                                   "graph_vs_eager": graph, "episode": episode,
                                   "compiled": compiled,
                                   "batched_episode": batched, "monte_carlo": monte_carlo,
-                                  **{k: v[1] for k, v in parity.items()},
+                                  **{k: v[2] for k, v in parity.items()},
                                   "scaleout_programs": scaleout,
                                   "tree_scale": scale, "training": training,
                                   "bench_wall_s": bench["wall_s"],

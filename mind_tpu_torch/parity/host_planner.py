@@ -25,7 +25,7 @@ update_observation / update_state_ctrl / update_target_lane / plan.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +48,33 @@ from mind_tpu_torch.parity.host_scene import (
     decode_node_np,
     prepare_node_inputs_np,
 )
+from mind_tpu_torch.parallel.mesh import tree_map
+from mind_tpu_torch.planner import programs
 from mind_tpu_torch.planner.planner import MAX_TGT_PTS, type_onehot
+
+
+class ForwardInputs(NamedTuple):
+    """The padded branch batch of one network forward, float32 but the
+    masks."""
+
+    actors: torch.Tensor       # [Bpad, A, ...]
+    actor_mask: torch.Tensor   # [Bpad, A] bool
+    lanes: torch.Tensor        # [Bpad, L, 10, 16]
+    lane_mask: torch.Tensor    # [Bpad, L] bool
+    rpe: torch.Tensor
+    tgt_nodes: torch.Tensor
+    tgt_rpe: torch.Tensor
+
+
+def forward_body(net, inp: ForwardInputs):
+    """One network forward over the branch batch (the JAX mirror's jitted
+    `batched_apply`): cls [Bpad, M], reg [Bpad, A, M, 60, 5] and vel [Bpad,
+    A, M, 60, 2] flattened per node into one float64 [Bpad, ...] for the
+    host's one read, and the forward as a long tensor []."""
+    cls, reg, vel = net(*inp)
+    B = cls.shape[0]
+    packed = torch.cat([x.reshape(B, -1) for x in (cls, reg, vel)], dim=1).to(torch.float64)
+    return packed, torch.ones((), dtype=torch.long, device=packed.device)
 
 
 @dataclass
@@ -71,11 +97,19 @@ class HostScenNode:
 
 
 class HostRefPlanner:
-    """Drop-in (slow, float64) reference-semantics planner."""
+    """Drop-in (slow, float64) reference-semantics planner. `graphed` (None:
+    on a CUDA device) runs each round's network forward as a compiled
+    program of the mirror's own program set of the configuration
+    (planner/programs.py), one replay and one read a round; False runs the
+    same body eagerly; True on the CPU raises. The set is the mirror's even
+    where the network is shared: its ProgramNet loads the live network, so
+    a stale weight copy in the device planner's programs still shows as a
+    deviation."""
 
     def __init__(self, cfg: PlannerConfig, smp: SemanticMap,
                  lcl_smp: LocalSemanticMap, shared_net=None,
-                 record_debug: bool = False, device=None):
+                 record_debug: bool = False, device=None,
+                 graphed: Optional[bool] = None):
         self.cfg = cfg
         self.smp = smp
         self.lcl_smp = lcl_smp
@@ -102,6 +136,9 @@ class HostRefPlanner:
                                        device=resolve_device(device))
             self.net.apply_compute_dtype().eval()
         self.device = next(self.net.parameters()).device
+        programs.compiled(self.device, graphed)   # raises for True on the CPU
+        self.graphed = graphed
+        self._signature = programs.config_signature(cfg, mirror=True)
 
         self._init_statics()
 
@@ -325,11 +362,26 @@ class HostRefPlanner:
             branch = new_branch
         return nodes
 
+    def program_set(self) -> programs.ProgramSet:
+        """The compiled programs of the mirrors of this configuration and
+        device (never a device planner's)."""
+        return programs.program_set(self._signature, self.net, self.device)
+
+    def _forward(self, inputs: ForwardInputs) -> torch.Tensor:
+        """forward_body on the host batch `inputs`: its program (copy in,
+        replay; a batch past max_branch_nodes is another program) or
+        eagerly. Returns the packed outputs on the device."""
+        if programs.compiled(self.device, self.graphed):
+            prog = self.program_set().program("mirror_forward", forward_body, inputs)
+            return prog(self.net, inputs)
+        return forward_body(self.net, tree_map(lambda t: t.to(self.device), inputs))[0]
+
     @torch.no_grad()
     def _predict(self, preps, actor_mask):
         """One padded network forward over the branch batch (the shared
         network; padding rows reuse the first node's inputs and are
-        discarded, so the forward has the device path's batch shape)."""
+        discarded, so the forward has the device path's batch shape) and
+        one read of its outputs, as float64."""
         Bpad = max(self.cfg.scen_tree.max_branch_nodes, len(preps))
         idx = list(range(len(preps))) + [0] * (Bpad - len(preps))
         f32 = np.float32
@@ -340,12 +392,15 @@ class HostRefPlanner:
         tgt_rpe = np.stack([preps[i].tgt_rpe for i in idx]).astype(f32)
         amask = np.broadcast_to(actor_mask, (Bpad,) + actor_mask.shape)
         lmask = np.broadcast_to(self.lane_mask, (Bpad,) + self.lane_mask.shape)
-        dev = self.device
-        cls, reg, vel = self.net(*(torch.as_tensor(np.ascontiguousarray(x), device=dev)
-                                   for x in (actors, amask, lanes, lmask, rpe, tgt_nodes,
-                                             tgt_rpe)))
+        packed = self._forward(ForwardInputs(*(
+            torch.from_numpy(np.ascontiguousarray(x))
+            for x in (actors, amask, lanes, lmask, rpe, tgt_nodes, tgt_rpe))))
         n = len(preps)
-        return tuple(x[:n].to(torch.float64).cpu().numpy() for x in (cls, reg, vel))
+        out = packed[:n].cpu().numpy()   # the one read
+        A, M = actors.shape[1], self.cfg.net.num_modes
+        r = M + A * M * PRED_LEN * 5
+        return (out[:, :M], out[:, M:r].reshape(n, A, M, PRED_LEN, 5),
+                out[:, r:].reshape(n, A, M, PRED_LEN, 2))
 
     @staticmethod
     def _depth(nodes, key):

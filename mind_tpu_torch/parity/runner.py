@@ -7,7 +7,9 @@ with HostRefPlanner from the same inputs, sharing the device planner's
 network, and reports the deviation of the two (the BASELINE.json 1e-3 m
 north star). The planners run on the CUDA card unless `device` names the
 CPU; `scenario` is an in-memory Scenario passed to the Simulator in place of
-the demo's parquet (the map is always read under `data_root`).
+the demo's parquet (the map is always read under `data_root`). The mirror's
+network forward is a compiled program on the card (the playback and resync
+runners take `graphed`: None, on the card; False, eager).
 
 The mirror plans in the global frame and the device planner in its local
 frame offset by MINDPlanner.origin: the episode's slot states come back to
@@ -32,12 +34,13 @@ def _ego(sim):
     return next(a for a in sim.agents if isinstance(a, MINDAgent))
 
 
-def _mirror(dev_pl, ego, record_debug: bool = False):
-    """A HostRefPlanner for `ego`, sharing the device planner's network."""
+def _mirror(dev_pl, ego, record_debug: bool = False, graphed: Optional[bool] = None):
+    """A HostRefPlanner for `ego`, sharing the device planner's network
+    (`graphed` None: its forward compiled on the card)."""
     from mind_tpu_torch.parity import HostRefPlanner
 
     host_pl = HostRefPlanner(dev_pl.cfg, ego._smp, ego.lcl_smp, shared_net=dev_pl.net,
-                             record_debug=record_debug)
+                             record_debug=record_debug, graphed=graphed)
     host_pl.update_target_lane(ego.gt_tgt_lane)
     return host_pl
 
@@ -195,7 +198,8 @@ def run_parity_episode_playback(demo: str, max_steps: int,
                                 data_root: str = DATA_ROOT,
                                 enable_timestep: Optional[float] = None,
                                 solve_dtype: Optional[str] = None,
-                                planner_cfg=None, device=None, scenario=None) -> dict:
+                                planner_cfg=None, device=None, scenario=None,
+                                graphed: Optional[bool] = None) -> dict:
     """Per-cycle resynced parity for the benched path: the episode runner
     (sim/episode.py) vs the float64 reference-control-flow mirror.
 
@@ -222,7 +226,7 @@ def run_parity_episode_playback(demo: str, max_steps: int,
     res = run_episode(sim, max_steps, inputs=inp)
     t_epi = time.perf_counter() - t0
 
-    host_pl = _mirror(dev_pl, ego)
+    host_pl = _mirror(dev_pl, ego, graphed=graphed)
     play = _Playback(inp, res, dev_pl.origin)
     vp = ego.veh_param
     dt = sim.config.sim_step
@@ -406,7 +410,7 @@ class _TandemPlanner:
 def run_parity_demo_resync(demo: str, max_steps: int,
                            data_root: str = DATA_ROOT,
                            solve_dtype: Optional[str] = None,
-                           device=None, scenario=None) -> dict:
+                           device=None, scenario=None, graphed: Optional[bool] = None) -> dict:
     """Per-cycle resynced parity over the full horizon: ONE closed-loop sim
     driven by the device planner, with the float64 mirror planning in
     tandem from identical inputs every cycle. Reports the worst per-cycle
@@ -425,7 +429,7 @@ def run_parity_demo_resync(demo: str, max_steps: int,
     # the staged (export) path runs the same AIME and solve as the fused and
     # episode paths; run_parity_episode_playback covers the episode
     dev_pl.export_trees = True
-    host_pl = _mirror(dev_pl, ego)
+    host_pl = _mirror(dev_pl, ego, graphed=graphed)
     tandem = _TandemPlanner(dev_pl, host_pl)
     ego.planner = tandem
 

@@ -202,8 +202,9 @@ class Lent:
     time, so that the programs that address them serve every holder: a
     holder that takes them over copies the previous holder's values out
     into that one's own tensors (where it lives on) and its own in. While
-    one holder runs, nothing is copied. Allocated once, outside the
-    programs' pool."""
+    one holder runs, nothing is copied. A holder that resets the state at
+    each use takes `.tensors` without `take`: there is nothing to hand
+    over. Allocated once, outside the programs' pool."""
 
     def __init__(self, like):
         self.tensors = graph_control.empty_like(like)

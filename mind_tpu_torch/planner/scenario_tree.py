@@ -11,13 +11,18 @@ here B is a leading axis.
 bookkeeping (parent ids, depth, slot allocation) and the device keeping
 the trajectories in fixed node slots: each round is one batched scene
 preparation, network forward and decode over the B branch slots, then one
-host read of the keep / probability / branch-time flags. The device path
-(aime_device.aime_grow_tree) does the bookkeeping on the device as well;
-the two give the same trees.
+host read of the keep / probability / branch-time flags. The round
+(`round_body`) and the next round's window gather (`window_body`) are the
+JAX package's jitted `_round_fn` and `_window_fn`: on the card they run as
+compiled programs (planner/programs.py), eagerly with `graphed=False`.
+The device path (aime_device.aime_grow_tree) does the bookkeeping on the
+device as well; the two give the same trees.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +32,9 @@ from mind_tpu_torch.common.batch_invariant import mv
 from mind_tpu_torch.common.geometry import points_polyline_dist
 from mind_tpu_torch.common.tree import Node, Tree
 from mind_tpu_torch.config import PlannerConfig
+from mind_tpu_torch.ops import graph_control
+from mind_tpu_torch.parallel.mesh import tree_map
+from mind_tpu_torch.planner import programs
 from mind_tpu_torch.planner.scene_prep import (OBS_LEN, LaneGraphStatic, SceneInputs,
                                                TargetLaneStatic, per_node, prepare_node_inputs,
                                                rot_of)
@@ -170,65 +178,156 @@ def _decode_node(cls, reg, vel_pred, inputs: SceneInputs,
     )
 
 
+class RoundInputs(NamedTuple):
+    """What a round reads. The windows are the B branch slots' [B, A, 50,
+    ...], or round 0's root window [A, 50, ...], which the body broadcasts
+    to the B slots (stride-0 views, as the JAX package's broadcast_to)."""
+
+    win_pos: torch.Tensor
+    win_ang: torch.Tensor
+    win_vel: torch.Tensor
+    win_cov: torch.Tensor
+    win_obs: torch.Tensor
+    actor_type: torch.Tensor          # [A, 7]
+    actor_mask: torch.Tensor          # [A] bool
+    probs: torch.Tensor               # [B] float64 parent path probabilities
+    cur_ts: torch.Tensor              # [B] long
+    lane_static: LaneGraphStatic
+    tgt_static: TargetLaneStatic      # n_points a long tensor [] (a capture would bake an int)
+
+
+class WindowInputs(NamedTuple):
+    """What the next round's window gather reads."""
+
+    slots: NodeSlots
+    ids: torch.Tensor                 # [B] long slot per branch node
+    durations: torch.Tensor           # [B] long
+
+
+def round_body(net, inp: RoundInputs, *, scen_cfg):
+    """One AIME round over the B branch slots (the JAX `_round_fn`): scene
+    prep, one network forward and the decode. Returns ((RoundOutputs, the
+    flags [B, M, 3] float64: keep, probability, branch time, for the host's
+    one read), the round as a long tensor [])."""
+    B = inp.probs.shape[0]
+    win = inp[:5]
+    if inp.win_ang.dim() == 2:   # round 0: the root window
+        win = tuple(w[None].expand((B,) + w.shape) for w in win)
+    win_pos, win_ang, win_vel, win_cov, win_obs = win
+    prep = prepare_node_inputs(win_pos, win_ang, win_vel, win_obs, inp.actor_type,
+                               inp.actor_mask, inp.lane_static, inp.tgt_static,
+                               scen_cfg.tar_time_ahead)
+    f32 = torch.float32
+    cls, reg, vel = net(prep.actors.to(f32), prep.actor_mask, prep.lanes.to(f32),
+                        prep.lane_mask, prep.rpe.to(f32), prep.tgt_nodes.to(f32),
+                        prep.tgt_rpe.to(f32))
+    out = _decode_node(cls, reg, vel, prep, win_pos, win_ang, win_vel, win_cov, inp.probs,
+                       inp.cur_ts, inp.actor_mask, inp.tgt_static, scen_cfg)
+    f64 = torch.float64
+    flags = torch.stack([out.keep.to(f64), out.prob, out.t_b.to(f64)], dim=-1)
+    return (out, flags), torch.ones((), dtype=torch.long, device=flags.device)
+
+
+def window_body(net, inp: WindowInputs):
+    """Obs windows of the next round's branch nodes (the JAX `_window_fn`):
+    window = hist[:, d : d+50] (update_obser semantics); d is clamped so the
+    window fits, as a dynamic slice clamps it. Returns ((pos, ang, vel,
+    cov), None)."""
+    d = torch.clamp(inp.durations, 0, PRED_LEN)
+    t_idx = d[:, None, None] + torch.arange(OBS_LEN, device=d.device)   # [B, 1, 50]
+
+    def one(arr):
+        w = arr[inp.ids]                                       # [B, A, 110, ...]
+        idx = t_idx.expand(w.shape[:2] + (OBS_LEN,))
+        if w.dim() == 4:
+            idx = idx[..., None].expand(w.shape[:2] + (OBS_LEN, w.shape[-1]))
+        return torch.gather(w, 2, idx)
+
+    s = inp.slots
+    return (one(s.pos), one(s.ang), one(s.vel), one(s.cov)), None
+
+
+def node_slots(MN: int, A: int, dtype, device, like: bool = False) -> NodeSlots:
+    """A tree's node slots, zero with the covariances at 1e-5; `like`:
+    stride-0 views that give only their shapes and dtypes."""
+    def full(shape, value, dt):
+        if like:
+            return torch.full((), value, dtype=dt, device=device).expand(shape)
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    return NodeSlots(
+        pos=full((MN, A, SEQ_LEN, 2), 0.0, dtype),
+        ang=full((MN, A, SEQ_LEN), 0.0, dtype),
+        vel=full((MN, A, SEQ_LEN, 2), 0.0, dtype),
+        # f64 like the device path: covariance carries decisions
+        cov=full((MN, A, SEQ_LEN), 1e-5, torch.float64),
+        tgt_pts=full((MN, 11, 2), 0.0, dtype),
+    )
+
+
 class ScenarioTreeGenerator:
     """Host orchestrator around the batched AIME round (reference
-    scenario_tree.py:38-108). `net` is the ScenePredNet; the statics and
-    the root window live on its device."""
+    scenario_tree.py:38-108). `net` is the ScenePredNet; the statics live
+    on its device.
+
+    `graphed` (None: on a CUDA device) runs the round and the window gather
+    through compiled programs of the configuration's program set
+    (planner/programs.py, shared with every planner and generator of the
+    configuration): each round copies its inputs in, replays the round's
+    CUDA graph with no host sync and reads the flags once; round 0, whose
+    window is the root's, is a program of its own. The node slots are the
+    set's, lent to one tree at a time: the window program reads them where
+    they lie. `graphed=False` runs the same bodies eagerly on fresh slots;
+    True on the CPU raises."""
 
     def __init__(self, cfg: PlannerConfig, net, lane_static: LaneGraphStatic,
-                 tgt_static: TargetLaneStatic, max_actors: int):
+                 tgt_static: TargetLaneStatic, max_actors: int,
+                 graphed: Optional[bool] = None):
         self.cfg = cfg
         self.scen_cfg = cfg.scen_tree
         self.net = net
+        self.device = next(net.parameters()).device
+        programs.compiled(self.device, graphed)   # raises for True on the CPU
+        self.graphed = graphed
         self.lane_static = lane_static
-        self.tgt_static = tgt_static
+        # the target lane's length as data
+        self.tgt_static = tgt_static._replace(
+            n_points=torch.as_tensor(tgt_static.n_points, dtype=torch.long, device=self.device))
         self.A = max_actors
         self.B = cfg.scen_tree.max_branch_nodes
         self.MN = cfg.scen_tree.max_tree_nodes
+        self.bodies = {   # what a round bakes, kept from later changes of cfg
+            "tree_round": functools.partial(round_body,
+                                            scen_cfg=copy.deepcopy(cfg.scen_tree)),
+            "tree_window": window_body}
+        self._signature = programs.config_signature(cfg)
+        self.last_rounds = 0   # the rounds the last branch_aime ran
+
+    def program_set(self) -> programs.ProgramSet:
+        """The compiled programs of this generator's configuration and
+        device, shared with every planner and generator of both."""
+        return programs.program_set(self._signature, self.net, self.device)
+
+    def _run(self, kind: str, inputs, compiled: bool, keep=()):
+        """The body `kind` on `inputs`: its program (copy in, replay) or
+        eagerly (host tensors uploaded first)."""
+        if compiled:
+            prog = self.program_set().program(kind, self.bodies[kind], inputs, keep)
+            return prog(self.net, inputs)
+        inputs = tree_map(lambda t: t.to(self.device), inputs)
+        return self.bodies[kind](self.net, inputs)[0]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _round(self, win_pos, win_ang, win_vel, win_cov, win_obs, actor_type, actor_mask, probs,
-               cur_ts) -> RoundOutputs:
-        """Scene prep, one network forward and the decode of the B branch
-        slots."""
-        scen_cfg = self.scen_cfg
-        prep = prepare_node_inputs(win_pos, win_ang, win_vel, win_obs, actor_type, actor_mask,
-                                   self.lane_static, self.tgt_static, scen_cfg.tar_time_ahead)
-        f32 = torch.float32
-        cls, reg, vel = self.net(prep.actors.to(f32), prep.actor_mask, prep.lanes.to(f32),
-                            prep.lane_mask, prep.rpe.to(f32), prep.tgt_nodes.to(f32),
-                            prep.tgt_rpe.to(f32))
-        return _decode_node(cls, reg, vel, prep, win_pos, win_ang, win_vel, win_cov, probs,
-                            cur_ts, actor_mask, self.tgt_static, scen_cfg)
-
-    @staticmethod
-    def _windows(slots: NodeSlots, ids, durations):
-        """Obs windows of the next round's branch nodes: window =
-        hist[:, d : d+50] (update_obser semantics); d is clamped so the
-        window fits, as a dynamic slice clamps it."""
-        d = torch.clamp(durations, 0, PRED_LEN)
-        t_idx = d[:, None, None] + torch.arange(OBS_LEN, device=d.device)   # [B, 1, 50]
-
-        def one(arr):
-            w = arr[ids]                                       # [B, A, 110, ...]
-            idx = t_idx.expand(w.shape[:2] + (OBS_LEN,))
-            if w.dim() == 4:
-                idx = idx[..., None].expand(w.shape[:2] + (OBS_LEN, w.shape[-1]))
-            return torch.gather(w, 2, idx)
-
-        return one(slots.pos), one(slots.ang), one(slots.vel), one(slots.cov)
-
-    # ------------------------------------------------------------------
     def branch_aime(self, root_window, actor_type, actor_mask) -> List[Tree]:
         """Grow the scenario tree; returns host scenario trees (one per
         surviving root child, probabilities renormalized) whose node data is
         [prob, traj [A,dur,2], cov [A,dur], tgt_pts] like the reference's
         get_scenario_tree export (scenario_tree.py:208-272). root_window is
-        (pos, ang, vel, cov, observed) of [A, 50, ...] on the device."""
+        (pos, ang, vel, cov, observed) of [A, 50, ...]."""
         A, B, MN = self.A, self.B, self.MN
-        win_pos0, win_ang0, win_vel0, win_cov0, win_obs0 = root_window
-        dev = win_pos0.device
+        dev = self.device
+        compiled = programs.compiled(dev, self.graphed)
 
         # host tree bookkeeping
         tree = Tree()
@@ -236,34 +335,33 @@ class ScenarioTreeGenerator:
         node_meta = {0: {"prob": 1.0, "cur_t": 0, "t_b": 0, "duration": 0}}
         next_slot = 1  # slot 0 unused (root has no trajectory)
 
-        dtype = win_pos0.dtype
-        kw = dict(dtype=dtype, device=dev)
-        slots = NodeSlots(
-            pos=torch.zeros((MN, A, SEQ_LEN, 2), **kw),
-            ang=torch.zeros((MN, A, SEQ_LEN), **kw),
-            vel=torch.zeros((MN, A, SEQ_LEN, 2), **kw),
-            # f64 like the device path: covariance carries decisions
-            cov=torch.full((MN, A, SEQ_LEN), 1e-5, dtype=torch.float64, device=dev),
-            tgt_pts=torch.zeros((MN, 11, 2), **kw),
-        )
+        dtype = root_window[0].dtype
+        if compiled:   # the set's slots, reset in place
+            slots = self.program_set().lent(
+                "node_slots", node_slots(MN, A, dtype, dev, like=True)).tensors
+            for t, fill in zip(slots, (0.0, 0.0, 0.0, 1e-5, 0.0)):
+                t.fill_(fill)
+        else:
+            slots = node_slots(MN, A, dtype, dev)
+        win_obs_later = torch.ones((B, A, OBS_LEN), dtype=torch.float32, device=dev)
 
-        # round state: windows for the branch set
-        def pad_b(x):
-            return x[None].expand((B,) + x.shape)
-
-        win_pos, win_ang, win_vel = pad_b(win_pos0), pad_b(win_ang0), pad_b(win_vel0)
-        win_cov, win_obs = pad_b(win_cov0), pad_b(win_obs0)
+        # round state: the root window for the branch set
+        window, keep_win = tuple(root_window), ()
         branch_keys = [0]
         probs = np.zeros(B, np.float64)
         probs[0] = 1.0
         cur_ts = np.zeros(B, np.int64)
 
+        self.last_rounds = 0
         for _depth in range(self.scen_cfg.max_depth):
-            out = self._round(win_pos, win_ang, win_vel, win_cov, win_obs, actor_type,
-                              actor_mask, torch.tensor(probs, device=dev),
-                              torch.tensor(cur_ts, device=dev))
+            out, flags = self._run("tree_round", RoundInputs(
+                *window, actor_type, actor_mask, torch.from_numpy(probs),
+                torch.from_numpy(cur_ts), self.lane_static, self.tgt_static), compiled,
+                keep=keep_win)
+            self.last_rounds += 1
             # the round's one host read
-            keep, prob, t_b = (x.cpu().numpy() for x in (out.keep, out.prob, out.t_b))
+            flags = flags.cpu().numpy()
+            keep, prob, t_b = flags[..., 0] > 0.5, flags[..., 1], flags[..., 2].astype(np.int64)
 
             # assemble children on host; copy their hists into slots
             scatter_src = []  # (b, m) per new node
@@ -334,9 +432,12 @@ class ScenarioTreeGenerator:
             ids[len(new_branch):] = ids[0]
             durs[len(new_branch):] = durs[0]
 
-            win_pos, win_ang, win_vel, win_cov = self._windows(
-                slots, torch.tensor(ids, device=dev), torch.tensor(durs, device=dev))
-            win_obs = torch.ones((B, A, OBS_LEN), dtype=torch.float32, device=dev)
+            # the next round's windows, which it reads where the gather wrote them
+            wins = self._run("tree_window", WindowInputs(
+                slots, torch.from_numpy(ids), torch.from_numpy(durs)), compiled,
+                keep=graph_control.tensors(slots))
+            window = (*wins, win_obs_later)
+            keep_win = wins if compiled else ()
 
         return self._export(tree, node_meta, slots)
 
