@@ -61,14 +61,14 @@ result line):
      wall time outside plan() are printed;
  6b. demo command: python -m mind_tpu_torch.run_sim --config <the fixture's
      demo_1_synthetic.json, its output in a temporary folder> --data-root
-     tests/fixtures/av2_synthetic --max-steps 100, rendering on, as a
-     subprocess: exit code 0, the plan count of phase 6's first 100 ticks
-     (10), no failed plan, an MJPEG AVI of 100 JPEG frames of 1200 x 1200
+     tests/fixtures/av2_synthetic --max-steps 75, rendering on, as a
+     subprocess: exit code 0, the plan count of phase 6's first 75 ticks
+     (5), no failed plan, an MJPEG AVI of 75 JPEG frames of 1200 x 1200
      (probe_avi); then run_sim.main
      on the same arguments and --no-render in this process: kernel B
      launched a multiple of 6 times (eagerly, or by a capture) and executed
      by the programs' replays, kernel A never, the ego
-     within 1e-6 m of phase 6's first 100 ticks (whether it is equal to the bit is
+     within 1e-6 m of phase 6's first 75 ticks (whether it is equal to the bit is
      printed); the parquet read ms, render seconds a frame (8 frames one
      after another here; drawn and encoded with the configuration's
      num_threads workers in the command), PNG read and JPEG encode ms a
@@ -167,7 +167,7 @@ result line):
      loops, planning through their compiled programs, parallel/programs.py:
      the observation update and the batched plan, one CUDA graph each)
      against graphed=False, which runs the same bodies eagerly: the four
-     scenes of 11 (150 ticks, 20 triggers of B = 32 nodes a round) and 16
+     scenes of 11 (100 ticks, 10 triggers of B = 32 nodes a round) and 16
      copies of 12's scenario (50 ticks, 10 triggers, B = 128), each a warm
      compiled run that captures, the timed compiled run (capturing nothing)
      and the eager one: every trigger's packed plan, the plan count, the
@@ -195,15 +195,26 @@ result line):
      relative norm, none missing or zero, and the decoder's target branch
      (which only a scene won by mode 0 trains) the same way under the loss
      with mode 0 as every scene's winner; (c) the same for kernel B at one
-     call; (d) 20 steps, finite losses, the last below the first; (e) the
-     first two losses and the first gradients against the same steps on the
-     CPU (taken by phase 7's child on the same batch, built after phase 4,
-     beside the card's phases); (f) save, restore, one step equal to one step without the round
-     trip, to the bit, under deterministic cuDNN (set for (f) alone; the
-     other checks and the timing run cuDNN's default algorithms); the timed
-     steps' forward / backward / optimizer ms,
-     scenes per second, peak memory and the backward's share in the plain
-     recompute of the 6 layer cores;
+     call; (d) 20 compiled steps (make_train_step: the whole step one
+     captured CUDA graph, models/train_program.py) against 20 eager ones
+     (graphed=False) from the same initial state, under deterministic
+     cuDNN: losses, parameters and optimizer state equal to the bit, the
+     first call capturing, 19 replays counted on the device, every replay
+     under sync debug "error", kernel A launched 6 times by the first
+     call's eager step and 6 by the capture and executed 6 times a replay,
+     6 times a step in the eager run; finite losses, the last below the
+     first; (e) the first two losses and the first gradients against the
+     same steps on the CPU (taken by phase 7's child, through the program
+     path on the CPU, on the same batch, built after phase 4, beside the
+     card's phases); then compiled steps under cuDNN's default algorithms
+     (a program of their own); (f) save, restore into a new network and
+     optimizer, two compiled steps, equal to two steps without the round
+     trip and to two more after loading the checkpoint back into the
+     original network and optimizer, to the bit, under deterministic cuDNN;
+     the compiled step's ms (both cuDNN settings) against the eager step's
+     forward / backward / optimizer ms, scenes per second, the captures'
+     seconds, peak memory with and without the capture and the plain
+     recompute of the 6 layer cores beside both;
  15. bench: python -m mind_tpu_torch.bench --synthetic --steps 250 over its
      per-demo, phase-split, batched and host-loop sections (the Monte-Carlo
      sweep is phase 12's) in a subprocess: exit code 0, the final line with
@@ -218,7 +229,8 @@ result line):
      scripts/*.py) through their main([...]) in this process, on synthetic
      scenes at 215 ticks (3 plans a demo), outputs in a temporary
      directory: run_all_demos in both modes on demos 1 and 2 (PASS, the
-     report written; its episode mode once more as a subprocess, the CLI);
+     report written; its episode mode once more as a subprocess, the CLI,
+     beside the in-process run_all_demos and parity_run);
      parity_run's free run of demo_1 under native_bal and its log through
      bench_north_star (finite rows; the verdict printed, not held);
      bench_strict on demo_1 (no failed cycle, the float32 plan count);
@@ -235,17 +247,21 @@ result line):
      parallel/dryrun.py), at full width with the trained weights. (a)-(c)
      two ranks on the one card (gloo): the Monte-Carlo sweep of phase 12's
      scenario under the demo configuration, K = 8 copies in chunks of 4
-     (2 per rank), 25 ticks; phase 13's 1024 trees, 2 x 512 (each rank's
+     (2 per rank), 15 ticks; phase 13's 1024 trees, 2 x 512 (each rank's
      solve its compiled program, as the sequential mesh's); 3 float32
      training steps of phase 14's batch, 2 scenes per rank (cuDNN held to
-     deterministic algorithms in the ranks and here). Each rank's copies,
-     trees, losses and parameters equal to the sequential two-shard mesh's
-     in this process, to the bit; kernel B executed by the ranks' compiled
-     sweeps as often as by the sequential one (the AIME rounds their
-     programs ran, counted on the device), kernel A 6 times per training
-     forward.
-     One rank on nccl trains on the whole batch, equal to the bit to the
-     unsharded step. (d) with two cards or more, one rank per card on nccl
+     deterministic algorithms in the ranks and here), each rank through the
+     compiled step's two programs around the all-reduce, the sequential
+     mesh through its one program. Each rank's copies, trees, losses and
+     parameters equal to the sequential two-shard mesh's in this process,
+     to the bit; kernel B executed by the ranks' compiled sweeps as often
+     as by the sequential one (the AIME rounds their programs ran, counted
+     on the device), kernel A launched 6 times by a rank's first (eager)
+     step and 6 by its capture, executed 6 times a replayed step (counted
+     on the device).
+     Then rank 0 alone, in an nccl group made beside the world's gloo one
+     (parallel/dryrun.py::train_on_nccl), trains on the whole batch the
+     same way, equal to the bit to the unsharded compiled step. (d) with two cards or more, one rank per card on nccl
      against the sequential mesh across two cards, the same way; with one
      card a line says it was not run. Copy-ticks/s of the ranks and of the
      one process, the tree solve's ms, each rank's step ms and launches;
@@ -319,6 +335,8 @@ TOL_EPISODE_EGO = 1e-3
 TOL_GRAD = 1e-3
 TOL_TRAIN_LOSS = 1e-4
 TRAIN_STEPS, TRAIN_WARM, TRAIN_LR = 20, 3, 3e-4
+TRAIN_DEFAULT_STEPS = 6   # compiled steps under cuDNN's default algorithms, the first captures
+TRAIN_PROFILED = 2        # of their replays under the profiler
 # the decoder's target-lane branch (target RPE and target embedding), which
 # feeds mode 0 alone (reference network.py:506-508)
 TARGET_BRANCH = ("SceneDecoder_0.MLPBlock_0.", "SceneDecoder_0.MLPBlock_1.")
@@ -350,8 +368,8 @@ FIXTURE_CONFIG = os.path.join(FIXTURE, "demo_1_synthetic.json")
 # and configuration: the same float64 values through the parquet, metres
 TOL_COMMAND_EGO = 1e-6
 LOOP_TICKS = 150
-# the demo command's ticks: the first 100 of phase 6's loop (10 plans)
-COMMAND_TICKS = 100
+# the demo command's ticks: the first 75 of phase 6's loop (5 plans)
+COMMAND_TICKS = 75
 DEMO_FRAME = 1200                 # pixels: render_png's figsize 12 at 100 dpi
 SERIAL_FRAMES = 8                 # frames drawn again in this process, timed
 COMMAND_TIMEOUT_S = 600
@@ -980,9 +998,10 @@ def cpu_references(inbox, outbox):
     plan, seconds)), then, once phase 4's filled window arrives on `inbox`
     (numpy), ("plan", (the plan's 4 numbers, its tree, seconds)), then,
     once phase 14's training batch arrives (numpy), ("train", (the losses
-    of two training steps from init_scene_pred(seed=0), the gradients of
-    the first by parameter name (numpy, None where a parameter has none),
-    seconds)); or ("error", traceback)."""
+    of two training steps from init_scene_pred(seed=0) through the train
+    step's program path (on the CPU its body runs eagerly on the program's
+    buffers), the gradients of the first by parameter name (numpy, None
+    where a parameter has none), seconds)); or ("error", traceback)."""
     import traceback
 
     from mind_tpu_torch.config import PlannerConfig
@@ -1014,6 +1033,8 @@ def cpu_references(inbox, outbox):
         t = time.perf_counter()
         net = train.init_scene_pred(PlannerConfig().net, seed=0, device=cpu)
         step = train.make_train_step(net, train.adamw(net.parameters(), TRAIN_LR))
+        if step.program is None:
+            raise RuntimeError("the CPU training steps did not take the program path")
         losses = [float(step(batch))]
         grads = {n: None if p.grad is None else p.grad.numpy().copy()
                  for n, p in net.named_parameters()}
@@ -1993,13 +2014,13 @@ def phase_monte_carlo(dcfg, fa, data_root, k=16):
     hold_against_singles("monte carlo", singles)
     return counts["bfloat16"], summary
 
-# (scale-out programs): MultiScenarioSim over phase 11's four scenes (150
-# ticks, planner on after 1 s: 20 triggers) and MonteCarloSim of phase 12's
+# (scale-out programs): MultiScenarioSim over phase 11's four scenes (100
+# ticks, planner on after 1 s: 10 triggers) and MonteCarloSim of phase 12's
 # scenario (K = 16, 50 ticks: 10 triggers), compiled against graphed=False.
 # The warm runs capture the programs: 51 ticks of the scenes (one trigger),
 # 1 tick of the copies
 SCALEOUT_SPEEDS = (8.0, 7.0, 9.0, 6.0)
-SCALEOUT_TICKS, SCALEOUT_PLANS, SCALEOUT_WARM_TICKS = 150, 20, 51
+SCALEOUT_TICKS, SCALEOUT_PLANS, SCALEOUT_WARM_TICKS = 100, 10, 51
 SCALEOUT_K, SCALEOUT_MC_TICKS = 16, 50
 
 
@@ -2010,7 +2031,7 @@ def phase_scaleout_programs(dcfg, fa, data_root, card):
     which runs the same bodies eagerly, in one process, with the demo
     configuration and the trained weights (kernel B). (a) MultiScenarioSim
     over phase 11's four scenes (seeds 0-3, the AV asked for 8, 7, 9 and 6
-    m/s, planner on after 1 s, 150 ticks: 20 triggers of B = 32 nodes a
+    m/s, planner on after 1 s, 100 ticks: 10 triggers of B = 32 nodes a
     round): a warm compiled run (it captures), the timed compiled run (it
     captures nothing) and the eager one, equal to the bit: every trigger's
     packed, plan_calls, terminated and the four egos at every tick. (b)
@@ -2423,6 +2444,37 @@ def training_batch(cfg, dev, synthetic_av2):
     return stack_batches(scenes)
 
 
+def recompute_in_graph_ms(fa, dev, B, layers):
+    """The plain recompute of one training backward's layer cores as a
+    compiled step runs it: fused_edge_attention_vjp at B scenes, N = 129,
+    D = 128, with and without the edge update (every input's gradient),
+    each captured in a CUDA graph and timed by replays. Returns (ms of
+    layers - 1 calls with the edge update and one without, [ms a call
+    with, without])."""
+    from mind_tpu_torch.synthetic import fusion_inputs
+
+    w, node, edge = fusion_inputs(B, 129, 128, dev, SEED + 2)
+    mask = torch.ones(B, 129, dtype=torch.bool, device=dev)
+    g_out, g_edge = torch.randn_like(node), torch.randn_like(edge)
+    needs = (True,) * (2 + len(w))
+    per_call = []
+    for ue in (True, False):
+        def vjp():
+            fa.fused_edge_attention_vjp("float32", node, edge, mask, w, 8, ue, g_out,
+                                        g_edge if ue else None, needs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            vjp()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            vjp()
+        per_call.append(cuda_time_ms(graph.replay))
+        del graph
+    return (layers - 1) * per_call[0] + per_call[1], per_call
+
+
 def phase_training(fa, dev, batch, cpu_child):
     """14. Train PlannerConfig()'s float32 network on `batch` (four
     synthetic scenarios, training_batch): checks (a)-(f) of the module
@@ -2432,6 +2484,8 @@ def phase_training(fa, dev, batch, cpu_child):
     from mind_tpu_torch.config import PlannerConfig
     from mind_tpu_torch.models import checkpoint as ckpt
     from mind_tpu_torch.models import scene_pred, train
+    from torch.profiler import ProfilerActivity, profile
+
     from mind_tpu_torch.models.weights import unused_edge_params
     from mind_tpu_torch.synthetic import fusion_inputs
 
@@ -2442,6 +2496,11 @@ def phase_training(fa, dev, batch, cpu_child):
                "actors": batch.actor_mask.sum(1).tolist(),
                "lanes": batch.lane_mask.sum(1).tolist(),
                "targets": int(batch.gt_mask.sum())}
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t0 - sum(laps.values())
+
     summary["kernel_b_grad_gap"] = bf16_call_grads(fa, dev)
 
     # (b) the whole network's gradients, kernel Function against plain
@@ -2502,6 +2561,7 @@ def phase_training(fa, dev, batch, cpu_child):
         + json.dumps(summary["grad_vs_plain"]))
     del g_plain, g0_fn, g0_plain
 
+    lap("a_to_c")
     # (e) the same two steps on the CPU, in the child
     cpu_losses, cpu_grads, summary["cpu_two_steps_s_in_child"] = cpu_child.get("train")
     g_cpu = [None if n in exempt else torch.from_numpy(cpu_grads[n]) for n in names]
@@ -2509,11 +2569,18 @@ def phase_training(fa, dev, batch, cpu_child):
                          exempt, noise, target)
     del cpu_grads, g_cpu, g_fn
 
-    # (d) 20 steps, the launch counts set to 0 just before and read just after
-    optimizer = train.adamw(net.parameters(), TRAIN_LR)
-    step = train.make_train_step(net, optimizer)
-    losses, times, events = [], {}, []
+    lap("cpu_child_wait")
+    # (d) 20 compiled steps and 20 eager ones (graphed=False) from the same
+    # initial state, under deterministic cuDNN (so that two runs of a step
+    # can be equal to the bit), the launch counts set to 0 just before each
+    # run and read just after; the compiled run is timed by whole steps, the
+    # eager one by phase with the plain recompute of the 6 layer cores
     vjp = fa.fused_edge_attention_vjp
+    replay, modes, events = torch.cuda.CUDAGraph.replay, [], []
+
+    def watched(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(self)
 
     def timed_vjp(*a, **kw):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2523,23 +2590,82 @@ def phase_training(fa, dev, batch, cpu_child):
         events.append((s, e))
         return out
 
-    fa.reset_launch_counts()
+    def train_run(graphed):
+        net = train.init_scene_pred(cfg.net, seed=0, device=dev)
+        optimizer = train.adamw(net.parameters(), TRAIN_LR)
+        step = train.make_train_step(net, optimizer, graphed=graphed)
+        losses, times = [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        try:
+            for i in range(TRAIN_STEPS):
+                if i == TRAIN_WARM and graphed is False:
+                    fa.fused_edge_attention_vjp = timed_vjp
+                losses.append(step(batch, times=times if i >= TRAIN_WARM else None))
+        finally:
+            fa.fused_edge_attention_vjp = vjp
+        torch.cuda.synchronize()
+        return {"net": net, "optimizer": optimizer, "step": step,
+                "losses": [float(x) for x in losses], "times": times,
+                "launches": dict(fa.fused_edge_attention.launches_by_variant),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     try:
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_WARM:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                fa.fused_edge_attention_vjp = timed_vjp
-            losses.append(step(batch, times=times if i >= TRAIN_WARM else None))
+        eager = train_run(False)
+        torch.cuda.CUDAGraph.replay = watched
+        try:
+            compiled = train_run(None)
+        finally:
+            torch.cuda.CUDAGraph.replay = replay
     finally:
-        fa.fused_edge_attention_vjp = vjp
-    torch.cuda.synchronize()
-    launches = dict(fa.fused_edge_attention.launches_by_variant)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
+        torch.backends.cudnn.deterministic = deterministic
+    net, optimizer, step = compiled["net"], compiled["optimizer"], compiled["step"]
+    prog = step.program
+    replays, captures = prog.replays(), len(prog.capture_s())
+    launches = compiled["launches"]
+    losses = compiled["losses"]
     timed = TRAIN_STEPS - TRAIN_WARM
-    ms = {k: v * 1e3 / timed for k, v in times.items()}
+    ms = {k: v * 1e3 / timed for k, v in eager["times"].items()}
+    eager_ms = sum(ms.values())
+    step_ms = compiled["times"]["step"] * 1e3 / timed
     recompute_ms = sum(s.elapsed_time(e) for s, e in events) / timed
+    same = (compiled["losses"] == eager["losses"] and all(
+        torch.equal(a, b) for a, b in zip(net.state_dict().values(),
+                                          eager["net"].state_dict().values())) and all(
+        torch.equal(x, y) for a, b in zip(optimizer.state.values(),
+                                          eager["optimizer"].state.values())
+        for x, y in zip(a.values(), b.values())))
+    del eager["net"], eager["optimizer"], eager["step"]
+
+    lap("d_runs")
+    # the compiled step under cuDNN's default algorithms, as a caller runs
+    # it: a program of its own (the setting is part of the key), timed, then
+    # TRAIN_PROFILED of its replays under the profiler: the kernels a step,
+    # the device's busy share and the kernels that take most of it
+    t_default = {}
+    for i in range(TRAIN_DEFAULT_STEPS):
+        step(batch, times=t_default if i else None)
+    torch.cuda.synchronize()
+    default_ms = t_default["step"] * 1e3 / (TRAIN_DEFAULT_STEPS - 1)
+    lap("default_cudnn")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(TRAIN_PROFILED):
+            step(batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = busy_us([k[:2] for k in kernels]) / 1e3
+    by_name = {}
+    for s_, e_, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (e_ - s_) / 1e3
+    lap("profile")
+    recompute_graph_ms, recompute_graph_calls = recompute_in_graph_ms(fa, dev, B,
+                                                                      cfg.net.n_scene_layer)
     with torch.no_grad():
         w, node, edge = fusion_inputs(B, 129, 128, dev, SEED)
         mask = torch.ones(B, 129, dtype=torch.bool, device=dev)
@@ -2547,26 +2673,48 @@ def phase_training(fa, dev, batch, cpu_child):
                      for ue in (True, False)]
         del w, node, edge
     kernel_fwd_ms = (cfg.net.n_scene_layer - 1) * kernel_ms[0] + kernel_ms[1]
-    step_ms = sum(ms.values())
     summary.update({
         "losses": losses, "cpu_losses": cpu_losses,
         "cpu_gap": {"loss": [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)],
                     "grad_max": max(cpu_gaps.values()),
                     "largest": sorted(cpu_gaps.items(), key=lambda kv: -kv[1])[:5]},
-        "launches": launches, "timed_steps": timed,
-        "step_ms": step_ms, "ms": ms, "scenes_per_s": B * 1e3 / step_ms,
-        "peak_memory_gb": peak / 1e9,
-        "recompute_ms": recompute_ms, "recompute_share_of_backward":
+        "compiled_equal_to_eager": same,
+        "launches": launches, "eager_launches": eager["launches"],
+        "replays": replays, "executions": cfg.net.n_scene_layer * replays,
+        "replay_sync_debug_modes": sorted(set(modes)), "timed_steps": timed,
+        "step_ms": step_ms, "eager_step_ms": eager_ms, "eager_ms": ms,
+        "speedup": eager_ms / step_ms,
+        "scenes_per_s": B * 1e3 / step_ms, "eager_scenes_per_s": B * 1e3 / eager_ms,
+        "step_ms_default_cudnn": default_ms,
+        "peak_memory_gb": {"compiled": compiled["peak_gb"], "eager": eager["peak_gb"]},
+        "capture_reserved_gb": prog.programs[next(iter(prog.programs))].capture_reserved / 1e9,
+        "recompute_ms": recompute_ms, "recompute_share_of_eager_backward":
             recompute_ms / ms["backward"],
+        "recompute_in_graph_ms": recompute_graph_ms,
+        "recompute_in_graph_ms_per_call": recompute_graph_calls,
+        "recompute_in_graph_share_of_compiled_step": recompute_graph_ms / default_ms,
         "recomputes_per_step": len(events) / timed,
+        "profile_compiled_steps": {
+            "steps": TRAIN_PROFILED, "wall_ms_per_step": prof_wall_ms / TRAIN_PROFILED,
+            "device_kernels_per_step": len(kernels) / TRAIN_PROFILED,
+            "device_busy_ms_per_step": busy_ms / TRAIN_PROFILED,
+            "device_busy_share": busy_ms / prof_wall_ms,
+            "top_kernels_ms_per_step": [
+                (n[:60], v / TRAIN_PROFILED)
+                for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]]},
         "kernel_a_forward_ms_6_layers": kernel_fwd_ms,
         "kernel_a_ms_per_call": kernel_ms})
-    log("[train] " + json.dumps({k: summary[k] for k in (
-        "losses", "cpu_losses", "cpu_gap", "launches", "step_ms", "ms", "scenes_per_s",
-        "peak_memory_gb", "recompute_ms", "recompute_share_of_backward",
-        "kernel_a_forward_ms_6_layers")}))
-    if launches != {"float32": cfg.net.n_scene_layer * TRAIN_STEPS, "bfloat16": 0}:
-        raise RuntimeError(f"(a) {launches} launches in {TRAIN_STEPS} training steps")
+    if not same:
+        raise RuntimeError(f"(d) the compiled steps differ from the eager ones: "
+                           f"{compiled['losses']} against {eager['losses']}")
+    if launches != {"float32": 2 * cfg.net.n_scene_layer, "bfloat16": 0} or \
+            captures != 1 or replays != TRAIN_STEPS - 1:
+        raise RuntimeError(f"(a) {launches} launches, {captures} captures and "
+                           f"{replays} replays in {TRAIN_STEPS} compiled training steps")
+    if eager["launches"] != {"float32": cfg.net.n_scene_layer * TRAIN_STEPS, "bfloat16": 0}:
+        raise RuntimeError(f"(a) {eager['launches']} launches in {TRAIN_STEPS} eager steps")
+    if modes != [2] * (TRAIN_STEPS - 1):
+        raise RuntimeError(f"(d) replays outside sync debug mode 'error': {modes}")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise RuntimeError(f"(d) losses not finite or not falling: {losses}")
     if not all(g <= TOL_TRAIN_LOSS for g in summary["cpu_gap"]["loss"]):
@@ -2574,32 +2722,59 @@ def phase_training(fa, dev, batch, cpu_child):
     if len(events) != cfg.net.n_scene_layer * timed:
         raise RuntimeError(f"{len(events)} plain recomputes in {timed} backward passes")
 
-    # (f) save -> restore -> one step, against one step without the round
-    # trip; only here are cuDNN's algorithms held to deterministic ones, so
-    # that two runs of a step can be equal to the bit
-    deterministic = torch.backends.cudnn.deterministic
+    lap("recompute_and_kernel_timing")
+    # (f) save -> restore into a new network and optimizer -> two compiled
+    # steps, against two steps of the saved one without the round trip, and
+    # against two more of the saved one after loading the checkpoint back
+    # into its own network and optimizer (load_state_dict puts new state
+    # tensors in place: the program copies them into the ones it addresses);
+    # under deterministic cuDNN, whose program is the one (d) captured
     torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory() as d:
             ckpt.save_params(d, net, step=TRAIN_STEPS, opt_state=optimizer)
-            loss_on = step(batch)
+            loss_on = [step(batch) for _ in range(2)]
+            state_on = [t.clone() for t in net.state_dict().values()]
             net2 = train.init_scene_pred(cfg.net, seed=1, device=dev)
             net2.load_state_dict(ckpt.load_params(d, net2))
             opt2 = ckpt.load_opt_state(d, train.adamw(net2.parameters(), TRAIN_LR))
-            loss_back = train.make_train_step(net2, opt2)(batch)
+            step2 = train.make_train_step(net2, opt2)
+            loss_back = [step2(batch) for _ in range(2)]
+            net.load_state_dict(ckpt.load_params(d, net))
+            ckpt.load_opt_state(d, optimizer)
+            loss_again = [step(batch) for _ in range(2)]
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    same = torch.equal(loss_on, loss_back) and all(
-        torch.equal(a, b) for a, b in zip(net.state_dict().values(), net2.state_dict().values()))
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(loss_on, loss_back, loss_again)) and all(
+        torch.equal(a, b) and torch.equal(a, c)
+        for a, b, c in zip(state_on, net2.state_dict().values(), net.state_dict().values()))
     summary["restore_equal"] = same
-    log(f"[train] (f) restored step equal to the continued one, to the bit: {same}")
-    if not same:
-        raise RuntimeError(f"(f) restored step differs: loss {float(loss_back)} against "
-                           f"{float(loss_on)}")
-    del net, net2, optimizer, opt2, batch
+    lap("f")
+    summary["part_s"] = laps
+    summary["capture_s"] = {"first": prog.capture_s()[0], "default_cudnn": prog.capture_s()[1],
+                            "restored": step2.program.capture_s()}
+    summary["programs"] = {"saved": len(prog.programs), "restored": len(step2.program.programs)}
+    log("[train] " + json.dumps({k: summary[k] for k in (
+        "losses", "cpu_losses", "cpu_gap", "compiled_equal_to_eager", "launches",
+        "eager_launches", "replays", "executions", "step_ms", "eager_step_ms", "eager_ms",
+        "speedup", "scenes_per_s", "eager_scenes_per_s", "step_ms_default_cudnn",
+        "peak_memory_gb", "capture_reserved_gb", "recompute_ms",
+        "recompute_share_of_eager_backward", "recompute_in_graph_ms",
+        "recompute_in_graph_ms_per_call", "recompute_in_graph_share_of_compiled_step",
+        "profile_compiled_steps", "kernel_a_forward_ms_6_layers", "capture_s", "programs",
+        "part_s")}))
+    log(f"[train] (f) restored steps equal to the continued ones and to the reloaded "
+        f"ones, to the bit: {same}")
+    if not same or len(prog.programs) != 2 or len(step2.program.programs) != 1:
+        raise RuntimeError(f"(f) restored steps differ: losses {[float(x) for x in loss_back]}, "
+                           f"continued {[float(x) for x in loss_on]}, reloaded "
+                           f"{[float(x) for x in loss_again]}; programs {summary['programs']}")
+    del net, net2, optimizer, opt2, batch, step, step2, prog
     torch.cuda.empty_cache()
     summary["seconds"] = time.perf_counter() - t0
-    return launches["float32"], summary
+    return (launches["float32"], eager["launches"]["float32"],
+            summary["executions"]), summary
 
 
 def phase_probe():
@@ -3076,7 +3251,8 @@ def phase_scripts(fa):
     """(scripts) the drivers' main([...]) in this process on synthetic_av2
     scenes at 215 ticks, outputs in a temporary directory, each check
     fatal: run_all_demos (both modes, demos 1 and 2; and its episode mode
-    once more as a subprocess, the CLI itself) PASS with 3 plans a demo and
+    once more as a subprocess, the CLI itself, beside the in-process
+    run_all_demos and parity_run) PASS with 3 plans a demo and
     the report written; parity_run's free run of demo_1 under native_bal,
     its log fed to bench_north_star (demo_1): finite rows, the verdict
     printed, not held; bench_strict (demo_1): no failed cycle and
@@ -3116,48 +3292,58 @@ def phase_scripts(fa):
             add_launches(total, n)
             return n
 
-        # run_all_demos: both modes in this process, the episode mode as a CLI
-        n = driver("run_all_demos", run_all_demos, [
-            "--mode", "both", "--demos", "1,2", *steps, "--json-out", out("host.json"),
-            "--episode-json", out("episode.json"), "--report", out("DEMOS.md")])
-        ep_rows = read_json(out("episode.json"))["rows"]
-        rows = read_json(out("host.json"))
-        report = open(out("DEMOS.md")).read()
-        for mode, rs in (("episode", ep_rows), ("host", rows)):
-            if [r["demo"] for r in rs] != ["demo_1", "demo_2"] or any(
-                    r["ticks"] != SCRIPTS_STEPS or r["plan_calls"] != SCRIPTS_PLANS
-                    or r["plan_failures"] or not positive(r["steps_per_sec"]) for r in rs):
-                raise RuntimeError(f"scripts run_all_demos: {mode} rows {rs}")
-        if "**Result: PASS**" not in report or "## Fused-episode mode" not in report:
-            raise RuntimeError(f"scripts run_all_demos: report {report[:2000]}")
-        row_n = {v: sum(r["launches"][v] for r in ep_rows + rows) for v in total}
-        if row_n != n:
-            raise RuntimeError(f"scripts run_all_demos: rows record {row_n}, counted {n}")
-        summary["run_all_demos"] = {"episode": ep_rows, "host": rows}
+        # run_all_demos: both modes in this process; the episode mode as a CLI,
+        # a subprocess that runs beside this process's run_all_demos and
+        # parity_run free run (checks: their rates are printed, not held,
+        # and are not the speed record's)
         cmd = [sys.executable, "-m", "mind_tpu_torch.scripts.run_all_demos", "--mode",
                "episode", "--demos", "1", *steps, "--episode-json", out("cli.json")]
-        log("[scripts] " + " ".join(cmd[1:]))
-        t = time.perf_counter()
-        p = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=SCRIPTS_TIMEOUT_S)
-        summary["seconds"]["run_all_demos_cli"] = time.perf_counter() - t
-        (cli,) = read_json(out("cli.json"))["rows"] if p.returncode == 0 else (None,)
-        if p.returncode != 0 or "EPISODE DEMOS PASS" not in p.stdout or \
-                cli["plan_calls"] != SCRIPTS_PLANS:
-            raise RuntimeError(f"scripts run_all_demos CLI: exit code {p.returncode}, "
-                               f"stdout ends {p.stdout[-2000:]}")
+        log("[scripts] " + " ".join(cmd[1:]) + " (beside the next two drivers)")
+        t_cli = time.perf_counter()
+        with open(out("cli.out"), "w") as cli_out:
+            cli_proc = subprocess.Popen(cmd, stdout=cli_out, text=True)
+        try:
+            n = driver("run_all_demos", run_all_demos, [
+                "--mode", "both", "--demos", "1,2", *steps, "--json-out", out("host.json"),
+                "--episode-json", out("episode.json"), "--report", out("DEMOS.md")])
+            ep_rows = read_json(out("episode.json"))["rows"]
+            rows = read_json(out("host.json"))
+            report = open(out("DEMOS.md")).read()
+            for mode, rs in (("episode", ep_rows), ("host", rows)):
+                if [r["demo"] for r in rs] != ["demo_1", "demo_2"] or any(
+                        r["ticks"] != SCRIPTS_STEPS or r["plan_calls"] != SCRIPTS_PLANS
+                        or r["plan_failures"] or not positive(r["steps_per_sec"]) for r in rs):
+                    raise RuntimeError(f"scripts run_all_demos: {mode} rows {rs}")
+            if "**Result: PASS**" not in report or "## Fused-episode mode" not in report:
+                raise RuntimeError(f"scripts run_all_demos: report {report[:2000]}")
+            row_n = {v: sum(r["launches"][v] for r in ep_rows + rows) for v in total}
+            if row_n != n:
+                raise RuntimeError(f"scripts run_all_demos: rows record {row_n}, counted {n}")
+            summary["run_all_demos"] = {"episode": ep_rows, "host": rows}
+
+            # the north star: native_bal's free-run parity, then its throughput
+            t = time.perf_counter()
+            with open(out("free.log"), "w") as f, contextlib.redirect_stdout(f), \
+                    KernelRuns(fa) as runs:
+                parity_run.main(["--demos", "1", "--skip", "playback", "resync", "--free-modes",
+                                 "native_bal", "--synthetic"])
+            summary["seconds"]["parity_run_free"] = time.perf_counter() - t
+            n = runs.counts
+            held("parity_run_free", hold_demo_runs(runs, "parity_run"))
+            add_launches(total, n)
+            rc = cli_proc.wait(timeout=max(1.0, SCRIPTS_TIMEOUT_S - (time.perf_counter() - t_cli)))
+        finally:
+            if cli_proc.poll() is None:
+                cli_proc.kill()
+                cli_proc.wait()
+        summary["seconds"]["run_all_demos_cli_beside"] = time.perf_counter() - t_cli
+        stdout = open(out("cli.out")).read()
+        (cli,) = read_json(out("cli.json"))["rows"] if rc == 0 else (None,)
+        if rc != 0 or "EPISODE DEMOS PASS" not in stdout or cli["plan_calls"] != SCRIPTS_PLANS:
+            raise RuntimeError(f"scripts run_all_demos CLI: exit code {rc}, "
+                               f"stdout ends {stdout[-2000:]}")
         demo_launches("run_all_demos CLI", cli["launches"])
         add_launches(total, cli["launches"])
-
-        # the north star: native_bal's free-run parity, then its throughput
-        t = time.perf_counter()
-        with open(out("free.log"), "w") as f, contextlib.redirect_stdout(f), \
-                KernelRuns(fa) as runs:
-            parity_run.main(["--demos", "1", "--skip", "playback", "resync", "--free-modes",
-                             "native_bal", "--synthetic"])
-        summary["seconds"]["parity_run_free"] = time.perf_counter() - t
-        n = runs.counts
-        held("parity_run_free", hold_demo_runs(runs, "parity_run"))
-        add_launches(total, n)
         n = driver("bench_north_star", bench_north_star, [
             "--policy", "native_bal", "--demos", "1", *steps, "--free-log", out("free.log"),
             "--out", out("north_star.json")])
@@ -3238,7 +3424,7 @@ def phase_scripts(fa):
 # configuration, K copies in chunks of DIST_PER_RANK copies per rank, over
 # DIST_TICKS ticks; phase 13's tree batch; DIST_TRAIN_STEPS float32 training
 # steps of phase 14's batch (2 scenes per rank)
-DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 25
+DIST_RANKS, DIST_K, DIST_PER_RANK, DIST_TICKS = 2, 8, 2, 15
 DIST_TRAIN_STEPS = 3
 DIST_TIMEOUT_S = 600
 
@@ -3257,7 +3443,8 @@ def dist_sequential(fa, mesh, spec, net_cfg, batch, dev):
     """The same three workloads on a sequential mesh in this process: the
     Monte-Carlo sweep timed with its launch counts, the tree solve (a first
     call that captures, then the timed one), and the training steps under
-    deterministic cuDNN (as the ranks run them)."""
+    deterministic cuDNN (as the ranks run them; compiled where the mesh is
+    on one card, eagerly across cards)."""
     from mind_tpu_torch.models import train
     from mind_tpu_torch.parallel.scale import make_tree_batch, parallel_tree_solve
     from mind_tpu_torch.planner.ilqr import ILQRConfig
@@ -3294,7 +3481,21 @@ def dist_sequential(fa, mesh, spec, net_cfg, batch, dev):
     finally:
         torch.backends.cudnn.deterministic = False
     out["params"] = {k: p.detach().cpu() for k, p in net.named_parameters()}
+    out["train_compiled"] = step.program is not None
     return out
+
+
+def train_job_runs(label, tr):
+    """A rank's training job ran the compiled step's two programs around the
+    all-reduce: one capture, the later steps replays counted on the device,
+    kernel A launched 6 times by the first call's eager step and 6 by the
+    capture, B never. Returns kernel A's executions by the replays."""
+    if tr["captures"] != 1 or tr["replays"] != DIST_TRAIN_STEPS - 1 or \
+            tr["launches"] != {"float32": 2 * 6, "bfloat16": 0}:
+        raise RuntimeError(f"{label}: training launches {tr['launches']}, "
+                           f"{tr['captures']} captures, {tr['replays']} replays in "
+                           f"{DIST_TRAIN_STEPS} steps")
+    return 6 * tr["replays"]
 
 
 def hold_dist(label, ranks, seq):
@@ -3303,8 +3504,8 @@ def hold_dist(label, ranks, seq):
     executed by the ranks' sweeps as often as by the sequential one (the
     same shards: as many AIME rounds of the compiled episode programs,
     counted on the device), launched in multiples of 6 (the programs'
-    captures), kernel A never; kernel A 6 times per training forward, B
-    never. Returns the summary of the comparison."""
+    captures), kernel A never; each rank's training as train_job_runs
+    holds it. Returns the summary of the comparison."""
     for r, rank in enumerate(ranks):
         mc, tree, tr = rank["monte_carlo"], rank["tree_solve"], rank["train"]
         if len(mc["results"]) != DIST_K:
@@ -3325,10 +3526,9 @@ def hold_dist(label, ranks, seq):
         if not all(np.isfinite(x.ego_states).all() for x in mc["results"]):
             raise RuntimeError(f"{label}: a copy's states are not finite")
         n = mc["launches"]
-        if n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6 or \
-                tr["launches"] != {"float32": 6 * DIST_TRAIN_STEPS, "bfloat16": 0}:
-            raise RuntimeError(f"{label}: rank {r}'s launches: sweep {n}, training "
-                               f"{tr['launches']}")
+        if n["float32"] != 0 or n["bfloat16"] <= 0 or n["bfloat16"] % 6:
+            raise RuntimeError(f"{label}: rank {r}'s launches: sweep {n}")
+        train_job_runs(f"{label}: rank {r}", tr)
     total = sum(rank["monte_carlo"]["aime_rounds"] for rank in ranks)
     if total != seq["aime_rounds"] or not total or seq["launches"]["float32"] != 0:
         raise RuntimeError(f"{label}: the ranks' programs ran {total} AIME rounds, the "
@@ -3349,6 +3549,9 @@ def hold_dist(label, ranks, seq):
             "train_step_ms_per_rank": [{k: 1e3 * v / rank["train"]["timed_steps"]
                                         for k, v in rank["train"]["times"].items()}
                                        for rank in ranks],
+            "train_setup_and_first_step_s_per_rank": [
+                (rank["train"]["setup_s"], rank["train"]["first_step_s"]) for rank in ranks],
+            "train_sequential_compiled": seq["train_compiled"],
             "rank_job_s": [rank["seconds"] for rank in ranks],
             "train_losses": seq["losses"],
             "launches_by_rank": [{"monte_carlo": rank["monte_carlo"]["launches"],
@@ -3363,10 +3566,12 @@ def phase_dist(dcfg, fa, synthetic_av2):
     (parallel/launch.py): (a)-(c) two ranks on the one card (gloo) run the
     Monte-Carlo sweep, the 1024-tree solve (2 x 512) and 3 training steps,
     each held to the bit against the sequential two-shard mesh here; (c)
-    also one rank on nccl (the whole batch) against the unsharded step; (d)
+    also rank 0 alone on nccl (the whole batch) against the unsharded step; (d)
     with two cards or more, one rank per card on nccl against the
-    sequential mesh across the two cards. Returns ({variant: the ranks'
-    launches}, summary)."""
+    sequential mesh across the two cards. Each rank trains through the
+    compiled step's two programs around the all-reduce. Returns ({variant:
+    the ranks' launches}, kernel A's executions by the ranks' training
+    replays, summary)."""
     from mind_tpu_torch.config import PlannerConfig
     from mind_tpu_torch.parallel.launch import launch
     from mind_tpu_torch.parallel.mesh import make_mesh
@@ -3378,15 +3583,17 @@ def phase_dist(dcfg, fa, synthetic_av2):
     batch = training_batch(cfg, torch.device("cpu"), synthetic_av2)
     target = "mind_tpu_torch.parallel.dryrun:workloads"
     summary = {}
-    launches = {"float32": 0, "bfloat16": 0}
+    launches, executions = {"float32": 0, "bfloat16": 0}, 0
     with tempfile.TemporaryDirectory() as data_root:
         spec = demo_spec("demo_1", SEED, data_root, ticks=DIST_TICKS, planner_cfg=dcfg,
                          enable_timestep=1.0, target_velocity=TARGET_VELOCITY)
         jobs = dist_jobs(spec, cfg.net, batch)
+        # (c)'s nccl rank: rank 0 of the same world, alone in an nccl group
+        train_kw = dict(jobs)["train"]
         torch.cuda.empty_cache()
         t, t_epoch = time.perf_counter(), time.time()
-        ranks = launch(target, DIST_RANKS, args=(jobs,), ranks_per_card=DIST_RANKS,
-                       timeout=DIST_TIMEOUT_S)
+        ranks = launch(target, DIST_RANKS, args=(jobs + [("train_on_nccl", train_kw)],),
+                       ranks_per_card=DIST_RANKS, timeout=DIST_TIMEOUT_S)
         summary["launch_s"] = time.perf_counter() - t
         summary["rank_start_s"] = [rank["seconds"]["start"] - t_epoch for rank in ranks]
         seq = dist_sequential(fa, make_mesh(DIST_RANKS, device=dev), spec, cfg.net, batch, dev)
@@ -3396,11 +3603,12 @@ def phase_dist(dcfg, fa, synthetic_av2):
             for job in ("monte_carlo", "train"):
                 for v, n in rank[job]["launches"].items():
                     launches[v] += n
-        # (c) nccl: one rank, the whole batch, against the unsharded step
-        t = time.perf_counter()
-        train_job = [j for j in jobs if j[0] == "train"]
-        nccl = launch(target, 1, args=(train_job,), backend="nccl", timeout=DIST_TIMEOUT_S)[0]
-        summary["nccl_launch_s"] = time.perf_counter() - t
+            executions += 6 * rank["train"]["replays"]
+        # (c) nccl: rank 0 alone in an nccl group, the whole batch, against
+        # the unsharded step
+        nccl = {"train": ranks[0]["train_on_nccl"], "seconds": ranks[0]["seconds"]}
+        if ranks[1]["train_on_nccl"] is not None:
+            raise RuntimeError("dist (c): rank 1 ran the nccl rank's training")
         from mind_tpu_torch.models import train
 
         torch.backends.cudnn.deterministic = True
@@ -3416,11 +3624,15 @@ def phase_dist(dcfg, fa, synthetic_av2):
                 for k, p in net.named_parameters()):
             raise RuntimeError(f"dist (c): the nccl rank's training differs from the unsharded "
                                f"step: {nccl['train']['losses']} against {want}")
+        executions += train_job_runs("dist (c) nccl", nccl["train"])
         launches["float32"] += nccl["train"]["launches"]["float32"]
         summary["nccl_train"] = {"losses": want, "launches": nccl["train"]["launches"],
+                                 "replays": nccl["train"]["replays"],
                                  "step_ms": {k: 1e3 * v / nccl["train"]["timed_steps"]
                                              for k, v in nccl["train"]["times"].items()},
-                                 "rank_job_s": nccl["seconds"]}
+                                 "setup_and_first_step_s": (nccl["train"]["setup_s"],
+                                                            nccl["train"]["first_step_s"]),
+                                 "rank_job_s": nccl["seconds"]["train_on_nccl"]}
         # (d) one rank per card on nccl, and the sequential mesh across two cards
         cards = torch.cuda.device_count()
         if cards >= 2:
@@ -3434,13 +3646,14 @@ def phase_dist(dcfg, fa, synthetic_av2):
                 for job in ("monte_carlo", "train"):
                     for v, n in rank[job]["launches"].items():
                         launches[v] += n
+                executions += 6 * rank["train"]["replays"]
         else:
             log(f"[dist] (d) not run: {cards} CUDA device; one rank per card on nccl and the "
                 "sequential mesh across cards need two")
             summary["two_cards"] = f"not run: {cards} CUDA device"
     summary["seconds"] = time.perf_counter() - t_phase
     log("[dist] " + json.dumps(summary))
-    return launches, summary
+    return launches, executions, summary
 
 
 def main() -> int:
@@ -3605,14 +3818,15 @@ def main() -> int:
     scale = phase_tree_scale()
     scale_cond = graph_control.set_conditional_any.launches - cond0
     lap("tree_scale")
-    train_launches, training = phase_training(fa, dev, train_batch, cpu_child)
+    (train_launches, train_eager_launches, train_executions), training = phase_training(
+        fa, dev, train_batch, cpu_child)
     lap("training")
     bench_launches, bench = phase_bench()
     lap("bench")
     scripts_launches, scripts = phase_scripts(fa)
     lap("scripts")
     cond0 = graph_control.set_conditional_any.launches
-    dist_launches, dist = phase_dist(dcfg, fa, synthetic_av2)
+    dist_launches, dist_executions, dist = phase_dist(dcfg, fa, synthetic_av2)
     dist_cond = graph_control.set_conditional_any.launches - cond0
     lap("dist")
     # launches per path; "launches" stays the sum over the paths that run the kernel
@@ -3621,6 +3835,7 @@ def main() -> int:
                                       "plan_programs": prog_a[0],
                                       "float32_loop": loop32_runs[0],
                                       "training": train_launches,
+                                      "training_eager": train_eager_launches,
                                       "bench": bench_launches["float32"],
                                       "scripts": scripts_launches["float32"],
                                       "dist": dist_launches["float32"]}
@@ -3641,7 +3856,9 @@ def main() -> int:
     entries[1]["launches_by_path"]["compiled_episode"] = compiled_launches
     entries[0]["executions_by_path"] = {"host_tree": host_tree_executions,
                                         "plan_programs": prog_a[1],
-                                        "float32_loop": loop32_runs[1]}
+                                        "float32_loop": loop32_runs[1],
+                                        "training": train_executions,
+                                        "dist": dist_executions}
     cond_scripts = scripts["condition_kernel"].values()
     entries[1]["executions_by_path"] = {"compiled_episode_timed": compiled_executions,
                                         "closed_loop": loop_runs[1],

@@ -10,11 +10,13 @@ Only the float32 network is trained, as in the JAX package.
 
 Optimizers: optax.adam(lr) is torch.optim.Adam(lr) (betas 0.9, 0.999, eps
 1e-8 in both); optax.adamw(lr) is `adamw(params, lr)` below, since optax's
-default weight decay is 1e-4 and torch's 1e-2. optax updates every leaf,
-a parameter the loss does not reach included (zero gradient: its moments
-decay, and AdamW's decay applies), where torch skips a parameter without a
-gradient; the train step gives such parameters a zero gradient, so both
-update the same set.
+default weight decay is 1e-4 and torch's 1e-2. The train step keeps the
+torch optimizer's state (its state_dict is the checkpoint format) but
+updates it with optax's formula on tensors (adam_update), so that the step
+reads nothing from the host and can be captured whole
+(models/train_program.py). optax updates every leaf, a parameter the loss
+does not reach included (zero gradient: its moments decay, and AdamW's
+decay applies); so does the train step.
 """
 
 from __future__ import annotations
@@ -115,50 +117,165 @@ def adam(params, lr: float):
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+STATE_KEYS = ("step", "exp_avg", "exp_avg_sq")   # torch Adam's state of a parameter
+
+
+def adam_groups(optimizer) -> list:
+    """(parameters, lr, b1, b2, eps, decoupled weight decay) of each group of
+    a torch Adam or AdamW, which the train step updates with optax's
+    formula; raises for what optax.adam and optax.adamw do not compute
+    (amsgrad, maximize, Adam's L2 weight decay)."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        raise TypeError(f"the train step updates with optax's Adam or AdamW; got "
+                        f"{type(optimizer).__name__}")
+    out = []
+    for g in optimizer.param_groups:
+        decoupled = isinstance(optimizer, torch.optim.AdamW) or g.get("decoupled_weight_decay")
+        if g.get("amsgrad") or g.get("maximize") or (g["weight_decay"] and not decoupled):
+            raise ValueError("optax's Adam has no amsgrad, maximize or L2 weight decay")
+        b1, b2 = g["betas"]
+        out.append((list(g["params"]), float(g["lr"]), float(b1), float(b2), float(g["eps"]),
+                    float(g["weight_decay"]) if decoupled else 0.0))
+    return out
+
+
+def bind_state(optimizer, params, held=None) -> list:
+    """The optimizer's state of each parameter as [step, exp_avg,
+    exp_avg_sq] (torch Adam's layout, so `optimizer.state_dict()` stays the
+    checkpoint format), made where missing: zeros, the step a float32 [] on
+    the parameter's device (a loaded one comes back on the host). With
+    `held` (an earlier result), every tensor the optimizer holds that is not
+    held's (a load_state_dict replaced it) is copied into held's, which goes
+    back into the optimizer: the tensors a captured update addresses stay
+    the optimizer's own."""
+    out = []
+    for i, p in enumerate(params):
+        st = optimizer.state[p]
+        ts = []
+        for j, k in enumerate(STATE_KEYS):
+            t = st.get(k)
+            if held is not None:
+                mine = held[i][j]
+                if t is not mine:
+                    if t is None:
+                        mine.zero_()
+                    else:
+                        mine.copy_(torch.as_tensor(t))
+                    st[k] = t = mine
+            elif t is None or t.device != p.device:
+                new = (torch.zeros((), dtype=torch.float32, device=p.device) if k == "step"
+                       else torch.zeros_like(p, memory_format=torch.preserve_format))
+                if t is not None:
+                    new.copy_(torch.as_tensor(t))
+                st[k] = t = new
+            ts.append(t)
+        out.append(ts)
+    return out
+
+
+@torch.no_grad()
+def adam_update(groups, grads, state):
+    """One optax Adam / AdamW update of every parameter of `groups`
+    (adam_groups) from its gradient in `grads` and its `state` (bind_state),
+    in place, with no host read: the step count is a tensor, and optax's
+    bias corrections 1 - b^count are computed from it in float64 and cast,
+    as optax computes them under the JAX package's x64. The moments follow
+    optax's (1 - b) g + b m; the update m_hat / (sqrt(v_hat) + eps), plus wd
+    times the parameter for AdamW, times -lr, added to the parameter. optax
+    updates every leaf: a parameter without gradient has a zero one here.
+    Its one count is the first parameter's step of each group (all of a
+    group's steps advance together)."""
+    i = 0
+    for params, lr, b1, b2, eps, wd in groups:
+        n = len(params)
+        g = grads[i:i + n]
+        steps, mus, nus = (list(x) for x in zip(*state[i:i + n]))
+        i += n
+        torch._foreach_add_(steps, 1.0)
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(g, 1.0 - b1))
+        torch._foreach_mul_(nus, b2)
+        sq = torch._foreach_mul(g, g)
+        torch._foreach_mul_(sq, 1.0 - b2)
+        torch._foreach_add_(nus, sq)
+        count = steps[0].double()
+        bc1 = (1.0 - b1 ** count).float()
+        bc2 = (1.0 - b2 ** count).float()
+        upd = torch._foreach_div(mus, bc1)
+        den = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        torch._foreach_div_(upd, den)
+        if wd:
+            torch._foreach_add_(upd, torch._foreach_mul(params, wd))
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
 
 
-def make_train_step(net: ScenePredNet, optimizer, mesh=None):
-    """train_step(batch, times=None) -> loss (a 0-d tensor): forward, the
-    mean scene loss, backward, one optimizer step over `net`'s parameters.
+class StepBody:
+    """The train step's work on `net`'s parameters, gradients and optimizer
+    state, in two parts that read nothing from the host: `grads_of` (the
+    gradients zeroed in place, forward, the mean scene loss and backward
+    per shard, the loss into a tensor) and `update` (adam_update), with
+    `all_reduce` between them on a DistMesh. The gradients are allocated
+    once, here, and stay `p.grad` (`bind` puts them back where a caller
+    replaced them): a captured step addresses them, as it addresses the
+    optimizer's state (bind_state)."""
 
-    With a `Mesh`, the batch's leading axis is cut into one shard per device
-    (parallel/mesh.py::shard_rollouts); each shard runs on its device with
-    the parameters copied there, and its loss, weighted by its share of the
-    batch, is back-propagated into the one set of gradients of `net`'s
-    parameters, before one optimizer step. The shards run one after another.
+    def __init__(self, net: ScenePredNet, optimizer, mesh=None):
+        if net.cfg.compute_dtype != "float32":
+            raise ValueError("only the float32 network is trained (as in the JAX package)")
+        self.net, self.optimizer, self.mesh = net, optimizer, mesh
+        self.groups = adam_groups(optimizer)
+        self.params = [p for g in self.groups for p in g[0]]   # what the optimizer trains
+        self.device = self.params[0].device
+        self.ranked = isinstance(mesh, DistMesh)
+        with torch.no_grad():
+            self.grads = [torch.zeros_like(p) for p in self.params]
+        self.state = None
+        self.bind()
 
-    With a `DistMesh` (one rank of parallel/launch.py; `net` and the whole
-    batch on the rank's device), the rank runs forward and backward on its
-    own shard with the same weighting, the gradients are summed over the
-    ranks (`all_reduce_sum`) before the optimizer step, so every rank keeps
-    the same parameters, and the returned loss is the global one.
+    def bind(self):
+        """Before a step: the groups' hyperparameters read anew (a changed
+        one is a new program, as jit retraces for a new constant), the
+        gradients back into `p.grad` where a caller replaced them, the
+        optimizer's state bound (bind_state; the first time made)."""
+        self.groups = adam_groups(self.optimizer)
+        if [id(p) for g in self.groups for p in g[0]] != [id(p) for p in self.params]:
+            raise ValueError("the optimizer's parameters changed after make_train_step")
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+        self.state = bind_state(self.optimizer, self.params, self.state)
 
-    Both are the counterpart of mind_tpu/models/train.py::dp_shardings,
-    where XLA sums the gradients over the chips.
+    def hyperparameters(self) -> tuple:
+        """What an update bakes: each group's lr, b1, b2, eps and decay."""
+        return tuple(g[1:] for g in self.groups)
 
-    With a dict `times`, the step synchronizes the device between its
-    phases and adds their seconds under "forward", "backward", "optimizer"
-    and, on a `DistMesh`, "all_reduce" (the gradients' sum over the ranks).
-    """
-    if net.cfg.compute_dtype != "float32":
-        raise ValueError("only the float32 network is trained (as in the JAX package)")
-    params = [p for p in net.parameters() if p.requires_grad]
-    device = params[0].device
-    ranked = isinstance(mesh, DistMesh)
+    def one_device(self) -> bool:
+        """Whether every shard runs on the parameters' device."""
+        if self.mesh is None or self.ranked:
+            return True
+        index = lambda d: (d.type, d.index if d.index is not None or d.type != "cuda"
+                           else torch.cuda.current_device())
+        return all(index(torch.device(d)) == index(self.device) for d in self.mesh.devices)
 
-    def shard_losses(batch):
+    def shard_losses(self, batch):
         """(loss, share of the batch) per shard this process runs, made one
         at a time, so a shard's activations are freed by its backward
         before the next runs."""
+        net, mesh = self.net, self.mesh
         if mesh is None:
             yield loss_fn(net, batch), 1.0
             return
         share = 1.0 / mesh_size(mesh)
-        if ranked:
+        if self.ranked:
             yield loss_fn(net, shard_rollouts(mesh, batch)[0]), share
             return
         for dev, shard in zip(mesh.devices, shard_rollouts(mesh, batch)):
@@ -166,36 +283,129 @@ def make_train_step(net: ScenePredNet, optimizer, mesh=None):
             replica = lambda *inputs: torch.func.functional_call(net, state, inputs)
             yield loss_fn(replica, shard), share
 
-    def train_step(batch: Batch, times: Optional[dict] = None):
-        clock = (lambda: _sync(device)) if times is not None else (lambda: 0.0)
-        spent = {"forward": 0.0, "backward": 0.0}
-        optimizer.zero_grad(set_to_none=True)
-        total = torch.zeros((), device=device)
+    def grads_of(self, batch: Batch, loss_out: torch.Tensor, clock=None, spent=None):
+        """The gradients of the batch's mean scene loss into the gradients
+        (this rank's shard, weighted by its share, on a DistMesh), the loss
+        into `loss_out` (a float32 [])."""
+        clock = clock or (lambda: 0.0)
+        torch._foreach_zero_(self.grads)
+        total = torch.zeros((), device=self.device)
         t = clock()
-        for loss, share in shard_losses(batch):
+        for loss, share in self.shard_losses(batch):
             t_fwd = clock()
-            spent["forward"] += t_fwd - t
+            if spent is not None:
+                spent["forward"] += t_fwd - t
             (loss * share).backward()
-            total = total + loss.detach().to(device) * share
+            total = total + loss.detach().to(self.device) * share
             t = clock()
-            spent["backward"] += t - t_fwd
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if ranked:
-            total = total.reshape(1)
-            all_reduce_sum(mesh, [p.grad for p in params] + [total])
-            total = total[0]
-            t_sum = clock()
-            spent["all_reduce"] = t_sum - t
-            t = t_sum
-        optimizer.step()
+            if spent is not None:
+                spent["backward"] += t - t_fwd
+        loss_out.copy_(total)
+
+    def all_reduce(self, loss_out: torch.Tensor):
+        """The gradients and the loss summed over the ranks (a DistMesh),
+        in place, outside any captured program: gloo's sum runs on the
+        host."""
+        all_reduce_sum(self.mesh, self.grads + [loss_out.reshape(1)])
+
+    def update(self):
+        adam_update(self.groups, self.grads, self.state)
+
+    def run(self, batch: Batch, loss_out: torch.Tensor, times: Optional[dict] = None):
+        """One step run eagerly on `batch`, its loss into `loss_out`; with a
+        dict `times`, the phases' seconds added to it."""
+        device = self.device
+        clock = (lambda: _sync(device)) if times is not None else None
+        spent = {"forward": 0.0, "backward": 0.0} if times is not None else None
+        self.grads_of(batch, loss_out, clock, spent)
+        t = clock() if clock else 0.0
+        if self.ranked:
+            self.all_reduce(loss_out)
+            if clock:
+                t_sum = clock()
+                spent["all_reduce"] = t_sum - t
+                t = t_sum
+        self.update()
         if times is not None:
             spent["optimizer"] = clock() - t
             for k, v in spent.items():
                 times[k] = times.get(k, 0.0) + v
-        return total
 
+    def eager(self, batch: Batch, times: Optional[dict] = None) -> torch.Tensor:
+        """One step on the caller's batch, eagerly (the reference of the
+        compiled one); returns its loss."""
+        self.bind()
+        loss = torch.zeros((), device=self.device)
+        self.run(batch, loss, times)
+        return loss
+
+
+def make_train_step(net: ScenePredNet, optimizer, mesh=None, graphed: Optional[bool] = None):
+    """train_step(batch, times=None) -> loss (a new 0-d tensor each call):
+    forward, the mean scene loss, backward, one optimizer step over `net`'s
+    parameters. `optimizer` is a torch Adam or AdamW (`adam`, `adamw`); the
+    step updates its state in place with optax's formula (adam_update), so
+    `optimizer.state_dict()` checkpoints it and load_state_dict restores it.
+    N calls make N steps.
+
+    On a CUDA device the step is compiled (`graphed` None or True;
+    models/train_program.py): each call copies the batch into static
+    buffers and replays one captured CUDA graph of the whole step (two
+    around the all-reduce on a DistMesh), with every host synchronization
+    an error. `graphed=False` runs the same body eagerly: the reference,
+    equal to the compiled step to the bit. On the CPU the body runs eagerly
+    on the program's buffers (None), or on the caller's batch (False);
+    `graphed=True` raises.
+
+    With a `Mesh`, the batch's leading axis is cut into one shard per device
+    (parallel/mesh.py::shard_rollouts); each shard runs on its device with
+    the parameters copied there, and its loss, weighted by its share of the
+    batch, is back-propagated into the one set of gradients of `net`'s
+    parameters, before one optimizer step. The shards run one after another.
+    A mesh whose shards are all on the parameters' device is compiled; one
+    that spans cards runs eagerly under `graphed=None` (one CUDA graph
+    cannot span devices; `graphed=True` raises): across cards, a DistMesh
+    is what compiles.
+
+    With a `DistMesh` (one rank of parallel/launch.py; `net` and the whole
+    batch on the rank's device), the rank runs forward and backward on its
+    own shard with the same weighting, the gradients are summed over the
+    ranks (`all_reduce_sum`, between the two programs when compiled)
+    before the optimizer step, so every rank keeps the same parameters, and
+    the returned loss is the global one.
+
+    Both are the counterpart of mind_tpu/models/train.py::dp_shardings,
+    where XLA sums the gradients over the chips.
+
+    With a dict `times`, the step synchronizes the device and adds
+    seconds to it: a compiled step its whole time under "step" (a replay
+    cannot be cut; a program's first call also captures it), an eager one
+    (`graphed=False`, or the CPU) its phases under "forward", "backward",
+    "optimizer" and, on a `DistMesh`, "all_reduce" (the gradients' sum over
+    the ranks).
+
+    The returned step has `.body` (StepBody) and, on the program path,
+    `.program` (train_program.TrainStep: captures, capture seconds and the
+    replays counted on the device).
+    """
+    body = StepBody(net, optimizer, mesh)
+    if graphed and body.device.type != "cuda":
+        raise ValueError(f"a compiled train step runs on a CUDA device; got {body.device}")
+    spans = body.device.type == "cuda" and not body.one_device()
+    if graphed and spans:
+        raise ValueError("a compiled train step runs on one device; the mesh spans "
+                         f"{[str(d) for d in mesh.devices]}")
+    program = None
+    if graphed is not False and not spans:   # spans: the sequential mesh across cards, eagerly
+        from mind_tpu_torch.models.train_program import TrainStep
+
+        program = TrainStep(body)
+    run = program or body.eager
+
+    def train_step(batch: Batch, times: Optional[dict] = None):
+        return run(batch, times)
+
+    train_step.body, train_step.program = body, program
     return train_step
 
 

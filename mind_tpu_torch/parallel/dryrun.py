@@ -24,9 +24,9 @@ dryrun_multichip's three workloads on that world:
 
 It prints one line per workload and exits non-zero if any check fails.
 
-The rank workloads (`train`, `tree_solve`, `monte_carlo`) take the rank's
-`DistMesh` first and return host objects; `workloads` runs several on one
-world. `chip_smoke.py` and `tests/test_torch_dist.py` launch them too.
+The rank workloads (`train`, `train_on_nccl`, `tree_solve`, `monte_carlo`)
+take the rank's `DistMesh` first and return host objects; `workloads` runs
+several on one world. `chip_smoke.py` and `tests/test_torch_dist.py` launch them too.
 """
 
 from __future__ import annotations
@@ -60,10 +60,17 @@ def train(mesh, net_cfg, batch, steps: int, lr: float = 1e-4, optimizer: str = "
           deterministic_cudnn: bool = False) -> dict:
     """`steps` data-parallel steps of init_scene_pred(net_cfg, seed) (or
     `net_state` loaded over it) on the whole `batch` (CPU tensors; the rank
-    trains on its shard). Returns the global losses, the parameters after
-    the last step (CPU), the step's phase seconds summed over the steps
-    after the first (`timed_steps` of them), and this rank's kernel
-    launches by variant over all the steps."""
+    trains on its shard), through make_train_step: on the card the
+    compiled step's two programs around the all-reduce.
+    Returns the global losses, the parameters after the last step (CPU),
+    the seconds before the first step and of the first step, the step's
+    seconds summed over the steps
+    after the first (`timed_steps` of them; a compiled step's under "step",
+    an eager one's by phase), this
+    rank's kernel launches by variant over all the steps, and, compiled,
+    the programs' captures and the steps they replayed (counted on the
+    device; 0 and 0 eagerly)."""
+    t = time.perf_counter()
     from mind_tpu_torch.models import train as tr
     from mind_tpu_torch.ops import fusion_attention as fa
 
@@ -76,9 +83,37 @@ def train(mesh, net_cfg, batch, steps: int, lr: float = 1e-4, optimizer: str = "
     batch = batch.to(mesh.device)
     times = {}
     fa.reset_launch_counts()
-    losses = [step(batch, times=times if i else None).item() for i in range(steps)]
+    setup_s = time.perf_counter() - t   # the network, optimizer and step made
+    t = time.perf_counter()
+    losses = [step(batch).item()]
+    first_step_s = time.perf_counter() - t   # on the card: its warm-up step and capture
+    losses += [step(batch, times=times).item() for _ in range(steps - 1)]
+    prog = step.program if mesh.device.type == "cuda" else None
     return {"losses": losses, "times": times, "timed_steps": steps - 1, "launches": _launches(),
+            "setup_s": setup_s, "first_step_s": first_step_s,
+            "captures": len(prog.capture_s()) if prog else 0,
+            "replays": prog.replays() if prog else 0,
             "params": {k: p.detach().cpu() for k, p in net.named_parameters()}}
+
+
+def train_on_nccl(mesh, **kwargs) -> Optional[dict]:
+    """`train` (its keyword arguments) on rank 0 alone, as the one rank of
+    an nccl group made beside the world's own: the whole batch, the
+    all-reduce on the card. A world of ranks that share a card runs on
+    gloo, whose ranks cannot all join one nccl group (nccl takes one rank a
+    card), but one rank can: this runs the nccl path without a launch of
+    its own. Every rank takes part in making the group; the others return
+    None."""
+    import torch.distributed as dist
+
+    from mind_tpu_torch.parallel.mesh import DistMesh
+
+    if mesh.device.type != "cuda":
+        raise ValueError(f"nccl runs on CUDA cards; the rank is on {mesh.device}")
+    group = dist.new_group([0], backend="nccl")
+    if mesh.rank != 0:
+        return None
+    return train(DistMesh(0, 1, mesh.device, group, "nccl"), **kwargs)
 
 
 def tree_solve(mesh, n_trees: int, n_nodes: int, max_nodes: int, max_levels: int,
@@ -172,8 +207,8 @@ def collectives_on_device(mesh) -> dict:
     return out
 
 
-WORKLOADS = {"train": train, "tree_solve": tree_solve, "monte_carlo": monte_carlo,
-             "collectives_on_device": collectives_on_device}
+WORKLOADS = {"train": train, "train_on_nccl": train_on_nccl, "tree_solve": tree_solve,
+             "monte_carlo": monte_carlo, "collectives_on_device": collectives_on_device}
 
 
 def workloads(mesh, jobs: Sequence[Tuple[str, dict]]) -> dict:

@@ -14,7 +14,8 @@ loss printed every 50 steps. The result is saved as a checkpoint under
 --out/<steps>/ (models/checkpoint.py, which MINDPlanner reads from a
 directory; checkpoint.save_flax_npz writes the flat flax archive from it).
 
-Training runs on the CUDA card unless --device names another device.
+Training runs on the CUDA card unless --device names another device; there
+each step replays the compiled step (models/train_program.py).
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ def demo_batch(data_root, cfg: PlannerConfig, device=None, configs=DEMOS, log=pr
 
 
 def train(net, batch: Batch, steps: int, lr: float, log=print):
-    """`steps` AdamW steps on one batch; the losses as floats, read every
-    50 steps and at the last (the others stay on the device until then)."""
+    """`steps` AdamW steps on one batch (on the card, the compiled step);
+    the losses as floats, read every 50 steps and at the last (the others
+    stay on the device until then)."""
     optimizer = adamw(net.parameters(), lr)
     step = make_train_step(net, optimizer)
     t0, losses = time.perf_counter(), []

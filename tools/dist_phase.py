@@ -1,6 +1,7 @@
 """Run chip_smoke.py's (dist) phase alone: two ranks sharing the card
-against the sequential two-shard mesh, one nccl rank, and with two cards or
-more part (d), one rank per card against the sequential mesh across cards.
+against the sequential two-shard mesh, rank 0 alone on nccl against the
+unsharded step, and with two cards or more part (d), one rank per card
+against the sequential mesh across cards.
 
     python3 tools/dist_phase.py
 
