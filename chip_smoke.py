@@ -9,9 +9,11 @@ result line):
      nothing runs on the card before it has passed;
   1. build both CUDA kernels (mind_tpu_torch/ops/csrc/fusion_attention.cu,
      float32, and fusion_attention_bf16.cu, bf16 operands on the tensor
-     cores) and the graph-control library (graph_control.cu: the condition
-     kernel and the conditional-node calls; sm_90a, one nvcc per source, all
-     side by side) from the checkout;
+     cores), each at the full width (D = E = 128, 8 heads) and at the six
+     (D, E, heads) of WIDTHS_GRID, and the graph-control library
+     (graph_control.cu: the condition kernel and the conditional-node calls;
+     sm_90a, one nvcc per library, all side by side) from the checkout; each
+     library's seconds printed;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
      both update_edge values (and both edge input types of the bf16
@@ -20,6 +22,14 @@ result line):
      computes in a batch of scenes what it computes alone); then the
      condition kernel against its plain version any(mask) on masks of 1 to
      1024 entries inside captured programs, and timed there;
+ 2b. [widths] (a)-(c): both kernels at the other widths of their domain, at
+     B = 8, N = 129: every (D, E, heads) of WIDTHS_GRID (32/32/4, 64/32/4,
+     48/80/3, 16/16/2, 128/64/8, 128/128/16) with and without the edge
+     update, kernel B on a bf16 and on a float32 edge, against the plain
+     versions within the tolerances of phase 2, each case's ms, bound and
+     error printed; 32 nodes of 32/32/4 against each 8 alone, equal to the
+     bit; a call outside the domain (8 heads of width 4) refused with a
+     ValueError before any launch;
   3. load the trained ScenePredNet weights from the committed archive;
   4. float32 path: plan cycles of fused_plan_core at full width on a seeded
      synthetic scene (48 actor slots, 80 lane segments, 256-point target
@@ -61,14 +71,14 @@ result line):
      wall time outside plan() are printed;
  6b. demo command: python -m mind_tpu_torch.run_sim --config <the fixture's
      demo_1_synthetic.json, its output in a temporary folder> --data-root
-     tests/fixtures/av2_synthetic --max-steps 75, rendering on, as a
-     subprocess: exit code 0, the plan count of phase 6's first 75 ticks
-     (5), no failed plan, an MJPEG AVI of 75 JPEG frames of 1200 x 1200
+     tests/fixtures/av2_synthetic --max-steps 60, rendering on, as a
+     subprocess: exit code 0, the plan count of phase 6's first 60 ticks
+     (2), no failed plan, an MJPEG AVI of 60 JPEG frames of 1200 x 1200
      (probe_avi); then run_sim.main
      on the same arguments and --no-render in this process: kernel B
      launched a multiple of 6 times (eagerly, or by a capture) and executed
      by the programs' replays, kernel A never, the ego
-     within 1e-6 m of phase 6's first 75 ticks (whether it is equal to the bit is
+     within 1e-6 m of phase 6's first 60 ticks (whether it is equal to the bit is
      printed); the parquet read ms, render seconds a frame (8 frames one
      after another here; drawn and encoded with the configuration's
      num_threads workers in the command), PNG read and JPEG encode ms a
@@ -265,6 +275,18 @@ result line):
      against the sequential mesh across two cards, the same way; with one
      card a line says it was not run. Copy-ticks/s of the ranks and of the
      one process, the tree solve's ms, each rank's step ms and launches;
+ 15c. [widths] (d)-(f): the 4-head, 32-wide network of the JAX package's
+     tests and dry run (NARROW_NET, 6 layers, its own seeded weights) on the
+     main path, float32 (kernel A) and bf16 (kernel B): a 26-tick closed
+     loop planning through MINDPlanner's compiled programs equal to the bit
+     to its graphed=False loop (every replay under sync debug "error"; the
+     kernel launched only by the captures, executed 6 times a
+     device-counted AIME round); the float32 loop against the same loop on
+     the CPU (in phase 7's child): the same trees, the ego within
+     TOL_LOOP_EGO; one eager plan cycle and the network on its first AIME
+     inputs against the CPU's plain version within TOL_NET_CLS /
+     TOL_NET_POS; 4 compiled AdamW training steps (B = 4) of the float32
+     network equal to the bit to 4 eager ones;
  16. print per-phase times, the benchmark's final and section lines, the
      kernel table and the card.
 
@@ -278,7 +300,8 @@ them. The kernels line counts each kernel's launches by path.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit from nvidia-smi, and before that one JSON line
 {"kernels": [...]}: both fusion kernels and the condition kernel, with the
-compiled paths' executions beside the launches.
+compiled paths' executions beside the launches, and for each fusion kernel
+its numbers at every width it ran ("by_width").
 """
 
 from __future__ import annotations
@@ -358,6 +381,16 @@ OBS = 50
 # configurations set a target velocity too), every plan has to accelerate
 TARGET_VELOCITY = 8.0
 REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
+# [widths]: (D, E, heads) of the kernels alone beside the full width: the
+# JAX tests' narrow network, a narrower edge, widths and a head count that are
+# no powers of two, the narrowest, a narrower edge at full node width, and 16
+# heads at full width (whose folded keys need a block of 4 targets in kernel A)
+WIDTHS_GRID = ((32, 32, 4), (64, 32, 4), (48, 80, 3), (16, 16, 2), (128, 64, 8),
+               (128, 128, 16))
+# the 4-head, 32-wide network of the JAX package's tests and dry run
+# (__graft_entry__.py:107-108) at the default depth (6 layers)
+NARROW_NET = dict(d_actor=32, d_lane=32, d_embed=32, d_rpe=32, n_scene_head=4)
+WIDTHS_TRAIN_STEPS = 4
 T0 = 0.0
 # the committed AV2-format log of synthetic_av2(0) under demo_1's sequence id
 # and its configuration (tools/write_av2_fixture.py)
@@ -368,8 +401,9 @@ FIXTURE_CONFIG = os.path.join(FIXTURE, "demo_1_synthetic.json")
 # and configuration: the same float64 values through the parquet, metres
 TOL_COMMAND_EGO = 1e-6
 LOOP_TICKS = 150
-# the demo command's ticks: the first 75 of phase 6's loop (5 plans)
-COMMAND_TICKS = 75
+# the demo command's ticks: the first 60 of phase 6's loop (2 plans; 75
+# before [widths] joined the run)
+COMMAND_TICKS = 60
 DEMO_FRAME = 1200                 # pixels: render_png's figsize 12 at 100 dpi
 SERIAL_FRAMES = 8                 # frames drawn again in this process, timed
 COMMAND_TIMEOUT_S = 600
@@ -395,12 +429,16 @@ def phase_build(fa):
     from mind_tpu_torch.ops import graph_control
 
     t = time.perf_counter()
-    fa.build_kernels()
+    fa.build_kernels([fa.FULL_WIDTH, *WIDTHS_GRID])
     graph_control.load()
-    log(f"[build] both fusion kernels and the graph-control library built and loaded in "
-        f"{time.perf_counter() - t:.3f} s; CUDA versions {graph_control.load.versions}")
-    for variant, text in fa.build_kernels.log.items():
-        log(f"[build] nvcc, {variant}:\n{text.strip()}")
+    log(f"[build] both fusion kernels at the full width and the {len(WIDTHS_GRID)} widths of "
+        f"[widths], and the graph-control library, built ({len(fa.build_kernels.seconds)} "
+        f"nvcc side by side) and loaded in {time.perf_counter() - t:.3f} s; CUDA versions "
+        f"{graph_control.load.versions}")
+    log("[build] seconds from the build's start to each library's end: "
+        + json.dumps({k: round(v, 2) for k, v in fa.build_kernels.seconds.items()}))
+    for lib, text in fa.build_kernels.log.items():
+        log(f"[build] nvcc, {lib}:\n{text.strip()}")
 
 
 def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
@@ -424,18 +462,19 @@ def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "mean_abs_err": mean}
 
 
-def kernel_cases(fa, dev, key_mask):
+def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8):
     """Both kernels vs their plain versions at B = key_mask.shape[0] and
-    N = 129, on random inputs with the main path's token mask: one result
-    per (variant, edge type, update_edge) case, weighted by its launches in
-    one forward: 5 with the edge update and 1 without. In the bf16 variant
-    the first of the 5 reads a bf16 node and edge (the encoders' output);
-    the later ones read float32, which is what the layer before them wrote,
-    so each case's node has its edge's type."""
-    B, N, D, H = key_mask.shape[0], key_mask.shape[1], 128, 8
+    N = 129, node width D, edge width E and H heads, on random inputs with
+    the main path's token mask: one result per (variant, edge type,
+    update_edge) case, weighted by its launches in one forward: 5 with the
+    edge update and 1 without. In the bf16 variant the first of the 5 reads a
+    bf16 node and edge (the encoders' output); the later ones read float32,
+    which is what the layer before them wrote, so each case's node has its
+    edge's type."""
+    B, N = key_mask.shape[0], key_mask.shape[1]
     from mind_tpu_torch.synthetic import fusion_inputs
 
-    w, node, edge = fusion_inputs(B, N, D, dev, SEED)
+    w, node, edge = fusion_inputs(B, N, D, dev, SEED, e=E)
     bf16 = torch.bfloat16
     w16 = fa.FusionWeights(*(t.to(bf16) for t in w))
     # (variant, edge type, update_edge, launches of it in one forward)
@@ -449,15 +488,16 @@ def kernel_cases(fa, dev, key_mask):
         if variant == "float32":
             args, ref = (node, edge, key_mask, w), fa.fused_edge_attention_ref
             tol, tol_mean, peak = TOL_KERNEL, TOL_KERNEL, PEAKS.f32_flops
-            nbytes = fa.fused_edge_attention_bytes(B, N, D, ue)
+            nbytes = fa.fused_edge_attention_bytes(B, N, D, ue, e=E)
         else:
             x, e = (node.to(bf16), edge.to(bf16)) if edge_type == "bfloat16" else (node, edge)
             args, ref = (x, e, key_mask, w16), fa.fused_edge_attention_bf16_ref
             tol, tol_mean, peak = TOL_KERNEL_BF16, TOL_KERNEL_BF16_MEAN, PEAKS.bf16_flops
             nbytes = fa.fused_edge_attention_bytes(B, N, D, ue, e.element_size(),
-                                                   x.element_size(), 2)
-        flops = fa.fused_edge_attention_flops(B, N, D, ue, variant)
-        label = f"B={B} {variant} node,edge={edge_type} update_edge={ue}"
+                                                   x.element_size(), 2, e=E)
+        flops = fa.fused_edge_attention_flops(B, N, D, ue, variant, H, e=E)
+        label = (f"B={B} {variant} node,edge={edge_type} update_edge={ue}"
+                 + ("" if (D, E, H) == (128, 128, 8) else f" D,E,heads={D},{E},{H}"))
         r = check_case(fa, ref, args, H, ue, tol, tol_mean, label)
         t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAKS.hbm_bytes
         r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
@@ -477,16 +517,16 @@ def mix(by_case, k):
     return sum(r[k] * r["weight"] for r in by_case.values()) / total
 
 
-def kernel_batch_gap(fa, dev, token_mask, B=8, S=4):
+def kernel_batch_gap(fa, dev, token_mask, B=8, S=4, D=128, E=128, H=8):
     """Both kernels on S * B nodes against the same call on each slice of B
     of them alone, for every (variant, edge type, update_edge) case of the
-    main path: the max abs gap of out and edge per variant. A node must
-    compute in a batch of scenes what it computes alone, so any gap but 0
-    raises."""
+    main path, at node width D, edge width E and H heads: the max abs gap of
+    out and edge per variant. A node must compute in a batch of scenes what
+    it computes alone, so any gap but 0 raises."""
     from mind_tpu_torch.synthetic import fusion_inputs
 
-    N, D, H = token_mask.shape[0], 128, 8
-    w, node, edge = fusion_inputs(S * B, N, D, dev, SEED)
+    N = token_mask.shape[0]
+    w, node, edge = fusion_inputs(S * B, N, D, dev, SEED, e=E)
     mask = token_mask[None].expand(S * B, -1).contiguous()
     w16 = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
     cases = [("float32", w, torch.float32, True), ("float32", w, torch.float32, False),
@@ -502,7 +542,8 @@ def kernel_batch_gap(fa, dev, token_mask, B=8, S=4):
             alone = fa.fused_edge_attention(cut(x, k), cut(e, k), cut(mask, k), ww, H, ue)
             gap = max(float((a[k:k + B] - b).abs().max()) for a, b in zip(whole, alone))
             gaps[variant] = max(gaps.get(variant, 0.0), gap)
-    log(f"[kernel] B={S * B} against each slice of {B} alone, max abs gap: {gaps}")
+    log(f"[kernel] B={S * B} against each slice of {B} alone, D,E,heads={D},{E},{H}, "
+        f"max abs gap: {gaps}")
     if any(g != 0.0 for g in gaps.values()):
         raise RuntimeError(f"a node's kernel result depends on its batch: {gaps}")
     return gaps
@@ -545,6 +586,226 @@ def phase_kernel_check(fa, dev, token_mask, batches=(8, 32, 128)):
             "batch_gap_32_vs_8": batch_gap[variant],
         })
     return table
+
+
+def mixed_entry(by_case):
+    """One width's kernel table numbers: the forward mix of kernel_cases'
+    cases (ms, plain_ms, bound_ms), what bounds it, the largest errors."""
+    bound_by = {r["bound_by"] for r in by_case.values() if r["weight"]}
+    return {**{k: mix(by_case, k) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
+            "max_abs_err": max(r["max_abs_err"] for r in by_case.values()),
+            "mean_abs_err": max(r["mean_abs_err"] for r in by_case.values())}
+
+
+def narrow_cfg(compute_dtype):
+    """PlannerConfig() with the 4-head, 32-wide network (NARROW_NET, 6
+    layers) in `compute_dtype` and its own seeded weights (ckpt_path None:
+    load_scene_pred's seed, drawn on the CPU, so the card and the CPU hold
+    the same ones)."""
+    from mind_tpu_torch.config import NetConfig, PlannerConfig
+
+    cfg = PlannerConfig()
+    cfg.net = NetConfig(**NARROW_NET, compute_dtype=compute_dtype)
+    cfg.ckpt_path = None
+    return cfg
+
+
+def phase_widths_kernels(fa, dev, token_mask):
+    """[widths] (a)-(c): both kernels alone against their plain versions at
+    B = 8, N = 129 and every (D, E, heads) of WIDTHS_GRID (kernel_cases:
+    with and without the edge update, kernel B on a bf16 and on a float32
+    edge), each case's ms, bound and error printed; kernel_batch_gap at
+    32 / 32 / 4 (any gap but 0 raises); one call outside the domain (8 heads
+    of width 4), which must raise ValueError before any launch. Returns
+    ({variant: {"D/E/heads": mixed_entry}}, the batch gaps, the refusal)."""
+    from mind_tpu_torch.synthetic import fusion_inputs
+
+    mask8 = token_mask[None].expand(8, -1).contiguous()
+    by_width = {"float32": {}, "bfloat16": {}}
+    for d, e, h in WIDTHS_GRID:
+        for variant, by_case in kernel_cases(fa, dev, mask8, d, e, h).items():
+            by_width[variant][f"{d}/{e}/{h}"] = {**mixed_entry(by_case), "by_case": by_case}
+    gaps = kernel_batch_gap(fa, dev, token_mask, D=32, E=32, H=4)
+    w, node, edge = fusion_inputs(1, 9, 32, dev, SEED)
+    mask = torch.ones(1, 9, dtype=torch.bool, device=dev)
+    before = dict(fa.fused_edge_attention.launches_by_variant)
+    try:
+        fa.fused_edge_attention(node, edge, mask, w, 8)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise RuntimeError("[widths] a call with 8 heads of width 4 was not refused")
+    if dict(fa.fused_edge_attention.launches_by_variant) != before:
+        raise RuntimeError("[widths] the call outside the domain launched a kernel")
+    log(f"[widths] outside the domain, refused before any launch: {refused}")
+    for variant, entries in by_width.items():
+        log(f"[widths] {variant} at B=8, the forward's mix: " + json.dumps(
+            {k: {x: v[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for k, v in entries.items()}))
+    return by_width, gaps, refused
+
+
+def phase_widths_network(fa, dev, data_root, batch, cpu_child):
+    """[widths] (d)-(f): the 4-head, 32-wide network (narrow_cfg, 6 layers,
+    seeded weights) through the slice's main path, in float32 (kernel A) and
+    bf16 (kernel B): (d) a PROGRAM_TICKS-tick closed loop planning through
+    MINDPlanner's compiled programs against graphed=False, equal to the bit
+    (hold_equal_loops), every replay under sync debug "error", the kernel
+    launched only by the captures and executed 6 times a device-counted
+    AIME round (KernelRuns); the float32 loop against the same loop on the
+    CPU through the plain version (`cpu_child`): the same trees, the ego
+    within TOL_LOOP_EGO; (e) one eager plan cycle (fused_plan_core) and the
+    network on its first AIME inputs, the card's kernel against the CPU's
+    plain version, within TOL_NET_CLS / TOL_NET_POS; (f) WIDTHS_TRAIN_STEPS
+    compiled AdamW training steps (TrainStep) of the float32 network on
+    phase 14's batch against as many eager ones, equal to the bit. Returns
+    ({variant: [launches, executions]}, condition kernel [launches, runs],
+    summary)."""
+    from mind_tpu_torch.models import train
+    from mind_tpu_torch.models.weights import load_scene_pred
+    from mind_tpu_torch.ops import graph_control as gc
+    from mind_tpu_torch.planner import aime_device as aime
+    from mind_tpu_torch.planner import planner as tplanner
+    from mind_tpu_torch.planner.trajectory_tree import make_cost_params
+    from mind_tpu_torch.synthetic import scene_statics, synthetic_scene
+
+    t_phase = time.perf_counter()
+    runs, cond, summary = {"float32": [0, 0], "bfloat16": [0, 0]}, [0, 0], {}
+    replay, modes = gc.GraphProgram.replay, []
+
+    def watched(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(self)
+
+    gc.GraphProgram.replay = watched
+    try:
+        for variant in ("float32", "bfloat16"):
+            cfg = narrow_cfg(variant)
+            layers, depth = cfg.net.n_scene_layer, cfg.scen_tree.max_depth
+            rec, out = {}, {}
+            # (d) the loop, compiled and eager
+            for kind, graphed in (("compiled", None), ("eager", False)):
+                n_modes = len(modes)
+                with KernelRuns(fa) as kr:
+                    t = time.perf_counter()
+                    sim, _, plans = run_loop(f"widths {variant} {kind}", cfg, 0.2,
+                                             PROGRAM_TICKS, None, data_root, graphed=graphed)
+                    wall = time.perf_counter() - t
+                launched, executed, c_runs, c_launched = kr.hold(
+                    f"[widths] {variant} loop {kind}", variant, layers, depth,
+                    sum(r["rounds"] for r in plans))
+                replays = modes[n_modes:]
+                if kind == "eager" and (executed or replays):
+                    raise RuntimeError(f"[widths] {variant}: the eager loop replayed a program")
+                if kind == "compiled" and (executed <= 0 or not replays or
+                                           replays != [2] * len(replays)):
+                    raise RuntimeError(f"[widths] {variant}: {executed} executions, replays "
+                                       f"under sync debug modes {replays}")
+                runs[variant][0] += launched
+                runs[variant][1] += executed
+                cond[0] += c_launched
+                cond[1] += c_runs
+                out[kind] = (sim, plans)
+                rec[f"{kind}_ticks_per_s"] = PROGRAM_TICKS / wall
+                rec[f"{kind}_launches"] = kr.counts
+                rec[f"{kind}_executions"] = executed
+            rec["compiled_vs_eager"] = hold_equal_loops(f"[widths] {variant}", out["compiled"],
+                                                        out["eager"])
+            rec["plans"] = len(out["compiled"][1])
+            # (e) one eager plan cycle, and its first AIME forward against the CPU
+            scene = synthetic_scene(SEED, cfg.max_actors, cfg.max_lanes, n_agents=40)
+            pdt = getattr(torch, cfg.pipeline_dtype)
+            net = FirstCall(load_scene_pred(cfg.net, None, dev))
+            report = {}
+            with KernelRuns(fa) as kr:
+                plan = plan_once((tplanner, make_cost_params), net, cfg, World(scene),
+                                 fill_buffer(aime, scene, pdt, dev),
+                                 scene_statics(scene, pdt, dev), dev, report)
+            launched, executed = kr.hold(f"[widths] {variant} plan cycle", variant, layers,
+                                         depth, report["rounds"])[:2]
+            runs[variant][0] += launched
+            if not np.isfinite(plan).all() or plan[2] != 1.0:
+                raise RuntimeError(f"[widths] {variant}: the plan cycle failed: {plan}")
+            cpu = torch.device("cpu")
+            with torch.no_grad():
+                got = net.net(*net.inputs)
+                want = load_scene_pred(cfg.net, None, cpu)(
+                    *(x.to(cpu) if torch.is_tensor(x) else x for x in net.inputs))
+            torch.cuda.synchronize()
+            err = {"cls_prob": (got[0].cpu() - want[0]).abs().max().item(),
+                   "positions_m": (got[1][..., :2].cpu() - want[1][..., :2]).abs().max().item(),
+                   "velocity": (got[2].cpu() - want[2]).abs().max().item()}
+            rec.update(plan=plan.tolist(), plan_rounds=report["rounds"],
+                       forward_vs_cpu=err)
+            if not all(torch.isfinite(x).all() for x in got) or \
+                    not err["cls_prob"] < TOL_NET_CLS or not err["positions_m"] < TOL_NET_POS:
+                raise RuntimeError(f"[widths] {variant}: the card's forward and the CPU's "
+                                   f"disagree: {err}")
+            if variant == "float32":
+                ego_cpu, plans_cpu, cpu_s = cpu_child.get("widths32")
+                sim, plans = out["compiled"]
+                gap = float(np.abs(sim.ego_trajectory() - ego_cpu).max())
+                same = [(a["tick"], a["tree"]) == b for a, b in zip(plans, plans_cpu)]
+                rec["loop_vs_cpu"] = {"ego_gap_m": gap, "same_tree": same, "cpu_loop_s": cpu_s}
+                if len(plans_cpu) != len(plans) or not all(same) or not gap < TOL_LOOP_EGO:
+                    raise RuntimeError(f"[widths] float32 loop: card and CPU disagree: "
+                                       f"{rec['loop_vs_cpu']}")
+            summary[variant] = rec
+            log(f"[widths] {variant} network: " + json.dumps(rec))
+    finally:
+        gc.GraphProgram.replay = replay
+
+    # (f) compiled training steps of the float32 network against eager ones
+    cfg = narrow_cfg("float32")
+    layers = cfg.net.n_scene_layer
+
+    def train_run(graphed):
+        net = train.init_scene_pred(cfg.net, seed=0, device=dev)
+        optimizer = train.adamw(net.parameters(), TRAIN_LR)
+        step = train.make_train_step(net, optimizer, graphed=graphed)
+        fa.reset_launch_counts()
+        t = time.perf_counter()
+        losses = [float(step(batch)) for _ in range(WIDTHS_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        return {"net": net, "optimizer": optimizer, "step": step, "losses": losses,
+                "s": time.perf_counter() - t,
+                "launches": dict(fa.fused_edge_attention.launches_by_variant)}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = train_run(False)
+        compiled = train_run(None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    prog = compiled["step"].program
+    replays, captures = prog.replays(), len(prog.capture_s())
+    same = (compiled["losses"] == eager["losses"] and all(
+        torch.equal(a, b) for a, b in zip(compiled["net"].state_dict().values(),
+                                          eager["net"].state_dict().values())) and all(
+        torch.equal(x, y) for a, b in zip(compiled["optimizer"].state.values(),
+                                          eager["optimizer"].state.values())
+        for x, y in zip(a.values(), b.values())))
+    summary["training"] = {
+        "steps": WIDTHS_TRAIN_STEPS, "scenes": int(batch.actors.shape[0]),
+        "losses": compiled["losses"], "compiled_equal_to_eager": same,
+        "launches": compiled["launches"], "eager_launches": eager["launches"],
+        "captures": captures, "replays": replays, "executions": layers * replays,
+        "compiled_s": compiled["s"], "eager_s": eager["s"]}
+    log("[widths] training: " + json.dumps(summary["training"]))
+    if not same or not np.isfinite(compiled["losses"]).all():
+        raise RuntimeError(f"[widths] the compiled training steps differ from the eager ones: "
+                           f"{compiled['losses']} against {eager['losses']}")
+    if compiled["launches"] != {"float32": 2 * layers, "bfloat16": 0} or captures != 1 or \
+            replays != WIDTHS_TRAIN_STEPS - 1 or \
+            eager["launches"] != {"float32": layers * WIDTHS_TRAIN_STEPS, "bfloat16": 0}:
+        raise RuntimeError(f"[widths] training: {compiled['launches']} launches, {captures} "
+                           f"captures, {replays} replays; eager {eager['launches']}")
+    runs["float32"][0] += compiled["launches"]["float32"] + eager["launches"]["float32"]
+    runs["float32"][1] += layers * replays
+    summary["seconds"] = time.perf_counter() - t_phase
+    return runs, cond, summary
 
 
 def phase_graph_vs_eager(cfg, net, scene, aime, scene_statics, dev):
@@ -1001,7 +1262,9 @@ def cpu_references(inbox, outbox):
     of two training steps from init_scene_pred(seed=0) through the train
     step's program path (on the CPU its body runs eagerly on the program's
     buffers), the gradients of the first by parameter name (numpy, None
-    where a parameter has none), seconds)); or ("error", traceback)."""
+    where a parameter has none), seconds)), then ("widths32", (the ego
+    trajectory and [(tick, tree)] of [widths]' float32 loop of the 4-head
+    32-wide network, seconds)); or ("error", traceback)."""
     import traceback
 
     from mind_tpu_torch.config import PlannerConfig
@@ -1040,6 +1303,13 @@ def cpu_references(inbox, outbox):
                  for n, p in net.named_parameters()}
         losses.append(float(step(batch)))
         outbox.put(("train", (losses, grads, time.perf_counter() - t)))
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            sim, _, plans = run_loop("widths32-cpu", narrow_cfg("float32"), 0.2, PROGRAM_TICKS,
+                                     "cpu", root)
+            outbox.put(("widths32", (sim.ego_trajectory(),
+                                     [(r["tick"], r["tree"]) for r in plans],
+                                     time.perf_counter() - t)))
     except BaseException:   # the parent raises it
         outbox.put(("error", traceback.format_exc()))
         raise
@@ -1070,7 +1340,7 @@ class CpuReferences:
             if key == "error":
                 raise RuntimeError(f"the CPU references failed:\n{value}")
             self.results[key] = value
-        if len(self.results) == 3:
+        if len(self.results) == 4:
             self.proc.join(timeout=60)
         return self.results[name]
 
@@ -3709,6 +3979,15 @@ def main() -> int:
     entries = phase_kernel_check(fa, dev, token_mask)
     entries.append(phase_condition_kernel(dev))
     lap("kernels")
+    # [widths] (a)-(c): both kernels alone at the other widths of their domain
+    widths_by_width, widths_gap, widths_refused = phase_widths_kernels(fa, dev, token_mask)
+    for e, variant in zip(entries, ("float32", "bfloat16")):
+        e["by_width"] = {"128/128/8": {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "max_abs_err")},
+                         **{k: {x: v for x, v in r.items() if x != "by_case"}
+                            for k, r in widths_by_width[variant].items()}}
+        e["batch_gap_32_vs_8_at_32_32_4"] = widths_gap[variant]
+    lap("widths_kernels")
 
     # 3. trained weights
     t = time.perf_counter()
@@ -3829,6 +4108,12 @@ def main() -> int:
     dist_launches, dist_executions, dist = phase_dist(dcfg, fa, synthetic_av2)
     dist_cond = graph_control.set_conditional_any.launches - cond0
     lap("dist")
+    # [widths] (d)-(f): the 4-head, 32-wide network's plans and training steps
+    with tempfile.TemporaryDirectory() as data_root:
+        widths_runs, widths_cond, widths = phase_widths_network(fa, dev, data_root,
+                                                                train_batch, cpu_child)
+    widths.update(refused_outside_the_domain=widths_refused, batch_gap_32_32_4=widths_gap)
+    lap("widths_network")
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],
                                       "host_tree": host_tree_launches,
@@ -3838,7 +4123,8 @@ def main() -> int:
                                       "training_eager": train_eager_launches,
                                       "bench": bench_launches["float32"],
                                       "scripts": scripts_launches["float32"],
-                                      "dist": dist_launches["float32"]}
+                                      "dist": dist_launches["float32"],
+                                      "widths": widths_runs["float32"][0]}
     entries[1]["launches_by_path"] = {"plan_cycles": entries[1]["launches"],
                                       "closed_loop": loop_runs[0],
                                       "demo_command": command_runs[0],
@@ -3850,7 +4136,8 @@ def main() -> int:
                                       "scaleout_programs": scaleout_b[0],
                                       "bench": bench_launches["bfloat16"],
                                       "scripts": scripts_launches["bfloat16"],
-                                      "dist": dist_launches["bfloat16"]}
+                                      "dist": dist_launches["bfloat16"],
+                                      "widths": widths_runs["bfloat16"][0]}
     # the compiled programs launch kernel B (A) when they capture; their
     # replays execute it layers x the device's AIME rounds
     entries[1]["launches_by_path"]["compiled_episode"] = compiled_launches
@@ -3858,7 +4145,8 @@ def main() -> int:
                                         "plan_programs": prog_a[1],
                                         "float32_loop": loop32_runs[1],
                                         "training": train_executions,
-                                        "dist": dist_executions}
+                                        "dist": dist_executions,
+                                        "widths": widths_runs["float32"][1]}
     cond_scripts = scripts["condition_kernel"].values()
     entries[1]["executions_by_path"] = {"compiled_episode_timed": compiled_executions,
                                         "closed_loop": loop_runs[1],
@@ -3866,7 +4154,8 @@ def main() -> int:
                                         "plan_programs": prog_b[1],
                                         "scaleout_programs": scaleout_b[1],
                                         **{k: v[1] for k, v in parity.items()},
-                                        "scripts": sum(scripts["kernel_b_executions"].values())}
+                                        "scripts": sum(scripts["kernel_b_executions"].values()),
+                                        "widths": widths_runs["bfloat16"][1]}
     entries[2]["launches_by_path"] = {"compiled_episode": cond_launches,
                                       "closed_loop": loop_runs[3],
                                       "demo_command": command_runs[3],
@@ -3875,14 +4164,16 @@ def main() -> int:
                                       "scaleout_programs": scaleout_cond[0],
                                       "tree_scale": scale_cond,
                                       "scripts": sum(c["launches"] for c in cond_scripts),
-                                      "dist_in_process": dist_cond}
+                                      "dist_in_process": dist_cond,
+                                      "widths": widths_cond[0]}
     entries[2]["executions_by_path"] = {
         "compiled_episode_timed": compiled["condition_kernel_runs_timed"],
         "closed_loop": loop_runs[2], "demo_command": command_runs[2],
         "plan_programs": prog_cond[1], "float32_loop": loop32_runs[2],
         "scaleout_programs": scaleout_cond[1],
         "tree_scale": scale["condition_kernel_runs"],
-        "scripts": sum(c["runs"] for c in cond_scripts)}
+        "scripts": sum(c["runs"] for c in cond_scripts),
+        "widths": widths_cond[1]}
     for e in entries:
         e["launches"] = sum(e["launches_by_path"].values())
 
@@ -3900,6 +4191,7 @@ def main() -> int:
                                   "tree_scale": scale, "training": training,
                                   "bench_wall_s": bench["wall_s"],
                                   "scripts_s": scripts["seconds"], "dist": dist,
+                                  "widths": widths,
                                   "seconds": time.perf_counter() - T0}))
     log("[phase seconds] " + json.dumps(laps))
     # the benchmark's final line, then one line per section

@@ -21,7 +21,10 @@ Outputs:
   vel [B, A, M, F, 2]   velocities from the head's derivative (matrix or differences)
 
 The fusion-layer core goes through ops.fusion_attention.fused_edge_attention:
-the CUDA kernel for CUDA tensors, the plain twin for CPU tensors; under
+the CUDA kernel for CUDA tensors (at the widths of its domain, which holds
+the main path's network, D = E = 128 with 8 heads, and the JAX package's
+narrow test network, 32 / 32 with 4 heads), the plain twin for CPU tensors at
+any widths; under
 grad mode through its autograd Function, whose backward differentiates the
 plain version (models/train.py trains the float32 network).
 
@@ -56,7 +59,8 @@ from mind_tpu_torch.models.layers import (
     SelfAttentionEncoderLayer,
     linear_upsample2,
 )
-from mind_tpu_torch.ops.fusion_attention import FusionWeights, fused_edge_attention
+from mind_tpu_torch.ops.fusion_attention import (FusionWeights, fused_edge_attention,
+                                                  weight_shape)
 
 
 class ActorNet(nn.Module):
@@ -130,15 +134,17 @@ class RelaFusionLayer(nn.Module):
         super().__init__()
         D, E = d_model, d_edge
         self.n_head, self.update_edge = n_head, update_edge
-        shapes = {"wm_e": (E, D), "we": (D, E)}
         for field, name in _FUSION_PARAMS.items():
+            # the JAX layer's shapes: wm_e [E, D], we [D, E], be and the edge
+            # LayerNorms [E], the others [D, D] or [D]
+            shape = weight_shape(field, D, E)
             if field.startswith("w"):
-                t = torch.empty(shapes.get(field, (D, D)))
+                t = torch.empty(shape)
                 nn.init.normal_(t, std=1.0 / math.sqrt(t.shape[0]))
             elif field.endswith("_g"):
-                t = torch.ones(D)
+                t = torch.ones(shape)
             else:
-                t = torch.zeros(D)
+                t = torch.zeros(shape)
             self.register_parameter(name, nn.Parameter(t))
         self.LayerNorm_0 = LayerNorm(D)
         self.Dense_0 = Dense(D, 2 * D)

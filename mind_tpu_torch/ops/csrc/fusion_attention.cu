@@ -9,39 +9,46 @@
 //   q[j] = node[j] Wq + bq,  k/v[i,j] = mem[i,j] Wk/Wv + bk/bv
 //   out[j] = softmax_i(q[j].k[i,j] / sqrt(dh), masked keys -> -1e9) v  Wo + bo
 //
-// with 8 heads of dh = 16 and D = E = 128.
+// with node width D, edge width E and NH heads of dh = D / NH, each a
+// compile-time constant of the library (fusion_common.cuh: D, E multiples of
+// 16 from 16 to 128, NH <= 16, dh a multiple of 8). The main path's network
+// is D = E = 128 with 8 heads; the narrow test network D = E = 32, 4 heads.
 //
 // Folded keys and values. k and v are never formed per pair:
 //   logit_h[i,j] = mem[i,j] . (Wk[:, h] q_h[j]) / sqrt(dh)       (+ a term constant in i)
 //   out_h[j]     = (sum_i attn_h[i,j] mem[i,j]) Wv[:, h] + bv_h   (the weights sum to 1)
-// so a pair costs two 128x128 products (one without the edge update) and two
-// [8 x 128] ones instead of four 128x128 products: 9.5 GFLOP per call at
-// B = 8, N = 129 with the edge update (5.2 without) instead of 17.7 (13.3).
-// The result differs from the unfolded form only by the order of float32 sums.
+// so a pair costs an [E x D] product (and a [D x E] one with the edge update)
+// and two [NH x D] ones instead of four products: at 128 / 128 / 8, 9.5 GFLOP
+// per call at B = 8, N = 129 with the edge update (5.2 without) instead of
+// 17.7 (13.3). The result differs from the unfolded form only by the order of
+// float32 sums.
 //
-// Bound on the H100 (B = 8, N = 129, edge update): 9.5 GFLOP at 67 TFLOP/s of
-// non-tensor float32 is 0.142 ms; 137 MB of edge in and out at 3.35 TB/s is
-// 0.041 ms. The work is bound by operations, so the design keeps the four FMA
-// pipes busy:
+// Bound on the H100 (B = 8, N = 129, 128 / 128 / 8, edge update): 9.5 GFLOP
+// at 67 TFLOP/s of non-tensor float32 is 0.142 ms; 137 MB of edge in and out
+// at 3.35 TB/s is 0.041 ms. The work is bound by operations, so the design
+// keeps the four FMA pipes busy:
 //
-// - (scene, target) pairs are flattened into B*N columns and a block owns 8
-//   consecutive ones: 1032 columns are 129 full tiles on 132 SMs, one wave,
-//   no tile of padding; a tile may straddle two scenes;
-// - Wm_e and We stay resident in shared memory (128 KB), copied once per
-//   block with cp.async;
-// - sources stream in chunks of 8, so a chunk is 64 (i, j) rows; the edge
+// - (scene, target) pairs are flattened into B*N columns and a block owns TJ
+//   consecutive ones (TJ = 8: 1032 columns are 129 full tiles on 132 SMs, one
+//   wave, no tile of padding; a tile may straddle two scenes);
+// - Wm_e and We stay resident in shared memory (128 KB at 128 / 128), copied
+//   once per block with cp.async;
+// - sources stream in chunks of 8, so a chunk is 8 TJ (i, j) rows; the edge
 //   chunk of the next step is prefetched with cp.async into the second of two
 //   buffers while the current one is worked on;
-// - each product is a [64 x 128] x [128 x 128] SIMT GEMM out of shared memory
-//   with an 8 x 8 register tile per thread (128 threads): 16 16-byte
-//   shared-memory loads per 256 FMAs;
-// - thread (ty, tx) owns source ty of the chunk, all 8 targets, and columns
-//   4tx..4tx+3 and 64+4tx..64+4tx+3, so LayerNorm statistics are shuffles
+// - each product is a [8 TJ x K] x [K x W] SIMT GEMM out of shared memory
+//   with a TJ x W/16 register tile per thread (128 threads; at 128 wide, 8 x 8:
+//   16 16-byte shared-memory loads per 256 FMAs);
+// - thread (ty, tx) owns source ty of the chunk, all TJ targets, and W/16
+//   columns of a W-wide row (Cols<W>), so LayerNorm statistics are shuffles
 //   over 16 lanes;
 // - mem overwrites the edge chunk in shared memory; the residual edge + eu
 //   reads the edge again from L2;
-// - the softmax is online: a thread carries 64 of the block's
-//   [8 targets x 8 heads x 128] accumulator in registers;
+// - the softmax is online: a thread carries NH D / 16 / (8 / TJ) of the
+//   block's [TJ targets x NH heads x D] accumulator in registers (64 at
+//   128 / 8); a block takes TJ = 4 targets where NH D > 1024, so that neither
+//   the accumulator nor the folded keys [TJ][NH][D] outgrow registers and
+//   shared memory;
 // - node Wm_s, node Wm_t + bm, q, the folded keys and the output products are
 //   per-token work and run once per call in fusion_common.cuh's kernels.
 //
@@ -54,15 +61,97 @@ namespace {
 
 using namespace fusion;
 
-// shared-memory layout (floats)
-constexpr int OFF_WME = 0;                    // [128][128] Wm_e
-constexpr int OFF_WE = OFF_WME + D * D;       // [128][128] We
-constexpr int OFF_X0 = OFF_WE + D * D;        // [R][128] edge chunk, then mem
-constexpr int OFF_X1 = OFF_X0 + R * D;        // [R][128] the other buffer
-constexpr int OFF_QK = OFF_X1 + R * D;        // [TJ][NH][128] folded keys
-constexpr int OFF_L = OFF_QK + TJ * NH * D;   // [R][NH] logits
-constexpr int SMEM_FLOATS = OFF_L + R * NH;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);   // 231,424
+// The columns of a W-wide row that lane tx (of 16) holds: CW = W / 16 of
+// them, in NG groups of V adjacent ones; value c is column
+// (c / V) * 16 V + tx V + c % V. At W = 128: 4tx..4tx+3 and 64+4tx..64+4tx+3.
+template <int W>
+struct Cols {
+  static constexpr int CW = W / 16;
+  static constexpr int V = CW % 4 == 0 ? 4 : CW % 2 == 0 ? 2 : 1;
+  static constexpr int NG = CW / V;
+};
+
+// V adjacent floats: shared memory, global memory (read-only path), store.
+template <int V> __device__ __forceinline__ void ld_v(const float* p, float* o) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  } else if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    o[0] = a.x; o[1] = a.y;
+  } else {
+    o[0] = *p;
+  }
+}
+template <int V> __device__ __forceinline__ void ldg_v(const float* p, float* o) {
+  if constexpr (V == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  } else if constexpr (V == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = a.x; o[1] = a.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+template <int V> __device__ __forceinline__ void st_v(float* p, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// The lane's columns of a W-wide row: out of global memory, out of shared
+// memory, into memory.
+template <int W> __device__ __forceinline__ void load_cols(const float* __restrict__ p,
+                                                           int tx, float* o) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int g = 0; g < C::NG; ++g) ldg_v<C::V>(p + g * 16 * C::V + tx * C::V, o + g * C::V);
+}
+template <int W> __device__ __forceinline__ void shared_cols(const float* p, int tx, float* o) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int g = 0; g < C::NG; ++g) ld_v<C::V>(p + g * 16 * C::V + tx * C::V, o + g * C::V);
+}
+template <int W> __device__ __forceinline__ void store_cols(float* p, int tx, const float* v) {
+  using C = Cols<W>;
+#pragma unroll
+  for (int g = 0; g < C::NG; ++g) st_v<C::V>(p + g * 16 * C::V + tx * C::V, v + g * C::V);
+}
+
+// The block's layout for the library's widths.
+template <class S>
+struct LayoutA {
+  static constexpr int D = S::D, E = S::E, NH = S::NH;
+  static constexpr int TJ = NH * D > 1024 ? 4 : 8;   // (scene, target) columns a block
+  static constexpr int R = TI * TJ;                  // (source, target) rows a chunk
+  // the softmax: the 8 / TJ row groups of a target split its heads
+  static constexpr int HG = 8 / TJ;                  // head groups
+  static constexpr int NHG = NH / HG;                // heads a group, over its 16 lanes
+  // lanes a head where they divide 16, else 0: each lane then holds D / 16
+  // columns of every head of its group
+  static constexpr int LPH = 16 % NHG == 0 ? 16 / NHG : 0;
+  static constexpr int NPL = NHG * D / 16;           // accumulator values a lane
+  static constexpr int AV = NPL % 4 == 0 ? 4 : NPL % 2 == 0 ? 2 : 1;   // with LPH
+  static constexpr int XW = D > E ? D : E;           // a chunk buffer's row
+  static constexpr int CWM = (D > E ? D : E) / 16;   // register tile's columns
+  // shared-memory layout (floats)
+  static constexpr int OFF_WME = 0;                  // [E][D] Wm_e
+  static constexpr int OFF_WE = OFF_WME + E * D;     // [D][E] We
+  static constexpr int OFF_X0 = OFF_WE + D * E;      // [R][E] edge chunk, then [R][D] mem
+  static constexpr int OFF_X1 = OFF_X0 + R * XW;     // the other buffer
+  static constexpr int OFF_QK = OFF_X1 + R * XW;     // [TJ][NH][D] folded keys
+  static constexpr int OFF_L = OFF_QK + TJ * NH * D; // [R][NH] logits
+  static constexpr int SMEM_FLOATS = OFF_L + R * NH;
+  static constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);   // 231,424 at 128/128/8
+  static_assert(NH % HG == 0, "a block of 4 targets splits its heads in two groups");
+  static_assert(NPL <= 64, "the softmax accumulator is at most 64 registers a thread");
+  static_assert(SMEM_BYTES <= 232448, "the layout must fit the H100's opt-in shared memory");
+};
 
 __device__ __forceinline__ float group16_sum(float v) {
 #pragma unroll
@@ -70,67 +159,59 @@ __device__ __forceinline__ float group16_sum(float v) {
   return v;
 }
 
-// acc[rr][c] = sum_k a[rr][k] w[k][col(c)] for the thread's 8 rows and 8 columns.
-__device__ __forceinline__ void gemm_8x8(const float* __restrict__ a,
-                                         const float* __restrict__ w, int tx,
-                                         float acc[8][8]) {
+// acc[rr][c] = sum_k a[rr][k] w[k][col(c)] for the thread's TJ rows (stride
+// K) and the W / 16 columns of Cols<W>; w is [K][W].
+template <int K, int W, int TJ, int CWM>
+__device__ __forceinline__ void gemm_rows(const float* __restrict__ a,
+                                          const float* __restrict__ w, int tx,
+                                          float acc[TJ][CWM]) {
+  using C = Cols<W>;
 #pragma unroll
-  for (int rr = 0; rr < 8; ++rr)
+  for (int rr = 0; rr < TJ; ++rr)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[rr][c] = 0.f;
+    for (int c = 0; c < C::CW; ++c) acc[rr][c] = 0.f;
 #pragma unroll 2
-  for (int k = 0; k < D; k += 4) {
-    float4 av[8];
+  for (int k = 0; k < K; k += 4) {
+    float4 av[TJ];
 #pragma unroll
-    for (int rr = 0; rr < 8; ++rr)
-      av[rr] = *reinterpret_cast<const float4*>(a + rr * D + k);
+    for (int rr = 0; rr < TJ; ++rr)
+      av[rr] = *reinterpret_cast<const float4*>(a + rr * K + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(w + (k + kk) * D + tx * 4);
-      const float4 w1 = *reinterpret_cast<const float4*>(w + (k + kk) * D + 64 + tx * 4);
+      float wv[C::CW];
+      shared_cols<W>(w + (k + kk) * W, tx, wv);
 #pragma unroll
-      for (int rr = 0; rr < 8; ++rr) {
+      for (int rr = 0; rr < TJ; ++rr) {
         const float x = kk == 0 ? av[rr].x : kk == 1 ? av[rr].y
                       : kk == 2 ? av[rr].z : av[rr].w;
-        acc[rr][0] = fmaf(x, w0.x, acc[rr][0]);
-        acc[rr][1] = fmaf(x, w0.y, acc[rr][1]);
-        acc[rr][2] = fmaf(x, w0.z, acc[rr][2]);
-        acc[rr][3] = fmaf(x, w0.w, acc[rr][3]);
-        acc[rr][4] = fmaf(x, w1.x, acc[rr][4]);
-        acc[rr][5] = fmaf(x, w1.y, acc[rr][5]);
-        acc[rr][6] = fmaf(x, w1.z, acc[rr][6]);
-        acc[rr][7] = fmaf(x, w1.w, acc[rr][7]);
+#pragma unroll
+        for (int c = 0; c < C::CW; ++c) acc[rr][c] = fmaf(x, wv[c], acc[rr][c]);
       }
     }
   }
 }
 
-// The thread's 8 values of a 128-wide vector in global memory.
-__device__ __forceinline__ void load8(const float* __restrict__ p, int tx, float o[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p + tx * 4));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 64 + tx * 4));
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-// Two-pass LayerNorm of one 128-wide row held as 8 values in each of 16 lanes.
-__device__ __forceinline__ void ln_row(float v[8], const float* __restrict__ g,
+// Two-pass LayerNorm of one W-wide row held as W / 16 values in each of 16 lanes.
+template <int W>
+__device__ __forceinline__ void ln_row(float* v, const float* __restrict__ g,
                                        const float* __restrict__ b, int tx) {
+  constexpr int CW = Cols<W>::CW;
   float s = 0.f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) s += v[c];
-  const float mean = group16_sum(s) * (1.f / D);
+  for (int c = 0; c < CW; ++c) s += v[c];
+  const float mean = group16_sum(s) * (1.f / W);
   float sq = 0.f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) { const float d = v[c] - mean; sq = fmaf(d, d, sq); }
-  const float inv = rsqrtf(group16_sum(sq) * (1.f / D) + LN_EPS);
-  float gv[8], bv[8];
-  load8(g, tx, gv);
-  load8(b, tx, bv);
+  for (int c = 0; c < CW; ++c) { const float d = v[c] - mean; sq = fmaf(d, d, sq); }
+  const float inv = rsqrtf(group16_sum(sq) * (1.f / W) + LN_EPS);
+  float gv[CW], bv[CW];
+  load_cols<W>(g, tx, gv);
+  load_cols<W>(b, tx, bv);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = (v[c] - mean) * inv * gv[c] + bv[c];
+  for (int c = 0; c < CW; ++c) v[c] = (v[c] - mean) * inv * gv[c] + bv[c];
 }
 
+template <class S>
 __global__ void __launch_bounds__(NT, 1)
 edge_attention_f32_kernel(const float* __restrict__ edge,
                           const unsigned char* __restrict__ mask,
@@ -139,12 +220,16 @@ edge_attention_f32_kernel(const float* __restrict__ edge,
                           const float* __restrict__ qk, Vecs v,
                           float* __restrict__ ctx, float* __restrict__ edge_out,
                           int n, int cols, int update_edge) {
+  using L = LayoutA<S>;
+  constexpr int D = S::D, E = S::E, NH = S::NH, TJ = L::TJ, R = L::R, CWM = L::CWM;
+  constexpr int NHG = L::NHG, LPH = L::LPH, NPL = L::NPL, AV = L::AV;
+  constexpr int NRUN = LPH > 0 ? 1 : NHG;   // softmax states a thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* Wme = smem + OFF_WME;
-  float* We = smem + OFF_WE;
-  float* QK = smem + OFF_QK;
-  float* Ls = smem + OFF_L;
+  float* Wme = smem + L::OFF_WME;
+  float* We = smem + L::OFF_WE;
+  float* QK = smem + L::OFF_QK;
+  float* Ls = smem + L::OFF_L;
   __shared__ long long s_base[TJ];   // element offset of edge[b, 0, j, 0]
   __shared__ int s_tok0[TJ];         // b * n, or -1 for a column past the end
 
@@ -155,14 +240,14 @@ edge_attention_f32_kernel(const float* __restrict__ edge,
   if (tid < TJ) {
     const int c = c0 + tid;
     const int b = c / n, j = c % n;
-    s_base[tid] = ((long long)b * n * n + j) * D;
+    s_base[tid] = ((long long)b * n * n + j) * E;
     s_tok0[tid] = c < cols ? b * n : -1;
   }
   // resident weights and this tile's folded keys; every block copies the
   // same weights, so each starts at another row and they do not queue on one
   // L2 line
-  for (int it = tid; it < D * D / 4; it += NT) {
-    const int idx = (it + blockIdx.x * (D / 4)) & (D * D / 4 - 1);
+  for (int it = tid; it < E * D / 4; it += NT) {
+    const int idx = (unsigned)(it + blockIdx.x * (D / 4)) % (unsigned)(E * D / 4);
     cp_async16(Wme + idx * 4, wm_e + idx * 4, true);
     if (update_edge) cp_async16(We + idx * 4, we + idx * 4, true);
   }
@@ -174,33 +259,39 @@ edge_attention_f32_kernel(const float* __restrict__ edge,
 
   auto load_chunk = [&](float* buf, int i0) {
 #pragma unroll 4
-    for (int idx = tid; idx < R * D / 4; idx += NT) {
-      const int r = idx / (D / 4), p = idx % (D / 4);
+    for (int idx = tid; idx < R * E / 4; idx += NT) {
+      const int r = idx / (E / 4), p = idx % (E / 4);
       const int i = i0 + r / TJ, rr = r % TJ;
       const bool ok = i < n && s_tok0[rr] >= 0;
-      const float* src = edge + s_base[rr] + (long long)i * n * D + p * 4;
-      cp_async16(buf + r * D + p * 4, ok ? src : edge, ok);
+      const float* src = edge + s_base[rr] + (long long)i * n * E + p * 4;
+      cp_async16(buf + r * E + p * 4, ok ? src : edge, ok);
     }
     cp_async_commit();
   };
 
-  // online-softmax state: the thread owns target jj = ty, head sm_h and the
-  // 64 columns 8q + 4 sm_half .. + 3 (q = 0..15) of that head's accumulator
-  const int sm_h = tx >> 1, sm_half = tx & 1;
-  float run_max = -INFINITY, run_sum = 0.f;
-  float cacc[64];
+  // online-softmax state: the thread owns target st and, of head group hg,
+  // either head sm_h and its NPL columns sm_part * AV + q * AV * LPH + (0..AV-1)
+  // (LPH > 0; at 128 / 8: head tx / 2, 64 columns), or D / 16 columns
+  // x * 16 + tx of each of the group's NHG heads (LPH == 0)
+  const int st = ty % TJ, hg = ty / TJ;
+  const int sm_h = hg * NHG + (LPH > 0 ? tx / (LPH > 0 ? LPH : 1) : 0);
+  const int sm_part = LPH > 0 ? tx % (LPH > 0 ? LPH : 1) : 0;
+  float run_max[NRUN], run_sum[NRUN];
 #pragma unroll
-  for (int x = 0; x < 64; ++x) cacc[x] = 0.f;
+  for (int x = 0; x < NRUN; ++x) { run_max[x] = -INFINITY; run_sum[x] = 0.f; }
+  float cacc[NPL];
+#pragma unroll
+  for (int x = 0; x < NPL; ++x) cacc[x] = 0.f;
 
-  float acc[8][8];
+  float acc[TJ][CWM];
   const int n_chunks = (n + TI - 1) / TI;
-  load_chunk(smem + OFF_X0, 0);
+  load_chunk(smem + L::OFF_X0, 0);
 
   for (int ch = 0; ch < n_chunks; ++ch) {
-    float* X = smem + ((ch & 1) ? OFF_X1 : OFF_X0);
+    float* X = smem + ((ch & 1) ? L::OFF_X1 : L::OFF_X0);
     const int i0 = ch * TI;
     if (ch + 1 < n_chunks) {
-      load_chunk(smem + ((ch & 1) ? OFF_X0 : OFF_X1), i0 + TI);
+      load_chunk(smem + ((ch & 1) ? L::OFF_X0 : L::OFF_X1), i0 + TI);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -211,45 +302,35 @@ edge_attention_f32_kernel(const float* __restrict__ edge,
     const bool i_ok = i < n;
 
     // ---- mem = relu(LN(edge Wm_e + node_i Wm_s + node_j Wm_t + bm)) ----
-    gemm_8x8(X + ty * TJ * D, Wme, tx, acc);
+    gemm_rows<E, D, TJ, CWM>(X + ty * TJ * E, Wme, tx, acc);
 #pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
+    for (int rr = 0; rr < TJ; ++rr) {
       const int tok0 = s_tok0[rr];
       if (i_ok && tok0 >= 0) {
-        float a[8], t[8];
-        load8(sp + (size_t)(tok0 + i) * D, tx, a);
-        load8(tp + (size_t)(c0 + rr) * D, tx, t);
+        float a[Cols<D>::CW], t[Cols<D>::CW];
+        load_cols<D>(sp + (size_t)(tok0 + i) * D, tx, a);
+        load_cols<D>(tp + (size_t)(c0 + rr) * D, tx, t);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[rr][c] += a[c] + t[c];
+        for (int c = 0; c < Cols<D>::CW; ++c) acc[rr][c] += a[c] + t[c];
       }
-      ln_row(acc[rr], v.ln_m_g, v.ln_m_b, tx);
+      ln_row<D>(acc[rr], v.ln_m_g, v.ln_m_b, tx);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[rr][c] = fmaxf(acc[rr][c], 0.f);
+      for (int c = 0; c < Cols<D>::CW; ++c) acc[rr][c] = fmaxf(acc[rr][c], 0.f);
     }
     __syncthreads();   // every thread has read its edge rows: X becomes mem
 
     // ---- mem -> shared memory; logits mem . qk[j][h] ----
 #pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      float* row = X + (ty * TJ + rr) * D;
-      *reinterpret_cast<float4*>(row + tx * 4) =
-          make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
-      *reinterpret_cast<float4*>(row + 64 + tx * 4) =
-          make_float4(acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]);
+    for (int rr = 0; rr < TJ; ++rr) {
+      store_cols<D>(X + (ty * TJ + rr) * D, tx, acc[rr]);
       float part[NH];
 #pragma unroll
       for (int h = 0; h < NH; ++h) {
-        const float* qrow = QK + (rr * NH + h) * D;
-        const float4 q0 = *reinterpret_cast<const float4*>(qrow + tx * 4);
-        const float4 q1 = *reinterpret_cast<const float4*>(qrow + 64 + tx * 4);
-        float s = acc[rr][0] * q0.x;
-        s = fmaf(acc[rr][1], q0.y, s);
-        s = fmaf(acc[rr][2], q0.z, s);
-        s = fmaf(acc[rr][3], q0.w, s);
-        s = fmaf(acc[rr][4], q1.x, s);
-        s = fmaf(acc[rr][5], q1.y, s);
-        s = fmaf(acc[rr][6], q1.z, s);
-        s = fmaf(acc[rr][7], q1.w, s);
+        float qv[Cols<D>::CW];
+        shared_cols<D>(QK + (rr * NH + h) * D, tx, qv);
+        float s = acc[rr][0] * qv[0];
+#pragma unroll
+        for (int c = 1; c < Cols<D>::CW; ++c) s = fmaf(acc[rr][c], qv[c], s);
         part[h] = group16_sum(s);
       }
       if (tx < NH) {
@@ -265,84 +346,124 @@ edge_attention_f32_kernel(const float* __restrict__ edge,
 
     // ---- edge' = LN(edge + relu(LN(mem We + be))) ----
     if (update_edge) {
-      gemm_8x8(X + ty * TJ * D, We, tx, acc);
-      float be[8];
-      load8(v.be, tx, be);
+      constexpr int CE = Cols<E>::CW;
+      gemm_rows<D, E, TJ, CWM>(X + ty * TJ * D, We, tx, acc);
+      float be[CE];
+      load_cols<E>(v.be, tx, be);
 #pragma unroll
-      for (int rr = 0; rr < 8; ++rr) {
+      for (int rr = 0; rr < TJ; ++rr) {
         // every lane runs the LayerNorm shuffles; only loads and stores are
         // guarded for rows past the end
         const bool ok = i_ok && s_tok0[rr] >= 0;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[rr][c] += be[c];
-        ln_row(acc[rr], v.ln_e1_g, v.ln_e1_b, tx);
-        const size_t off = ok ? (size_t)(s_base[rr] + (long long)i * n * D) : 0;
-        float e[8];
-        load8(edge + off, tx, e);
+        for (int c = 0; c < CE; ++c) acc[rr][c] += be[c];
+        ln_row<E>(acc[rr], v.ln_e1_g, v.ln_e1_b, tx);
+        const size_t off = ok ? (size_t)(s_base[rr] + (long long)i * n * E) : 0;
+        float e[CE];
+        load_cols<E>(edge + off, tx, e);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[rr][c] = fmaxf(acc[rr][c], 0.f) + e[c];
-        ln_row(acc[rr], v.ln_e2_g, v.ln_e2_b, tx);
-        if (ok) {
-          float* dst = edge_out + off;
-          *reinterpret_cast<float4*>(dst + tx * 4) =
-              make_float4(acc[rr][0], acc[rr][1], acc[rr][2], acc[rr][3]);
-          *reinterpret_cast<float4*>(dst + 64 + tx * 4) =
-              make_float4(acc[rr][4], acc[rr][5], acc[rr][6], acc[rr][7]);
-        }
+        for (int c = 0; c < CE; ++c) acc[rr][c] = fmaxf(acc[rr][c], 0.f) + e[c];
+        ln_row<E>(acc[rr], v.ln_e2_g, v.ln_e2_b, tx);
+        if (ok) store_cols<E>(edge_out + off, tx, acc[rr]);
       }
     }
 
     // ---- online softmax over this chunk's sources, accumulating mem rows ----
     {
       const int ns = min(TI, n - i0);
-      float l[TI];
-      float mx = run_max;
+      if constexpr (LPH > 0) {
+        float l[TI];
+        float mx = run_max[0];
 #pragma unroll
-      for (int s = 0; s < TI; ++s) {
-        l[s] = s < ns ? Ls[(s * TJ + ty) * NH + sm_h] : -INFINITY;
-        mx = fmaxf(mx, l[s]);
-      }
-      const float corr = expf(run_max - mx);
-      run_sum *= corr;
+        for (int s = 0; s < TI; ++s) {
+          l[s] = s < ns ? Ls[(s * TJ + st) * NH + sm_h] : -INFINITY;
+          mx = fmaxf(mx, l[s]);
+        }
+        const float corr = expf(run_max[0] - mx);
+        run_sum[0] *= corr;
 #pragma unroll
-      for (int x = 0; x < 64; ++x) cacc[x] *= corr;
+        for (int x = 0; x < NPL; ++x) cacc[x] *= corr;
 #pragma unroll
-      for (int s = 0; s < TI; ++s) {
-        if (s < ns) {
-          const float p = expf(l[s] - mx);
-          run_sum += p;
-          const float* row = X + (s * TJ + ty) * D + sm_half * 4;
+        for (int s = 0; s < TI; ++s) {
+          if (s < ns) {
+            const float p = expf(l[s] - mx);
+            run_sum[0] += p;
+            const float* row = X + (s * TJ + st) * D + sm_part * AV;
 #pragma unroll
-          for (int q = 0; q < 16; ++q) {
-            const float4 m = *reinterpret_cast<const float4*>(row + q * 8);
-            cacc[q * 4 + 0] = fmaf(p, m.x, cacc[q * 4 + 0]);
-            cacc[q * 4 + 1] = fmaf(p, m.y, cacc[q * 4 + 1]);
-            cacc[q * 4 + 2] = fmaf(p, m.z, cacc[q * 4 + 2]);
-            cacc[q * 4 + 3] = fmaf(p, m.w, cacc[q * 4 + 3]);
+            for (int q = 0; q < NPL / AV; ++q) {
+              float m[AV];
+              ld_v<AV>(row + q * AV * LPH, m);
+#pragma unroll
+              for (int u = 0; u < AV; ++u) cacc[q * AV + u] = fmaf(p, m[u], cacc[q * AV + u]);
+            }
           }
         }
+        run_max[0] = mx;
+      } else {
+        constexpr int NPH = D / 16;   // values a lane of each head
+#pragma unroll
+        for (int lh = 0; lh < NHG; ++lh) {
+          const int h = hg * NHG + lh;
+          float l[TI];
+          float mx = run_max[lh];
+#pragma unroll
+          for (int s = 0; s < TI; ++s) {
+            l[s] = s < ns ? Ls[(s * TJ + st) * NH + h] : -INFINITY;
+            mx = fmaxf(mx, l[s]);
+          }
+          const float corr = expf(run_max[lh] - mx);
+          run_sum[lh] *= corr;
+#pragma unroll
+          for (int x = 0; x < NPH; ++x) cacc[lh * NPH + x] *= corr;
+#pragma unroll
+          for (int s = 0; s < TI; ++s) {
+            if (s < ns) {
+              const float p = expf(l[s] - mx);
+              run_sum[lh] += p;
+              const float* row = X + (s * TJ + st) * D + tx;
+#pragma unroll
+              for (int x = 0; x < NPH; ++x)
+                cacc[lh * NPH + x] = fmaf(p, row[x * 16], cacc[lh * NPH + x]);
+            }
+          }
+          run_max[lh] = mx;
+        }
       }
-      run_max = mx;
     }
     __syncthreads();   // X is free for the prefetch of chunk ch + 2
   }
 
   // ---- ctx[c][h][:] = softmax-weighted sum of mem rows, normalised ----
-  if (s_tok0[ty] >= 0) {
-    const float inv = 1.f / run_sum;
-    float* dst = ctx + ((size_t)(c0 + ty) * NH + sm_h) * D + sm_half * 4;
+  if (s_tok0[st] >= 0) {
+    if constexpr (LPH > 0) {
+      const float inv = 1.f / run_sum[0];
+      float* dst = ctx + ((size_t)(c0 + st) * NH + sm_h) * D + sm_part * AV;
 #pragma unroll
-    for (int q = 0; q < 16; ++q)
-      *reinterpret_cast<float4*>(dst + q * 8) =
-          make_float4(cacc[q * 4] * inv, cacc[q * 4 + 1] * inv, cacc[q * 4 + 2] * inv,
-                      cacc[q * 4 + 3] * inv);
+      for (int q = 0; q < NPL / AV; ++q) {
+        float o[AV];
+#pragma unroll
+        for (int u = 0; u < AV; ++u) o[u] = cacc[q * AV + u] * inv;
+        st_v<AV>(dst + q * AV * LPH, o);
+      }
+    } else {
+      constexpr int NPH = D / 16;
+#pragma unroll
+      for (int lh = 0; lh < NHG; ++lh) {
+        const float inv = 1.f / run_sum[lh];
+        float* dst = ctx + ((size_t)(c0 + st) * NH + hg * NHG + lh) * D + tx;
+#pragma unroll
+        for (int x = 0; x < NPH; ++x) dst[x * 16] = cacc[lh * NPH + x] * inv;
+      }
+    }
   }
 }
 
 }  // namespace
 
-// One call = prologue + main + epilogue on `stream`. sp, tp [B*N, 128],
-// qk and ctx [B*N, 8, 128] are float32 scratch from the caller.
+// One call = prologue + main + epilogue on `stream`, at the library's widths
+// (Shape). sp, tp [B*N, D], qk and ctx [B*N, NH, D] are float32 scratch from
+// the caller. Returns 0, a CUDA error, or ERR_SMEM (before any launch) where
+// the layout does not fit the current device's opt-in shared memory.
 extern "C" int fused_edge_attention_f32(
     const float* node, const float* edge, const unsigned char* mask,
     const float* wm_e, const float* wm_s, const float* wm_t, const float* bm,
@@ -353,21 +474,31 @@ extern "C" int fused_edge_attention_f32(
     const float* ln_e2_b, float* sp, float* tp, float* qk, float* ctx,
     float* out, float* edge_out, int batch, int n, int update_edge, void* stream) {
   using namespace fusion;
+  using L = LayoutA<Shape>;
+  if ((int)L::SMEM_BYTES > smem_optin()) return ERR_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      edge_attention_f32_kernel<Shape>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const Vecs v{bm, ln_m_g, ln_m_b, bq, bk, bv, bo, be, ln_e1_g, ln_e1_b, ln_e2_g, ln_e2_b};
   const int cols = batch * n;
   const int tok_blocks = (cols + TOK - 1) / TOK;
+  constexpr int TK = out_tokens<Shape, true>();
   cudaStream_t s = (cudaStream_t)stream;
-  token_proj_kernel<float, float, true><<<dim3(tok_blocks, 3), NT, 0, s>>>(
+  token_proj_kernel<Shape, float, float, true><<<dim3(tok_blocks, 3), NT, 0, s>>>(
       node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
-  edge_attention_f32_kernel<<<(cols + TJ - 1) / TJ, NT, SMEM_BYTES, s>>>(
+  edge_attention_f32_kernel<Shape><<<(cols + L::TJ - 1) / L::TJ, NT, L::SMEM_BYTES, s>>>(
       edge, mask, wm_e, we, sp, tp, qk, v, ctx, edge_out, n, cols, update_edge);
-  out_proj_kernel<float, true><<<tok_blocks, NT, 0, s>>>(ctx, wv, wo, v, out, cols);
+  out_proj_kernel<Shape, float, true><<<(cols + TK - 1) / TK, NT, 0, s>>>(ctx, wv, wo, v,
+                                                                           out, cols);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fused_edge_attention_width() { return fusion::D; }
-extern "C" int fused_edge_attention_heads() { return fusion::NH; }
+// The widths this library was built for and its main kernel's shared memory:
+// {D, E, NH, bytes}; the loader checks them against the shape it asked for.
+extern "C" void fused_edge_attention_shape(int* out) {
+  out[0] = fusion::Shape::D;
+  out[1] = fusion::Shape::E;
+  out[2] = fusion::Shape::NH;
+  out[3] = (int)LayoutA<fusion::Shape>::SMEM_BYTES;
+}

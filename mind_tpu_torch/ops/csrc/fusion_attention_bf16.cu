@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel mind_tpu/ops/fusion_attention.py::_kernel in the
 // mode it runs under compute_dtype="bfloat16": node, weights and the first
-// layer's edge arrive in bf16, every 128-wide product takes bf16 operands and
-// accumulates in float32, and the sums, bias adds, the three LayerNorms, ReLU,
-// logits, softmax, the residual edge + eu and both outputs stay float32:
+// layer's edge arrive in bf16, every product of the pair and of the token
+// takes bf16 operands and accumulates in float32, and the sums, bias adds,
+// the three LayerNorms, ReLU, logits, softmax, the residual edge + eu and
+// both outputs stay float32:
 //
 //   mem[i,j]   = relu(LN(r(edge[i,j]) Wm_e + r(node[i]) Wm_s + r(node[j]) Wm_t + bm))
 //   edge'[i,j] = LN(edge[i,j] + relu(LN(r(mem[i,j]) We + be)))   (update_edge)
@@ -16,31 +17,34 @@
 // what the TPU's matrix unit does with it at default precision. The term
 // bk_h . q_h[j] of a logit is the same for every source and cancels in the
 // softmax, and the softmax weights sum to 1, so bk is never added and bv is
-// added once per target.
+// added once per target. Node width D, edge width E and NH heads of dh =
+// D / NH are compile-time constants of the library (fusion_common.cuh: D, E
+// multiples of 16 from 16 to 128, NH <= 16, dh a multiple of 8).
 //
-// Bound on the H100 (B = 8, N = 129, edge update, float32 edge in): the call
-// reads 68.2 MB and writes 68.2 MB of edge, 0.041 ms at 3.35 TB/s, against
-// 0.018 ms for 17.65 GFLOP at 989 TFLOP/s of bf16. The mode is bound by
-// bytes, so the design moves each edge byte once, in full 32-byte sectors,
-// and hides the copies behind the products:
+// Bound on the H100 (B = 8, N = 129, 128 / 128 / 8, edge update, float32 edge
+// in): the call reads 68.2 MB and writes 68.2 MB of edge, 0.041 ms at 3.35
+// TB/s, against 0.018 ms for 17.65 GFLOP at 989 TFLOP/s of bf16. The mode is
+// bound by bytes, so the design moves each edge byte once, in full 32-byte
+// sectors, and hides the copies behind the products:
 //
 // - (scene, target) pairs are flattened into B*N columns and a block owns 8
 //   consecutive ones (129 full tiles at B = 8, N = 129: one wave on 132 SMs);
 //   sources stream in chunks of 8, so a chunk is 64 rows;
-// - the four per-pair weights Wm_e, We, Wk, Wv stay resident in shared memory
-//   in bf16 (4 x 32 KB), transposed to [n][k] as they are staged, in the
-//   K-major core-matrix layout that wgmma reads through a descriptor; the
-//   per-token products (Wm_s, Wm_t, Wq, Wo) run once per call in
-//   fusion_common.cuh's kernels;
+// - the four per-pair weights Wm_e [E x D], We [D x E], Wk and Wv [D x D] stay
+//   resident in shared memory in bf16 (4 x 32 KB at 128 / 128), transposed to
+//   [n][k] as they are staged, in the K-major core-matrix layout that wgmma
+//   reads through a descriptor; the per-token products (Wm_s, Wm_t, Wq, Wo)
+//   run once per call in fusion_common.cuh's kernels;
 // - a block is two warpgroups; they take alternate chunks, each with its own
 //   operand tile and staging buffer, so every scheduler holds two warps in
 //   different phases and one group's LayerNorm epilogue runs under the
 //   other's products;
-// - each product is 8 wgmma.mma_async.m64n128k16 (bf16 in, float32
-//   accumulate) over the group's 64-row tile, and its accumulator, 64 x 128
-//   float32, is 64 registers a thread. A warp holds 16 rows of it (2 sources
-//   x 8 targets) and a row lies in the 4 lanes of a quad, so LayerNorm and
-//   the per-head q.k sums are two shuffles;
+// - each product is K / 16 wgmma.mma_async.m64nNk16 (bf16 in, float32
+//   accumulate; N = D, or E for the edge update) over the group's 64-row
+//   tile, and its accumulator, 64 x N float32, is N / 2 registers a thread
+//   (64 at 128). A warp holds 16 rows of it (2 sources x 8 targets) and a row
+//   lies in the 4 lanes of a quad, so LayerNorm and the per-head q.k sums are
+//   two shuffles;
 // - the warp copies its own rows of the next chunk with 16-byte cp.async into
 //   a raw staging buffer while it works on the current one; float32 rows are
 //   rounded to bf16 as they move from the staging buffer to the operand tile.
@@ -58,6 +62,8 @@ namespace {
 using namespace fusion;
 typedef __nv_bfloat16 bf16;
 
+constexpr int TJ = 8;                           // (scene, target) columns per block
+constexpr int R = TI * TJ;                      // (source, target) rows per chunk
 constexpr int NTB = 256;                        // threads per block: 2 warpgroups
 constexpr int NW = NTB / 32;
 // Operand tiles lie in shared memory as wgmma's K-major layout without
@@ -66,17 +72,27 @@ constexpr int NW = NTB / 32;
 // (stride SBO = 128 bytes), the k groups are LBO = rows x 16 bytes apart.
 constexpr int CORE = 128;                       // bytes of a core matrix
 constexpr int A_LBO = R * 16;                   // 1,024: 64-row activation tile
-constexpr int B_LBO = D * 16;                   // 2,048: 128-row (n) weight tile
-constexpr int W_BYTES = D * D * 2;              // 32,768 per weight
-constexpr int TILE_BYTES = R * D * 2;           // 16,384
-constexpr int RAW_BYTES = R * D * 4;            // 32,768
-constexpr int OFF_W = 0;                        // Wm_e, We, Wk, Wv, each as [n][k]
-constexpr int OFF_T = OFF_W + 4 * W_BYTES;      // per group: edge chunk as bf16, then mem
-constexpr int OFF_RAW = OFF_T + 2 * TILE_BYTES; // per group: next chunk as it lies in memory
-constexpr size_t SMEM_BYTES = OFF_RAW + 2 * RAW_BYTES;    // 229,376
-// after the main loop the staging buffers hold the merge scratch
-constexpr int MRG_FLOATS = NW * TJ * (D + 2 * NH);
-static_assert(MRG_FLOATS * 4 <= 2 * RAW_BYTES, "merge scratch must fit the staging buffers");
+
+// The block's layout for the library's widths (bytes).
+template <class S>
+struct LayoutB {
+  static constexpr int D = S::D, E = S::E, NH = S::NH;
+  static constexpr int NMAX = D > E ? D : E;
+  static constexpr int OFF_WME = 0;                       // Wm_e as [D][E]
+  static constexpr int OFF_WE = OFF_WME + D * E * 2;      // We as [E][D]
+  static constexpr int OFF_WK = OFF_WE + E * D * 2;       // Wk as [D][D]
+  static constexpr int OFF_WV = OFF_WK + D * D * 2;       // Wv as [D][D]
+  static constexpr int OFF_T = OFF_WV + D * D * 2;        // per group: edge chunk as bf16, then mem
+  static constexpr int TILE_BYTES = R * NMAX * 2;
+  static constexpr int OFF_RAW = OFF_T + 2 * TILE_BYTES;  // per group: next chunk as it lies in memory
+  static constexpr int RAW_BYTES = R * E * 4;
+  // after the main loop the staging buffers hold the merge scratch
+  static constexpr int MRG_FLOATS = NW * TJ * (D + 2 * NH);
+  static constexpr int RAW_REGION =
+      2 * RAW_BYTES > MRG_FLOATS * 4 ? 2 * RAW_BYTES : MRG_FLOATS * 4;
+  static constexpr size_t SMEM_BYTES = OFF_RAW + RAW_REGION;   // 229,376 at 128 / 128 / 8
+  static_assert(SMEM_BYTES <= 232448, "the layout must fit the H100's opt-in shared memory");
+};
 
 // Byte offset of element (row, k) in a tile of `lbo / 16` rows.
 __device__ __forceinline__ int tile_off(int row, int k, int lbo) {
@@ -104,37 +120,63 @@ __device__ __forceinline__ void group_barrier(int group) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
 }
 
-// acc (+)= a[64 x 16] b[16 x 128] from the two descriptors, one k step.
-__device__ __forceinline__ void wgmma_m64n128k16(float acc[16][4], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(acc[0][0]), "+f"(acc[0][1]), "+f"(acc[0][2]), "+f"(acc[0][3]), "+f"(acc[1][0]), "+f"(acc[1][1]), "+f"(acc[1][2]), "+f"(acc[1][3]), "+f"(acc[2][0]), "+f"(acc[2][1]), "+f"(acc[2][2]), "+f"(acc[2][3]), "+f"(acc[3][0]), "+f"(acc[3][1]), "+f"(acc[3][2]), "+f"(acc[3][3]), "+f"(acc[4][0]), "+f"(acc[4][1]), "+f"(acc[4][2]), "+f"(acc[4][3]), "+f"(acc[5][0]), "+f"(acc[5][1]), "+f"(acc[5][2]), "+f"(acc[5][3]), "+f"(acc[6][0]), "+f"(acc[6][1]), "+f"(acc[6][2]), "+f"(acc[6][3]), "+f"(acc[7][0]), "+f"(acc[7][1]), "+f"(acc[7][2]), "+f"(acc[7][3]), "+f"(acc[8][0]), "+f"(acc[8][1]), "+f"(acc[8][2]), "+f"(acc[8][3]), "+f"(acc[9][0]), "+f"(acc[9][1]), "+f"(acc[9][2]), "+f"(acc[9][3]), "+f"(acc[10][0]), "+f"(acc[10][1]), "+f"(acc[10][2]), "+f"(acc[10][3]), "+f"(acc[11][0]), "+f"(acc[11][1]), "+f"(acc[11][2]), "+f"(acc[11][3]), "+f"(acc[12][0]), "+f"(acc[12][1]), "+f"(acc[12][2]), "+f"(acc[12][3]), "+f"(acc[13][0]), "+f"(acc[13][1]), "+f"(acc[13][2]), "+f"(acc[13][3]), "+f"(acc[14][0]), "+f"(acc[14][1]), "+f"(acc[14][2]), "+f"(acc[14][3]), "+f"(acc[15][0]), "+f"(acc[15][1]), "+f"(acc[15][2]), "+f"(acc[15][3])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// acc (+)= a[64 x 16] b[16 x N] from the two descriptors, one k step: one
+// specialization per N, each naming its N / 2 accumulator registers.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16(float (*acc)[4], uint64_t da, uint64_t db,
+                                               int accumulate);
+#define ACC4(i) "+f"(acc[i][0]), "+f"(acc[i][1]), "+f"(acc[i][2]), "+f"(acc[i][3])
+#define FUSION_WGMMA(N, REGS, DA, DB, P, ...)                                              \
+  template <>                                                                              \
+  __device__ __forceinline__ void wgmma_m64nNk16<N>(float (*acc)[4], uint64_t da,          \
+                                                    uint64_t db, int accumulate) {         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                            \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "               \
+                 "{" REGS "}, " DA ", " DB ", p, 1, 1, 0, 0;\n}\n"                         \
+                 : __VA_ARGS__                                                             \
+                 : "l"(da), "l"(db), "r"(accumulate));                                     \
+  }
+FUSION_WGMMA(16, "%0, %1, %2, %3, %4, %5, %6, %7", "%8", "%9", "%10",
+             ACC4(0), ACC4(1))
+FUSION_WGMMA(32, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15", "%16", "%17", "%18",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3))
+FUSION_WGMMA(48, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23", "%24", "%25", "%26",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3), ACC4(4), ACC4(5))
+FUSION_WGMMA(64, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31", "%32", "%33", "%34",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3), ACC4(4), ACC4(5), ACC4(6), ACC4(7))
+FUSION_WGMMA(80, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39", "%40", "%41", "%42",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3), ACC4(4), ACC4(5), ACC4(6), ACC4(7), ACC4(8), ACC4(9))
+FUSION_WGMMA(96, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47", "%48", "%49", "%50",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3), ACC4(4), ACC4(5), ACC4(6), ACC4(7), ACC4(8), ACC4(9), ACC4(10), ACC4(11))
+FUSION_WGMMA(112, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55", "%56", "%57", "%58",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3), ACC4(4), ACC4(5), ACC4(6), ACC4(7), ACC4(8), ACC4(9), ACC4(10), ACC4(11), ACC4(12), ACC4(13))
+FUSION_WGMMA(128, "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63", "%64", "%65", "%66",
+             ACC4(0), ACC4(1), ACC4(2), ACC4(3), ACC4(4), ACC4(5), ACC4(6), ACC4(7), ACC4(8), ACC4(9), ACC4(10), ACC4(11), ACC4(12), ACC4(13), ACC4(14), ACC4(15))
+#undef FUSION_WGMMA
+#undef ACC4
 
-// acc = a[64 x 128] w[128 x 128] for the warpgroup: a is its 64-row tile, w
-// a resident weight as [n][k], both in the core-matrix layout. A thread of
+// acc = a[64 x K] w[K x N] for the warpgroup: a is its 64-row tile, w a
+// resident weight as [n][k], both in the core-matrix layout. A thread of
 // warp w holds rows 16w + lane/4 (acc[nt][0..1]) and + 8 (acc[nt][2..3]),
-// columns 8nt + 2(lane%4) + {0,1}. Returns when the product is complete.
-__device__ __forceinline__ void warpgroup_mma_64x128(const void* a, const void* w,
-                                                     float acc[16][4]) {
+// columns 8nt + 2(lane%4) + {0,1}, nt < N / 8. Returns when the product is
+// complete.
+template <int N, int K, int NG>
+__device__ __forceinline__ void warpgroup_mma(const void* a, const void* w, float acc[NG][4]) {
+  constexpr int B_LBO = N * 16;                 // N-row (n) weight tile
   const uint64_t da = smem_desc(a, A_LBO), db = smem_desc(w, B_LBO);
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
+  for (int nt = 0; nt < N / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[nt][e])::"memory");
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    wgmma_m64n128k16(acc, da + (uint64_t)(ks * 2 * (A_LBO >> 4)),
-                     db + (uint64_t)(ks * 2 * (B_LBO >> 4)), ks > 0);
+  for (int ks = 0; ks < K / 16; ++ks)
+    wgmma_m64nNk16<N>(acc, da + (uint64_t)(ks * 2 * (A_LBO >> 4)),
+                      db + (uint64_t)(ks * 2 * (B_LBO >> 4)), ks > 0);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
+  for (int nt = 0; nt < N / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[nt][e])::"memory");
 }
@@ -147,24 +189,25 @@ __device__ __forceinline__ float2 load_pair(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// Two-pass LayerNorm of one 128-wide row held as 32 values (x[nt][0..1]) in
-// each lane of a quad.
-__device__ __forceinline__ void ln_row_quad(float x[16][2], const bf16* __restrict__ g,
+// Two-pass LayerNorm of one W-wide row held as W / 4 values (x[nt][0..1],
+// nt < W / 8) in each lane of a quad.
+template <int W>
+__device__ __forceinline__ void ln_row_quad(float x[][2], const bf16* __restrict__ g,
                                             const bf16* __restrict__ b, int q2) {
   float s = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) s += x[nt][0] + x[nt][1];
-  const float mean = quad_sum(s) * (1.f / D);
+  for (int nt = 0; nt < W / 8; ++nt) s += x[nt][0] + x[nt][1];
+  const float mean = quad_sum(s) * (1.f / W);
   float sq = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int nt = 0; nt < W / 8; ++nt) {
     const float d0 = x[nt][0] - mean, d1 = x[nt][1] - mean;
     sq = fmaf(d0, d0, sq);
     sq = fmaf(d1, d1, sq);
   }
-  const float inv = rsqrtf(quad_sum(sq) * (1.f / D) + LN_EPS);
+  const float inv = rsqrtf(quad_sum(sq) * (1.f / W) + LN_EPS);
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
+  for (int nt = 0; nt < W / 8; ++nt) {
     const float2 gv = load_pair(g + nt * 8 + q2);
     const float2 bv = load_pair(b + nt * 8 + q2);
     x[nt][0] = (x[nt][0] - mean) * inv * gv.x + bv.x;
@@ -178,7 +221,25 @@ __device__ __forceinline__ float2 staged_pair(const float* p) {
 }
 __device__ __forceinline__ float2 staged_pair(const bf16* p) { return load_pair(p); }
 
-template <typename EdgeT>
+// A resident weight w [K][N] (row-major, as the network holds it) into a
+// tile [n][k]: a thread takes one k and 8 consecutive n (16 bytes of row k)
+// and stores them to 8 rows of the tile. Every block copies the same
+// weights: each starts at another row, so they do not queue on one L2 line.
+template <int K, int N>
+__device__ __forceinline__ void stage_weight(const bf16* __restrict__ src, unsigned char* dst,
+                                             int tid) {
+  for (int idx = tid; idx < K * N / 8; idx += NTB) {
+    const int k = ((unsigned)idx % (unsigned)K + blockIdx.x) % (unsigned)K;
+    const int n0 = ((unsigned)idx / (unsigned)K) * 8;
+    const uint4 piece = __ldg(reinterpret_cast<const uint4*>(src + k * N + n0));
+    const bf16* e = reinterpret_cast<const bf16*>(&piece);
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+      *reinterpret_cast<bf16*>(dst + tile_off(n0 + x, k, N * 16)) = e[x];
+  }
+}
+
+template <class S, typename EdgeT>
 __global__ void __launch_bounds__(NTB, 1)
 edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
                            const unsigned char* __restrict__ mask,
@@ -188,10 +249,12 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
                            const float* __restrict__ q, VecsT<bf16> v,
                            float* __restrict__ attn, float* __restrict__ edge_out,
                            int n, int cols, int update_edge, int write_cast) {
+  using L = LayoutB<S>;
+  constexpr int D = S::D, E = S::E, NH = S::NH, DH = S::DH, NG = L::NMAX / 8;
+  constexpr int GD = D / 8, GE = E / 8;    // 8-column groups of a D- and an E-wide row
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  unsigned char* Ws = smem + OFF_W;
-  float* Mrg = reinterpret_cast<float*>(smem + OFF_RAW);
+  float* Mrg = reinterpret_cast<float*>(smem + L::OFF_RAW);
   __shared__ long long s_base[TJ];   // element offset of edge[b, 0, j, 0]
   __shared__ int s_tok0[TJ];         // b * n, or -1 for a column past the end
 
@@ -199,38 +262,24 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
   const int group = tid >> 7;          // which chunks: group, group + 2, ...
   const int warp = (tid >> 5) & 3;     // warp within the group: which rows of a chunk
   // the group's operand tile: the edge chunk, then mem over it, row by row
-  unsigned char* Tile = smem + OFF_T + group * TILE_BYTES;
-  EdgeT* Raw = reinterpret_cast<EdgeT*>(smem + OFF_RAW + group * RAW_BYTES);
+  unsigned char* Tile = smem + L::OFF_T + group * L::TILE_BYTES;
+  EdgeT* Raw = reinterpret_cast<EdgeT*>(smem + L::OFF_RAW + group * L::RAW_BYTES);
   const int g = lane >> 2, q2 = (lane & 3) * 2;
   const int c0 = blockIdx.x * TJ;
   constexpr int PIECE = 16 / sizeof(EdgeT);     // elements per 16-byte piece
-  constexpr int PPR = D / PIECE;                // pieces per row
+  constexpr int PPR = E / PIECE;                // pieces per row
 
   if (tid < TJ) {
     const int c = c0 + tid;
     const int b = c / n, j = c % n;
-    s_base[tid] = ((long long)b * n * n + j) * D;
+    s_base[tid] = ((long long)b * n * n + j) * E;
     s_tok0[tid] = c < cols ? b * n : -1;
   }
-  // resident weights, transposed to [n][k] as they are staged: a thread
-  // takes one k and 8 consecutive n of a weight (16 bytes of its row k) and
-  // stores them to 8 rows of the tile. Every block copies the same weights:
-  // each starts at another row, so they do not queue on one L2 line.
-  {
-    const bf16* src[4] = {wm_e, we, wk, wv};
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      if (m == 1 && !update_edge) continue;
-      for (int idx = tid; idx < D * 16; idx += NTB) {
-        const int k = ((idx & (D - 1)) + blockIdx.x) & (D - 1), n0 = (idx >> 7) * 8;
-        const uint4 piece = __ldg(reinterpret_cast<const uint4*>(src[m] + k * D + n0));
-        const bf16* e = reinterpret_cast<const bf16*>(&piece);
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-          *reinterpret_cast<bf16*>(Ws + m * W_BYTES + tile_off(n0 + x, k, B_LBO)) = e[x];
-      }
-    }
-  }
+  // resident weights, transposed to [n][k] as they are staged
+  stage_weight<E, D>(wm_e, smem + L::OFF_WME, tid);
+  if (update_edge) stage_weight<D, E>(we, smem + L::OFF_WE, tid);
+  stage_weight<D, D>(wk, smem + L::OFF_WK, tid);
+  stage_weight<D, D>(wv, smem + L::OFF_WV, tid);
   __syncthreads();   // s_base, s_tok0
 
   // the warp's rows of a chunk: local row lr = 0..15 is source 2 warp + lr / 8,
@@ -241,8 +290,8 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
       const int lr = idx / PPR, p = idx % PPR;
       const int i = i0 + 2 * warp + (lr >> 3), jj = lr & 7;
       const bool ok = i < n && s_tok0[jj] >= 0;
-      const EdgeT* src = edge + s_base[jj] + (long long)i * n * D + p * PIECE;
-      cp_async16(Raw + (warp * 16 + lr) * D + p * PIECE, ok ? src : edge, ok);
+      const EdgeT* src = edge + s_base[jj] + (long long)i * n * E + p * PIECE;
+      cp_async16(Raw + (warp * 16 + lr) * E + p * PIECE, ok ? src : edge, ok);
     }
     cp_async_commit();
   };
@@ -252,13 +301,13 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
   const bool c_ok = tok0 >= 0;
   const int c = c0 + g;
 
-  float run_m[NH], run_s[NH], o[16][2];
+  float run_m[NH], run_s[NH], o[GD][2];
 #pragma unroll
   for (int h = 0; h < NH; ++h) { run_m[h] = -INFINITY; run_s[h] = 0.f; }
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) o[nt][0] = o[nt][1] = 0.f;
+  for (int nt = 0; nt < GD; ++nt) o[nt][0] = o[nt][1] = 0.f;
 
-  float acc[16][4];
+  float acc[NG][4];
   const int n_chunks = (n + TI - 1) / TI;
   if (group < n_chunks) load_raw(group * TI);
   fence_proxy_async();
@@ -270,9 +319,9 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
     __syncwarp();
     // ---- staging buffer -> bf16 operand tile (and the float32 cast out) ----
 #pragma unroll 4
-    for (int idx = lane; idx < 16 * (D / 4); idx += 32) {
-      const int lr = idx / (D / 4), p4 = (idx % (D / 4)) * 4;
-      const EdgeT* src = Raw + (warp * 16 + lr) * D + p4;
+    for (int idx = lane; idx < 16 * (E / 4); idx += 32) {
+      const int lr = idx / (E / 4), p4 = (idx % (E / 4)) * 4;
+      const EdgeT* src = Raw + (warp * 16 + lr) * E + p4;
       const float2 lo = staged_pair(src), hi = staged_pair(src + 2);
       __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
           Tile + tile_off(warp * 16 + lr, p4, A_LBO));
@@ -281,7 +330,7 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
       if (write_cast) {
         const int i = i0 + 2 * warp + (lr >> 3), jj = lr & 7;
         if (i < n && s_tok0[jj] >= 0)
-          *reinterpret_cast<float4*>(edge_out + s_base[jj] + (long long)i * n * D + p4) =
+          *reinterpret_cast<float4*>(edge_out + s_base[jj] + (long long)i * n * E + p4) =
               make_float4(lo.x, lo.y, hi.x, hi.y);
       }
     }
@@ -292,14 +341,14 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
     group_barrier(group);   // the four warps' rows make the group's tile
 
     // ---- mem = relu(LN(edge Wm_e + node_i Wm_s + node_j Wm_t + bm)) -> bf16 ----
-    warpgroup_mma_64x128(Tile, Ws, acc);   // complete: mem may overwrite the tile
+    warpgroup_mma<D, E, NG>(Tile, smem + L::OFF_WME, acc);   // complete: mem may overwrite the tile
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int i = i0 + 2 * warp + hh;
       const bool ok = c_ok && i < n;
-      float x[16][2];
+      float x[GD][2];
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
+      for (int nt = 0; nt < GD; ++nt) {
         float2 a = make_float2(0.f, 0.f), t = make_float2(0.f, 0.f);
         if (ok) {
           a = load_pair(sp + (size_t)(tok0 + i) * D + nt * 8 + q2);
@@ -308,9 +357,9 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
         x[nt][0] = acc[nt][hh * 2] + a.x + t.x;
         x[nt][1] = acc[nt][hh * 2 + 1] + a.y + t.y;
       }
-      ln_row_quad(x, v.ln_m_g, v.ln_m_b, q2);
+      ln_row_quad<D>(x, v.ln_m_g, v.ln_m_b, q2);
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt)
+      for (int nt = 0; nt < GD; ++nt)
         *reinterpret_cast<__nv_bfloat162*>(
             Tile + tile_off(warp * 16 + hh * 8 + g, nt * 8 + q2, A_LBO)) =
             __floats2bfloat162_rn(fmaxf(x[nt][0], 0.f), fmaxf(x[nt][1], 0.f));
@@ -320,30 +369,30 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
 
     // ---- edge' = LN(edge + relu(LN(mem We + be))) ----
     if (update_edge) {
-      warpgroup_mma_64x128(Tile, Ws + W_BYTES, acc);
+      warpgroup_mma<E, D, NG>(Tile, smem + L::OFF_WE, acc);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int i = i0 + 2 * warp + hh;
         const bool ok = c_ok && i < n;
-        float x[16][2];
+        float x[GE][2];
 #pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
+        for (int nt = 0; nt < GE; ++nt) {
           const float2 be = load_pair(v.be + nt * 8 + q2);
           x[nt][0] = acc[nt][hh * 2] + be.x;
           x[nt][1] = acc[nt][hh * 2 + 1] + be.y;
         }
-        ln_row_quad(x, v.ln_e1_g, v.ln_e1_b, q2);
-        const size_t off = ok ? (size_t)(s_base[g] + (long long)i * n * D) : 0;
+        ln_row_quad<E>(x, v.ln_e1_g, v.ln_e1_b, q2);
+        const size_t off = ok ? (size_t)(s_base[g] + (long long)i * n * E) : 0;
 #pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
+        for (int nt = 0; nt < GE; ++nt) {
           const float2 e = load_pair(edge + off + nt * 8 + q2);
           x[nt][0] = fmaxf(x[nt][0], 0.f) + e.x;
           x[nt][1] = fmaxf(x[nt][1], 0.f) + e.y;
         }
-        ln_row_quad(x, v.ln_e2_g, v.ln_e2_b, q2);
+        ln_row_quad<E>(x, v.ln_e2_g, v.ln_e2_b, q2);
         if (ok) {
 #pragma unroll
-          for (int nt = 0; nt < 16; ++nt)
+          for (int nt = 0; nt < GE; ++nt)
             *reinterpret_cast<float2*>(edge_out + off + nt * 8 + q2) =
                 make_float2(x[nt][0], x[nt][1]);
         }
@@ -351,19 +400,20 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
     }
 
     // ---- k = mem Wk; logits q[j] . k[i,j] / sqrt(dh) per head ----
-    warpgroup_mma_64x128(Tile, Ws + 2 * W_BYTES, acc);
+    warpgroup_mma<D, D, NG>(Tile, smem + L::OFF_WK, acc);
     float lg[2][NH];
     {
       float part[2][NH];
 #pragma unroll
       for (int h = 0; h < NH; ++h) part[0][h] = part[1][h] = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
+      for (int nt = 0; nt < GD; ++nt) {
         float2 qv = make_float2(0.f, 0.f);
         if (c_ok) qv = load_pair(q + (size_t)c * D + nt * 8 + q2);
+        // an 8-column group lies in one head: dh is a multiple of 8
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
-          part[hh][nt >> 1] += acc[nt][hh * 2] * qv.x + acc[nt][hh * 2 + 1] * qv.y;
+          part[hh][nt * 8 / DH] += acc[nt][hh * 2] * qv.x + acc[nt][hh * 2 + 1] * qv.y;
       }
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -371,14 +421,14 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
         const bool key_on = c_ok && i < n && mask[c_ok && i < n ? tok0 + i : 0];
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const float s = quad_sum(part[hh][h]) * QK_SCALE;
+          const float s = quad_sum(part[hh][h]) * S::QK_SCALE;
           lg[hh][h] = key_on ? s : MASKED;
         }
       }
     }
 
     // ---- v = mem Wv; online softmax over the thread's two sources ----
-    warpgroup_mma_64x128(Tile, Ws + 3 * W_BYTES, acc);
+    warpgroup_mma<D, D, NG>(Tile, smem + L::OFF_WV, acc);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (i0 + 2 * warp + hh < n) {     // uniform over the warp
@@ -390,8 +440,8 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
           run_s[h] = run_s[h] * corr + p;
           run_m[h] = m_new;
 #pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            const int nt = 2 * h + t;
+          for (int t = 0; t < DH / 8; ++t) {
+            const int nt = (DH / 8) * h + t;
             o[nt][0] = fmaf(o[nt][0], corr, p * acc[nt][hh * 2]);
             o[nt][1] = fmaf(o[nt][1], corr, p * acc[nt][hh * 2 + 1]);
           }
@@ -408,7 +458,7 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
   float* mrg_m = Mrg + NW * TJ * D;              // [NW][TJ][NH]
   float* mrg_s = mrg_m + NW * TJ * NH;           // [NW][TJ][NH]
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
+  for (int nt = 0; nt < GD; ++nt)
     *reinterpret_cast<float2*>(mrg_o + (wid * TJ + g) * D + nt * 8 + q2) =
         make_float2(o[nt][0], o[nt][1]);
   if ((lane & 3) == 0) {
@@ -419,8 +469,9 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
     }
   }
   __syncthreads();
-  {
-    const int jj = tid >> 5, col0 = lane * 4, h = lane >> 2;
+  // warp jj finishes target jj: lane l the 4 columns 4l..4l+3, one head's
+  const int jj = tid >> 5, col0 = lane * 4, h = col0 / DH;
+  if (D == 128 || col0 < D) {
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, mrg_m[(w * TJ + jj) * NH + h]);
@@ -447,11 +498,12 @@ int launch_main(const void* edge, const unsigned char* mask, const bf16* wm_e,
                 const float* tp, const float* q, const VecsT<bf16>& v, float* attn,
                 float* edge_out, int n, int cols, int update_edge, int write_cast,
                 cudaStream_t s) {
+  constexpr size_t SMEM_BYTES = LayoutB<Shape>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_bf16_kernel<EdgeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge_attention_bf16_kernel<Shape, EdgeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  edge_attention_bf16_kernel<EdgeT><<<(cols + TJ - 1) / TJ, NTB, SMEM_BYTES, s>>>(
+  edge_attention_bf16_kernel<Shape, EdgeT><<<(cols + TJ - 1) / TJ, NTB, SMEM_BYTES, s>>>(
       static_cast<const EdgeT*>(edge), mask, wm_e, we, wk, wv, sp, tp, q, v, attn,
       edge_out, n, cols, update_edge, write_cast);
   return 0;
@@ -469,14 +521,15 @@ struct Call {
 
 // prologue + main + epilogue
 int run(const Call& c, const VecsT<bf16>& v) {
+  if ((int)LayoutB<Shape>::SMEM_BYTES > smem_optin()) return ERR_SMEM;
   const int cols = c.batch * c.n;
   const dim3 tok_grid((cols + TOK - 1) / TOK, 3);
   cudaStream_t s = c.stream;
   if (c.node_bf16)
-    token_proj_kernel<bf16, bf16, false><<<tok_grid, NT, 0, s>>>(
+    token_proj_kernel<Shape, bf16, bf16, false><<<tok_grid, NT, 0, s>>>(
         (const bf16*)c.node, c.wm_s, c.wm_t, c.wq, c.wk, v, c.sp, c.tp, c.q, cols);
   else
-    token_proj_kernel<float, bf16, false><<<tok_grid, NT, 0, s>>>(
+    token_proj_kernel<Shape, float, bf16, false><<<tok_grid, NT, 0, s>>>(
         (const float*)c.node, c.wm_s, c.wm_t, c.wq, c.wk, v, c.sp, c.tp, c.q, cols);
   const int err =
       c.edge_bf16 ? launch_main<bf16>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp, c.tp,
@@ -486,18 +539,22 @@ int run(const Call& c, const VecsT<bf16>& v) {
                                            c.q, v, c.attn, c.edge_out, c.n, cols,
                                            c.update_edge, c.write_cast, s);
   if (err != 0) return err;
-  out_proj_kernel<bf16, false><<<tok_grid.x, NT, 0, s>>>(c.attn, c.wv, c.wo, v, c.out, cols);
+  constexpr int TK = out_tokens<Shape, false>();
+  out_proj_kernel<Shape, bf16, false><<<(cols + TK - 1) / TK, NT, 0, s>>>(
+      c.attn, c.wv, c.wo, v, c.out, cols);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One call = prologue + main + epilogue on `stream`. Weights and the twelve
-// bias and LayerNorm vectors are bf16, as the bf16 network holds them; node
-// and edge are bf16 or float32 (node_bf16, edge_bf16). sp, tp, q and
-// attn [B*N, 128] are float32 scratch from the caller. write_cast: with
-// update_edge == 0, write the input edge to edge_out as float32 (the caller
-// passes 0 when it returns a float32 input edge as it is).
+// One call = prologue + main + epilogue on `stream`, at the library's widths
+// (Shape). Weights and the twelve bias and LayerNorm vectors are bf16, as the
+// bf16 network holds them; node and edge are bf16 or float32 (node_bf16,
+// edge_bf16). sp, tp, q and attn [B*N, D] are float32 scratch from the caller.
+// write_cast: with update_edge == 0, write the input edge to edge_out as
+// float32 (the caller passes 0 when it returns a float32 input edge as it
+// is). Returns 0, a CUDA error, or ERR_SMEM (before any launch) where the
+// layout does not fit the current device's opt-in shared memory.
 extern "C" int fused_edge_attention_bf16(
     const void* node, int node_bf16, const void* edge, int edge_bf16,
     const unsigned char* mask,
@@ -521,5 +578,11 @@ extern "C" int fused_edge_attention_bf16(
   return run(c, v);
 }
 
-extern "C" int fused_edge_attention_bf16_width() { return fusion::D; }
-extern "C" int fused_edge_attention_bf16_heads() { return fusion::NH; }
+// The widths this library was built for and its main kernel's shared memory:
+// {D, E, NH, bytes}; the loader checks them against the shape it asked for.
+extern "C" void fused_edge_attention_bf16_shape(int* out) {
+  out[0] = fusion::Shape::D;
+  out[1] = fusion::Shape::E;
+  out[2] = fusion::Shape::NH;
+  out[3] = (int)LayoutB<fusion::Shape>::SMEM_BYTES;
+}

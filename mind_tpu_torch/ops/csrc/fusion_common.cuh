@@ -1,5 +1,5 @@
 // Shared pieces of the two fused edge-attention kernels for Hopper (sm_90a):
-// constants, cp.async helpers, and the per-token prologue and epilogue
+// the widths, cp.async helpers, and the per-token prologue and epilogue
 // kernels. Included by fusion_attention.cu (float32) and
 // fusion_attention_bf16.cu (bf16 operands on the tensor cores).
 //
@@ -11,7 +11,7 @@
 //      per block:
 //        sp[t] = node[t] Wm_s,  tp[t] = node[t] Wm_t + bm,  q[t] = node[t] Wq + bq
 //      and, for the float32 variant, the folded key projection
-//        qk[t][h][:] = Wk[:, head h] q_h[t] / sqrt(dh)            ([8 x 128] per token)
+//        qk[t][h][:] = Wk[:, head h] q_h[t] / sqrt(dh)            ([NH x D] per token)
 //   2. the per-(source, target) main kernel of the variant;
 //   3. out_proj_kernel: the per-token output product(s), out Wo + bo.
 //
@@ -19,6 +19,16 @@
 // bf16 and multiplied in float32 FMAs: a product of two bf16 values is exact
 // in float32, so this is the tensor core's arithmetic up to the order of the
 // float32 sum. They are 0.2% of the call's operations.
+//
+// Widths. Every kernel is a template over a Widths<D, E, NH> type: node width
+// D, edge width E, NH heads of dh = D / NH. The TPU kernel takes any of them;
+// these take D and E in multiples of 16 from 16 to 128, at most 16 heads and
+// dh a multiple of 8 (fusion_attention.py::kernel_domain). A library is built
+// for one shape: the build defines FUSION_D, FUSION_E, FUSION_NH and
+// FUSION_QK_SCALE (float32(1 / sqrt(dh)), computed on the host as the JAX
+// kernel computes it), and each source instantiates its kernels for `Shape`.
+// Every width is a compile-time constant of its library: no run-time width
+// test or index costs the main path's 128 / 128 / 8 library anything.
 
 #pragma once
 
@@ -27,22 +37,60 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef FUSION_D
+#define FUSION_D 128
+#endif
+#ifndef FUSION_E
+#define FUSION_E 128
+#endif
+#ifndef FUSION_NH
+#define FUSION_NH 8
+#endif
+#ifndef FUSION_QK_SCALE
+#define FUSION_QK_SCALE 0.25
+#endif
+
 namespace fusion {
 
-constexpr int D = 128;          // node width == edge width
-constexpr int NH = 8;           // heads
-constexpr int DH = D / NH;      // 16
-constexpr int TJ = 8;           // (scene, target) columns per block
 constexpr int TI = 8;           // sources per chunk
-constexpr int R = TI * TJ;      // (source, target) rows per chunk
-constexpr int NT = 128;         // threads per block, all kernels
+constexpr int NT = 128;         // threads per block: the per-token kernels and kernel A
 constexpr int TOK = 8;          // tokens per block in the per-token kernels
 constexpr float LN_EPS = 1e-5f;
-constexpr float QK_SCALE = 0.25f;   // 1 / sqrt(DH)
 constexpr float MASKED = -1e9f;
+
+template <int D_, int E_, int NH_>
+struct Widths {
+  static constexpr int D = D_;          // node width
+  static constexpr int E = E_;          // edge width
+  static constexpr int NH = NH_;        // heads
+  static constexpr int DH = D_ / NH_;   // head width
+  static_assert(D % 16 == 0 && E % 16 == 0 && D >= 16 && E >= 16 && D <= 128 && E <= 128,
+                "D and E are multiples of 16 from 16 to 128");
+  static_assert(NH >= 1 && NH <= 16 && D % NH == 0 && DH % 8 == 0,
+                "at most 16 heads, of a width that is a multiple of 8");
+};
+
+// The shape this library is built for.
+struct Shape : Widths<FUSION_D, FUSION_E, FUSION_NH> {
+  static constexpr float QK_SCALE = (float)(FUSION_QK_SCALE);   // 1 / sqrt(dh)
+};
+
+// The device's opt-in shared memory a block (cached per device), for the
+// launchers' check of a layout before they set it.
+inline int smem_optin() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cached[dev];
+}
+// Returned by a launcher, before any launch, when a layout does not fit.
+constexpr int ERR_SMEM = -1;
 
 // Biases and LayerNorm parameters, in the type of the variant's weights
 // (float32, or bf16 as the bf16 network holds them); read as float32.
+// be and the two edge LayerNorms are E wide, the others D.
 template <typename WT>
 struct VecsT {
   const WT *bm, *ln_m_g, *ln_m_b, *bq, *bk, *bv, *bo, *be;
@@ -78,19 +126,19 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// out[r][col] = sum_k xs[r][k] w[k][col] for TOK rows out of shared memory and
-// one weight column per thread out of global memory. The weight column is
-// fetched 16 values at a time, so 16 loads are in flight before the first
-// FMA needs one: these kernels are short chains of L2 latencies otherwise.
-// Every block sums over k from 0 up: the order of a token's sum must not
-// depend on the block it lands in, or a token would compute another value
-// in a batch of scenes than alone.
+// out[r][col] = sum_k xs[r][k] w[k][col] for ROWS rows out of shared memory
+// and one weight column per thread out of global memory (w is [D][D]). The
+// weight column is fetched 16 values at a time, so 16 loads are in flight
+// before the first FMA needs one: these kernels are short chains of L2
+// latencies otherwise. Every block sums over k from 0 up: the order of a
+// token's sum must not depend on the block it lands in, or a token would
+// compute another value in a batch of scenes than alone.
 // ---------------------------------------------------------------------------
-template <typename WT>
+template <int D, int ROWS, typename WT>
 __device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restrict__ w,
-                                         int col, float acc[TOK]) {
+                                         int col, float acc[ROWS]) {
 #pragma unroll
-  for (int r = 0; r < TOK; ++r) acc[r] = 0.f;
+  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 1
   for (int k0 = 0; k0 < D; k0 += 16) {
     float wr[16];
@@ -99,7 +147,7 @@ __device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restr
 #pragma unroll
     for (int kk = 0; kk < 16; kk += 4) {
 #pragma unroll
-      for (int r = 0; r < TOK; ++r) {
+      for (int r = 0; r < ROWS; ++r) {
         const float4 x = *reinterpret_cast<const float4*>(&xs[r][k0 + kk]);
         acc[r] = fmaf(x.x, wr[kk], acc[r]);
         acc[r] = fmaf(x.y, wr[kk + 1], acc[r]);
@@ -113,14 +161,15 @@ __device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restr
 // ---------------------------------------------------------------------------
 // Prologue: per-token projections. Grid (ceil(tokens / TOK), 3): a block of
 // 128 threads takes TOK tokens and one product (blockIdx.y = 0: sp, 1: tp,
-// 2: q and, with FOLD, the folded keys); thread t owns output column t.
+// 2: q and, with FOLD, the folded keys); thread t < D owns output column t.
 // ---------------------------------------------------------------------------
-template <typename NodeT, typename WT, bool FOLD>
+template <class S, typename NodeT, typename WT, bool FOLD>
 __global__ void __launch_bounds__(NT)
 token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
                   const WT* __restrict__ wm_t, const WT* __restrict__ wq,
                   const WT* __restrict__ wk, VecsT<WT> v, float* __restrict__ sp,
                   float* __restrict__ tp, float* __restrict__ q_out, int tokens) {
+  constexpr int D = S::D, NH = S::NH, DH = S::DH;
   __shared__ __align__(16) float xs[TOK][D];
   __shared__ __align__(16) float qs[TOK][D];
   const int tid = threadIdx.x;
@@ -134,114 +183,133 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
   __syncthreads();
 
   const int col = tid;
-  float acc[TOK];
-  token_mm<WT>(xs, which == 0 ? wm_s : which == 1 ? wm_t : wq, col, acc);
-  const float bias = which == 0 ? 0.f : to_f((which == 1 ? v.bm : v.bq)[col]);
-  float* dst = which == 0 ? sp : which == 1 ? tp : q_out;
+  const bool col_ok = D == NT || col < D;
+  if (col_ok) {
+    float acc[TOK];
+    token_mm<D, TOK, WT>(xs, which == 0 ? wm_s : which == 1 ? wm_t : wq, col, acc);
+    const float bias = which == 0 ? 0.f : to_f((which == 1 ? v.bm : v.bq)[col]);
+    float* dst = which == 0 ? sp : which == 1 ? tp : q_out;
 #pragma unroll
-  for (int r = 0; r < TOK; ++r) {
-    const int tok = t0 + r;
-    const float val = acc[r] + bias;
-    if (tok < tokens && !(FOLD && which == 2)) dst[(size_t)tok * D + col] = val;
-    if (FOLD) qs[r][col] = val;
+    for (int r = 0; r < TOK; ++r) {
+      const int tok = t0 + r;
+      const float val = acc[r] + bias;
+      if (tok < tokens && !(FOLD && which == 2)) dst[(size_t)tok * D + col] = val;
+      if (FOLD) qs[r][col] = val;
+    }
   }
   if constexpr (FOLD) {
   if (which == 2) {
-    // qk[tok][h][c] = sum_d Wk[c][h*16+d] q[tok][h*16+d] / sqrt(dh): the
+    // qk[tok][h][c] = sum_d Wk[c][h*dh+d] q[tok][h*dh+d] / sqrt(dh): the
     // logit of (i, j) for head h is then mem[i,j] . qk[j][h]. The bias term
     // bk_h . q_h[j] is the same for every source i and cancels in the
     // softmax, so it is not computed.
     static_assert(sizeof(WT) == 4, "the folded keys are a float32 product");
     __syncthreads();
     const int c = tid;
+    if (col_ok) {
 #pragma unroll 2
-    for (int hs = 0; hs < NH; ++hs) {
-      // staggered over the blocks: each head's sum is its own, so the order
-      // of the heads changes no value
-      const int h = (hs + blockIdx.x) & (NH - 1);
-      // row c of Wk, head h: 16 contiguous float32 values, as four 16-byte loads
-      float wr[DH];
+      for (int hs = 0; hs < NH; ++hs) {
+        // staggered over the blocks: each head's sum is its own, so the
+        // order of the heads changes no value
+        const int h = (unsigned)(hs + blockIdx.x) % (unsigned)NH;
+        // row c of Wk, head h: dh contiguous float32 values, as 16-byte loads
+        float wr[DH];
 #pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 w4 = __ldg(reinterpret_cast<const float4*>(wk + c * D + h * DH) + d4);
-        wr[4 * d4] = w4.x; wr[4 * d4 + 1] = w4.y; wr[4 * d4 + 2] = w4.z; wr[4 * d4 + 3] = w4.w;
-      }
+        for (int d4 = 0; d4 < DH / 4; ++d4) {
+          const float4 w4 = __ldg(reinterpret_cast<const float4*>(wk + c * D + h * DH) + d4);
+          wr[4 * d4] = w4.x; wr[4 * d4 + 1] = w4.y; wr[4 * d4 + 2] = w4.z; wr[4 * d4 + 3] = w4.w;
+        }
 #pragma unroll
-      for (int r = 0; r < TOK; ++r) {
-        float a = 0.f;
+        for (int r = 0; r < TOK; ++r) {
+          float a = 0.f;
 #pragma unroll
-        for (int d = 0; d < DH; ++d) a = fmaf(wr[d], qs[r][h * DH + d], a);
-        const int tok = t0 + r;
-        if (tok < tokens) q_out[((size_t)tok * NH + h) * D + c] = a * QK_SCALE;
+          for (int d = 0; d < DH; ++d) a = fmaf(wr[d], qs[r][h * DH + d], a);
+          const int tok = t0 + r;
+          if (tok < tokens) q_out[((size_t)tok * NH + h) * D + c] = a * S::QK_SCALE;
+        }
       }
     }
   }
   }
 }
 
+// Tokens a block of out_proj_kernel: TOK, or TOK / 2 where the folded
+// form's [TOK * NH][D] staging would pass the 48 KB of static shared memory.
+template <class S, bool FOLD>
+__host__ __device__ constexpr int out_tokens() {
+  return FOLD && (TOK * S::NH + TOK) * S::D * 4 > 48 * 1024 ? TOK / 2 : TOK;
+}
+
 // ---------------------------------------------------------------------------
 // Epilogue: out = x Wo + bo per token, where
 //   FOLD:  x[t] = ctx[tok][head of t] . Wv[:, t] + bv[t]   (ctx = softmax-weighted
-//          sum of mem rows per head, [8 x 128] per token; the weights sum to
+//          sum of mem rows per head, [NH x D] per token; the weights sum to
 //          1, so bv is added once)
 //   else:  x[t] = attn[tok][t] + bv[t]                      (attn = softmax-weighted
 //          sum of the bias-free v rows)
+// A block takes out_tokens<S, FOLD>() tokens.
 // ---------------------------------------------------------------------------
-template <typename WT, bool FOLD>
+template <class S, typename WT, bool FOLD>
 __global__ void __launch_bounds__(NT)
 out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
                 const WT* __restrict__ wo, VecsT<WT> v, float* __restrict__ out,
                 int tokens) {
-  __shared__ __align__(16) float cs[FOLD ? TOK * NH : 1][D];
-  __shared__ __align__(16) float xs[TOK][D];
+  constexpr int D = S::D, NH = S::NH, DH = S::DH, TK = out_tokens<S, FOLD>();
+  __shared__ __align__(16) float cs[FOLD ? TK * NH : 1][D];
+  __shared__ __align__(16) float xs[TK][D];
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * TOK;
+  const int t0 = blockIdx.x * TK;
   const int col = tid;
-  const float bv = to_f(v.bv[col]);
-  float acc[TOK];
+  const bool col_ok = D == NT || col < D;
+  const float bv = col_ok ? to_f(v.bv[col]) : 0.f;
+  float acc[TK];
   if (FOLD) {
-    for (int idx = tid; idx < TOK * NH * D; idx += NT) {
+    for (int idx = tid; idx < TK * NH * D; idx += NT) {
       const int tok = t0 + idx / (NH * D);
       cs[idx / D][idx % D] = tok < tokens ? in[(size_t)t0 * NH * D + idx] : 0.f;
     }
     __syncthreads();
-    // row r of this product is token r's accumulator of the thread's head
-    const int h = col / DH;
+    if (col_ok) {
+      // row r of this product is token r's accumulator of the thread's head
+      const int h = col / DH;
 #pragma unroll
-    for (int r = 0; r < TOK; ++r) acc[r] = 0.f;
+      for (int r = 0; r < TK; ++r) acc[r] = 0.f;
 #pragma unroll 1
-    for (int k0 = 0; k0 < D; k0 += 16) {   // from 0 up, as in token_mm
-      float wr[16];
+      for (int k0 = 0; k0 < D; k0 += 16) {   // from 0 up, as in token_mm
+        float wr[16];
 #pragma unroll
-      for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(wv[(k0 + kk) * D + col]);
+        for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(wv[(k0 + kk) * D + col]);
 #pragma unroll
-      for (int kk = 0; kk < 16; kk += 4) {
+        for (int kk = 0; kk < 16; kk += 4) {
 #pragma unroll
-        for (int r = 0; r < TOK; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(&cs[r * NH + h][k0 + kk]);
-          acc[r] = fmaf(x.x, wr[kk], acc[r]);
-          acc[r] = fmaf(x.y, wr[kk + 1], acc[r]);
-          acc[r] = fmaf(x.z, wr[kk + 2], acc[r]);
-          acc[r] = fmaf(x.w, wr[kk + 3], acc[r]);
+          for (int r = 0; r < TK; ++r) {
+            const float4 x = *reinterpret_cast<const float4*>(&cs[r * NH + h][k0 + kk]);
+            acc[r] = fmaf(x.x, wr[kk], acc[r]);
+            acc[r] = fmaf(x.y, wr[kk + 1], acc[r]);
+            acc[r] = fmaf(x.z, wr[kk + 2], acc[r]);
+            acc[r] = fmaf(x.w, wr[kk + 3], acc[r]);
+          }
         }
       }
+#pragma unroll
+      for (int r = 0; r < TK; ++r) xs[r][col] = operand<WT>(acc[r] + bv);
     }
+  } else if (col_ok) {
 #pragma unroll
-    for (int r = 0; r < TOK; ++r) xs[r][col] = operand<WT>(acc[r] + bv);
-  } else {
-#pragma unroll
-    for (int r = 0; r < TOK; ++r) {
+    for (int r = 0; r < TK; ++r) {
       const int tok = t0 + r;
       xs[r][col] = tok < tokens ? operand<WT>(in[(size_t)tok * D + col] + bv) : 0.f;
     }
   }
   __syncthreads();
-  token_mm<WT>(xs, wo, col, acc);
-  const float bo = to_f(v.bo[col]);
+  if (col_ok) {
+    token_mm<D, TK, WT>(xs, wo, col, acc);
+    const float bo = to_f(v.bo[col]);
 #pragma unroll
-  for (int r = 0; r < TOK; ++r) {
-    const int tok = t0 + r;
-    if (tok < tokens) out[(size_t)tok * D + col] = acc[r] + bo;
+    for (int r = 0; r < TK; ++r) {
+      const int tok = t0 + r;
+      if (tok < tokens) out[(size_t)tok * D + col] = acc[r] + bo;
+    }
   }
 }
 

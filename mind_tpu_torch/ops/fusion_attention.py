@@ -11,19 +11,30 @@ each target j over its memory column (mind_tpu/ops/fusion_attention.py).
   held to 2e-4 against `fused_edge_attention_ref`);
 - bfloat16 weights: the tensor-core kernel `csrc/fusion_attention_bf16.cu`,
   the mode the TPU kernel runs under compute_dtype="bfloat16": bf16 operands
-  into every 128-wide product, float32 accumulation, float32 LayerNorms,
-  softmax, residual and outputs. Its plain version is
-  `fused_edge_attention_bf16_ref`.
+  into every product, float32 accumulation, float32 LayerNorms, softmax,
+  residual and outputs. Its plain version is `fused_edge_attention_bf16_ref`.
 
 Both are hand-written for sm_90a and are the ports of the TPU kernel
 mind_tpu/ops/fusion_attention.py::_kernel. CUDA tensors launch the kernel of
 their variant or raise; CPU tensors run the variant's plain version. There is
 no fallback between the two.
 
+Widths. Like the TPU kernel, the plain versions take any node width D, edge
+width E and head count. The kernels take the domain `kernel_domain` states
+(D and E multiples of 16 from 16 to 128, at most 16 heads, a head width
+D / heads that is a multiple of 8): the main path's network (D = E = 128, 8
+heads) and the JAX package's narrow test network (32 / 32, 4 heads) among
+it. A CUDA call outside it raises ValueError before anything is built or
+launched.
+
 The kernels are built with nvcc at first use into `_build/` beside this file
-(listed in .gitignore), one shared library with a C interface per source,
-compiled side by side and loaded with ctypes. A library's name carries a hash
-of its source and of the shared header, so an edited kernel is rebuilt.
+(listed in .gitignore), one shared library with a C interface per source and
+shape (D, E, heads): every width is a compile-time constant of its library,
+so no run-time width test or index costs the main path's library anything.
+`compile_kernels` builds the libraries it is asked for side by side (one nvcc
+each), and a call at a shape not built yet builds that shape's library of its
+variant. A library's name carries its shape and a hash of its source and of
+the shared header, so an edited kernel is rebuilt.
 
 Gradients. A kernel writes into buffers of its own, which autograd cannot
 see, so under grad mode (an input or weight that requires grad)
@@ -31,7 +42,7 @@ see, so under grad mode (an input or weight that requires grad)
 
 - forward: the same dispatch as without grad (the variant's kernel on CUDA
   tensors, its plain version on CPU tensors); it saves only the inputs and
-  weights, none of the [B, N, N, 128] intermediates;
+  weights, none of the [B, N, N, E] intermediates;
 - backward (`fused_edge_attention_vjp`): recomputes the core from those
   inputs with the variant's plain version and returns torch.autograd.grad
   of it. That is the gradient the JAX package's training takes: jax.grad
@@ -49,9 +60,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -61,6 +74,8 @@ _COMMON = _CSRC / "fusion_common.cuh"
 _SRCS = {"float32": (_CSRC / "fusion_attention.cu", _COMMON),
          "bfloat16": (_CSRC / "fusion_attention_bf16.cu", _COMMON),
          "graph_control": (_CSRC / "graph_control.cu",)}
+VARIANTS = ("float32", "bfloat16")
+FULL_WIDTH = (128, 128, 8)   # (D, E, heads) of the main path's network
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -69,7 +84,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class FusionWeights(NamedTuple):
     """Explicit parameters of the fused block (all [in, out] layout)."""
 
-    wm_e: torch.Tensor   # [E, D] memory proj, edge slice
+    wm_e: torch.Tensor   # [E, D] memory proj, edge slice (be, ln_e1_*, ln_e2_*: [E])
     wm_s: torch.Tensor   # [D, D] memory proj, source-node slice
     wm_t: torch.Tensor   # [D, D] memory proj, target-node slice
     bm: torch.Tensor     # [D]
@@ -84,7 +99,7 @@ class FusionWeights(NamedTuple):
     wo: torch.Tensor
     bo: torch.Tensor
     we: torch.Tensor     # [D, E] edge update proj
-    be: torch.Tensor
+    be: torch.Tensor     # [E]
     ln_e1_g: torch.Tensor  # [E] inner edge LN
     ln_e1_b: torch.Tensor
     ln_e2_g: torch.Tensor  # [E] residual edge LN
@@ -140,7 +155,7 @@ def fused_edge_attention_bf16_ref(node, edge, key_mask, w: FusionWeights,
                                   n_head: int, update_edge: bool = True):
     """Plain PyTorch version of the bf16 operand mode, on any device: the
     same function as `fused_edge_attention_ref` with the operands of every
-    128-wide product rounded to bf16 and everything else (accumulation, bias
+    product rounded to bf16 and everything else (accumulation, bias
     adds, LayerNorms, logits, softmax, the residual edge + eu) in float32.
 
     node [B, N, D] and edge [B, N, N, E] may be bfloat16 or float32; the
@@ -178,67 +193,143 @@ def fused_edge_attention_bf16_ref(node, edge, key_mask, w: FusionWeights,
     return _round_bf16(out) @ p["wo"] + p["bo"], edge_new
 
 
-def _library_path(variant: str) -> Path:
-    files = _SRCS[variant]
+DOMAIN = ("D and E multiples of 16 from 16 to 128, at most 16 heads, and a head width "
+          "D / heads that is a multiple of 8")
+
+
+def kernel_domain(d: int, e: int, n_head: int):
+    """None where the card's kernels take node width d, edge width e and
+    n_head heads; else why not, naming the domain (DOMAIN). A pure function
+    of the three widths: it builds, loads and launches nothing."""
+    for name, x in (("D", d), ("E", e)):
+        if not (16 <= x <= 128 and x % 16 == 0):
+            return f"{name} = {x}: the kernels take {DOMAIN}"
+    if not (1 <= n_head <= 16 and d % n_head == 0 and (d // n_head) % 8 == 0):
+        return f"{n_head} heads at D = {d}: the kernels take {DOMAIN}"
+    return None
+
+
+def check_domain(d: int, e: int, n_head: int) -> None:
+    """Raise ValueError, before anything is built or launched, where
+    kernel_domain refuses (d, e, n_head)."""
+    why = kernel_domain(d, e, n_head)
+    if why is not None:
+        raise ValueError(f"fused_edge_attention on the card: {why}")
+
+
+def _qk_scale(d: int, n_head: int) -> float:
+    """1 / sqrt(dh) as the JAX kernel computes it: jnp.float32(1.0 / dh**0.5)."""
+    return float(np.float32(1.0 / (d // n_head) ** 0.5))
+
+
+def _library_path(name: str, shape=None) -> Path:
+    files = _SRCS[name]
     h = hashlib.sha256(b"".join(f.read_bytes() for f in files))
-    return _BUILD_DIR / f"lib{files[0].stem}_{h.hexdigest()[:12]}.so"
+    tag = "" if shape is None else "_{}x{}x{}".format(*shape)
+    return _BUILD_DIR / f"lib{files[0].stem}{tag}_{h.hexdigest()[:12]}.so"
 
 
-def compile_kernels() -> dict:
-    """Compile every CUDA source of the port (both fusion kernels and
-    csrc/graph_control.cu) where its library is missing (once per source
-    hash, one nvcc per source, all side by side); returns {name: path}.
-    Runs nvcc only: it neither loads a library nor touches a card, so a
-    process can build for others it starts (parallel/launch.py). Raises on
-    any build failure."""
-    paths = {v: _library_path(v) for v in _SRCS}
-    missing = [v for v, so in paths.items() if not so.exists()]
+def _nvcc_defines(shape) -> list:
+    d, e, n_head = shape
+    return [f"-DFUSION_D={d}", f"-DFUSION_E={e}", f"-DFUSION_NH={n_head}",
+            f"-DFUSION_QK_SCALE={_qk_scale(d, n_head)!r}"]
+
+
+def compile_kernels(shapes=(FULL_WIDTH,), variants=VARIANTS) -> dict:
+    """Compile the graph-control library (csrc/graph_control.cu) and, for
+    each (D, E, heads) in `shapes` and each of `variants`, that shape's
+    fusion library, where it is missing (once per source hash; one nvcc per
+    library, all side by side); returns {"graph_control": path,
+    (variant, shape): path}. Records each build's seconds and nvcc's report
+    in build_kernels.seconds and build_kernels.log. Runs nvcc only: it
+    neither loads a library nor touches a card, so a process can build for
+    others it starts (parallel/launch.py). Raises ValueError for a shape
+    outside the domain, and on any build failure."""
+    shapes = [tuple(int(x) for x in sh) for sh in shapes]
+    for sh in shapes:
+        check_domain(*sh)
+    targets = {"graph_control": ("graph_control", None)}
+    targets.update({(v, sh): (v, sh) for sh in shapes for v in variants})
+    paths = {k: _library_path(*t) for k, t in targets.items()}
+    missing = [k for k, path in paths.items() if not path.exists()]
     if missing:
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
             raise RuntimeError("nvcc not found: the fusion kernels cannot be built")
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for v in missing:
-            tmp = paths[v].with_suffix(f".{os.getpid()}.tmp")
-            procs[v] = (tmp, subprocess.Popen(
-                [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRCS[v][0])],
+        t0 = time.perf_counter()
+        for k in missing:
+            name, sh = targets[k]
+            tmp = paths[k].with_suffix(f".{os.getpid()}.tmp")
+            defines = [] if sh is None else _nvcc_defines(sh)
+            procs[k] = (tmp, subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, *defines, "-o", str(tmp), str(_SRCS[name][0])],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        results = {v: (tmp, proc.communicate()[1], proc.returncode)
-                   for v, (tmp, proc) in procs.items()}
-        for v, (tmp, err, rc) in results.items():
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed on {_SRCS[v][0].name} ({rc}):\n{err}")
-            build_kernels.log[v] = err
-            os.replace(tmp, paths[v])
+        failed = []
+        for k, (tmp, proc) in procs.items():
+            err = proc.communicate()[1]
+            label = k if k == "graph_control" else "{} {}/{}/{}".format(k[0], *k[1])
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {label} ({proc.returncode}):\n{err}")
+                continue
+            build_kernels.seconds[label] = time.perf_counter() - t0
+            build_kernels.log[label] = err
+            os.replace(tmp, paths[k])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     return paths
 
 
-def build_kernels() -> dict:
-    """Compile both kernels (compile_kernels) and load them; returns
-    {"float32": CDLL, "bfloat16": CDLL}. Raises on any build failure;
-    never returns a library that did not build."""
-    if build_kernels.libs is not None:
-        return build_kernels.libs
-    paths = compile_kernels()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    libs = {v: ctypes.CDLL(str(paths[v])) for v in ("float32", "bfloat16")}
-    fn = libs["float32"].fused_edge_attention_f32
-    fn.argtypes = [ptr] * 29 + [i32] * 3 + [ptr]
-    fn.restype = i32
-    fn = libs["bfloat16"].fused_edge_attention_bf16
-    fn.argtypes = [ptr, i32, ptr, i32] + [ptr] * 27 + [i32] * 4 + [ptr]
-    fn.restype = i32
-    for lib, stem in ((libs["float32"], "fused_edge_attention"),
-                      (libs["bfloat16"], "fused_edge_attention_bf16")):
-        getattr(lib, stem + "_width").restype = i32
-        getattr(lib, stem + "_heads").restype = i32
-    build_kernels.libs = libs
-    return libs
+_ARGTYPES = {"float32": [ctypes.c_void_p] * 29 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+             "bfloat16": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+             + [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+_ENTRY = {"float32": "fused_edge_attention_f32", "bfloat16": "fused_edge_attention_bf16"}
+_SHAPE_FN = {"float32": "fused_edge_attention_shape",
+             "bfloat16": "fused_edge_attention_bf16_shape"}
+_LIBS = {}   # (variant, shape) -> loaded library
 
 
-build_kernels.libs = None
-build_kernels.log = {}
+def _load(variant, shape, path):
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, _ENTRY[variant])
+    fn.argtypes, fn.restype = _ARGTYPES[variant], ctypes.c_int
+    built = (ctypes.c_int * 4)()
+    getattr(lib, _SHAPE_FN[variant])(built)
+    if tuple(built[:3]) != shape:
+        raise RuntimeError(f"{path.name} is built for {tuple(built[:3])}, not {shape}")
+    lib.smem_bytes = built[3]
+    _LIBS[(variant, shape)] = lib
+    return lib
+
+
+def build_kernels(shapes=(FULL_WIDTH,)) -> dict:
+    """Compile (compile_kernels) and load both variants' libraries for each
+    (D, E, heads) in `shapes`; returns {(variant, shape): CDLL}. Raises on
+    any build failure; never returns a library that did not build."""
+    shapes = [tuple(int(x) for x in sh) for sh in shapes]
+    keys = [(v, sh) for sh in shapes for v in VARIANTS]
+    if any(k not in _LIBS for k in keys):
+        paths = compile_kernels(shapes)
+        for k in keys:
+            if k not in _LIBS:
+                _load(*k, paths[k])
+    return {k: _LIBS[k] for k in keys}
+
+
+build_kernels.log = {}       # library -> nvcc's report (ptxas: registers, spills)
+build_kernels.seconds = {}   # library -> seconds from its build's start to its end
+
+
+def kernel_library(variant: str, shape) -> ctypes.CDLL:
+    """The loaded library of `variant` at (D, E, heads) `shape`, built at
+    first use. Raises ValueError outside the domain, before any build."""
+    shape = tuple(int(x) for x in shape)
+    lib = _LIBS.get((variant, shape))
+    if lib is None:
+        check_domain(*shape)
+        lib = _load(variant, shape, compile_kernels((shape,), (variant,))[(variant, shape)])
+    return lib
 
 
 def _check(name, t, shape, dtypes, device):
@@ -254,24 +345,59 @@ def _check(name, t, shape, dtypes, device):
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
+_EDGE_VECTORS = ("be", "ln_e1_g", "ln_e1_b", "ln_e2_g", "ln_e2_b")
+
+
+def weight_shape(name: str, d: int, e: int) -> tuple:
+    """Shape of FusionWeights field `name` at node width d, edge width e, as
+    the JAX layer declares it: wm_e [E, D], we [D, E], the other matrices
+    [D, D]; be and the two edge LayerNorms [E], the other vectors [D]."""
+    if name == "wm_e":
+        return (e, d)
+    if name == "we":
+        return (d, e)
+    if name.startswith("w"):
+        return (d, d)
+    return (e,) if name in _EDGE_VECTORS else (d,)
+
+
+def _check_call(node, edge, key_mask, w, n_head, node_types, edge_types, weight_types):
+    """The launchers' checks, in order: the domain (ValueError before any
+    build or launch), then every tensor's device, type, shape, contiguity
+    and alignment. Returns (B, N, D, E)."""
+    if node.dim() != 3 or edge.dim() != 4:
+        raise ValueError(f"node must be [B, N, D] and edge [B, N, N, E], got "
+                         f"{tuple(node.shape)} and {tuple(edge.shape)}")
+    B, N, D = node.shape
+    E = edge.shape[-1]
+    check_domain(D, E, n_head)
+    dev = node.device
+    _check("node", node, (B, N, D), node_types, dev)
+    _check("edge", edge, (B, N, N, E), edge_types, dev)
+    _check("key_mask", key_mask, (B, N), (torch.bool,), dev)
+    for name, t in w._asdict().items():
+        _check(name, t, weight_shape(name, D, E), weight_types, dev)
+    return B, N, D, E
+
+
+def _raise_for(err, lib, variant):
+    if err == -1:   # ERR_SMEM: nothing was launched
+        raise ValueError(f"fused_edge_attention ({variant}): the layout's {lib.smem_bytes} B "
+                         f"of shared memory exceed this device's opt-in limit")
+    if err != 0:
+        raise RuntimeError(f"fused_edge_attention ({variant}) launch failed: CUDA error {err}")
+
+
 def _launched(variant):
     fused_edge_attention.launches += 1
     fused_edge_attention.launches_by_variant[variant] += 1
 
 
 def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
-    lib = build_kernels()["float32"]
-    D = lib.fused_edge_attention_width()
-    if n_head != lib.fused_edge_attention_heads():
-        raise ValueError(f"kernel is built for {lib.fused_edge_attention_heads()}"
-                         f" heads, got {n_head}")
-    B, N = node.shape[0], node.shape[1]
-    dev, f32 = node.device, (torch.float32,)
-    _check("node", node, (B, N, D), f32, dev)
-    _check("edge", edge, (B, N, N, D), f32, dev)
-    _check("key_mask", key_mask, (B, N), (torch.bool,), dev)
-    for name, t in w._asdict().items():
-        _check(name, t, (D, D) if name.startswith("w") else (D,), f32, dev)
+    f32 = (torch.float32,)
+    B, N, D, E = _check_call(node, edge, key_mask, w, n_head, f32, f32, f32)
+    lib = kernel_library("float32", (D, E, n_head))
+    dev = node.device
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     out = new(B, N, D)
     edge_out = torch.empty_like(edge) if update_edge else edge
@@ -287,31 +413,22 @@ def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
             sp.data_ptr(), tp.data_ptr(), qk.data_ptr(), ctx.data_ptr(),
             out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_edge_attention launch failed: CUDA error {err}")
+    _raise_for(err, lib, "float32")
     _launched("float32")
     return out, edge_out
 
 
 def _launch_bf16(node, edge, key_mask, w, n_head, update_edge):
-    lib = build_kernels()["bfloat16"]
-    D = lib.fused_edge_attention_bf16_width()
-    if n_head != lib.fused_edge_attention_bf16_heads():
-        raise ValueError(f"kernel is built for {lib.fused_edge_attention_bf16_heads()}"
-                         f" heads, got {n_head}")
-    B, N = node.shape[0], node.shape[1]
-    dev = node.device
     bf16, f32 = torch.bfloat16, torch.float32
-    _check("node", node, (B, N, D), (bf16, f32), dev)
-    _check("edge", edge, (B, N, N, D), (bf16, f32), dev)
-    _check("key_mask", key_mask, (B, N), (torch.bool,), dev)
     # weights, biases and LayerNorm parameters as the bf16 network holds them
-    for name, t in w._asdict().items():
-        _check(name, t, (D, D) if name.startswith("w") else (D,), (bf16,), dev)
+    B, N, D, E = _check_call(node, edge, key_mask, w, n_head, (bf16, f32), (bf16, f32),
+                             (bf16,))
+    lib = kernel_library("bfloat16", (D, E, n_head))
+    dev = node.device
     new = lambda *s: torch.empty(s, dtype=f32, device=dev)
     out = new(B, N, D)
     write_cast = not update_edge and edge.dtype != f32
-    edge_out = new(B, N, N, D) if update_edge or write_cast else edge
+    edge_out = new(B, N, N, E) if update_edge or write_cast else edge
     sp, tp, q, attn = (new(B * N, D) for _ in range(4))
     with torch.cuda.device(dev):   # as in _launch_f32
         err = lib.fused_edge_attention_bf16(
@@ -321,8 +438,7 @@ def _launch_bf16(node, edge, key_mask, w, n_head, update_edge):
             sp.data_ptr(), tp.data_ptr(), q.data_ptr(), attn.data_ptr(),
             out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge), int(write_cast),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_edge_attention (bf16) launch failed: CUDA error {err}")
+    _raise_for(err, lib, "bfloat16")
     _launched("bfloat16")
     return out, edge_out
 
@@ -332,16 +448,17 @@ def fused_edge_attention(node, edge, key_mask, w: FusionWeights, n_head: int,
     """Fused layer core; the variant follows the type of `w.wm_e`.
 
     float32 weights: CPU tensors run `fused_edge_attention_ref`, CUDA tensors
-    launch the float32 kernel (float32 everywhere, D = E = 128, 8 heads). With
-    `update_edge=False` the input edge is returned as it is (no copy).
+    launch the float32 kernel (float32 everywhere). With `update_edge=False`
+    the input edge is returned as it is (no copy).
 
     bfloat16 weights: CPU tensors run `fused_edge_attention_bf16_ref`, CUDA
     tensors launch the tensor-core kernel (node and edge bfloat16 or float32).
     Both outputs are float32; with `update_edge=False` a float32 input edge is
     returned as it is and a bfloat16 one is written out as float32.
 
-    A CUDA tensor launches its kernel or raises on anything it does not take.
-    Under grad mode, with an input or weight that requires grad, the call
+    A CUDA tensor launches its kernel or raises on anything it does not take:
+    ValueError, before any build or launch, for widths outside
+    `kernel_domain`. CPU tensors take any widths. Under grad mode, with an input or weight that requires grad, the call
     goes through FusedEdgeAttentionFn (module docstring)."""
     variant = {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(w.wm_e.dtype)
     if variant is None:
@@ -422,37 +539,48 @@ def reset_launch_counts():
 
 
 def fused_edge_attention_flops(batch: int, n: int, d: int, update_edge: bool,
-                               variant: str = "float32", n_head: int = 8) -> int:
-    """Operations of one call (2 per multiply-add), from its shapes; LayerNorm
-    and softmax are counted as lower order terms.
+                               variant: str = "float32", n_head: int = 8,
+                               e: int | None = None) -> int:
+    """Operations of one call (2 per multiply-add), from its shapes: node
+    width d, edge width e (d where not given), n_head heads; LayerNorm and
+    softmax are counted as lower order terms.
 
     "float32" counts the folded form, the least work that computes the
-    function: per (i, j) pair one [d x d] product (two with the edge update)
-    plus the per-head logit and weighted-memory sums (2 n_head d), and six
-    [d x d] products per token (Wm_s, Wm_t, Wq, the folded keys, Wv, Wo).
-    "bfloat16" counts the form its kernel and the TPU kernel run: three (four)
-    [d x d] products per pair and four per token. "unfolded" is that count for
-    the float32 function, kept for comparison."""
+    function: per (i, j) pair the [e x d] memory product (and the [d x e]
+    edge update) plus the per-head logit and weighted-memory sums (2 n_head
+    d), and six [d x d] products per token (Wm_s, Wm_t, Wq, the folded keys,
+    Wv, Wo). "bfloat16" counts the form its kernel and the TPU kernel run:
+    per pair the memory product, the edge update, the two [d x d] key and
+    value products and the q.k and attention.v sums (4 d), and four [d x d]
+    products per token. "unfolded" is that count for the float32 function,
+    kept for comparison."""
+    e = d if e is None else e
     pairs = batch * n * n
     tokens = batch * n
+    edge_macs = e * d * (2 if update_edge else 1)
     if variant == "float32":
-        pair_macs = d * d * (2 if update_edge else 1) + 2 * n_head * d
+        pair_macs = edge_macs + 2 * n_head * d
         return 2 * (pair_macs * pairs + 6 * d * d * tokens) + 4 * pairs * d
     if variant not in ("bfloat16", "unfolded"):
         raise ValueError(variant)
-    pair_mm = 4 if update_edge else 3
-    return 2 * d * d * (pair_mm * pairs + 4 * tokens) + 4 * pairs * d
+    return 2 * ((edge_macs + 2 * d * d) * pairs + 4 * d * d * tokens) + 4 * pairs * d
 
 
 def fused_edge_attention_bytes(batch: int, n: int, d: int, update_edge: bool,
                                edge_bytes: int = 4, node_bytes: int = 4,
-                               weight_bytes: int = 4) -> int:
+                               weight_bytes: int = 4, e: int | None = None) -> int:
     """Bytes that one call must move: inputs read once, outputs written once
-    (float32 outputs), weights included. The defaults are the float32
-    variant; the bf16 variant has 2-byte weights and a 2- or 4-byte node and
-    edge, and writes a float32 edge whenever it updates or casts it."""
-    pairs = batch * n * n * d
+    (float32 outputs), weights included, at node width d and edge width e (d
+    where not given). The defaults are the float32 variant; the bf16 variant
+    has 2-byte weights and a 2- or 4-byte node and edge, and writes a float32
+    edge whenever it updates or casts it. The weights counted are Wm_e
+    [e x d], the six [d x d] and the twelve vectors (seven d wide, five e
+    wide) at 4 bytes; We [d x e], read with the edge update, is left out, as
+    in every count recorded since the kernels were written (at 128 wide 0.4%
+    of a B = 1 call, 0.05% of B = 8)."""
+    e = d if e is None else e
+    pairs = batch * n * n * e
     edge_out = pairs * 4 if update_edge or edge_bytes != 4 else 0
     node = batch * n * d * (node_bytes + 4)
-    weights = 7 * d * d * weight_bytes + 12 * d * 4
+    weights = (e * d + 6 * d * d) * weight_bytes + (7 * d + 5 * e) * 4
     return pairs * edge_bytes + edge_out + node + batch * n + weights

@@ -9,9 +9,9 @@ dryrun_multichip's three workloads on that world:
 1. a data-parallel training step (models/train.py::make_train_step on the
    rank's `DistMesh`) on make_dummy_batch, 2 scenes per rank: the loss
    finite and the parameters equal on every rank, to the bit. The network
-   is PlannerConfig()'s float32 ScenePredNet at full width (the CUDA
-   kernels take D = 128 and 8 heads; the JAX dry run's narrow network has
-   no kernel on the card);
+   is dryrun_multichip's (DRYRUN_NET: 2 fusion layers, 32 wide, 4 heads,
+   12 predicted frames), float32; on the card its layer cores run kernel A
+   at 32 / 32 / 4;
 2. a sharded tree solve (parallel/scale.py::parallel_tree_solve), 4
    branching trees per rank, 5 iterations: every cost finite, every rank
    holding the same whole result;
@@ -42,6 +42,9 @@ import torch
 
 # the JAX dry run's Monte-Carlo tolerance: sharded against one program, metres
 TOL_MC_EGO = 1e-3
+# the JAX dry run's training network (__graft_entry__.py::dryrun_multichip)
+DRYRUN_NET = dict(n_scene_layer=2, n_fpn_scale=2, d_actor=32, d_lane=32, d_embed=32, d_rpe=32,
+                  n_scene_head=4, pred_len=12)
 
 
 def _launches():
@@ -244,7 +247,7 @@ def main(argv=None) -> int:
 
     n = args.nproc
     tag = f"dryrun({n})"
-    net_cfg = NetConfig()
+    net_cfg = NetConfig(**DRYRUN_NET)
     batch = make_dummy_batch(net_cfg, batch_size=2 * n, n_actors=4, n_lanes=8, device="cpu")
     pc = planner_config_for_demo("demo_1")
     if not pc.ckpt_path:

@@ -315,16 +315,20 @@ def demo_spec(demo: str, seed: Optional[int], data_root, *, ticks: Optional[int]
     return SimSpec(cfg, planner_cfg or planner_config_for_demo(demo), ticks, scenario)
 
 
-def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0):
-    """(FusionWeights, node [B, N, D], edge [B, N, N, D]) of float32 random
-    values from `seed`, drawn on the CPU and moved to `device`; LayerNorm
-    gains near 1."""
-    from mind_tpu_torch.ops.fusion_attention import FusionWeights
+def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0, e: int | None = None):
+    """(FusionWeights, node [B, N, D], edge [B, N, N, E]) of float32 random
+    values from `seed`, drawn on the CPU and moved to `device`, at node width
+    D and edge width E = e (D where not given; then the draws are those of
+    every earlier call); the weights at their layer's shapes
+    (fusion_attention.weight_shape), LayerNorm gains near 1."""
+    from mind_tpu_torch.ops.fusion_attention import FusionWeights, weight_shape
 
+    E = D if e is None else e
     g = torch.Generator(device="cpu").manual_seed(seed)
     rn = lambda *s, sc=0.08: (torch.randn(*s, generator=g) * sc).to(device)
     w = FusionWeights(**{
-        f: (rn(D, D) if f.startswith("w") else
-            1 + rn(D, sc=0.1) if f.endswith("_g") else rn(D, sc=0.1))
+        f: (rn(*weight_shape(f, D, E)) if f.startswith("w") else
+            1 + rn(*weight_shape(f, D, E), sc=0.1) if f.endswith("_g") else
+            rn(*weight_shape(f, D, E), sc=0.1))
         for f in FusionWeights._fields})
-    return w, rn(B, N, D, sc=1.0), rn(B, N, N, D, sc=0.5)
+    return w, rn(B, N, D, sc=1.0), rn(B, N, N, E, sc=0.5)

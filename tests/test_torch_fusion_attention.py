@@ -252,8 +252,6 @@ class _StubLibrary:
         return 0
 
     fused_edge_attention_f32 = fused_edge_attention_bf16 = _launch
-    fused_edge_attention_width = fused_edge_attention_bf16_width = lambda self: D
-    fused_edge_attention_heads = fused_edge_attention_bf16_heads = lambda self: H
 
 
 @pytest.mark.parametrize("variant", ["float32", "bfloat16"])
@@ -278,7 +276,7 @@ def test_launch_runs_under_the_tensors_device(variant, monkeypatch):
 
     streams = {}
     lib = _StubLibrary(current)
-    monkeypatch.setattr(tfa, "build_kernels", lambda: {"float32": lib, "bfloat16": lib})
+    monkeypatch.setattr(tfa, "kernel_library", lambda variant, shape: lib)
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: streams.setdefault(
         torch.device(d), type("Stream", (), {"cuda_stream": 1000 + len(streams)})()))

@@ -368,10 +368,11 @@ def test_cuda_compiled_generator_equals_eager():
 
 
 @pytest.mark.cuda
-def test_cuda_compiled_mirror_equals_eager(tmp_path):
+@pytest.mark.parametrize("width", ["full", "narrow"])
+def test_cuda_compiled_mirror_equals_eager(tmp_path, width):
     """On the card: the mirror's compiled forward against graphed=False,
-    sharing the planner's full-width network, three plans: controls and
-    decision records equal to the bit."""
+    sharing the planner's network (full width, or the tests' 4-head 32-wide
+    one), three plans: controls and decision records equal to the bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from test_torch_plan_programs import port_world
@@ -384,7 +385,8 @@ def test_cuda_compiled_mirror_equals_eager(tmp_path):
     dev = torch.device("cuda")
     smp, bundle, n_lanes = port_world(tmp_path)
     _, tcfg = planner_cfgs(n_lanes, "float64", "float64")
-    tcfg.net = NetConfig()   # the width and heads the card's fusion kernels are built for
+    if width == "full":
+        tcfg.net = NetConfig()
     (agent,) = [x for x in tagents.load_agents(bundle, smp, [TClAgentConfig(**CL_AGENT)],
                                                 lambda p: tcfg, dev) if x.id == "AV"]
     pl = agent.planner

@@ -288,10 +288,13 @@ def port_world(root):
 
 
 @pytest.mark.cuda
-def test_cuda_compiled_plan_equals_eager(tmp_path):
+@pytest.mark.parametrize("width", ["full", "narrow"])
+def test_cuda_compiled_plan_equals_eager(tmp_path, width):
     """On the card: the compiled plan (programs captured at the first
     call, replayed) against graphed=False, staged and fused, three plans
-    each: equal to the bit; one AIME program per configuration."""
+    each: equal to the bit; one AIME program per configuration. At the
+    full width (D = E = 128, 8 heads) and with the tests' 4-head, 32-wide
+    network (SMALL), both in the fusion kernels' domain."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from test_torch_planner import N_OBS_FRAMES
@@ -301,7 +304,8 @@ def test_cuda_compiled_plan_equals_eager(tmp_path):
     dev = torch.device("cuda")
     smp, bundle, n_lanes = port_world(tmp_path)
     _, tcfg = planner_cfgs(n_lanes, "float32", "float32")
-    tcfg.net = NetConfig()   # the width and heads the card's fusion kernels are built for
+    if width == "full":
+        tcfg.net = NetConfig()
 
     def agent(graphed):
         (a,) = [x for x in tagents.load_agents(bundle, smp, [TClAgentConfig(**CL_AGENT)],

@@ -199,24 +199,27 @@ def needs_cuda():
         pytest.skip("needs an NVIDIA GPU")
 
 
-def cuda_config(syn):
-    """The test settings with the full-width float32 network: the card's
-    fusion kernels are built for its width and heads."""
+def cuda_config(syn, width="full"):
+    """The test settings with a float32 network: the full-width one, or the
+    tests' own 4-head 32-wide one ("narrow"); the card's fusion kernels take
+    both."""
     from mind_tpu_torch.config import NetConfig
 
     _, tcfg = planner_cfgs(syn.n_graph_segments, "float32", "float32", **SOLVER)
-    tcfg.net = NetConfig()
+    if width == "full":
+        tcfg.net = NetConfig()
     return tcfg
 
 
 @pytest.mark.cuda
-def test_cuda_multi_scenario_compiled_equals_eager(tmp_path, monkeypatch):
+@pytest.mark.parametrize("width", ["full", "narrow"])
+def test_cuda_multi_scenario_compiled_equals_eager(tmp_path, monkeypatch, width):
     """On the card: MultiScenarioSim over 2 scenes, 15 ticks, compiled
     against graphed=False: every packed, the plan count and the egos equal
-    to the bit."""
+    to the bit; at the full width and with the 4-head 32-wide network."""
     needs_cuda()
     syn = cuda_world(tmp_path)
-    tcfg = cuda_config(syn)
+    tcfg = cuda_config(syn, width)
     monkeypatch.setattr(tmulti, "Simulator", functools.partial(TSimulator, planner_cfg=tcfg))
     cfgs = lambda: [TSimConfig(cl_agents=[TClAgentConfig(**dict(
         CL_AGENT, target_velocity=v, enable_timestep=0.0))], sim_name="demo_1", seq_id=SEQ_ID,

@@ -2,11 +2,14 @@
 PyTorch version on the GPU, then time them.
 
     python3 tools/check_fusion_kernels.py [--reps 20] [--no-time] [--profile]
+        [--shape D,E,HEADS ...] [--grid]
 
-Prints nvcc's ptxas report (registers, spills, shared memory), the max abs
-error of each variant at B = 8 / N = 129 and at a ragged B = 3 / N = 40 for
-both update_edge values (and both node and edge types of the bf16 variant), and the
-time per call from CUDA events. `--profile` adds, per variant, the device
+Prints each library's build seconds and nvcc's ptxas report (registers,
+spills, shared memory), the max abs error of each variant at B = 8 / N = 129
+and at a ragged B = 3 / N = 40 for both update_edge values (and both node
+and edge types of the bf16 variant), and the time per call from CUDA events,
+at each (D, E, heads) asked for: the full width 128,128,8 by default,
+the full width and chip_smoke.py's widths grid with --grid. `--profile` adds, per variant, the device
 time of each kernel of one call (prologue, main, epilogue and the wrapper's
 own small copies) from torch.profiler. Exits non-zero if a kernel does not build,
 does not launch or misses its tolerance. Needs a CUDA device and nvcc.
@@ -28,12 +31,11 @@ import chip_smoke as cs  # noqa: E402
 from mind_tpu_torch.ops import fusion_attention as fa  # noqa: E402
 from mind_tpu_torch.synthetic import fusion_inputs  # noqa: E402
 
-D, H = 128, 8
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
-def make_inputs(b, n, dev, variant, edge_dtype):
-    w, node, edge = fusion_inputs(b, n, D, dev)
+def make_inputs(b, n, dev, variant, edge_dtype, d=128, e=128):
+    w, node, edge = fusion_inputs(b, n, d, dev, e=e)
     mask = (torch.arange(n, device=dev) < n - 5)[None].expand(b, -1).contiguous()
     if variant == "bfloat16":
         w = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
@@ -48,44 +50,54 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--no-time", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--shape", nargs="+", default=["128,128,8"],
+                    help="(D, E, heads) as D,E,HEADS")
+    ap.add_argument("--grid", action="store_true", help="chip_smoke.py's widths grid")
     args = ap.parse_args()
+    shapes = [fa.FULL_WIDTH, *cs.WIDTHS_GRID] if args.grid else \
+        [tuple(int(x) for x in sh.split(",")) for sh in args.shape]
     if not torch.cuda.is_available():
         print("check_fusion_kernels: needs a CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    fa.build_kernels()
-    print(f"built in {time.perf_counter() - t:.1f} s")
-    for variant, text in fa.build_kernels.log.items():
-        print(f"--- nvcc, {variant} ---\n{text.strip()}")
+    fa.build_kernels(shapes)
+    print(f"built in {time.perf_counter() - t:.1f} s: {fa.build_kernels.seconds}")
+    for lib, text in fa.build_kernels.log.items():
+        print(f"--- nvcc, {lib} ---\n{text.strip()}")
     failed = False
-    for variant, ref in (("float32", fa.fused_edge_attention_ref),
-                         ("bfloat16", fa.fused_edge_attention_bf16_ref)):
-        edge_types = (torch.float32,) if variant == "float32" else (torch.float32, torch.bfloat16)
-        for b, n in ((8, 129), (3, 40)):
-            for edge_dtype in edge_types:
-                node, edge, mask, w = make_inputs(b, n, dev, variant, edge_dtype)
-                for ue in (True, False):
-                    out, edge_out = fa.fused_edge_attention(node, edge, mask, w, H, ue)
-                    torch.cuda.synchronize()
-                    ref_out, ref_edge = ref(node, edge, mask, w, H, ue)
-                    e_out = (out - ref_out).abs().max().item()
-                    e_edge = (edge_out - ref_edge).abs().max().item()
-                    ok = e_out < TOL[variant] and e_edge < TOL[variant]
-                    failed |= not ok
-                    line = (f"{variant} B={b} N={n} node,edge={str(edge_dtype)[6:]} update_edge={ue}: "
-                            f"err out={e_out:.3e} edge={e_edge:.3e} {'ok' if ok else 'FAIL'}")
-                    if not args.no_time and n == 129:
-                        ms = cs.cuda_time_ms(
-                            lambda: fa.fused_edge_attention(node, edge, mask, w, H, ue), args.reps)
-                        line += f" | {ms:.4f} ms per call"
-                    print(line, flush=True)
+    for d, e, H in shapes:
+        for variant, ref in (("float32", fa.fused_edge_attention_ref),
+                             ("bfloat16", fa.fused_edge_attention_bf16_ref)):
+            edge_types = (torch.float32,) if variant == "float32" else \
+                (torch.float32, torch.bfloat16)
+            for b, n in ((8, 129), (3, 40)):
+                for edge_dtype in edge_types:
+                    node, edge, mask, w = make_inputs(b, n, dev, variant, edge_dtype, d, e)
+                    for ue in (True, False):
+                        out, edge_out = fa.fused_edge_attention(node, edge, mask, w, H, ue)
+                        torch.cuda.synchronize()
+                        ref_out, ref_edge = ref(node, edge, mask, w, H, ue)
+                        e_out = (out - ref_out).abs().max().item()
+                        e_edge = (edge_out - ref_edge).abs().max().item()
+                        ok = e_out < TOL[variant] and e_edge < TOL[variant]
+                        failed |= not ok
+                        line = (f"{variant} {d}/{e}/{H} B={b} N={n} "
+                                f"node,edge={str(edge_dtype)[6:]} update_edge={ue}: "
+                                f"err out={e_out:.3e} edge={e_edge:.3e} {'ok' if ok else 'FAIL'}")
+                        if not args.no_time and n == 129:
+                            ms = cs.cuda_time_ms(
+                                lambda: fa.fused_edge_attention(node, edge, mask, w, H, ue),
+                                args.reps)
+                            line += f" | {ms:.4f} ms per call"
+                        print(line, flush=True)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
+        d, e, H = shapes[0]
         for variant in ("float32", "bfloat16"):
-            node, edge, mask, w = make_inputs(8, 129, dev, variant, torch.float32)
+            node, edge, mask, w = make_inputs(8, 129, dev, variant, torch.float32, d, e)
             for ue in (True, False):
                 fa.fused_edge_attention(node, edge, mask, w, H, ue)
                 torch.cuda.synchronize()
@@ -94,9 +106,9 @@ def main() -> int:
                         fa.fused_edge_attention(node, edge, mask, w, H, ue)
                     torch.cuda.synchronize()
                 by_name = {}
-                for e in prof.events():
-                    if e.device_type == torch.autograd.DeviceType.CUDA:
-                        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+                for ev in prof.events():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
                 print(f"profile {variant} update_edge={ue}, us per call:")
                 for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
                     print(f"  {us / args.reps:9.2f}  {name[:90]}")
