@@ -10,10 +10,11 @@ result line):
   1. build both CUDA kernels (mind_tpu_torch/ops/csrc/fusion_attention.cu,
      float32, and fusion_attention_bf16.cu, bf16 operands on the tensor
      cores), each at the full width (D = E = 128, 8 heads) and at the six
-     (D, E, heads) of WIDTHS_GRID, and the graph-control library
+     resident (D, E, heads) of WIDTHS_GRID, and the graph-control library
      (graph_control.cu: the condition kernel and the conditional-node calls;
-     sm_90a, one nvcc per library, all side by side) from the checkout; each
-     library's seconds printed;
+     sm_90a, one nvcc per library, all side by side) from the checkout; the
+     nine tiled shapes of WIDTHS_GRID build in a background thread, two
+     shapes at a time, beside phases 2-6b; each library's seconds printed;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
      both update_edge values (and both edge input types of the bf16
@@ -23,13 +24,18 @@ result line):
      condition kernel against its plain version any(mask) on masks of 1 to
      1024 entries inside captured programs, and timed there;
  2b. [widths] (a)-(c): both kernels at the other widths of their domain, at
-     B = 8, N = 129: every (D, E, heads) of WIDTHS_GRID (32/32/4, 64/32/4,
-     48/80/3, 16/16/2, 128/64/8, 128/128/16) with and without the edge
-     update, kernel B on a bf16 and on a float32 edge, against the plain
-     versions within the tolerances of phase 2, each case's ms, bound and
-     error printed; 32 nodes of 32/32/4 against each 8 alone, equal to the
-     bit; a call outside the domain (8 heads of width 4) refused with a
-     ValueError before any launch;
+     B = 8, N = 129: every (D, E, heads) of WIDTHS_GRID (the resident
+     layout's 32/32/4, 64/32/4, 48/80/3, 16/16/2, 128/64/8, 128/128/16; the
+     tiled layout's 256/256/8, 512/512/16, 512/256/64, 160/512/20,
+     130/130/10, 72/40/6, 36/20/6, 64/64/32, 12/7/3) with and without the
+     edge update, kernel B on a bf16 and on a float32 edge, against the
+     plain versions within the tolerances of phase 2, each case's ms, bound
+     and error printed; 32 nodes against each 8 alone, equal to the bit, at
+     32/32/4, 72/40/6 and 256/256/8 (WIDTHS_GAP); a call outside the domain
+     (D = 520) refused with a ValueError before any launch. It runs after
+     phase 6b, so that phase 1's background build of the tiled widths has
+     finished, and is followed by 15c's plan cycles (e), whose CPU forwards
+     the child of phase 7 computes beside the later phases;
   3. load the trained ScenePredNet weights from the committed archive;
   4. float32 path: plan cycles of fused_plan_core at full width on a seeded
      synthetic scene (48 actor slots, 80 lane segments, 256-point target
@@ -275,18 +281,22 @@ result line):
      against the sequential mesh across two cards, the same way; with one
      card a line says it was not run. Copy-ticks/s of the ranks and of the
      one process, the tree solve's ms, each rank's step ms and launches;
- 15c. [widths] (d)-(f): the 4-head, 32-wide network of the JAX package's
-     tests and dry run (NARROW_NET, 6 layers, its own seeded weights) on the
-     main path, float32 (kernel A) and bf16 (kernel B): a 26-tick closed
-     loop planning through MINDPlanner's compiled programs equal to the bit
-     to its graphed=False loop (every replay under sync debug "error"; the
-     kernel launched only by the captures, executed 6 times a
-     device-counted AIME round); the float32 loop against the same loop on
-     the CPU (in phase 7's child): the same trees, the ego within
-     TOL_LOOP_EGO; one eager plan cycle and the network on its first AIME
-     inputs against the CPU's plain version within TOL_NET_CLS /
-     TOL_NET_POS; 4 compiled AdamW training steps (B = 4) of the float32
-     network equal to the bit to 4 eager ones;
+ 15c. [widths] (d)-(f): three networks on the main path, each at 6 layers
+     with its own seeded weights, float32 (kernel A) and bf16 (kernel B):
+     the 4-head, 32-wide network of the JAX package's tests and dry run
+     (NARROW_NET), the 256-wide WIDE_NET and the ragged RAGGED_NET (72 /
+     40, 6 heads of width 12). For each, a closed loop planning through
+     MINDPlanner's compiled programs equal to the bit to its graphed=False
+     loop (26 ticks; RAGGED_NET 13, one plan; every replay under sync debug
+     "error"; the kernel launched only by the captures, executed 6 times a
+     device-counted AIME round), and one eager plan cycle (run after phase
+     6b) and the network on its first AIME inputs against the CPU's plain
+     version (computed in phase 7's child) within TOL_NET_CLS /
+     TOL_NET_POS; for NARROW_NET the float32 loop against the
+     same loop on the CPU (in phase 7's child): the same trees, the ego
+     within TOL_LOOP_EGO; for NARROW_NET and WIDE_NET 4 compiled AdamW
+     training steps (B = 4) of the float32 network equal to the bit to 4
+     eager ones;
  16. print per-phase times, the benchmark's final and section lines, the
      kernel table and the card.
 
@@ -381,16 +391,39 @@ OBS = 50
 # configurations set a target velocity too), every plan has to accelerate
 TARGET_VELOCITY = 8.0
 REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
-# [widths]: (D, E, heads) of the kernels alone beside the full width: the
-# JAX tests' narrow network, a narrower edge, widths and a head count that are
-# no powers of two, the narrowest, a narrower edge at full node width, and 16
-# heads at full width (whose folded keys need a block of 4 targets in kernel A)
+# [widths]: (D, E, heads) of the kernels alone beside the full width. In the
+# resident layout: the JAX tests' narrow network, a narrower edge, widths and
+# a head count that are no powers of two, the narrowest, a narrower edge at
+# full node width, and 16 heads at full width (whose folded keys need a block
+# of 4 targets in kernel A). In the tiled layout (csrc/fusion_tiled.cuh):
+# the wide network, the top of the domain, 64 heads of width 8 with E < D,
+# more than 16 heads just past 128, ragged and past 128 (head width 13), the
+# ragged network, head width 6, 32 heads of width 2, an edge row of 28 bytes
 WIDTHS_GRID = ((32, 32, 4), (64, 32, 4), (48, 80, 3), (16, 16, 2), (128, 64, 8),
-               (128, 128, 16))
+               (128, 128, 16),
+               (256, 256, 8), (512, 512, 16), (512, 256, 64), (160, 512, 20), (130, 130, 10),
+               (72, 40, 6), (36, 20, 6), (64, 64, 32), (12, 7, 3))
+# the batch gap's widths: the narrow network, a ragged and a wide shape
+WIDTHS_GAP = ((32, 32, 4), (72, 40, 6), (256, 256, 8))
+# a call the kernels must refuse: past the top of the domain
+WIDTHS_OUTSIDE = (520, 32, 8)
 # the 4-head, 32-wide network of the JAX package's tests and dry run
 # (__graft_entry__.py:107-108) at the default depth (6 layers)
 NARROW_NET = dict(d_actor=32, d_lane=32, d_embed=32, d_rpe=32, n_scene_head=4)
+# a 256-wide network (the tiled layout's widths above 128) and a ragged one
+# (widths that are not multiples of 16, an edge narrower than the nodes, a
+# head width of 12), both at the default depth
+WIDE_NET = dict(d_actor=256, d_lane=256, d_embed=256, d_rpe=256, n_scene_head=8)
+RAGGED_NET = dict(d_actor=72, d_lane=72, d_embed=72, d_rpe=40, n_scene_head=6)
 WIDTHS_TRAIN_STEPS = 4
+# calls each [widths] case is timed over (20 at the full width)
+WIDTHS_REPS = 10
+# (plan programs): the extra configurations' loops, 26 ticks with the
+# planner on after 0.2 s (3 plans)
+PROGRAM_TICKS = 26
+# the ragged network's loops: one plan each (with the planner on after
+# 0.2 s, a loop plans at ticks 15, 20, 25, ...)
+RAGGED_TICKS = 18
 T0 = 0.0
 # the committed AV2-format log of synthetic_av2(0) under demo_1's sequence id
 # and its configuration (tools/write_av2_fixture.py)
@@ -425,24 +458,61 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+# libraries the background build (phase 1) compiles at once: two shapes,
+# four nvcc, so that the card's phases beside it keep most of the host
+TILED_BUILD_CHUNK = 2
+
+
 def phase_build(fa):
+    """Phase 1: both fusion kernels at the full width and at the resident
+    layout's shapes of WIDTHS_GRID, and the graph-control library, built
+    side by side and loaded; the tiled layout's shapes start building in a
+    background thread (TILED_BUILD_CHUNK shapes at a time), which
+    phase_widths_kernels joins. Returns that thread's future."""
+    import concurrent.futures
+
     from mind_tpu_torch.ops import graph_control
 
+    resident = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "resident"]
+    tiled = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "tiled"]
     t = time.perf_counter()
-    fa.build_kernels([fa.FULL_WIDTH, *WIDTHS_GRID])
+    fa.build_kernels([fa.FULL_WIDTH, *resident])
     graph_control.load()
-    log(f"[build] both fusion kernels at the full width and the {len(WIDTHS_GRID)} widths of "
-        f"[widths], and the graph-control library, built ({len(fa.build_kernels.seconds)} "
+    log(f"[build] both fusion kernels at the full width and the {len(resident)} resident widths "
+        f"of [widths], and the graph-control library, built ({len(fa.build_kernels.seconds)} "
         f"nvcc side by side) and loaded in {time.perf_counter() - t:.3f} s; CUDA versions "
         f"{graph_control.load.versions}")
-    log("[build] seconds from the build's start to each library's end: "
+
+    def build_tiled():
+        t = time.perf_counter()
+        for i in range(0, len(tiled), TILED_BUILD_CHUNK):
+            fa.compile_kernels(tiled[i:i + TILED_BUILD_CHUNK])
+        return time.perf_counter() - t
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(build_tiled)
+    pool.shutdown(wait=False)
+    return future
+
+
+def join_build(fa, future):
+    """Wait for phase 1's background build of the tiled shapes, load them,
+    and print every library's build seconds and nvcc's report."""
+    t = time.perf_counter()
+    built_s = future.result()   # raises where a build failed
+    tiled = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "tiled"]
+    fa.build_kernels(tiled)
+    log(f"[build] the {len(tiled)} tiled widths of [widths] built in the background in "
+        f"{built_s:.3f} s, {time.perf_counter() - t:.3f} s of it waited for here")
+    log("[build] seconds from each build's start to each library's end: "
         + json.dumps({k: round(v, 2) for k, v in fa.build_kernels.seconds.items()}))
     for lib, text in fa.build_kernels.log.items():
         log(f"[build] nvcc, {lib}:\n{text.strip()}")
 
 
-def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
-    """One (inputs, update_edge) case: kernel vs plain, and both timed."""
+def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20):
+    """One (inputs, update_edge) case: kernel vs plain, and both timed over
+    `reps` calls."""
     edge = args[1]
     out, edge_out = fa.fused_edge_attention(*args, H, ue)
     torch.cuda.synchronize()
@@ -454,15 +524,15 @@ def check_case(fa, ref, args, H, ue, tol, tol_mean, label):
     d_out, d_edge = (out - ref_out).abs(), (edge_out - ref_edge).abs()
     err = max(d_out.max().item(), d_edge.max().item())
     mean = max(d_out.mean().item(), d_edge.mean().item())
-    ms = cuda_time_ms(lambda: fa.fused_edge_attention(*args, H, ue))
-    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue))
+    ms = cuda_time_ms(lambda: fa.fused_edge_attention(*args, H, ue), reps)
+    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue), reps)
     if not (err < tol and mean < tol_mean):
         raise RuntimeError(f"{label}: kernel disagrees with plain: max {err} (tol {tol}), "
                            f"mean {mean} (tol {tol_mean})")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "mean_abs_err": mean}
 
 
-def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8):
+def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20):
     """Both kernels vs their plain versions at B = key_mask.shape[0] and
     N = 129, node width D, edge width E and H heads, on random inputs with
     the main path's token mask: one result per (variant, edge type,
@@ -498,7 +568,7 @@ def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8):
         flops = fa.fused_edge_attention_flops(B, N, D, ue, variant, H, e=E)
         label = (f"B={B} {variant} node,edge={edge_type} update_edge={ue}"
                  + ("" if (D, E, H) == (128, 128, 8) else f" D,E,heads={D},{E},{H}"))
-        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label)
+        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps)
         t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAKS.hbm_bytes
         r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
                  bound_by="operations" if t_ops > t_bytes else "bytes")
@@ -598,15 +668,15 @@ def mixed_entry(by_case):
             "mean_abs_err": max(r["mean_abs_err"] for r in by_case.values())}
 
 
-def narrow_cfg(compute_dtype):
-    """PlannerConfig() with the 4-head, 32-wide network (NARROW_NET, 6
-    layers) in `compute_dtype` and its own seeded weights (ckpt_path None:
-    load_scene_pred's seed, drawn on the CPU, so the card and the CPU hold
-    the same ones)."""
+def narrow_cfg(compute_dtype, widths=NARROW_NET):
+    """PlannerConfig() with the network of `widths` (the 4-head, 32-wide
+    NARROW_NET by default; 6 layers) in `compute_dtype` and its own seeded
+    weights (ckpt_path None: load_scene_pred's seed, drawn on the CPU, so the
+    card and the CPU hold the same ones)."""
     from mind_tpu_torch.config import NetConfig, PlannerConfig
 
     cfg = PlannerConfig()
-    cfg.net = NetConfig(**NARROW_NET, compute_dtype=compute_dtype)
+    cfg.net = NetConfig(**widths, compute_dtype=compute_dtype)
     cfg.ckpt_path = None
     return cfg
 
@@ -615,29 +685,33 @@ def phase_widths_kernels(fa, dev, token_mask):
     """[widths] (a)-(c): both kernels alone against their plain versions at
     B = 8, N = 129 and every (D, E, heads) of WIDTHS_GRID (kernel_cases:
     with and without the edge update, kernel B on a bf16 and on a float32
-    edge), each case's ms, bound and error printed; kernel_batch_gap at
-    32 / 32 / 4 (any gap but 0 raises); one call outside the domain (8 heads
-    of width 4), which must raise ValueError before any launch. Returns
-    ({variant: {"D/E/heads": mixed_entry}}, the batch gaps, the refusal)."""
+    edge), each case's ms, bound and error printed; kernel_batch_gap at each
+    shape of WIDTHS_GAP (any gap but 0 raises); one call outside the domain
+    (WIDTHS_OUTSIDE, D = 520), which must raise ValueError before any
+    launch. Returns ({variant: {"D/E/heads": mixed_entry}}, {"D/E/heads":
+    the batch gaps}, the refusal)."""
     from mind_tpu_torch.synthetic import fusion_inputs
 
     mask8 = token_mask[None].expand(8, -1).contiguous()
     by_width = {"float32": {}, "bfloat16": {}}
     for d, e, h in WIDTHS_GRID:
-        for variant, by_case in kernel_cases(fa, dev, mask8, d, e, h).items():
+        for variant, by_case in kernel_cases(fa, dev, mask8, d, e, h, WIDTHS_REPS).items():
             by_width[variant][f"{d}/{e}/{h}"] = {**mixed_entry(by_case), "by_case": by_case}
-    gaps = kernel_batch_gap(fa, dev, token_mask, D=32, E=32, H=4)
-    w, node, edge = fusion_inputs(1, 9, 32, dev, SEED)
+    gaps = {f"{d}/{e}/{h}": kernel_batch_gap(fa, dev, token_mask, D=d, E=e, H=h)
+            for d, e, h in WIDTHS_GAP}
+    d, e, h = WIDTHS_OUTSIDE
+    w, node, edge = fusion_inputs(1, 9, d, dev, SEED, e=e)
     mask = torch.ones(1, 9, dtype=torch.bool, device=dev)
     before = dict(fa.fused_edge_attention.launches_by_variant)
     try:
-        fa.fused_edge_attention(node, edge, mask, w, 8)
+        fa.fused_edge_attention(node, edge, mask, w, h)
     except ValueError as err:
         refused = str(err)
     else:
-        raise RuntimeError("[widths] a call with 8 heads of width 4 was not refused")
+        raise RuntimeError(f"[widths] a call at D = {d} was not refused")
     if dict(fa.fused_edge_attention.launches_by_variant) != before:
         raise RuntimeError("[widths] the call outside the domain launched a kernel")
+    torch.cuda.empty_cache()
     log(f"[widths] outside the domain, refused before any launch: {refused}")
     for variant, entries in by_width.items():
         log(f"[widths] {variant} at B=8, the forward's mix: " + json.dumps(
@@ -646,129 +720,166 @@ def phase_widths_kernels(fa, dev, token_mask):
     return by_width, gaps, refused
 
 
-def phase_widths_network(fa, dev, data_root, batch, cpu_child):
-    """[widths] (d)-(f): the 4-head, 32-wide network (narrow_cfg, 6 layers,
-    seeded weights) through the slice's main path, in float32 (kernel A) and
-    bf16 (kernel B): (d) a PROGRAM_TICKS-tick closed loop planning through
-    MINDPlanner's compiled programs against graphed=False, equal to the bit
-    (hold_equal_loops), every replay under sync debug "error", the kernel
-    launched only by the captures and executed 6 times a device-counted
-    AIME round (KernelRuns); the float32 loop against the same loop on the
-    CPU through the plain version (`cpu_child`): the same trees, the ego
-    within TOL_LOOP_EGO; (e) one eager plan cycle (fused_plan_core) and the
-    network on its first AIME inputs, the card's kernel against the CPU's
-    plain version, within TOL_NET_CLS / TOL_NET_POS; (f) WIDTHS_TRAIN_STEPS
-    compiled AdamW training steps (TrainStep) of the float32 network on
-    phase 14's batch against as many eager ones, equal to the bit. Returns
-    ({variant: [launches, executions]}, condition kernel [launches, runs],
-    summary)."""
-    from mind_tpu_torch.models import train
+# the networks of [widths] (d)-(f): (name, widths, the loops' ticks, trained)
+WIDTHS_NETS = (("narrow", NARROW_NET, PROGRAM_TICKS, True),
+               ("wide", WIDE_NET, PROGRAM_TICKS, True),
+               ("ragged", RAGGED_NET, RAGGED_TICKS, False))
+
+
+def wire(xs):
+    """Tensors as the CPU child takes them: (dtype name, float32 numpy);
+    anything else as it is."""
+    return tuple((str(x.dtype), x.detach().float().cpu().numpy()) if torch.is_tensor(x) else x
+                 for x in xs)
+
+
+def unwire(xs):
+    return tuple(torch.from_numpy(x[1]).to(getattr(torch, x[0][len("torch."):]))
+                 if isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str) else x
+                 for x in xs)
+
+
+def widths_plan_cycles(fa, dev, cpu_child, runs):
+    """[widths] (e), run after phase 6b: for each network of WIDTHS_NETS (6
+    layers, seeded weights) in float32 (kernel A) and bf16 (kernel B), one
+    eager plan cycle (fused_plan_core) on the card, whose first AIME
+    forward's inputs go to the CPU child: it computes the plain forward
+    beside the card's later phases, and widths_forward_check holds the two
+    in phase 15c. Adds the launches to `runs`; returns {(net, variant):
+    record}."""
     from mind_tpu_torch.models.weights import load_scene_pred
-    from mind_tpu_torch.ops import graph_control as gc
     from mind_tpu_torch.planner import aime_device as aime
     from mind_tpu_torch.planner import planner as tplanner
     from mind_tpu_torch.planner.trajectory_tree import make_cost_params
     from mind_tpu_torch.synthetic import scene_statics, synthetic_scene
 
-    t_phase = time.perf_counter()
-    runs, cond, summary = {"float32": [0, 0], "bfloat16": [0, 0]}, [0, 0], {}
-    replay, modes = gc.GraphProgram.replay, []
-
-    def watched(self):
-        modes.append(torch.cuda.get_sync_debug_mode())
-        replay(self)
-
-    gc.GraphProgram.replay = watched
-    try:
+    cycles = {}
+    for net, widths, _, _ in WIDTHS_NETS:
         for variant in ("float32", "bfloat16"):
-            cfg = narrow_cfg(variant)
+            cfg = narrow_cfg(variant, widths)
             layers, depth = cfg.net.n_scene_layer, cfg.scen_tree.max_depth
-            rec, out = {}, {}
-            # (d) the loop, compiled and eager
-            for kind, graphed in (("compiled", None), ("eager", False)):
-                n_modes = len(modes)
-                with KernelRuns(fa) as kr:
-                    t = time.perf_counter()
-                    sim, _, plans = run_loop(f"widths {variant} {kind}", cfg, 0.2,
-                                             PROGRAM_TICKS, None, data_root, graphed=graphed)
-                    wall = time.perf_counter() - t
-                launched, executed, c_runs, c_launched = kr.hold(
-                    f"[widths] {variant} loop {kind}", variant, layers, depth,
-                    sum(r["rounds"] for r in plans))
-                replays = modes[n_modes:]
-                if kind == "eager" and (executed or replays):
-                    raise RuntimeError(f"[widths] {variant}: the eager loop replayed a program")
-                if kind == "compiled" and (executed <= 0 or not replays or
-                                           replays != [2] * len(replays)):
-                    raise RuntimeError(f"[widths] {variant}: {executed} executions, replays "
-                                       f"under sync debug modes {replays}")
-                runs[variant][0] += launched
-                runs[variant][1] += executed
-                cond[0] += c_launched
-                cond[1] += c_runs
-                out[kind] = (sim, plans)
-                rec[f"{kind}_ticks_per_s"] = PROGRAM_TICKS / wall
-                rec[f"{kind}_launches"] = kr.counts
-                rec[f"{kind}_executions"] = executed
-            rec["compiled_vs_eager"] = hold_equal_loops(f"[widths] {variant}", out["compiled"],
-                                                        out["eager"])
-            rec["plans"] = len(out["compiled"][1])
-            # (e) one eager plan cycle, and its first AIME forward against the CPU
+            tag = f"[widths] {net} {variant}"
             scene = synthetic_scene(SEED, cfg.max_actors, cfg.max_lanes, n_agents=40)
             pdt = getattr(torch, cfg.pipeline_dtype)
-            net = FirstCall(load_scene_pred(cfg.net, None, dev))
+            first = FirstCall(load_scene_pred(cfg.net, None, dev))
             report = {}
             with KernelRuns(fa) as kr:
-                plan = plan_once((tplanner, make_cost_params), net, cfg, World(scene),
+                plan = plan_once((tplanner, make_cost_params), first, cfg, World(scene),
                                  fill_buffer(aime, scene, pdt, dev),
                                  scene_statics(scene, pdt, dev), dev, report)
-            launched, executed = kr.hold(f"[widths] {variant} plan cycle", variant, layers,
-                                         depth, report["rounds"])[:2]
+            launched = kr.hold(f"{tag} plan cycle", variant, layers, depth,
+                               report["rounds"])[0]
             runs[variant][0] += launched
             if not np.isfinite(plan).all() or plan[2] != 1.0:
-                raise RuntimeError(f"[widths] {variant}: the plan cycle failed: {plan}")
-            cpu = torch.device("cpu")
+                raise RuntimeError(f"{tag}: the plan cycle failed: {plan}")
             with torch.no_grad():
-                got = net.net(*net.inputs)
-                want = load_scene_pred(cfg.net, None, cpu)(
-                    *(x.to(cpu) if torch.is_tensor(x) else x for x in net.inputs))
-            torch.cuda.synchronize()
-            err = {"cls_prob": (got[0].cpu() - want[0]).abs().max().item(),
-                   "positions_m": (got[1][..., :2].cpu() - want[1][..., :2]).abs().max().item(),
-                   "velocity": (got[2].cpu() - want[2]).abs().max().item()}
-            rec.update(plan=plan.tolist(), plan_rounds=report["rounds"],
-                       forward_vs_cpu=err)
-            if not all(torch.isfinite(x).all() for x in got) or \
-                    not err["cls_prob"] < TOL_NET_CLS or not err["positions_m"] < TOL_NET_POS:
-                raise RuntimeError(f"[widths] {variant}: the card's forward and the CPU's "
-                                   f"disagree: {err}")
-            if variant == "float32":
-                ego_cpu, plans_cpu, cpu_s = cpu_child.get("widths32")
-                sim, plans = out["compiled"]
-                gap = float(np.abs(sim.ego_trajectory() - ego_cpu).max())
-                same = [(a["tick"], a["tree"]) == b for a, b in zip(plans, plans_cpu)]
-                rec["loop_vs_cpu"] = {"ego_gap_m": gap, "same_tree": same, "cpu_loop_s": cpu_s}
-                if len(plans_cpu) != len(plans) or not all(same) or not gap < TOL_LOOP_EGO:
-                    raise RuntimeError(f"[widths] float32 loop: card and CPU disagree: "
-                                       f"{rec['loop_vs_cpu']}")
-            summary[variant] = rec
-            log(f"[widths] {variant} network: " + json.dumps(rec))
-    finally:
-        gc.GraphProgram.replay = replay
+                got = first.net(*first.inputs)
+            cpu_child.forward(f"{net} {variant}", widths, variant, first.inputs)
+            cycles[(net, variant)] = {"plan": plan.tolist(), "plan_rounds": report["rounds"],
+                                      "launches": launched, "got": wire(got)}
+    cpu_child.forward(None)   # no more forwards
+    return cycles
 
-    # (f) compiled training steps of the float32 network against eager ones
-    cfg = narrow_cfg("float32")
+
+def widths_forward_check(cpu_child, cycle, tag):
+    """The card's first forward of a widths_plan_cycles cycle against the
+    CPU child's plain forward on the same inputs, within TOL_NET_CLS /
+    TOL_NET_POS; returns the record."""
+    got = unwire(cycle["got"])
+    want, cpu_s = cpu_child.get(f"forward {tag[len('[widths] '):]}")
+    want = unwire(want)
+    err = {"cls_prob": (got[0] - want[0]).abs().max().item(),
+           "positions_m": (got[1][..., :2] - want[1][..., :2]).abs().max().item(),
+           "velocity": (got[2] - want[2]).abs().max().item()}
+    if not all(torch.isfinite(x).all() for x in got) or \
+            not err["cls_prob"] < TOL_NET_CLS or not err["positions_m"] < TOL_NET_POS:
+        raise RuntimeError(f"{tag}: the card's forward and the CPU's disagree: {err}")
+    return {"plan": cycle["plan"], "plan_rounds": cycle["plan_rounds"],
+            "plan_cycle_launches": cycle["launches"], "forward_vs_cpu": err,
+            "cpu_forward_s": cpu_s}
+
+
+def widths_loops(fa, dev, data_root, cpu_child, net, widths, ticks, runs, cond, modes,
+                 cycles):
+    """[widths] (d)-(e) for one network (`widths`, 6 layers, seeded weights)
+    in float32 (kernel A) and bf16 (kernel B): (d) a `ticks`-tick closed
+    loop planning through MINDPlanner's compiled programs against
+    graphed=False, equal to the bit (hold_equal_loops), every replay under
+    sync debug "error" (`modes` records them), the kernel launched only by
+    the captures and executed 6 times a device-counted AIME round
+    (KernelRuns); for the narrow network, the float32 loop against the same
+    loop on the CPU through the plain version (`cpu_child`): the same trees,
+    the ego within TOL_LOOP_EGO; (e) the plan cycle of widths_plan_cycles
+    (`cycles`), its first forward against the CPU's
+    (widths_forward_check). Adds to `runs` ({variant: [launches,
+    executions]}) and `cond`; returns {variant: record}."""
+    summary = {}
+    for variant in ("float32", "bfloat16"):
+        cfg = narrow_cfg(variant, widths)
+        layers, depth = cfg.net.n_scene_layer, cfg.scen_tree.max_depth
+        tag = f"[widths] {net} {variant}"
+        rec, out = {}, {}
+        # (d) the loop, compiled and eager
+        for kind, graphed in (("compiled", None), ("eager", False)):
+            n_modes = len(modes)
+            with KernelRuns(fa) as kr:
+                t = time.perf_counter()
+                sim, _, plans = run_loop(f"widths {net} {variant} {kind}", cfg, 0.2, ticks,
+                                         None, data_root, graphed=graphed)
+                wall = time.perf_counter() - t
+            launched, executed, c_runs, c_launched = kr.hold(
+                f"{tag} loop {kind}", variant, layers, depth, sum(r["rounds"] for r in plans))
+            replays = modes[n_modes:]
+            if kind == "eager" and (executed or replays):
+                raise RuntimeError(f"{tag}: the eager loop replayed a program")
+            if kind == "compiled" and (executed <= 0 or not replays or
+                                       replays != [2] * len(replays)):
+                raise RuntimeError(f"{tag}: {executed} executions, replays "
+                                   f"under sync debug modes {replays}")
+            runs[variant][0] += launched
+            runs[variant][1] += executed
+            cond[0] += c_launched
+            cond[1] += c_runs
+            out[kind] = (sim, plans)
+            rec[f"{kind}_ticks_per_s"] = ticks / wall
+            rec[f"{kind}_launches"] = kr.counts
+            rec[f"{kind}_executions"] = executed
+        rec["compiled_vs_eager"] = hold_equal_loops(tag, out["compiled"], out["eager"])
+        rec["plans"] = len(out["compiled"][1])
+        # (e) the plan cycle run after phase 6b, and its forward against the CPU
+        rec.update(widths_forward_check(cpu_child, cycles[(net, variant)], tag))
+        if net == "narrow" and variant == "float32":
+            ego_cpu, plans_cpu, cpu_s = cpu_child.get("widths32")
+            sim, plans = out["compiled"]
+            gap = float(np.abs(sim.ego_trajectory() - ego_cpu).max())
+            same = [(a["tick"], a["tree"]) == b for a, b in zip(plans, plans_cpu)]
+            rec["loop_vs_cpu"] = {"ego_gap_m": gap, "same_tree": same, "cpu_loop_s": cpu_s}
+            if len(plans_cpu) != len(plans) or not all(same) or not gap < TOL_LOOP_EGO:
+                raise RuntimeError(f"{tag} loop: card and CPU disagree: {rec['loop_vs_cpu']}")
+        summary[variant] = rec
+        log(f"{tag} network: " + json.dumps(rec))
+    return summary
+
+
+def widths_training(fa, dev, batch, net, widths, runs):
+    """[widths] (f): WIDTHS_TRAIN_STEPS compiled AdamW training steps
+    (TrainStep) of the float32 network of `widths` on phase 14's batch
+    against as many eager ones, equal to the bit. Adds to runs["float32"];
+    returns the record."""
+    from mind_tpu_torch.models import train
+
+    cfg = narrow_cfg("float32", widths)
     layers = cfg.net.n_scene_layer
 
     def train_run(graphed):
-        net = train.init_scene_pred(cfg.net, seed=0, device=dev)
-        optimizer = train.adamw(net.parameters(), TRAIN_LR)
-        step = train.make_train_step(net, optimizer, graphed=graphed)
+        model = train.init_scene_pred(cfg.net, seed=0, device=dev)
+        optimizer = train.adamw(model.parameters(), TRAIN_LR)
+        step = train.make_train_step(model, optimizer, graphed=graphed)
         fa.reset_launch_counts()
         t = time.perf_counter()
         losses = [float(step(batch)) for _ in range(WIDTHS_TRAIN_STEPS)]
         torch.cuda.synchronize()
-        return {"net": net, "optimizer": optimizer, "step": step, "losses": losses,
+        return {"net": model, "optimizer": optimizer, "step": step, "losses": losses,
                 "s": time.perf_counter() - t,
                 "launches": dict(fa.fused_edge_attention.launches_by_variant)}
 
@@ -787,24 +898,63 @@ def phase_widths_network(fa, dev, data_root, batch, cpu_child):
         torch.equal(x, y) for a, b in zip(compiled["optimizer"].state.values(),
                                           eager["optimizer"].state.values())
         for x, y in zip(a.values(), b.values())))
-    summary["training"] = {
-        "steps": WIDTHS_TRAIN_STEPS, "scenes": int(batch.actors.shape[0]),
-        "losses": compiled["losses"], "compiled_equal_to_eager": same,
-        "launches": compiled["launches"], "eager_launches": eager["launches"],
-        "captures": captures, "replays": replays, "executions": layers * replays,
-        "compiled_s": compiled["s"], "eager_s": eager["s"]}
-    log("[widths] training: " + json.dumps(summary["training"]))
+    rec = {"steps": WIDTHS_TRAIN_STEPS, "scenes": int(batch.actors.shape[0]),
+           "losses": compiled["losses"], "compiled_equal_to_eager": same,
+           "launches": compiled["launches"], "eager_launches": eager["launches"],
+           "captures": captures, "replays": replays, "executions": layers * replays,
+           "compiled_s": compiled["s"], "eager_s": eager["s"]}
+    log(f"[widths] {net} training: " + json.dumps(rec))
     if not same or not np.isfinite(compiled["losses"]).all():
-        raise RuntimeError(f"[widths] the compiled training steps differ from the eager ones: "
-                           f"{compiled['losses']} against {eager['losses']}")
+        raise RuntimeError(f"[widths] {net}: the compiled training steps differ from the eager "
+                           f"ones: {compiled['losses']} against {eager['losses']}")
     if compiled["launches"] != {"float32": 2 * layers, "bfloat16": 0} or captures != 1 or \
             replays != WIDTHS_TRAIN_STEPS - 1 or \
             eager["launches"] != {"float32": layers * WIDTHS_TRAIN_STEPS, "bfloat16": 0}:
-        raise RuntimeError(f"[widths] training: {compiled['launches']} launches, {captures} "
-                           f"captures, {replays} replays; eager {eager['launches']}")
+        raise RuntimeError(f"[widths] {net} training: {compiled['launches']} launches, "
+                           f"{captures} captures, {replays} replays; eager {eager['launches']}")
     runs["float32"][0] += compiled["launches"]["float32"] + eager["launches"]["float32"]
     runs["float32"][1] += layers * replays
-    summary["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def phase_widths_network(fa, dev, data_root, batch, cpu_child, runs, cycles):
+    """[widths] (d)-(f) through the slice's main path at the three networks
+    of WIDTHS_NETS, in float32 (kernel A) and bf16 (kernel B), each at 6
+    layers with its own seeded weights (widths_loops, widths_training): the
+    4-head, 32-wide NARROW_NET (PROGRAM_TICKS-tick loops, the float32 loop
+    against the CPU, the plan cycle's forward against the CPU, training);
+    the 256-wide WIDE_NET (the same but the loop against the CPU); the
+    ragged RAGGED_NET (RAGGED_TICKS-tick loops of one plan, the forward
+    against the CPU). `runs` holds the launches of widths_plan_cycles
+    (`cycles`), run after phase 6b. Returns ({variant: [launches,
+    executions]}, condition kernel [launches, runs], summary)."""
+    from mind_tpu_torch.ops import graph_control as gc
+
+    t_phase = time.perf_counter()
+    cond, summary = [0, 0], {"seconds": {}}
+    replay, modes = gc.GraphProgram.replay, []
+
+    def watched(self):
+        modes.append(torch.cuda.get_sync_debug_mode())
+        replay(self)
+
+    gc.GraphProgram.replay = watched
+    try:
+        for net, widths, ticks, training in WIDTHS_NETS:
+            t = time.perf_counter()
+            rec = widths_loops(fa, dev, data_root, cpu_child, net, widths, ticks, runs, cond,
+                               modes, cycles)
+            if net == "ragged" and any(r["plans"] != 1 for r in rec.values()):
+                raise RuntimeError(f"[widths] ragged: plans {rec}, one each expected")
+            if training:
+                gc.GraphProgram.replay = replay
+                rec["training"] = widths_training(fa, dev, batch, net, widths, runs)
+                gc.GraphProgram.replay = watched
+            summary[net] = rec
+            summary["seconds"][net] = time.perf_counter() - t
+    finally:
+        gc.GraphProgram.replay = replay
+    summary["seconds"]["phase"] = time.perf_counter() - t_phase
     return runs, cond, summary
 
 
@@ -1264,7 +1414,10 @@ def cpu_references(inbox, outbox):
     buffers), the gradients of the first by parameter name (numpy, None
     where a parameter has none), seconds)), then ("widths32", (the ego
     trajectory and [(tick, tree)] of [widths]' float32 loop of the 4-head
-    32-wide network, seconds)); or ("error", traceback)."""
+    32-wide network, seconds)), then, for each network forward that arrives
+    (widths_plan_cycles: its name, widths, variant and wired inputs), ("forward
+    <name>", (the seeded network's plain forward on them, wired, seconds))
+    until None arrives, then ("done", None); or ("error", traceback)."""
     import traceback
 
     from mind_tpu_torch.config import PlannerConfig
@@ -1310,6 +1463,13 @@ def cpu_references(inbox, outbox):
             outbox.put(("widths32", (sim.ego_trajectory(),
                                      [(r["tick"], r["tree"]) for r in plans],
                                      time.perf_counter() - t)))
+        for _, name, widths, variant, inputs in iter(inbox.get, None):
+            t = time.perf_counter()
+            net = load_scene_pred(narrow_cfg(variant, widths).net, None, cpu)
+            with torch.no_grad():
+                out = net(*unwire(inputs))
+            outbox.put((f"forward {name}", (wire(out), time.perf_counter() - t)))
+        outbox.put(("done", None))
     except BaseException:   # the parent raises it
         outbox.put(("error", traceback.format_exc()))
         raise
@@ -1318,7 +1478,8 @@ def cpu_references(inbox, outbox):
 class CpuReferences:
     """cpu_references in a spawned, daemonic child (it ends with this
     process whatever happens): `send` phase 4's window, then phase 14's
-    batch; `get` a result by name."""
+    batch, then `forward` the [widths] networks' forwards and None; `get` a
+    result by name."""
 
     def __init__(self):
         import multiprocessing as mp
@@ -1332,6 +1493,11 @@ class CpuReferences:
     def send(self, buf):
         self.inbox.put(tuple(t.cpu().numpy() for t in buf))
 
+    def forward(self, name, widths=None, variant=None, inputs=None):
+        """A network forward for the child (name None: no more of them)."""
+        self.inbox.put(None if name is None else ("forward", name, widths, variant,
+                                                   wire(inputs)))
+
     def get(self, name):
         """The child's result `name`, waiting for it; raises the child's
         error."""
@@ -1340,14 +1506,11 @@ class CpuReferences:
             if key == "error":
                 raise RuntimeError(f"the CPU references failed:\n{value}")
             self.results[key] = value
-        if len(self.results) == 4:
+        if name == "done":
             self.proc.join(timeout=60)
         return self.results[name]
 
 
-# (plan programs): the extra configurations' loops, 26 ticks with the
-# planner on after 0.2 s (3 plans)
-PROGRAM_TICKS = 26
 
 
 class DeviceReads:
@@ -3960,7 +4123,7 @@ def main() -> int:
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         probe = pool.submit(phase_probe)
-        phase_build(fa)
+        tiled_build = phase_build(fa)
         probe_s = probe.result()   # raises where the probe failed
     laps = {"probe_and_build": time.perf_counter() - T0}
     # the CPU halves of phases 7 and 4 run in a child beside the card's phases
@@ -3979,15 +4142,6 @@ def main() -> int:
     entries = phase_kernel_check(fa, dev, token_mask)
     entries.append(phase_condition_kernel(dev))
     lap("kernels")
-    # [widths] (a)-(c): both kernels alone at the other widths of their domain
-    widths_by_width, widths_gap, widths_refused = phase_widths_kernels(fa, dev, token_mask)
-    for e, variant in zip(entries, ("float32", "bfloat16")):
-        e["by_width"] = {"128/128/8": {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                         "bound_by", "max_abs_err")},
-                         **{k: {x: v for x, v in r.items() if x != "by_case"}
-                            for k, r in widths_by_width[variant].items()}}
-        e["batch_gap_32_vs_8_at_32_32_4"] = widths_gap[variant]
-    lap("widths_kernels")
 
     # 3. trained weights
     t = time.perf_counter()
@@ -4042,6 +4196,7 @@ def main() -> int:
         raise RuntimeError(f"bf16 network: kernel and plain disagree: {net_err}")
     lap("demo_path")
 
+
     # 6.-10. the closed loop through Simulator / MINDAgent / MINDPlanner on the
     # synthetic AV2 scenario: phases 6 and 6b read the committed log (map and
     # parquet), the others write the map to a temporary folder and pass the
@@ -4054,6 +4209,21 @@ def main() -> int:
     lap("closed_loop")
     command_runs, command = phase_demo_command(fa, loop, loop_plans6, loop_ego, card)
     lap("demo_command")
+    # [widths] (a)-(c), here so that phase 1's background build of the tiled
+    # widths has had phases 2-6b to finish: both kernels alone at the other
+    # widths of their domain; then (e): the networks' plan cycles, whose CPU
+    # forwards the child computes beside the phases that follow
+    join_build(fa, tiled_build)
+    widths_by_width, widths_gap, widths_refused = phase_widths_kernels(fa, dev, token_mask)
+    for e, variant in zip(entries, ("float32", "bfloat16")):
+        e["by_width"] = {"128/128/8": {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "max_abs_err")},
+                         **{k: {x: v for x, v in r.items() if x != "by_case"}
+                            for k, r in widths_by_width[variant].items()}}
+        e["batch_gap_32_vs_8_by_width"] = {k: g[variant] for k, g in widths_gap.items()}
+    widths_runs = {"float32": [0, 0], "bfloat16": [0, 0]}
+    widths_cycles = widths_plan_cycles(fa, dev, cpu_child, widths_runs)
+    lap("widths_kernels")
     with tempfile.TemporaryDirectory() as data_root:
         prog_b, prog_a, prog_cond, plan_progs = phase_plan_programs(
             dcfg, fa, loop, loop_sim6, loop_plans6, data_root, card)
@@ -4110,9 +4280,10 @@ def main() -> int:
     lap("dist")
     # [widths] (d)-(f): the 4-head, 32-wide network's plans and training steps
     with tempfile.TemporaryDirectory() as data_root:
-        widths_runs, widths_cond, widths = phase_widths_network(fa, dev, data_root,
-                                                                train_batch, cpu_child)
-    widths.update(refused_outside_the_domain=widths_refused, batch_gap_32_32_4=widths_gap)
+        widths_runs, widths_cond, widths = phase_widths_network(
+            fa, dev, data_root, train_batch, cpu_child, widths_runs, widths_cycles)
+    cpu_child.get("done")
+    widths.update(refused_outside_the_domain=widths_refused, batch_gaps=widths_gap)
     lap("widths_network")
     # launches per path; "launches" stays the sum over the paths that run the kernel
     entries[0]["launches_by_path"] = {"plan_cycles": entries[0]["launches"],

@@ -47,7 +47,8 @@ All sections run in ONE child process (python -m mind_tpu_torch.bench
 --child ...), which streams one RESULT_TAG line per section with its wall
 time and its fusion-kernel launches by variant. The parent never
 initializes CUDA: it probes the card once in a subprocess
-(utils/device_health.py), reads its name and power limit from nvidia-smi,
+(utils/device_health.py) while the child starts (a failed probe stops the
+child), reads its name and power limit from nvidia-smi,
 and kills the child at the global budget (MIND_TPU_BENCH_BUDGET_S, 22 min).
 The final line is ALWAYS printed. Unlike the JAX bench, nothing hides a
 failure: a section that raises, is skipped for the budget or never ran, a
@@ -140,9 +141,10 @@ def _av(sim):
 
 def network_flops(net_cfg, inputs) -> int:
     """FLOPs of one ScenePredNet forward on `inputs`, counted by
-    FlopCounterMode on the plain path of a CPU copy of the network at
-    `net_cfg`'s widths in float32 (the count does not depend on the weights
-    or the compute dtype). It counts matrix products (mm, bmm, addmm, and the
+    FlopCounterMode on the plain path of the network at `net_cfg`'s widths
+    in float32, built on the meta device: the count follows the shapes alone
+    (it does not depend on the weights, the values or the compute dtype), so
+    no arithmetic is done. It counts matrix products (mm, bmm, addmm, and the
     einsums that lower to them) and convolutions; LayerNorm, softmax, the
     elementwise work and the broadcast products of common/batch_invariant.py
     are left out."""
@@ -151,12 +153,18 @@ def network_flops(net_cfg, inputs) -> int:
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from mind_tpu_torch.models.weights import load_scene_pred
+    from mind_tpu_torch.models import scene_pred
+    from mind_tpu_torch.ops import fusion_attention as fa
 
-    cpu = torch.device("cpu")
-    net = load_scene_pred(dataclasses.replace(net_cfg, compute_dtype="float32"), None, cpu)
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        net(*(x.to(cpu) for x in inputs))
+    meta = torch.device("meta")
+    with meta:
+        net = scene_pred.ScenePredNet(dataclasses.replace(net_cfg, compute_dtype="float32"))
+    scene_pred.fused_edge_attention = fa.fused_edge_attention_ref   # the plain path
+    try:
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            net.eval()(*(x.to(meta) for x in inputs))
+    finally:
+        scene_pred.fused_edge_attention = fa.fused_edge_attention
     return int(counter.get_total_flops())
 
 
@@ -692,6 +700,8 @@ def main(argv=None) -> int:
            "device": device_info(opts.device)}
     clean = False
     try:
+        # the child starts beside the probe: its imports take as long
+        proc = _spawn_child(opts.sections, DEADLINE, opts)
         if not (opts.device or "").startswith("cpu"):
             from mind_tpu_torch.utils.device_health import probe_once
 
@@ -700,11 +710,13 @@ def main(argv=None) -> int:
             accounting["probe_s"] = time.time() - t
             _progress("device_probe", {"ok": healthy})
             if not healthy:
-                # no card, or a dead one: the final line at once, no retry
+                # no card, or a dead one: the child is stopped and the final
+                # line printed at once, no retry
+                proc.kill()
+                proc.wait()
                 results[opts.sections[0]] = {
                     "error": "CUDA device unavailable: the health probe failed"}
                 return 1
-        proc = _spawn_child(opts.sections, DEADLINE, opts)
         clean = _drain_child(proc, results, accounting, launches)
         accounting["child_returncode"] = proc.returncode
         for s in opts.sections:

@@ -10,9 +10,14 @@
 //   out[j] = softmax_i(q[j].k[i,j] / sqrt(dh), masked keys -> -1e9) v  Wo + bo
 //
 // with node width D, edge width E and NH heads of dh = D / NH, each a
-// compile-time constant of the library (fusion_common.cuh: D, E multiples of
-// 16 from 16 to 128, NH <= 16, dh a multiple of 8). The main path's network
-// is D = E = 128 with 8 heads; the narrow test network D = E = 32, 4 heads.
+// compile-time constant of the library, and so is its layout
+// (fusion_common.cuh): what follows is the resident layout (D, E multiples
+// of 16 from 16 to 128, NH <= 16, dh a multiple of 8), which the main path's
+// network (D = E = 128, 8 heads) and the narrow test network (32 / 32, 4
+// heads) take. Every other shape (above 128, widths that are not multiples
+// of 16, any head layout) takes the tiled layout of fusion_tiled.cuh: the
+// weights streamed in slices, k and v per pair; run_f32 picks it at compile
+// time.
 //
 // Folded keys and values. k and v are never formed per pair:
 //   logit_h[i,j] = mem[i,j] . (Wk[:, h] q_h[j]) / sqrt(dh)       (+ a term constant in i)
@@ -56,6 +61,7 @@
 // LayerNorm is two-pass as in fused_edge_attention_ref.
 
 #include "fusion_common.cuh"
+#include "fusion_tiled.cuh"
 
 namespace {
 
@@ -458,12 +464,63 @@ edge_attention_f32_kernel(const float* __restrict__ edge,
   }
 }
 
+// One call at the library's widths S: prologue + main + epilogue on `s`.
+template <class S>
+int run_f32(const float* node, const float* edge, const unsigned char* mask,
+            const float* wm_e, const float* wm_s, const float* wm_t, const float* wq,
+            const float* wk, const float* wv, const float* wo, const float* we, const Vecs& v,
+            float* sp, float* tp, float* qk, float* ctx, float* out, float* edge_out,
+            int batch, int n, int update_edge, cudaStream_t s) {
+  const int cols = batch * n;
+  if constexpr (S::RESIDENT) {
+    using L = LayoutA<S>;
+    if ((int)L::SMEM_BYTES > smem_optin()) return ERR_SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        edge_attention_f32_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    constexpr int TR = token_rows<S, true>(), TK = out_tokens<S, true>();
+    token_proj_kernel<S, float, float, true><<<dim3((cols + TR - 1) / TR, 3), NT, 0, s>>>(
+        node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
+    edge_attention_f32_kernel<S><<<(cols + L::TJ - 1) / L::TJ, NT, L::SMEM_BYTES, s>>>(
+        edge, mask, wm_e, we, sp, tp, qk, v, ctx, edge_out, n, cols, update_edge);
+    out_proj_kernel<S, float, true><<<(cols + TK - 1) / TK, NT, 0, s>>>(ctx, wv, wo, v, out,
+                                                                          cols);
+  } else {
+    // tiled: qk is q [B*N, D] and ctx attn [B*N, D]
+    if (tiled::Layout<S, float>::SMEM_BYTES > smem_optin()) return ERR_SMEM;
+    constexpr int TR = token_rows<S, false>(), TK = out_tokens<S, false>();
+    token_proj_kernel<S, float, float, false><<<dim3((cols + TR - 1) / TR, 3), NT, 0, s>>>(
+        node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
+    const int err = tiled::launch<S, float, float>(edge, mask, wm_e, we, wk, wv, sp, tp, qk, v,
+                                                   ctx, edge_out, n, cols, update_edge, 0, s);
+    if (err != 0) return err;
+    out_proj_kernel<S, float, false><<<(cols + TK - 1) / TK, NT, 0, s>>>(ctx, wv, wo, v, out,
+                                                                           cols);
+  }
+  return (int)cudaGetLastError();
+}
+
+// {main kernel's shared memory, 1 for the tiled layout}
+template <class S>
+void layout_of(int* out) {
+  if constexpr (S::RESIDENT) {
+    out[0] = (int)LayoutA<S>::SMEM_BYTES;
+    out[1] = 0;
+  } else {
+    out[0] = tiled::Layout<S, float>::SMEM_BYTES;
+    out[1] = 1;
+  }
+}
+
 }  // namespace
 
 // One call = prologue + main + epilogue on `stream`, at the library's widths
-// (Shape). sp, tp [B*N, D], qk and ctx [B*N, NH, D] are float32 scratch from
-// the caller. Returns 0, a CUDA error, or ERR_SMEM (before any launch) where
-// the layout does not fit the current device's opt-in shared memory.
+// (Shape). sp and tp [B*N, D] are float32 scratch from the caller, and so are
+// qk and ctx: [B*N, NH, D] each in the resident layout (folded keys and
+// per-head weighted memory), [B*N, D] each in the tiled one (q and the
+// attention sum). Returns 0, a CUDA error, or ERR_SMEM (before any launch)
+// where the layout does not fit the current device's opt-in shared memory.
 extern "C" int fused_edge_attention_f32(
     const float* node, const float* edge, const unsigned char* mask,
     const float* wm_e, const float* wm_s, const float* wm_t, const float* bm,
@@ -473,32 +530,19 @@ extern "C" int fused_edge_attention_f32(
     const float* ln_e1_g, const float* ln_e1_b, const float* ln_e2_g,
     const float* ln_e2_b, float* sp, float* tp, float* qk, float* ctx,
     float* out, float* edge_out, int batch, int n, int update_edge, void* stream) {
-  using namespace fusion;
-  using L = LayoutA<Shape>;
-  if ((int)L::SMEM_BYTES > smem_optin()) return ERR_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_f32_kernel<Shape>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const Vecs v{bm, ln_m_g, ln_m_b, bq, bk, bv, bo, be, ln_e1_g, ln_e1_b, ln_e2_g, ln_e2_b};
-  const int cols = batch * n;
-  const int tok_blocks = (cols + TOK - 1) / TOK;
-  constexpr int TK = out_tokens<Shape, true>();
-  cudaStream_t s = (cudaStream_t)stream;
-  token_proj_kernel<Shape, float, float, true><<<dim3(tok_blocks, 3), NT, 0, s>>>(
-      node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
-  edge_attention_f32_kernel<Shape><<<(cols + L::TJ - 1) / L::TJ, NT, L::SMEM_BYTES, s>>>(
-      edge, mask, wm_e, we, sp, tp, qk, v, ctx, edge_out, n, cols, update_edge);
-  out_proj_kernel<Shape, float, true><<<(cols + TK - 1) / TK, NT, 0, s>>>(ctx, wv, wo, v,
-                                                                           out, cols);
-  return (int)cudaGetLastError();
+  const fusion::Vecs v{bm, ln_m_g, ln_m_b, bq, bk, bv, bo, be,
+                       ln_e1_g, ln_e1_b, ln_e2_g, ln_e2_b};
+  return run_f32<fusion::Shape>(node, edge, mask, wm_e, wm_s, wm_t, wq, wk, wv, wo, we, v, sp,
+                                tp, qk, ctx, out, edge_out, batch, n, update_edge,
+                                (cudaStream_t)stream);
 }
 
-// The widths this library was built for and its main kernel's shared memory:
-// {D, E, NH, bytes}; the loader checks them against the shape it asked for.
+// The widths this library was built for, its main kernel's shared memory and
+// its layout: {D, E, NH, bytes, 0 resident / 1 tiled}; the loader checks them
+// against the shape it asked for.
 extern "C" void fused_edge_attention_shape(int* out) {
   out[0] = fusion::Shape::D;
   out[1] = fusion::Shape::E;
   out[2] = fusion::Shape::NH;
-  out[3] = (int)LayoutA<fusion::Shape>::SMEM_BYTES;
+  layout_of<fusion::Shape>(out + 3);
 }

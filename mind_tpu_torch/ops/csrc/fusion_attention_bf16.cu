@@ -18,8 +18,14 @@
 // bk_h . q_h[j] of a logit is the same for every source and cancels in the
 // softmax, and the softmax weights sum to 1, so bk is never added and bv is
 // added once per target. Node width D, edge width E and NH heads of dh =
-// D / NH are compile-time constants of the library (fusion_common.cuh: D, E
-// multiples of 16 from 16 to 128, NH <= 16, dh a multiple of 8).
+// D / NH are compile-time constants of the library, and so is its layout
+// (fusion_common.cuh): what follows is the resident layout (D, E multiples
+// of 16 from 16 to 128, NH <= 16, dh a multiple of 8). Every other shape
+// takes the tiled layout of fusion_tiled.cuh (weights streamed in slices,
+// products in column tiles on mma.sync m16n8k16, whose 16-row tiles let a
+// block shrink to 2 columns where wgmma's 64-row tile and register
+// accumulator no longer fit past 128: N / 2 registers a thread at N = 512);
+// run picks it at compile time.
 //
 // Bound on the H100 (B = 8, N = 129, 128 / 128 / 8, edge update, float32 edge
 // in): the call reads 68.2 MB and writes 68.2 MB of edge, 0.041 ms at 3.35
@@ -56,6 +62,7 @@
 //   eight warps' partial states are merged once at the end.
 
 #include "fusion_common.cuh"
+#include "fusion_tiled.cuh"
 
 namespace {
 
@@ -492,21 +499,34 @@ edge_attention_bf16_kernel(const EdgeT* __restrict__ edge,
   }
 }
 
-template <typename EdgeT>
+template <class S, typename EdgeT>
 int launch_main(const void* edge, const unsigned char* mask, const bf16* wm_e,
                 const bf16* we, const bf16* wk, const bf16* wv, const float* sp,
                 const float* tp, const float* q, const VecsT<bf16>& v, float* attn,
                 float* edge_out, int n, int cols, int update_edge, int write_cast,
                 cudaStream_t s) {
-  constexpr size_t SMEM_BYTES = LayoutB<Shape>::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_attention_bf16_kernel<Shape, EdgeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  edge_attention_bf16_kernel<Shape, EdgeT><<<(cols + TJ - 1) / TJ, NTB, SMEM_BYTES, s>>>(
-      static_cast<const EdgeT*>(edge), mask, wm_e, we, wk, wv, sp, tp, q, v, attn,
-      edge_out, n, cols, update_edge, write_cast);
-  return 0;
+  if constexpr (S::RESIDENT) {
+    constexpr size_t SMEM_BYTES = LayoutB<S>::SMEM_BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        edge_attention_bf16_kernel<S, EdgeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    edge_attention_bf16_kernel<S, EdgeT><<<(cols + TJ - 1) / TJ, NTB, SMEM_BYTES, s>>>(
+        static_cast<const EdgeT*>(edge), mask, wm_e, we, wk, wv, sp, tp, q, v, attn,
+        edge_out, n, cols, update_edge, write_cast);
+    return 0;
+  } else {
+    return tiled::launch<S, bf16, EdgeT>(static_cast<const EdgeT*>(edge), mask, wm_e, we, wk,
+                                         wv, sp, tp, q, v, attn, edge_out, n, cols,
+                                         update_edge, write_cast, s);
+  }
+}
+
+// The main kernel's shared memory at the widths S, in its layout.
+template <class S>
+constexpr int smem_bytes() {
+  if constexpr (S::RESIDENT) return (int)LayoutB<S>::SMEM_BYTES;
+  else return tiled::Layout<S, bf16>::SMEM_BYTES;
 }
 
 struct Call {
@@ -519,28 +539,30 @@ struct Call {
   cudaStream_t stream;
 };
 
-// prologue + main + epilogue
+// prologue + main + epilogue, at the widths S in their layout
+template <class S>
 int run(const Call& c, const VecsT<bf16>& v) {
-  if ((int)LayoutB<Shape>::SMEM_BYTES > smem_optin()) return ERR_SMEM;
+  if (smem_bytes<S>() > smem_optin()) return ERR_SMEM;
   const int cols = c.batch * c.n;
-  const dim3 tok_grid((cols + TOK - 1) / TOK, 3);
+  constexpr int TR = token_rows<S, false>();
+  const dim3 tok_grid((cols + TR - 1) / TR, 3);
   cudaStream_t s = c.stream;
   if (c.node_bf16)
-    token_proj_kernel<Shape, bf16, bf16, false><<<tok_grid, NT, 0, s>>>(
+    token_proj_kernel<S, bf16, bf16, false><<<tok_grid, NT, 0, s>>>(
         (const bf16*)c.node, c.wm_s, c.wm_t, c.wq, c.wk, v, c.sp, c.tp, c.q, cols);
   else
-    token_proj_kernel<Shape, float, bf16, false><<<tok_grid, NT, 0, s>>>(
+    token_proj_kernel<S, float, bf16, false><<<tok_grid, NT, 0, s>>>(
         (const float*)c.node, c.wm_s, c.wm_t, c.wq, c.wk, v, c.sp, c.tp, c.q, cols);
   const int err =
-      c.edge_bf16 ? launch_main<bf16>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp, c.tp,
-                                          c.q, v, c.attn, c.edge_out, c.n, cols,
-                                          c.update_edge, c.write_cast, s)
-                  : launch_main<float>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp, c.tp,
-                                           c.q, v, c.attn, c.edge_out, c.n, cols,
-                                           c.update_edge, c.write_cast, s);
+      c.edge_bf16 ? launch_main<S, bf16>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp, c.tp,
+                                         c.q, v, c.attn, c.edge_out, c.n, cols,
+                                         c.update_edge, c.write_cast, s)
+                  : launch_main<S, float>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp,
+                                          c.tp, c.q, v, c.attn, c.edge_out, c.n, cols,
+                                          c.update_edge, c.write_cast, s);
   if (err != 0) return err;
-  constexpr int TK = out_tokens<Shape, false>();
-  out_proj_kernel<Shape, bf16, false><<<(cols + TK - 1) / TK, NT, 0, s>>>(
+  constexpr int TK = out_tokens<S, false>();
+  out_proj_kernel<S, bf16, false><<<(cols + TK - 1) / TK, NT, 0, s>>>(
       c.attn, c.wv, c.wo, v, c.out, cols);
   return (int)cudaGetLastError();
 }
@@ -575,14 +597,16 @@ extern "C" int fused_edge_attention_bf16(
       (const bf16*)bm, (const bf16*)ln_m_g, (const bf16*)ln_m_b, (const bf16*)bq,
       (const bf16*)bk, (const bf16*)bv, (const bf16*)bo, (const bf16*)be,
       (const bf16*)ln_e1_g, (const bf16*)ln_e1_b, (const bf16*)ln_e2_g, (const bf16*)ln_e2_b};
-  return run(c, v);
+  return run<fusion::Shape>(c, v);
 }
 
-// The widths this library was built for and its main kernel's shared memory:
-// {D, E, NH, bytes}; the loader checks them against the shape it asked for.
+// The widths this library was built for, its main kernel's shared memory and
+// its layout: {D, E, NH, bytes, 0 resident / 1 tiled}; the loader checks them
+// against the shape it asked for.
 extern "C" void fused_edge_attention_bf16_shape(int* out) {
   out[0] = fusion::Shape::D;
   out[1] = fusion::Shape::E;
   out[2] = fusion::Shape::NH;
-  out[3] = (int)LayoutB<fusion::Shape>::SMEM_BYTES;
+  out[3] = smem_bytes<fusion::Shape>();
+  out[4] = fusion::Shape::RESIDENT ? 0 : 1;
 }

@@ -21,14 +21,28 @@
 // float32 sum. They are 0.2% of the call's operations.
 //
 // Widths. Every kernel is a template over a Widths<D, E, NH> type: node width
-// D, edge width E, NH heads of dh = D / NH. The TPU kernel takes any of them;
-// these take D and E in multiples of 16 from 16 to 128, at most 16 heads and
-// dh a multiple of 8 (fusion_attention.py::kernel_domain). A library is built
-// for one shape: the build defines FUSION_D, FUSION_E, FUSION_NH and
-// FUSION_QK_SCALE (float32(1 / sqrt(dh)), computed on the host as the JAX
-// kernel computes it), and each source instantiates its kernels for `Shape`.
-// Every width is a compile-time constant of its library: no run-time width
-// test or index costs the main path's 128 / 128 / 8 library anything.
+// D, edge width E, NH heads of dh = D / NH, any NH that divides D, as the TPU
+// kernel takes them (fusion_attention.py::kernel_domain bounds the card's
+// test grid at D, E <= 512 and NH <= 64; nothing here does). A library is
+// built for one shape: the build defines FUSION_D, FUSION_E, FUSION_NH and
+// FUSION_QK_SCALE (float32(1 / sqrt(dh)) of the true dh, computed on the
+// host as the JAX kernel computes it), and each source instantiates its
+// kernels for `Shape`. Every width is a compile-time constant of its
+// library, and so is its layout:
+//
+// - resident (Widths::RESIDENT: D and E multiples of 16 from 16 to 128, at
+//   most 16 heads of a width that is a multiple of 8): the per-pair weights
+//   stay in shared memory, as each source's header sets out; the main
+//   path's 128 / 128 / 8 is one;
+// - tiled (every other shape; fusion_tiled.cuh): the weights stream through
+//   shared memory in slices, the products go in column tiles, and every
+//   width and head layout is taken at its true size.
+//
+// No run-time width test or index costs a library anything. The per-token
+// kernels below serve both layouts: a thread owns columns tid, tid + 128,
+// ..., and rows are staged zero-padded to a multiple of 16 (DP), so a width
+// that is not a multiple of 16, or above 128, costs the resident shapes
+// nothing (DP == D and one column a thread there).
 
 #pragma once
 
@@ -64,11 +78,24 @@ struct Widths {
   static constexpr int E = E_;          // edge width
   static constexpr int NH = NH_;        // heads
   static constexpr int DH = D_ / NH_;   // head width
-  static_assert(D % 16 == 0 && E % 16 == 0 && D >= 16 && E >= 16 && D <= 128 && E <= 128,
-                "D and E are multiples of 16 from 16 to 128");
-  static_assert(NH >= 1 && NH <= 16 && D % NH == 0 && DH % 8 == 0,
-                "at most 16 heads, of a width that is a multiple of 8");
+  static_assert(D >= 1 && E >= 1 && NH >= 1 && D % NH == 0,
+                "positive widths, and a head count that divides D");
+  // the resident layout's shapes (the others take the tiled one)
+  static constexpr bool RESIDENT = D % 16 == 0 && E % 16 == 0 && D >= 16 && E >= 16 &&
+                                   D <= 128 && E <= 128 && NH <= 16 && DH % 8 == 0;
 };
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Tokens a block of the per-token kernels: TOK, fewer where a wide row's
+// staging would pass 40 KB of static shared memory (never at D <= 512).
+template <class S, bool FOLD>
+__host__ __device__ constexpr int token_rows() {
+  return round_up(S::D, 16) * TOK * 4 * (FOLD ? 2 : 1) <= 40960
+             ? TOK
+             : (40960 / (round_up(S::D, 16) * 4 * (FOLD ? 2 : 1)) > 0
+                    ? 40960 / (round_up(S::D, 16) * 4 * (FOLD ? 2 : 1)) : 1);
+}
 
 // The shape this library is built for.
 struct Shape : Widths<FUSION_D, FUSION_E, FUSION_NH> {
@@ -127,23 +154,25 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------------------
 // out[r][col] = sum_k xs[r][k] w[k][col] for ROWS rows out of shared memory
-// and one weight column per thread out of global memory (w is [D][D]). The
-// weight column is fetched 16 values at a time, so 16 loads are in flight
-// before the first FMA needs one: these kernels are short chains of L2
-// latencies otherwise. Every block sums over k from 0 up: the order of a
-// token's sum must not depend on the block it lands in, or a token would
-// compute another value in a batch of scenes than alone.
+// (rows of DP >= D values, zero past D) and one weight column per thread out
+// of global memory (w is [D][D]). The weight column is fetched 16 values at
+// a time, so 16 loads are in flight before the first FMA needs one: these
+// kernels are short chains of L2 latencies otherwise. Every block sums over
+// k from 0 up: the order of a token's sum must not depend on the block it
+// lands in, or a token would compute another value in a batch of scenes than
+// alone.
 // ---------------------------------------------------------------------------
-template <int D, int ROWS, typename WT>
-__device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restrict__ w,
+template <int D, int DP, int ROWS, typename WT>
+__device__ __forceinline__ void token_mm(const float (*xs)[DP], const WT* __restrict__ w,
                                          int col, float acc[ROWS]) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
 #pragma unroll 1
-  for (int k0 = 0; k0 < D; k0 += 16) {
+  for (int k0 = 0; k0 < DP; k0 += 16) {
     float wr[16];
 #pragma unroll
-    for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(w[(k0 + kk) * D + col]);
+    for (int kk = 0; kk < 16; ++kk)
+      wr[kk] = DP == D || k0 + kk < D ? to_f(w[(k0 + kk) * D + col]) : 0.f;
 #pragma unroll
     for (int kk = 0; kk < 16; kk += 4) {
 #pragma unroll
@@ -159,9 +188,10 @@ __device__ __forceinline__ void token_mm(const float (*xs)[D], const WT* __restr
 }
 
 // ---------------------------------------------------------------------------
-// Prologue: per-token projections. Grid (ceil(tokens / TOK), 3): a block of
-// 128 threads takes TOK tokens and one product (blockIdx.y = 0: sp, 1: tp,
-// 2: q and, with FOLD, the folded keys); thread t < D owns output column t.
+// Prologue: per-token projections. Grid (ceil(tokens / TR), 3): a block of
+// 128 threads takes TR = token_rows tokens and one product (blockIdx.y = 0:
+// sp, 1: tp, 2: q and, with FOLD, the folded keys); thread t owns output
+// columns t, t + 128, ... below D.
 // ---------------------------------------------------------------------------
 template <class S, typename NodeT, typename WT, bool FOLD>
 __global__ void __launch_bounds__(NT)
@@ -169,32 +199,36 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
                   const WT* __restrict__ wm_t, const WT* __restrict__ wq,
                   const WT* __restrict__ wk, VecsT<WT> v, float* __restrict__ sp,
                   float* __restrict__ tp, float* __restrict__ q_out, int tokens) {
-  constexpr int D = S::D, NH = S::NH, DH = S::DH;
-  __shared__ __align__(16) float xs[TOK][D];
-  __shared__ __align__(16) float qs[TOK][D];
+  constexpr int D = S::D, NH = S::NH, DH = S::DH, DP = round_up(D, 16);
+  constexpr int TR = token_rows<S, FOLD>();
+  static_assert(!FOLD || (S::RESIDENT && DP == D), "the folded keys are the resident layout's");
+  __shared__ __align__(16) float xs[TR][DP];
+  __shared__ __align__(16) float qs[FOLD ? TR : 1][FOLD ? DP : 1];
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * TOK;
+  const int t0 = blockIdx.x * TR;
   const int which = blockIdx.y;
-  for (int idx = tid; idx < TOK * D; idx += NT) {
-    const int tok = t0 + idx / D;
-    xs[idx / D][idx % D] =
-        tok < tokens ? operand<WT>(to_f(node[(size_t)tok * D + idx % D])) : 0.f;
+  for (int idx = tid; idx < TR * DP; idx += NT) {
+    const int tok = t0 + idx / DP, k = idx % DP;
+    xs[idx / DP][k] = tok < tokens && (DP == D || k < D)
+                          ? operand<WT>(to_f(node[(size_t)tok * D + k])) : 0.f;
   }
   __syncthreads();
 
-  const int col = tid;
-  const bool col_ok = D == NT || col < D;
-  if (col_ok) {
-    float acc[TOK];
-    token_mm<D, TOK, WT>(xs, which == 0 ? wm_s : which == 1 ? wm_t : wq, col, acc);
-    const float bias = which == 0 ? 0.f : to_f((which == 1 ? v.bm : v.bq)[col]);
-    float* dst = which == 0 ? sp : which == 1 ? tp : q_out;
+  const bool col_ok = D == NT || tid < D;   // the folded keys' column (D <= 128)
+  for (int col0 = 0; col0 < D; col0 += NT) {
+    const int col = col0 + tid;
+    if (D % NT == 0 || col < D) {
+      float acc[TR];
+      token_mm<D, DP, TR, WT>(xs, which == 0 ? wm_s : which == 1 ? wm_t : wq, col, acc);
+      const float bias = which == 0 ? 0.f : to_f((which == 1 ? v.bm : v.bq)[col]);
+      float* dst = which == 0 ? sp : which == 1 ? tp : q_out;
 #pragma unroll
-    for (int r = 0; r < TOK; ++r) {
-      const int tok = t0 + r;
-      const float val = acc[r] + bias;
-      if (tok < tokens && !(FOLD && which == 2)) dst[(size_t)tok * D + col] = val;
-      if (FOLD) qs[r][col] = val;
+      for (int r = 0; r < TR; ++r) {
+        const int tok = t0 + r;
+        const float val = acc[r] + bias;
+        if (tok < tokens && !(FOLD && which == 2)) dst[(size_t)tok * D + col] = val;
+        if constexpr (FOLD) qs[r][col] = val;
+      }
     }
   }
   if constexpr (FOLD) {
@@ -220,7 +254,7 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
           wr[4 * d4] = w4.x; wr[4 * d4 + 1] = w4.y; wr[4 * d4 + 2] = w4.z; wr[4 * d4 + 3] = w4.w;
         }
 #pragma unroll
-        for (int r = 0; r < TOK; ++r) {
+        for (int r = 0; r < TR; ++r) {
           float a = 0.f;
 #pragma unroll
           for (int d = 0; d < DH; ++d) a = fmaf(wr[d], qs[r][h * DH + d], a);
@@ -234,10 +268,12 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
 }
 
 // Tokens a block of out_proj_kernel: TOK, or TOK / 2 where the folded
-// form's [TOK * NH][D] staging would pass the 48 KB of static shared memory.
+// form's [TOK * NH][D] staging would pass the 48 KB of static shared memory;
+// without the fold, token_rows.
 template <class S, bool FOLD>
 __host__ __device__ constexpr int out_tokens() {
-  return FOLD && (TOK * S::NH + TOK) * S::D * 4 > 48 * 1024 ? TOK / 2 : TOK;
+  return FOLD ? ((TOK * S::NH + TOK) * S::D * 4 > 48 * 1024 ? TOK / 2 : TOK)
+              : token_rows<S, false>();
 }
 
 // ---------------------------------------------------------------------------
@@ -254,16 +290,18 @@ __global__ void __launch_bounds__(NT)
 out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
                 const WT* __restrict__ wo, VecsT<WT> v, float* __restrict__ out,
                 int tokens) {
-  constexpr int D = S::D, NH = S::NH, DH = S::DH, TK = out_tokens<S, FOLD>();
+  constexpr int D = S::D, NH = S::NH, DH = S::DH, DP = round_up(D, 16);
+  constexpr int TK = out_tokens<S, FOLD>();
+  static_assert(!FOLD || (S::RESIDENT && DP == D), "the folded values are the resident layout's");
   __shared__ __align__(16) float cs[FOLD ? TK * NH : 1][D];
-  __shared__ __align__(16) float xs[TK][D];
+  __shared__ __align__(16) float xs[TK][DP];
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TK;
-  const int col = tid;
-  const bool col_ok = D == NT || col < D;
-  const float bv = col_ok ? to_f(v.bv[col]) : 0.f;
   float acc[TK];
-  if (FOLD) {
+  if constexpr (FOLD) {
+    const int col = tid;
+    const bool col_ok = D == NT || col < D;
+    const float bv = col_ok ? to_f(v.bv[col]) : 0.f;
     for (int idx = tid; idx < TK * NH * D; idx += NT) {
       const int tok = t0 + idx / (NH * D);
       cs[idx / D][idx % D] = tok < tokens ? in[(size_t)t0 * NH * D + idx] : 0.f;
@@ -294,21 +332,33 @@ out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
 #pragma unroll
       for (int r = 0; r < TK; ++r) xs[r][col] = operand<WT>(acc[r] + bv);
     }
-  } else if (col_ok) {
+  } else {
+    // x = attn + bv, zero past D
+    for (int col0 = 0; col0 < DP; col0 += NT) {
+      const int col = col0 + tid;
+      if (DP % NT == 0 || col < DP) {
+        const bool in_row = DP == D || col < D;
+        const float bv = in_row ? to_f(v.bv[col]) : 0.f;
 #pragma unroll
-    for (int r = 0; r < TK; ++r) {
-      const int tok = t0 + r;
-      xs[r][col] = tok < tokens ? operand<WT>(in[(size_t)tok * D + col] + bv) : 0.f;
+        for (int r = 0; r < TK; ++r) {
+          const int tok = t0 + r;
+          xs[r][col] = tok < tokens && in_row
+                           ? operand<WT>(in[(size_t)tok * D + col] + bv) : 0.f;
+        }
+      }
     }
   }
   __syncthreads();
-  if (col_ok) {
-    token_mm<D, TK, WT>(xs, wo, col, acc);
-    const float bo = to_f(v.bo[col]);
+  for (int col0 = 0; col0 < D; col0 += NT) {
+    const int col = col0 + tid;
+    if (D % NT == 0 || col < D) {
+      token_mm<D, DP, TK, WT>(xs, wo, col, acc);
+      const float bo = to_f(v.bo[col]);
 #pragma unroll
-    for (int r = 0; r < TK; ++r) {
-      const int tok = t0 + r;
-      if (tok < tokens) out[(size_t)tok * D + col] = acc[r] + bo;
+      for (int r = 0; r < TK; ++r) {
+        const int tok = t0 + r;
+        if (tok < tokens) out[(size_t)tok * D + col] = acc[r] + bo;
+      }
     }
   }
 }

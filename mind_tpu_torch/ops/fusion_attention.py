@@ -20,12 +20,16 @@ their variant or raise; CPU tensors run the variant's plain version. There is
 no fallback between the two.
 
 Widths. Like the TPU kernel, the plain versions take any node width D, edge
-width E and head count. The kernels take the domain `kernel_domain` states
-(D and E multiples of 16 from 16 to 128, at most 16 heads, a head width
-D / heads that is a multiple of 8): the main path's network (D = E = 128, 8
-heads) and the JAX package's narrow test network (32 / 32, 4 heads) among
-it. A CUDA call outside it raises ValueError before anything is built or
-launched.
+width E and head count that divides D. The kernels take the domain
+`kernel_domain` states (D and E from 1 to 512, and any head count up to 64
+that divides D): the top of the card's test grid, not a limit of their
+design. A CUDA call outside it raises ValueError before anything is built or
+launched. Each library picks its layout at compile time (`kernel_layout`):
+"resident" (D and E multiples of 16 from 16 to 128, at most 16 heads of a
+width that is a multiple of 8: the weights stay in shared memory, as for the
+main path's 128 / 128 / 8) or "tiled" (every other shape:
+csrc/fusion_tiled.cuh streams the weights and takes every width and head
+layout at its true size). No weight is padded or re-laid on the host.
 
 The kernels are built with nvcc at first use into `_build/` beside this file
 (listed in .gitignore), one shared library with a C interface per source and
@@ -71,8 +75,9 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _COMMON = _CSRC / "fusion_common.cuh"
 # every CUDA source of the port, each with the headers it includes: the two
 # fusion kernels and the graph-control library (ops/graph_control.py)
-_SRCS = {"float32": (_CSRC / "fusion_attention.cu", _COMMON),
-         "bfloat16": (_CSRC / "fusion_attention_bf16.cu", _COMMON),
+_TILED = _CSRC / "fusion_tiled.cuh"
+_SRCS = {"float32": (_CSRC / "fusion_attention.cu", _COMMON, _TILED),
+         "bfloat16": (_CSRC / "fusion_attention_bf16.cu", _COMMON, _TILED),
          "graph_control": (_CSRC / "graph_control.cu",)}
 VARIANTS = ("float32", "bfloat16")
 FULL_WIDTH = (128, 128, 8)   # (D, E, heads) of the main path's network
@@ -193,20 +198,37 @@ def fused_edge_attention_bf16_ref(node, edge, key_mask, w: FusionWeights,
     return _round_bf16(out) @ p["wo"] + p["bo"], edge_new
 
 
-DOMAIN = ("D and E multiples of 16 from 16 to 128, at most 16 heads, and a head width "
-          "D / heads that is a multiple of 8")
+MAX_WIDTH, MAX_HEADS = 512, 64   # the top of the card's test grid
+DOMAIN = (f"D and E from 1 to {MAX_WIDTH}, and a head count from 1 to {MAX_HEADS} that "
+          f"divides D")
 
 
 def kernel_domain(d: int, e: int, n_head: int):
     """None where the card's kernels take node width d, edge width e and
     n_head heads; else why not, naming the domain (DOMAIN). A pure function
-    of the three widths: it builds, loads and launches nothing."""
+    of the three widths: it builds, loads and launches nothing. A head count
+    that does not divide D is no gap of the port: the JAX function cannot
+    compute it either (its reshape to [N, heads, D / heads] refuses it)."""
     for name, x in (("D", d), ("E", e)):
-        if not (16 <= x <= 128 and x % 16 == 0):
+        if not 1 <= x <= MAX_WIDTH:
             return f"{name} = {x}: the kernels take {DOMAIN}"
-    if not (1 <= n_head <= 16 and d % n_head == 0 and (d // n_head) % 8 == 0):
-        return f"{n_head} heads at D = {d}: the kernels take {DOMAIN}"
+    if not 1 <= n_head <= MAX_HEADS:
+        return f"{n_head} heads: the kernels take {DOMAIN}"
+    if d % n_head:
+        return (f"{n_head} heads at D = {d}: a head count that does not divide D, which the "
+                f"JAX function cannot compute either; the kernels take {DOMAIN}")
     return None
+
+
+def kernel_layout(d: int, e: int, n_head: int) -> str:
+    """The layout a library at (d, e, n_head) is built in, as
+    csrc/fusion_common.cuh's Widths::RESIDENT decides it: "resident" (D and E
+    multiples of 16 from 16 to 128, at most 16 heads of a width that is a
+    multiple of 8) or "tiled" (csrc/fusion_tiled.cuh). It sets the float32
+    call's scratch."""
+    resident = (all(x % 16 == 0 and 16 <= x <= 128 for x in (d, e)) and n_head <= 16
+                and (d // n_head) % 8 == 0)
+    return "resident" if resident else "tiled"
 
 
 def check_domain(d: int, e: int, n_head: int) -> None:
@@ -294,11 +316,13 @@ def _load(variant, shape, path):
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, _ENTRY[variant])
     fn.argtypes, fn.restype = _ARGTYPES[variant], ctypes.c_int
-    built = (ctypes.c_int * 4)()
+    built = (ctypes.c_int * 5)()
     getattr(lib, _SHAPE_FN[variant])(built)
     if tuple(built[:3]) != shape:
         raise RuntimeError(f"{path.name} is built for {tuple(built[:3])}, not {shape}")
     lib.smem_bytes = built[3]
+    if ("resident", "tiled")[built[4]] != kernel_layout(*shape):
+        raise RuntimeError(f"{path.name} is not built in the {kernel_layout(*shape)} layout")
     _LIBS[(variant, shape)] = lib
     return lib
 
@@ -401,9 +425,11 @@ def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     out = new(B, N, D)
     edge_out = torch.empty_like(edge) if update_edge else edge
-    # scratch of the call's three launches: per-token projections, folded keys,
-    # per-head softmax-weighted memory
-    sp, tp, qk, ctx = new(B * N, D), new(B * N, D), new(B * N, n_head, D), new(B * N, n_head, D)
+    # scratch of the call's three launches: per-token projections, then the
+    # folded keys and per-head softmax-weighted memory (resident), or q and
+    # the attention sum (tiled)
+    per_token = (n_head, D) if kernel_layout(D, E, n_head) == "resident" else (D,)
+    sp, tp, qk, ctx = new(B * N, D), new(B * N, D), new(B * N, *per_token), new(B * N, *per_token)
     # the launch and its cudaFuncSetAttribute apply to the current device:
     # make it the tensors' one
     with torch.cuda.device(dev):
