@@ -13,8 +13,11 @@ result line):
      resident (D, E, heads) of WIDTHS_GRID, and the graph-control library
      (graph_control.cu: the condition kernel and the conditional-node calls;
      sm_90a, one nvcc per library, all side by side) from the checkout; the
-     nine tiled shapes of WIDTHS_GRID build in a background thread, two
-     shapes at a time, beside phases 2-6b; each library's seconds printed;
+     eighteen tiled shapes of WIDTHS_GRID build in a background thread:
+     the [widths] networks' three beside phases 2-6b, the other fifteen,
+     TILED_BUILD_CHUNK shapes at a time, from the end of the demo command
+     (6b) on, so that no nvcc shares the host with its render workers; each
+     library's seconds printed;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
      both update_edge values (and both edge input types of the bf16
@@ -24,18 +27,25 @@ result line):
      condition kernel against its plain version any(mask) on masks of 1 to
      1024 entries inside captured programs, and timed there;
  2b. [widths] (a)-(c): both kernels at the other widths of their domain, at
-     B = 8, N = 129: every (D, E, heads) of WIDTHS_GRID (the resident
+     B = 8, N = 129 up to 1024 wide, B = 2 up to 2048 and B = 1, N = 33
+     above (widths_batch): every (D, E, heads) of WIDTHS_GRID (the resident
      layout's 32/32/4, 64/32/4, 48/80/3, 16/16/2, 128/64/8, 128/128/16; the
      tiled layout's 256/256/8, 512/512/16, 512/256/64, 160/512/20,
-     130/130/10, 72/40/6, 36/20/6, 64/64/32, 12/7/3) with and without the
-     edge update, kernel B on a bf16 and on a float32 edge, against the
-     plain versions within the tolerances of phase 2, each case's ms, bound
-     and error printed; 32 nodes against each 8 alone, equal to the bit, at
-     32/32/4, 72/40/6 and 256/256/8 (WIDTHS_GAP); a call outside the domain
-     (D = 520) refused with a ValueError before any launch. It runs after
-     phase 6b, so that phase 1's background build of the tiled widths has
-     finished, and is followed by 15c's plan cycles (e), whose CPU forwards
-     the child of phase 7 computes beside the later phases;
+     130/130/10, 72/40/6, 36/20/6, 64/64/32, 12/7/3, and past 512 wide or 64
+     heads 640/640/10, 768/768/12, 1024/512/128, 512/512/512, 1376/1376/8,
+     1056/1056/1056, 2048/2048/16, 1030/515/10 and 8192/256/64, the last
+     with its rows staged in global scratch) with and without the edge
+     update, kernel B on a bf16 and on a float32 edge, against the plain
+     versions within the tolerances of phase 2, each case's ms, bound and
+     error printed, and each library's layout regime, shared memory (its
+     own against the Python mirror kernel_smem, any difference fatal) and
+     local memory; 32 nodes against each 8 alone, equal to the bit, at
+     32/32/4, 72/40/6, 256/256/8 and (N = 33) 1376/1376/8 (WIDTHS_GAP); a
+     call of heads that do not divide D (48/48/5), which the JAX function
+     refuses too, refused with a ValueError before any launch. It runs after
+     (dist), once phase 1's background build of the tiled widths has
+     finished; the networks' plan cycles (e) run after phase 6b, and the
+     child of phase 7 computes their CPU forwards beside the later phases;
   3. load the trained ScenePredNet weights from the committed archive;
   4. float32 path: plan cycles of fused_plan_core at full width on a seeded
      synthetic scene (48 actor slots, 80 lane segments, 256-point target
@@ -281,20 +291,21 @@ result line):
      against the sequential mesh across two cards, the same way; with one
      card a line says it was not run. Copy-ticks/s of the ranks and of the
      one process, the tree solve's ms, each rank's step ms and launches;
- 15c. [widths] (d)-(f): three networks on the main path, each at 6 layers
+ 15c. [widths] (d)-(f): four networks on the main path, each at 6 layers
      with its own seeded weights, float32 (kernel A) and bf16 (kernel B):
      the 4-head, 32-wide network of the JAX package's tests and dry run
-     (NARROW_NET), the 256-wide WIDE_NET and the ragged RAGGED_NET (72 /
-     40, 6 heads of width 12). For each, a closed loop planning through
-     MINDPlanner's compiled programs equal to the bit to its graphed=False
-     loop (26 ticks; RAGGED_NET 13, one plan; every replay under sync debug
+     (NARROW_NET), the 256-wide WIDE_NET, the ragged RAGGED_NET (72 / 40, 6
+     heads of width 12) and the 768-wide WIDER_NET (12 heads of width 64).
+     For each, a closed loop planning through MINDPlanner's compiled
+     programs equal to the bit to its graphed=False loop (26 ticks;
+     RAGGED_NET and WIDER_NET 18, one plan; every replay under sync debug
      "error"; the kernel launched only by the captures, executed 6 times a
      device-counted AIME round), and one eager plan cycle (run after phase
      6b) and the network on its first AIME inputs against the CPU's plain
-     version (computed in phase 7's child) within TOL_NET_CLS /
-     TOL_NET_POS; for NARROW_NET the float32 loop against the
-     same loop on the CPU (in phase 7's child): the same trees, the ego
-     within TOL_LOOP_EGO; for NARROW_NET and WIDE_NET 4 compiled AdamW
+     version (computed in phase 7's child; WIDER_NET's first 2 AIME nodes)
+     within TOL_NET_CLS / TOL_NET_POS; for NARROW_NET the float32 loop
+     against the same loop on the CPU (in phase 7's child): the same trees,
+     the ego within TOL_LOOP_EGO; for NARROW_NET and WIDE_NET 4 compiled AdamW
      training steps (B = 4) of the float32 network equal to the bit to 4
      eager ones;
  16. print per-phase times, the benchmark's final and section lines, the
@@ -396,17 +407,39 @@ REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
 # a head count that are no powers of two, the narrowest, a narrower edge at
 # full node width, and 16 heads at full width (whose folded keys need a block
 # of 4 targets in kernel A). In the tiled layout (csrc/fusion_tiled.cuh):
-# the wide network, the top of the domain, 64 heads of width 8 with E < D,
+# the wide network, 512 / 512 / 16, 64 heads of width 8 with E < D,
 # more than 16 heads just past 128, ragged and past 128 (head width 13), the
 # ragged network, head width 6, 32 heads of width 2, an edge row of 28 bytes
-WIDTHS_GRID = ((32, 32, 4), (64, 32, 4), (48, 80, 3), (16, 16, 2), (128, 64, 8),
-               (128, 128, 16),
-               (256, 256, 8), (512, 512, 16), (512, 256, 64), (160, 512, 20), (130, 130, 10),
-               (72, 40, 6), (36, 20, 6), (64, 64, 32), (12, 7, 3))
-# the batch gap's widths: the narrow network, a ragged and a wide shape
-WIDTHS_GAP = ((32, 32, 4), (72, 40, 6), (256, 256, 8))
-# a call the kernels must refuse: past the top of the domain
-WIDTHS_OUTSIDE = (520, 32, 8)
+WIDTHS_BOUNDED = ((32, 32, 4), (64, 32, 4), (48, 80, 3), (16, 16, 2), (128, 64, 8),
+                  (128, 128, 16),
+                  (256, 256, 8), (512, 512, 16), (512, 256, 64), (160, 512, 20),
+                  (130, 130, 10), (72, 40, 6), (36, 20, 6), (64, 64, 32), (12, 7, 3))
+# past 512 wide and 64 heads, each reaching a layout regime the card had not
+# run: just past 512, the 768-wide network's widths, 128 heads of width 8,
+# 512 heads of width 1, the first float32 shape past 2 columns a block, head
+# width 1 past bf16's 2 columns, past 2 columns in both variants, a ragged
+# 2,060-byte float32 edge row with head width 103, and rows staged in global
+# scratch past the per-token kernels' former static limit and the register
+# LayerNorm
+WIDTHS_UNBOUNDED = ((640, 640, 10), (768, 768, 12), (1024, 512, 128), (512, 512, 512),
+                    (1376, 1376, 8), (1056, 1056, 1056), (2048, 2048, 16), (1030, 515, 10),
+                    (8192, 256, 64))
+WIDTHS_GRID = WIDTHS_BOUNDED + WIDTHS_UNBOUNDED
+
+
+def widths_batch(d, e):
+    """(B, N) of [widths]' calls at node width d, edge width e: B = 8 and
+    N = 129 up to 1024 wide, B = 2 up to 2048, and B = 1, N = 33 above (a
+    full-size call there is ~36 TFLOP)."""
+    w = max(d, e)
+    return (8, 129) if w <= 1024 else (2, 129) if w <= 2048 else (1, 33)
+
+
+# the batch gap's widths and N: the narrow network, a ragged and a wide shape
+# at N = 129, and kernel A's first block of one column at N = 33
+WIDTHS_GAP = ((32, 32, 4, 129), (72, 40, 6, 129), (256, 256, 8, 129), (1376, 1376, 8, 33))
+# a call the kernels must refuse, as the JAX function does: 5 heads at D = 48
+WIDTHS_OUTSIDE = (48, 48, 5)
 # the 4-head, 32-wide network of the JAX package's tests and dry run
 # (__graft_entry__.py:107-108) at the default depth (6 layers)
 NARROW_NET = dict(d_actor=32, d_lane=32, d_embed=32, d_rpe=32, n_scene_head=4)
@@ -415,9 +448,13 @@ NARROW_NET = dict(d_actor=32, d_lane=32, d_embed=32, d_rpe=32, n_scene_head=4)
 # head width of 12), both at the default depth
 WIDE_NET = dict(d_actor=256, d_lane=256, d_embed=256, d_rpe=256, n_scene_head=8)
 RAGGED_NET = dict(d_actor=72, d_lane=72, d_embed=72, d_rpe=40, n_scene_head=6)
+# a network past 512 wide: 12 heads of width 64, the default depth
+WIDER_NET = dict(d_actor=768, d_lane=768, d_embed=768, d_rpe=768, n_scene_head=12)
 WIDTHS_TRAIN_STEPS = 4
-# calls each [widths] case is timed over (20 at the full width)
-WIDTHS_REPS = 10
+# calls each [widths] case is timed over (20 at the full width), and past
+# 512 wide, where a call takes 7-270 ms, one after no warm-up call but the
+# check's own
+WIDTHS_REPS, WIDTHS_REPS_UNBOUNDED = 10, 1
 # (plan programs): the extra configurations' loops, 26 ticks with the
 # planner on after 0.2 s (3 plans)
 PROGRAM_TICKS = 26
@@ -425,6 +462,7 @@ PROGRAM_TICKS = 26
 # 0.2 s, a loop plans at ticks 15, 20, 25, ...)
 RAGGED_TICKS = 18
 T0 = 0.0
+BUILD = None   # phase 1's TiledBuild, closed when the script ends
 # the committed AV2-format log of synthetic_av2(0) under demo_1's sequence id
 # and its configuration (tools/write_av2_fixture.py)
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
@@ -466,15 +504,11 @@ TILED_BUILD_CHUNK = 2
 def phase_build(fa):
     """Phase 1: both fusion kernels at the full width and at the resident
     layout's shapes of WIDTHS_GRID, and the graph-control library, built
-    side by side and loaded; the tiled layout's shapes start building in a
-    background thread (TILED_BUILD_CHUNK shapes at a time), which
-    phase_widths_kernels joins. Returns that thread's future."""
-    import concurrent.futures
-
+    side by side and loaded; the tiled layout's shapes then build in the
+    background (TiledBuild). Returns the TiledBuild."""
     from mind_tpu_torch.ops import graph_control
 
     resident = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "resident"]
-    tiled = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "tiled"]
     t = time.perf_counter()
     fa.build_kernels([fa.FULL_WIDTH, *resident])
     graph_control.load()
@@ -482,37 +516,93 @@ def phase_build(fa):
         f"of [widths], and the graph-control library, built ({len(fa.build_kernels.seconds)} "
         f"nvcc side by side) and loaded in {time.perf_counter() - t:.3f} s; CUDA versions "
         f"{graph_control.load.versions}")
+    return TiledBuild(fa)
 
-    def build_tiled():
+
+class TiledBuild:
+    """The tiled layout's libraries of WIDTHS_GRID, built in a background
+    thread (nvcc only) beside the card's phases: first the shapes of the
+    [widths] networks (WIDTHS_NETS), which their plan cycles after the demo
+    command take (join_networks); then, once `release` is called (after the
+    demo command, so that no nvcc shares the host with its render workers),
+    the others, TILED_BUILD_CHUNK shapes at a time, which phase [widths]
+    (a)-(c) takes (join). `close` stops it after the chunk in flight, so
+    that the script leaves no nvcc behind."""
+
+    def __init__(self, fa):
+        import threading
+
+        self.fa = fa
+        tiled = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "tiled"]
+        nets = {net_shape(w) for _, w, _, _ in WIDTHS_NETS}
+        self.net_shapes = [s for s in tiled if s in nets]
+        self.rest = [s for s in tiled if s not in nets]
+        self.error, self.seconds = None, {}
+        self.nets_done, self.released, self.done = (threading.Event() for _ in range(3))
+        self.stopped = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
         t = time.perf_counter()
-        for i in range(0, len(tiled), TILED_BUILD_CHUNK):
-            fa.compile_kernels(tiled[i:i + TILED_BUILD_CHUNK])
-        return time.perf_counter() - t
+        try:
+            self.fa.compile_kernels(self.net_shapes)
+            self.seconds["networks"] = time.perf_counter() - t
+            self.nets_done.set()
+            self.released.wait()
+            t = time.perf_counter()
+            for i in range(0, len(self.rest), TILED_BUILD_CHUNK):
+                if self.stopped.is_set():
+                    return
+                self.fa.compile_kernels(self.rest[i:i + TILED_BUILD_CHUNK])
+            self.seconds["rest"] = time.perf_counter() - t
+        except Exception as err:   # the joins raise it
+            self.error = err
+        finally:
+            self.nets_done.set()
+            self.done.set()
 
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(build_tiled)
-    pool.shutdown(wait=False)
-    return future
+    def _wait(self, event, shapes, what):
+        t = time.perf_counter()
+        event.wait()
+        if self.error is not None:
+            raise RuntimeError(f"the background build failed: {self.error}")
+        self.fa.build_kernels(shapes)
+        log(f"[build] {len(shapes)} tiled widths ({what}) built in the background in "
+            f"{self.seconds[what]:.3f} s, {time.perf_counter() - t:.3f} s of it waited for "
+            f"here")
+
+    def join_networks(self):
+        """Wait for the [widths] networks' tiled shapes and load them."""
+        self._wait(self.nets_done, self.net_shapes, "networks")
+
+    def release(self):
+        self.released.set()
+
+    def join(self):
+        """Wait for every tiled shape, load them, and print every library's
+        build seconds and nvcc's report."""
+        self.release()
+        self._wait(self.done, self.rest, "rest")
+        log("[build] seconds from each build's start to each library's end: "
+            + json.dumps({k: round(v, 2) for k, v in self.fa.build_kernels.seconds.items()}))
+        for lib, text in self.fa.build_kernels.log.items():
+            log(f"[build] nvcc, {lib}:\n{text.strip()}")
+
+    def close(self):
+        self.stopped.set()
+        self.released.set()
+        self.thread.join()
 
 
-def join_build(fa, future):
-    """Wait for phase 1's background build of the tiled shapes, load them,
-    and print every library's build seconds and nvcc's report."""
-    t = time.perf_counter()
-    built_s = future.result()   # raises where a build failed
-    tiled = [s for s in WIDTHS_GRID if fa.kernel_layout(*s) == "tiled"]
-    fa.build_kernels(tiled)
-    log(f"[build] the {len(tiled)} tiled widths of [widths] built in the background in "
-        f"{built_s:.3f} s, {time.perf_counter() - t:.3f} s of it waited for here")
-    log("[build] seconds from each build's start to each library's end: "
-        + json.dumps({k: round(v, 2) for k, v in fa.build_kernels.seconds.items()}))
-    for lib, text in fa.build_kernels.log.items():
-        log(f"[build] nvcc, {lib}:\n{text.strip()}")
+def net_shape(widths):
+    """(D, E, heads) of a [widths] network's fusion core."""
+    return (widths["d_embed"], widths["d_rpe"], widths["n_scene_head"])
 
 
-def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20):
+def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20, warmup=3):
     """One (inputs, update_edge) case: kernel vs plain, and both timed over
-    `reps` calls."""
+    `reps` calls after `warmup` ones."""
     edge = args[1]
     out, edge_out = fa.fused_edge_attention(*args, H, ue)
     torch.cuda.synchronize()
@@ -524,27 +614,28 @@ def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20):
     d_out, d_edge = (out - ref_out).abs(), (edge_out - ref_edge).abs()
     err = max(d_out.max().item(), d_edge.max().item())
     mean = max(d_out.mean().item(), d_edge.mean().item())
-    ms = cuda_time_ms(lambda: fa.fused_edge_attention(*args, H, ue), reps)
-    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue), reps)
+    ms = cuda_time_ms(lambda: fa.fused_edge_attention(*args, H, ue), reps, warmup)
+    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue), reps, warmup)
     if not (err < tol and mean < tol_mean):
         raise RuntimeError(f"{label}: kernel disagrees with plain: max {err} (tol {tol}), "
                            f"mean {mean} (tol {tol_mean})")
     return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "mean_abs_err": mean}
 
 
-def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20):
-    """Both kernels vs their plain versions at B = key_mask.shape[0] and
-    N = 129, node width D, edge width E and H heads, on random inputs with
-    the main path's token mask: one result per (variant, edge type,
+def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20, warmup=3, fan_in=False):
+    """Both kernels vs their plain versions at B, N = key_mask.shape, node
+    width D, edge width E and H heads, on random inputs with the token mask
+    given (the main path's at N = 129): one result per (variant, edge type,
     update_edge) case, weighted by its launches in one forward: 5 with the
-    edge update and 1 without. In the bf16 variant the first of the 5 reads a
-    bf16 node and edge (the encoders' output); the later ones read float32,
-    which is what the layer before them wrote, so each case's node has its
-    edge's type."""
+    edge update and 1 without (weights scaled by fan-in with `fan_in`:
+    fusion_inputs). In the bf16 variant the first of the 5 reads a bf16 node
+    and edge (the encoders' output); the later ones read float32, which is
+    what the layer before them wrote, so each case's node has its edge's
+    type."""
     B, N = key_mask.shape[0], key_mask.shape[1]
     from mind_tpu_torch.synthetic import fusion_inputs
 
-    w, node, edge = fusion_inputs(B, N, D, dev, SEED, e=E)
+    w, node, edge = fusion_inputs(B, N, D, dev, SEED, e=E, fan_in=fan_in)
     bf16 = torch.bfloat16
     w16 = fa.FusionWeights(*(t.to(bf16) for t in w))
     # (variant, edge type, update_edge, launches of it in one forward)
@@ -566,9 +657,10 @@ def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20):
             nbytes = fa.fused_edge_attention_bytes(B, N, D, ue, e.element_size(),
                                                    x.element_size(), 2, e=E)
         flops = fa.fused_edge_attention_flops(B, N, D, ue, variant, H, e=E)
-        label = (f"B={B} {variant} node,edge={edge_type} update_edge={ue}"
+        label = (f"B={B}{'' if N == 129 else f' N={N}'} {variant} node,edge={edge_type} "
+                 f"update_edge={ue}"
                  + ("" if (D, E, H) == (128, 128, 8) else f" D,E,heads={D},{E},{H}"))
-        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps)
+        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps, warmup)
         t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAKS.hbm_bytes
         r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
                  bound_by="operations" if t_ops > t_bytes else "bytes")
@@ -587,7 +679,7 @@ def mix(by_case, k):
     return sum(r[k] * r["weight"] for r in by_case.values()) / total
 
 
-def kernel_batch_gap(fa, dev, token_mask, B=8, S=4, D=128, E=128, H=8):
+def kernel_batch_gap(fa, dev, token_mask, B=8, S=4, D=128, E=128, H=8, fan_in=False):
     """Both kernels on S * B nodes against the same call on each slice of B
     of them alone, for every (variant, edge type, update_edge) case of the
     main path, at node width D, edge width E and H heads: the max abs gap of
@@ -596,7 +688,7 @@ def kernel_batch_gap(fa, dev, token_mask, B=8, S=4, D=128, E=128, H=8):
     from mind_tpu_torch.synthetic import fusion_inputs
 
     N = token_mask.shape[0]
-    w, node, edge = fusion_inputs(S * B, N, D, dev, SEED, e=E)
+    w, node, edge = fusion_inputs(S * B, N, D, dev, SEED, e=E, fan_in=fan_in)
     mask = token_mask[None].expand(S * B, -1).contiguous()
     w16 = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
     cases = [("float32", w, torch.float32, True), ("float32", w, torch.float32, False),
@@ -681,24 +773,69 @@ def narrow_cfg(compute_dtype, widths=NARROW_NET):
     return cfg
 
 
+def widths_mask(token_mask, n):
+    """The token mask of a [widths] call over n tokens: the main path's at
+    n = 129, else n tokens with the last 5 masked."""
+    if n == token_mask.shape[0]:
+        return token_mask
+    return torch.arange(n, device=token_mask.device) < n - 5
+
+
+def widths_layout(fa, variant, shape):
+    """A [widths] library's layout: its regime and columns a block, its
+    dynamic and static shared memory against the mirror
+    (fusion_attention.py::kernel_smem), its scratch a block and each
+    kernel's local memory and registers (cudaFuncGetAttributes). A dynamic or
+    static byte count off its mirror raises."""
+    mirror = fa.kernel_smem(variant, *shape)
+    lib, attrs = fa.kernel_library(variant, shape), fa.kernel_attrs(variant, shape)
+    static = max(a["static"] for a in attrs.values())
+    rec = {"regime": mirror.regime, "columns_a_block": lib.tj,
+           "smem_dynamic": {"library": lib.smem_bytes, "mirror": mirror.dynamic},
+           "smem_static": {"library": static, "mirror": max(mirror.static)},
+           "scratch_a_block": lib.scratch_bytes,
+           "local_bytes": {k: a["local"] for k, a in attrs.items()},
+           "regs": {k: a["regs"] for k, a in attrs.items()}}
+    if lib.smem_bytes != mirror.dynamic or static != max(mirror.static):
+        raise RuntimeError(f"[widths] {variant} {shape}: shared memory off its mirror: {rec}")
+    return rec
+
+
 def phase_widths_kernels(fa, dev, token_mask):
     """[widths] (a)-(c): both kernels alone against their plain versions at
-    B = 8, N = 129 and every (D, E, heads) of WIDTHS_GRID (kernel_cases:
-    with and without the edge update, kernel B on a bf16 and on a float32
-    edge), each case's ms, bound and error printed; kernel_batch_gap at each
-    shape of WIDTHS_GAP (any gap but 0 raises); one call outside the domain
-    (WIDTHS_OUTSIDE, D = 520), which must raise ValueError before any
-    launch. Returns ({variant: {"D/E/heads": mixed_entry}}, {"D/E/heads":
-    the batch gaps}, the refusal)."""
+    every (D, E, heads) of WIDTHS_GRID, at widths_batch's B and N
+    (kernel_cases: with and without the edge update, kernel B on a bf16 and
+    on a float32 edge; past 512 wide or 64 heads (WIDTHS_UNBOUNDED) the
+    weights scaled by fan-in, as a network's initialisation and the CPU
+    tests' weights_np draw them, so that activations keep one size: an
+    unscaled draw at 8192 wide gives outputs ~36 and logits in the hundreds,
+    and the absolute tolerances are set for outputs near 1), each case's
+    ms, bound and error printed, and each
+    library's layout (widths_layout: regime, shared memory against its
+    mirror, local memory); kernel_batch_gap at each shape of WIDTHS_GAP (any
+    gap but 0 raises); one call the JAX function refuses too
+    (WIDTHS_OUTSIDE, heads that do not divide D), which must raise
+    ValueError before any launch. Returns ({variant: {"D/E/heads":
+    mixed_entry with B, N and the layout}}, {"D/E/heads": the batch gaps},
+    the refusal)."""
     from mind_tpu_torch.synthetic import fusion_inputs
 
-    mask8 = token_mask[None].expand(8, -1).contiguous()
     by_width = {"float32": {}, "bfloat16": {}}
     for d, e, h in WIDTHS_GRID:
-        for variant, by_case in kernel_cases(fa, dev, mask8, d, e, h, WIDTHS_REPS).items():
-            by_width[variant][f"{d}/{e}/{h}"] = {**mixed_entry(by_case), "by_case": by_case}
-    gaps = {f"{d}/{e}/{h}": kernel_batch_gap(fa, dev, token_mask, D=d, E=e, H=h)
-            for d, e, h in WIDTHS_GAP}
+        B, N = widths_batch(d, e)
+        mask = widths_mask(token_mask, N)[None].expand(B, -1).contiguous()
+        past = (d, e, h) in WIDTHS_UNBOUNDED
+        reps, warmup = (WIDTHS_REPS_UNBOUNDED, 0) if past else (WIDTHS_REPS, 3)
+        for variant, by_case in kernel_cases(fa, dev, mask, d, e, h, reps, warmup,
+                                             fan_in=past).items():
+            layout = widths_layout(fa, variant, (d, e, h))
+            by_width[variant][f"{d}/{e}/{h}"] = {**mixed_entry(by_case), "B": B, "N": N,
+                                                 **layout, "by_case": by_case}
+            log(f"[widths] {variant} {d}/{e}/{h} at B={B} N={N}: " + json.dumps(layout))
+    gaps = {f"{d}/{e}/{h}" + ("" if n == 129 else f" N={n}"):
+            kernel_batch_gap(fa, dev, widths_mask(token_mask, n), D=d, E=e, H=h,
+                             fan_in=(d, e, h) in WIDTHS_UNBOUNDED)
+            for d, e, h, n in WIDTHS_GAP}
     d, e, h = WIDTHS_OUTSIDE
     w, node, edge = fusion_inputs(1, 9, d, dev, SEED, e=e)
     mask = torch.ones(1, 9, dtype=torch.bool, device=dev)
@@ -708,14 +845,15 @@ def phase_widths_kernels(fa, dev, token_mask):
     except ValueError as err:
         refused = str(err)
     else:
-        raise RuntimeError(f"[widths] a call at D = {d} was not refused")
+        raise RuntimeError(f"[widths] a call of {h} heads at D = {d} was not refused")
     if dict(fa.fused_edge_attention.launches_by_variant) != before:
         raise RuntimeError("[widths] the call outside the domain launched a kernel")
     torch.cuda.empty_cache()
     log(f"[widths] outside the domain, refused before any launch: {refused}")
     for variant, entries in by_width.items():
-        log(f"[widths] {variant} at B=8, the forward's mix: " + json.dumps(
-            {k: {x: v[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        log(f"[widths] {variant}, the forward's mix at each shape's B and N: " + json.dumps(
+            {k: {x: v[x] for x in ("B", "N", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "regime")}
              for k, v in entries.items()}))
     return by_width, gaps, refused
 
@@ -723,7 +861,13 @@ def phase_widths_kernels(fa, dev, token_mask):
 # the networks of [widths] (d)-(f): (name, widths, the loops' ticks, trained)
 WIDTHS_NETS = (("narrow", NARROW_NET, PROGRAM_TICKS, True),
                ("wide", WIDE_NET, PROGRAM_TICKS, True),
-               ("ragged", RAGGED_NET, RAGGED_TICKS, False))
+               ("ragged", RAGGED_NET, RAGGED_TICKS, False),
+               ("wider", WIDER_NET, RAGGED_TICKS, False))
+# AIME nodes of the first forward the CPU child recomputes, by network (all
+# where not given): the 768-wide network's plain forward of all 8 would take
+# the child ~3 min of the card's phases' CPU; each node's forward is its own,
+# so the card's first 2 rows are held against the CPU's forward of those 2
+WIDTHS_CPU_NODES = {"wider": 2}
 
 
 def wire(xs):
@@ -772,11 +916,13 @@ def widths_plan_cycles(fa, dev, cpu_child, runs):
             runs[variant][0] += launched
             if not np.isfinite(plan).all() or plan[2] != 1.0:
                 raise RuntimeError(f"{tag}: the plan cycle failed: {plan}")
+            k = WIDTHS_CPU_NODES.get(net, len(first.inputs[0]))
             with torch.no_grad():
-                got = first.net(*first.inputs)
-            cpu_child.forward(f"{net} {variant}", widths, variant, first.inputs)
+                got = tuple(x[:k] for x in first.net(*first.inputs))
+            cpu_child.forward(f"{net} {variant}", widths, variant,
+                              tuple(x[:k] for x in first.inputs))
             cycles[(net, variant)] = {"plan": plan.tolist(), "plan_rounds": report["rounds"],
-                                      "launches": launched, "got": wire(got)}
+                                      "launches": launched, "got": wire(got), "cpu_nodes": k}
     cpu_child.forward(None)   # no more forwards
     return cycles
 
@@ -796,7 +942,7 @@ def widths_forward_check(cpu_child, cycle, tag):
         raise RuntimeError(f"{tag}: the card's forward and the CPU's disagree: {err}")
     return {"plan": cycle["plan"], "plan_rounds": cycle["plan_rounds"],
             "plan_cycle_launches": cycle["launches"], "forward_vs_cpu": err,
-            "cpu_forward_s": cpu_s}
+            "forward_nodes_vs_cpu": cycle["cpu_nodes"], "cpu_forward_s": cpu_s}
 
 
 def widths_loops(fa, dev, data_root, cpu_child, net, widths, ticks, runs, cond, modes,
@@ -918,14 +1064,15 @@ def widths_training(fa, dev, batch, net, widths, runs):
 
 
 def phase_widths_network(fa, dev, data_root, batch, cpu_child, runs, cycles):
-    """[widths] (d)-(f) through the slice's main path at the three networks
+    """[widths] (d)-(f) through the slice's main path at the four networks
     of WIDTHS_NETS, in float32 (kernel A) and bf16 (kernel B), each at 6
     layers with its own seeded weights (widths_loops, widths_training): the
     4-head, 32-wide NARROW_NET (PROGRAM_TICKS-tick loops, the float32 loop
     against the CPU, the plan cycle's forward against the CPU, training);
     the 256-wide WIDE_NET (the same but the loop against the CPU); the
-    ragged RAGGED_NET (RAGGED_TICKS-tick loops of one plan, the forward
-    against the CPU). `runs` holds the launches of widths_plan_cycles
+    ragged RAGGED_NET and the 768-wide WIDER_NET (RAGGED_TICKS-tick loops of
+    one plan, the forward against the CPU, WIDER_NET's at its first
+    WIDTHS_CPU_NODES AIME nodes). `runs` holds the launches of widths_plan_cycles
     (`cycles`), run after phase 6b. Returns ({variant: [launches,
     executions]}, condition kernel [launches, runs], summary)."""
     from mind_tpu_torch.ops import graph_control as gc
@@ -944,8 +1091,8 @@ def phase_widths_network(fa, dev, data_root, batch, cpu_child, runs, cycles):
             t = time.perf_counter()
             rec = widths_loops(fa, dev, data_root, cpu_child, net, widths, ticks, runs, cond,
                                modes, cycles)
-            if net == "ragged" and any(r["plans"] != 1 for r in rec.values()):
-                raise RuntimeError(f"[widths] ragged: plans {rec}, one each expected")
+            if ticks == RAGGED_TICKS and any(r["plans"] != 1 for r in rec.values()):
+                raise RuntimeError(f"[widths] {net}: plans {rec}, one each expected")
             if training:
                 gc.GraphProgram.replay = replay
                 rec["training"] = widths_training(fa, dev, batch, net, widths, runs)
@@ -4090,7 +4237,7 @@ def phase_dist(dcfg, fa, synthetic_av2):
 
 
 def main() -> int:
-    global T0, PEAKS
+    global T0, PEAKS, BUILD
     T0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
@@ -4123,7 +4270,7 @@ def main() -> int:
 
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         probe = pool.submit(phase_probe)
-        tiled_build = phase_build(fa)
+        tiled_build = BUILD = phase_build(fa)
         probe_s = probe.result()   # raises where the probe failed
     laps = {"probe_and_build": time.perf_counter() - T0}
     # the CPU halves of phases 7 and 4 run in a child beside the card's phases
@@ -4209,21 +4356,14 @@ def main() -> int:
     lap("closed_loop")
     command_runs, command = phase_demo_command(fa, loop, loop_plans6, loop_ego, card)
     lap("demo_command")
-    # [widths] (a)-(c), here so that phase 1's background build of the tiled
-    # widths has had phases 2-6b to finish: both kernels alone at the other
-    # widths of their domain; then (e): the networks' plan cycles, whose CPU
-    # forwards the child computes beside the phases that follow
-    join_build(fa, tiled_build)
-    widths_by_width, widths_gap, widths_refused = phase_widths_kernels(fa, dev, token_mask)
-    for e, variant in zip(entries, ("float32", "bfloat16")):
-        e["by_width"] = {"128/128/8": {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                         "bound_by", "max_abs_err")},
-                         **{k: {x: v for x, v in r.items() if x != "by_case"}
-                            for k, r in widths_by_width[variant].items()}}
-        e["batch_gap_32_vs_8_by_width"] = {k: g[variant] for k, g in widths_gap.items()}
+    # [widths] (e): the networks' plan cycles, whose CPU forwards the child
+    # computes beside the phases that follow; then the rest of the tiled
+    # build starts, for (a)-(c) after (dist)
+    tiled_build.join_networks()
     widths_runs = {"float32": [0, 0], "bfloat16": [0, 0]}
     widths_cycles = widths_plan_cycles(fa, dev, cpu_child, widths_runs)
-    lap("widths_kernels")
+    tiled_build.release()
+    lap("widths_plan_cycles")
     with tempfile.TemporaryDirectory() as data_root:
         prog_b, prog_a, prog_cond, plan_progs = phase_plan_programs(
             dcfg, fa, loop, loop_sim6, loop_plans6, data_root, card)
@@ -4278,6 +4418,18 @@ def main() -> int:
     dist_launches, dist_executions, dist = phase_dist(dcfg, fa, synthetic_av2)
     dist_cond = graph_control.set_conditional_any.launches - cond0
     lap("dist")
+    # [widths] (a)-(c), here so that the background build of the tiled widths
+    # has had the phases since the demo command: both kernels alone at the
+    # other widths of their domain
+    tiled_build.join()
+    widths_by_width, widths_gap, widths_refused = phase_widths_kernels(fa, dev, token_mask)
+    for e, variant in zip(entries, ("float32", "bfloat16")):
+        e["by_width"] = {"128/128/8": {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "max_abs_err")},
+                         **{k: {x: v for x, v in r.items() if x != "by_case"}
+                            for k, r in widths_by_width[variant].items()}}
+        e["batch_gap_32_vs_8_by_width"] = {k: g[variant] for k, g in widths_gap.items()}
+    lap("widths_kernels")
     # [widths] (d)-(f): the 4-head, 32-wide network's plans and training steps
     with tempfile.TemporaryDirectory() as data_root:
         widths_runs, widths_cond, widths = phase_widths_network(
@@ -4378,4 +4530,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if BUILD is not None:
+            BUILD.close()
+    sys.exit(rc)

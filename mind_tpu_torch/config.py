@@ -4,10 +4,10 @@ The same dataclasses and defaults as the JAX package, so the reference's
 JSON files load unchanged via `SimConfig.from_json` and
 `load_planner_config`. One field differs: the JAX `NetConfig` has
 `use_pallas_fusion`; here the fusion core takes the CUDA kernel for CUDA
-tensors, at every width of its domain (ops/fusion_attention.py::kernel_domain:
-the main path's 128 / 128 / 8 network and the JAX tests' 32 / 32 / 4 one among
-it; a CUDA call outside it raises), and the plain version for CPU tensors at
-any widths, so no flag selects it.
+tensors, at every width the JAX function takes (ops/fusion_attention.py::
+kernel_domain: widths from 1 up, any head count that divides D; a CUDA call
+of another head count raises), and the plain version for CPU tensors, so no
+flag selects it.
 """
 
 from __future__ import annotations

@@ -470,8 +470,9 @@ int run_f32(const float* node, const float* edge, const unsigned char* mask,
             const float* wm_e, const float* wm_s, const float* wm_t, const float* wq,
             const float* wk, const float* wv, const float* wo, const float* we, const Vecs& v,
             float* sp, float* tp, float* qk, float* ctx, float* out, float* edge_out,
-            int batch, int n, int update_edge, cudaStream_t s) {
+            unsigned char* scratch, int batch, int n, int update_edge, cudaStream_t s) {
   const int cols = batch * n;
+  constexpr int CBZ = token_col_blocks<S>();
   if constexpr (S::RESIDENT) {
     using L = LayoutA<S>;
     if ((int)L::SMEM_BYTES > smem_optin()) return ERR_SMEM;
@@ -479,38 +480,66 @@ int run_f32(const float* node, const float* edge, const unsigned char* mask,
         edge_attention_f32_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)L::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    constexpr int TR = token_rows<S, true>(), TK = out_tokens<S, true>();
-    token_proj_kernel<S, float, float, true><<<dim3((cols + TR - 1) / TR, 3), NT, 0, s>>>(
+    constexpr int TR = TOK, TK = out_tokens<S, true>();
+    token_proj_kernel<S, float, float, true><<<dim3((cols + TR - 1) / TR, 3, CBZ), NT, 0, s>>>(
         node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
     edge_attention_f32_kernel<S><<<(cols + L::TJ - 1) / L::TJ, NT, L::SMEM_BYTES, s>>>(
         edge, mask, wm_e, we, sp, tp, qk, v, ctx, edge_out, n, cols, update_edge);
-    out_proj_kernel<S, float, true><<<(cols + TK - 1) / TK, NT, 0, s>>>(ctx, wv, wo, v, out,
-                                                                          cols);
+    out_proj_kernel<S, float, true><<<dim3((cols + TK - 1) / TK, 1, CBZ), NT, 0, s>>>(
+        ctx, wv, wo, v, out, cols);
   } else {
     // tiled: qk is q [B*N, D] and ctx attn [B*N, D]
     if (tiled::Layout<S, float>::SMEM_BYTES > smem_optin()) return ERR_SMEM;
-    constexpr int TR = token_rows<S, false>(), TK = out_tokens<S, false>();
-    token_proj_kernel<S, float, float, false><<<dim3((cols + TR - 1) / TR, 3), NT, 0, s>>>(
+    constexpr int TR = TOK, TK = out_tokens<S, false>();
+    token_proj_kernel<S, float, float, false><<<dim3((cols + TR - 1) / TR, 3, CBZ), NT, 0, s>>>(
         node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
     const int err = tiled::launch<S, float, float>(edge, mask, wm_e, we, wk, wv, sp, tp, qk, v,
-                                                   ctx, edge_out, n, cols, update_edge, 0, s);
+                                                   ctx, edge_out, scratch, n, cols,
+                                                   update_edge, 0, s);
     if (err != 0) return err;
-    out_proj_kernel<S, float, false><<<(cols + TK - 1) / TK, NT, 0, s>>>(ctx, wv, wo, v, out,
-                                                                           cols);
+    out_proj_kernel<S, float, false><<<dim3((cols + TK - 1) / TK, 1, CBZ), NT, 0, s>>>(
+        ctx, wv, wo, v, out, cols);
   }
   return (int)cudaGetLastError();
 }
 
-// {main kernel's shared memory, 1 for the tiled layout}
+// {main kernel's shared memory, 0 resident / 1 tiled, columns a block,
+// global scratch a block (staged tiled layout; else 0)}
 template <class S>
 void layout_of(int* out) {
   if constexpr (S::RESIDENT) {
     out[0] = (int)LayoutA<S>::SMEM_BYTES;
     out[1] = 0;
+    out[2] = LayoutA<S>::TJ;
+    out[3] = 0;
   } else {
-    out[0] = tiled::Layout<S, float>::SMEM_BYTES;
+    using L = tiled::Layout<S, float>;
+    out[0] = L::SMEM_BYTES;
     out[1] = 1;
+    out[2] = L::TJ;
+    out[3] = L::SCRATCH_BYTES;
   }
+}
+
+// Each kernel of the library: {static shared memory, local memory,
+// registers} from cudaFuncGetAttributes, in the order token_proj, main,
+// out_proj.
+template <class S>
+int attrs_of(int* out) {
+  constexpr bool FOLD = S::RESIDENT;
+  const void* fns[3] = {(const void*)token_proj_kernel<S, float, float, FOLD>, nullptr,
+                        (const void*)out_proj_kernel<S, float, FOLD>};
+  if constexpr (S::RESIDENT) fns[1] = (const void*)edge_attention_f32_kernel<S>;
+  else fns[1] = (const void*)tiled::edge_attention_tiled_kernel<S, float, float>;
+  for (int k = 0; k < 3; ++k) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
+    if (err != cudaSuccess) return (int)err;
+    out[3 * k] = (int)a.sharedSizeBytes;
+    out[3 * k + 1] = (int)a.localSizeBytes;
+    out[3 * k + 2] = a.numRegs;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -519,8 +548,10 @@ void layout_of(int* out) {
 // (Shape). sp and tp [B*N, D] are float32 scratch from the caller, and so are
 // qk and ctx: [B*N, NH, D] each in the resident layout (folded keys and
 // per-head weighted memory), [B*N, D] each in the tiled one (q and the
-// attention sum). Returns 0, a CUDA error, or ERR_SMEM (before any launch)
-// where the layout does not fit the current device's opt-in shared memory.
+// attention sum). `scratch` holds the staged tiled layout's rows (SCRATCH_BYTES
+// for each of min(ceil(B*N / TJ), GRID_CAP) blocks; null otherwise). Returns
+// 0, a CUDA error, or ERR_SMEM (before any launch) where the layout does not
+// fit the current device's opt-in shared memory.
 extern "C" int fused_edge_attention_f32(
     const float* node, const float* edge, const unsigned char* mask,
     const float* wm_e, const float* wm_s, const float* wm_t, const float* bm,
@@ -529,20 +560,26 @@ extern "C" int fused_edge_attention_f32(
     const float* wo, const float* bo, const float* we, const float* be,
     const float* ln_e1_g, const float* ln_e1_b, const float* ln_e2_g,
     const float* ln_e2_b, float* sp, float* tp, float* qk, float* ctx,
-    float* out, float* edge_out, int batch, int n, int update_edge, void* stream) {
+    float* out, float* edge_out, void* scratch, int batch, int n, int update_edge,
+    void* stream) {
   const fusion::Vecs v{bm, ln_m_g, ln_m_b, bq, bk, bv, bo, be,
                        ln_e1_g, ln_e1_b, ln_e2_g, ln_e2_b};
   return run_f32<fusion::Shape>(node, edge, mask, wm_e, wm_s, wm_t, wq, wk, wv, wo, we, v, sp,
-                                tp, qk, ctx, out, edge_out, batch, n, update_edge,
-                                (cudaStream_t)stream);
+                                tp, qk, ctx, out, edge_out, (unsigned char*)scratch, batch, n,
+                                update_edge, (cudaStream_t)stream);
 }
 
 // The widths this library was built for, its main kernel's shared memory and
-// its layout: {D, E, NH, bytes, 0 resident / 1 tiled}; the loader checks them
-// against the shape it asked for.
+// its layout: {D, E, NH, bytes, 0 resident / 1 tiled, columns a block,
+// scratch bytes a block}; the loader checks them against the shape it asked
+// for and against the layout's mirror (fusion_attention.py::kernel_smem).
 extern "C" void fused_edge_attention_shape(int* out) {
   out[0] = fusion::Shape::D;
   out[1] = fusion::Shape::E;
   out[2] = fusion::Shape::NH;
   layout_of<fusion::Shape>(out + 3);
 }
+
+// {static shared memory, local memory, registers} of each of the library's 3
+// kernels (token_proj, main, out_proj) into out[0..8]; 0 or a CUDA error.
+extern "C" int fused_edge_attention_attrs(int* out) { return attrs_of<fusion::Shape>(out); }

@@ -503,8 +503,8 @@ template <class S, typename EdgeT>
 int launch_main(const void* edge, const unsigned char* mask, const bf16* wm_e,
                 const bf16* we, const bf16* wk, const bf16* wv, const float* sp,
                 const float* tp, const float* q, const VecsT<bf16>& v, float* attn,
-                float* edge_out, int n, int cols, int update_edge, int write_cast,
-                cudaStream_t s) {
+                float* edge_out, unsigned char* scratch, int n, int cols, int update_edge,
+                int write_cast, cudaStream_t s) {
   if constexpr (S::RESIDENT) {
     constexpr size_t SMEM_BYTES = LayoutB<S>::SMEM_BYTES;
     cudaError_t err = cudaFuncSetAttribute(
@@ -517,7 +517,7 @@ int launch_main(const void* edge, const unsigned char* mask, const bf16* wm_e,
     return 0;
   } else {
     return tiled::launch<S, bf16, EdgeT>(static_cast<const EdgeT*>(edge), mask, wm_e, we, wk,
-                                         wv, sp, tp, q, v, attn, edge_out, n, cols,
+                                         wv, sp, tp, q, v, attn, edge_out, scratch, n, cols,
                                          update_edge, write_cast, s);
   }
 }
@@ -535,6 +535,7 @@ struct Call {
   const unsigned char* mask;
   const bf16 *wm_e, *wm_s, *wm_t, *wq, *wk, *wv, *wo, *we;
   float *sp, *tp, *q, *attn, *out, *edge_out;
+  unsigned char* scratch;
   int batch, n, update_edge, write_cast;
   cudaStream_t stream;
 };
@@ -544,8 +545,8 @@ template <class S>
 int run(const Call& c, const VecsT<bf16>& v) {
   if (smem_bytes<S>() > smem_optin()) return ERR_SMEM;
   const int cols = c.batch * c.n;
-  constexpr int TR = token_rows<S, false>();
-  const dim3 tok_grid((cols + TR - 1) / TR, 3);
+  constexpr int TR = TOK, CBZ = token_col_blocks<S>();
+  const dim3 tok_grid((cols + TR - 1) / TR, 3, CBZ);
   cudaStream_t s = c.stream;
   if (c.node_bf16)
     token_proj_kernel<S, bf16, bf16, false><<<tok_grid, NT, 0, s>>>(
@@ -555,16 +556,57 @@ int run(const Call& c, const VecsT<bf16>& v) {
         (const float*)c.node, c.wm_s, c.wm_t, c.wq, c.wk, v, c.sp, c.tp, c.q, cols);
   const int err =
       c.edge_bf16 ? launch_main<S, bf16>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp, c.tp,
-                                         c.q, v, c.attn, c.edge_out, c.n, cols,
+                                         c.q, v, c.attn, c.edge_out, c.scratch, c.n, cols,
                                          c.update_edge, c.write_cast, s)
                   : launch_main<S, float>(c.edge, c.mask, c.wm_e, c.we, c.wk, c.wv, c.sp,
-                                          c.tp, c.q, v, c.attn, c.edge_out, c.n, cols,
-                                          c.update_edge, c.write_cast, s);
+                                          c.tp, c.q, v, c.attn, c.edge_out, c.scratch, c.n,
+                                          cols, c.update_edge, c.write_cast, s);
   if (err != 0) return err;
   constexpr int TK = out_tokens<S, false>();
-  out_proj_kernel<S, bf16, false><<<(cols + TK - 1) / TK, NT, 0, s>>>(
+  out_proj_kernel<S, bf16, false><<<dim3((cols + TK - 1) / TK, 1, CBZ), NT, 0, s>>>(
       c.attn, c.wv, c.wo, v, c.out, cols);
   return (int)cudaGetLastError();
+}
+
+// {bytes, 0 resident / 1 tiled, columns a block, scratch bytes a block} of
+// the main kernel's layout at the widths S.
+template <class S>
+void layout_of(int* out) {
+  out[0] = smem_bytes<S>();
+  out[1] = S::RESIDENT ? 0 : 1;
+  if constexpr (S::RESIDENT) {
+    out[2] = TJ;
+    out[3] = 0;
+  } else {
+    out[2] = tiled::Layout<S, bf16>::TJ;
+    out[3] = tiled::Layout<S, bf16>::SCRATCH_BYTES;
+  }
+}
+
+// {static shared memory, local memory, registers} of each of the 5 kernels
+// at the widths S: token_proj of a bf16 and of a float32 node, main of a bf16
+// and of a float32 edge, out_proj.
+template <class S>
+int attrs_of(int* out) {
+  const void* fns[5] = {(const void*)token_proj_kernel<S, bf16, bf16, false>,
+                        (const void*)token_proj_kernel<S, float, bf16, false>, nullptr, nullptr,
+                        (const void*)out_proj_kernel<S, bf16, false>};
+  if constexpr (S::RESIDENT) {
+    fns[2] = (const void*)edge_attention_bf16_kernel<S, bf16>;
+    fns[3] = (const void*)edge_attention_bf16_kernel<S, float>;
+  } else {
+    fns[2] = (const void*)tiled::edge_attention_tiled_kernel<S, bf16, bf16>;
+    fns[3] = (const void*)tiled::edge_attention_tiled_kernel<S, bf16, float>;
+  }
+  for (int k = 0; k < 5; ++k) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
+    if (err != cudaSuccess) return (int)err;
+    out[3 * k] = (int)a.sharedSizeBytes;
+    out[3 * k + 1] = (int)a.localSizeBytes;
+    out[3 * k + 2] = a.numRegs;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -575,8 +617,10 @@ int run(const Call& c, const VecsT<bf16>& v) {
 // edge_bf16). sp, tp, q and attn [B*N, D] are float32 scratch from the caller.
 // write_cast: with update_edge == 0, write the input edge to edge_out as
 // float32 (the caller passes 0 when it returns a float32 input edge as it
-// is). Returns 0, a CUDA error, or ERR_SMEM (before any launch) where the
-// layout does not fit the current device's opt-in shared memory.
+// is). `scratch` holds the staged tiled layout's rows (SCRATCH_BYTES for each
+// of min(ceil(B*N / TJ), GRID_CAP) blocks; null otherwise). Returns 0, a CUDA
+// error, or ERR_SMEM (before any launch) where the layout does not fit the
+// current device's opt-in shared memory.
 extern "C" int fused_edge_attention_bf16(
     const void* node, int node_bf16, const void* edge, int edge_bf16,
     const unsigned char* mask,
@@ -586,13 +630,13 @@ extern "C" int fused_edge_attention_bf16(
     const void* wo, const void* bo, const void* we, const void* be,
     const void* ln_e1_g, const void* ln_e1_b, const void* ln_e2_g,
     const void* ln_e2_b, float* sp, float* tp, float* q, float* attn,
-    float* out, float* edge_out, int batch, int n, int update_edge, int write_cast,
-    void* stream) {
+    float* out, float* edge_out, void* scratch, int batch, int n, int update_edge,
+    int write_cast, void* stream) {
   const Call c{node, edge, node_bf16, edge_bf16, mask,
                (const bf16*)wm_e, (const bf16*)wm_s, (const bf16*)wm_t, (const bf16*)wq,
                (const bf16*)wk, (const bf16*)wv, (const bf16*)wo, (const bf16*)we,
-               sp, tp, q, attn, out, edge_out, batch, n, update_edge, write_cast,
-               (cudaStream_t)stream};
+               sp, tp, q, attn, out, edge_out, (unsigned char*)scratch, batch, n,
+               update_edge, write_cast, (cudaStream_t)stream};
   const fusion::VecsT<bf16> v{
       (const bf16*)bm, (const bf16*)ln_m_g, (const bf16*)ln_m_b, (const bf16*)bq,
       (const bf16*)bk, (const bf16*)bv, (const bf16*)bo, (const bf16*)be,
@@ -601,12 +645,16 @@ extern "C" int fused_edge_attention_bf16(
 }
 
 // The widths this library was built for, its main kernel's shared memory and
-// its layout: {D, E, NH, bytes, 0 resident / 1 tiled}; the loader checks them
-// against the shape it asked for.
+// its layout: {D, E, NH, bytes, 0 resident / 1 tiled, columns a block,
+// scratch bytes a block}; the loader checks them against the shape it asked
+// for and against the layout's mirror (fusion_attention.py::kernel_smem).
 extern "C" void fused_edge_attention_bf16_shape(int* out) {
   out[0] = fusion::Shape::D;
   out[1] = fusion::Shape::E;
   out[2] = fusion::Shape::NH;
-  out[3] = smem_bytes<fusion::Shape>();
-  out[4] = fusion::Shape::RESIDENT ? 0 : 1;
+  layout_of<fusion::Shape>(out + 3);
 }
+
+// {static shared memory, local memory, registers} of each of the library's 5
+// kernels (attrs_of) into out[0..14]; 0 or a CUDA error.
+extern "C" int fused_edge_attention_bf16_attrs(int* out) { return attrs_of<fusion::Shape>(out); }

@@ -22,13 +22,12 @@
 //
 // Widths. Every kernel is a template over a Widths<D, E, NH> type: node width
 // D, edge width E, NH heads of dh = D / NH, any NH that divides D, as the TPU
-// kernel takes them (fusion_attention.py::kernel_domain bounds the card's
-// test grid at D, E <= 512 and NH <= 64; nothing here does). A library is
-// built for one shape: the build defines FUSION_D, FUSION_E, FUSION_NH and
-// FUSION_QK_SCALE (float32(1 / sqrt(dh)) of the true dh, computed on the
-// host as the JAX kernel computes it), and each source instantiates its
-// kernels for `Shape`. Every width is a compile-time constant of its
-// library, and so is its layout:
+// kernel takes them (fusion_attention.py::kernel_domain refuses only what the
+// JAX function refuses). A library is built for one shape: the build defines
+// FUSION_D, FUSION_E, FUSION_NH and FUSION_QK_SCALE (float32(1 / sqrt(dh)) of
+// the true dh, computed on the host as the JAX kernel computes it), and each
+// source instantiates its kernels for `Shape`. Every width is a compile-time
+// constant of its library, and so is its layout:
 //
 // - resident (Widths::RESIDENT: D and E multiples of 16 from 16 to 128, at
 //   most 16 heads of a width that is a multiple of 8): the per-pair weights
@@ -36,13 +35,17 @@
 //   path's 128 / 128 / 8 is one;
 // - tiled (every other shape; fusion_tiled.cuh): the weights stream through
 //   shared memory in slices, the products go in column tiles, and every
-//   width and head layout is taken at its true size.
+//   width and head layout is taken at its true size; past the widths whose
+//   rows fit a block's shared memory, the rows are staged in global scratch.
 //
 // No run-time width test or index costs a library anything. The per-token
 // kernels below serve both layouts: a thread owns columns tid, tid + 128,
 // ..., and rows are staged zero-padded to a multiple of 16 (DP), so a width
 // that is not a multiple of 16, or above 128, costs the resident shapes
-// nothing (DP == D and one column a thread there).
+// nothing (DP == D and one column a thread there). Past 512 columns a block
+// takes 512 of them (token_cols), and past 1,280 the staged rows are cut into
+// chunks of k (token_chunk), so that their static shared memory is bounded
+// whatever the width.
 
 #pragma once
 
@@ -87,14 +90,28 @@ struct Widths {
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Tokens a block of the per-token kernels: TOK, fewer where a wide row's
-// staging would pass 40 KB of static shared memory (never at D <= 512).
+// Values of k a block of the per-token kernels stages at once: the whole
+// padded row (every width to 1,280; TOK rows then take at most 40 KB of
+// static shared memory, twice that row with the folded keys), or chunks of
+// TOKEN_KC values; the sum over k runs from 0 up either way.
+constexpr int TOKEN_KC = 1280;
 template <class S, bool FOLD>
-__host__ __device__ constexpr int token_rows() {
-  return round_up(S::D, 16) * TOK * 4 * (FOLD ? 2 : 1) <= 40960
-             ? TOK
-             : (40960 / (round_up(S::D, 16) * 4 * (FOLD ? 2 : 1)) > 0
-                    ? 40960 / (round_up(S::D, 16) * 4 * (FOLD ? 2 : 1)) : 1);
+__host__ __device__ constexpr int token_chunk() {
+  return round_up(S::D, 16) * TOK * 4 * (FOLD ? 2 : 1) <= 40960 ? round_up(S::D, 16)
+                                                                 : TOKEN_KC;
+}
+
+// Output columns a block of the per-token kernels takes: all D up to 512,
+// else 512 (a grid dimension of ceil(D / 512) blocks), so that a wide
+// product spreads over the card and a thread's chain of loads stays short.
+constexpr int TOKEN_COLS = 512;
+template <class S>
+__host__ __device__ constexpr int token_cols() {
+  return S::D <= TOKEN_COLS ? S::D : TOKEN_COLS;
+}
+template <class S>
+__host__ __device__ constexpr int token_col_blocks() {
+  return (S::D + token_cols<S>() - 1) / token_cols<S>();
 }
 
 // The shape this library is built for.
@@ -153,26 +170,27 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// out[r][col] = sum_k xs[r][k] w[k][col] for ROWS rows out of shared memory
-// (rows of DP >= D values, zero past D) and one weight column per thread out
-// of global memory (w is [D][D]). The weight column is fetched 16 values at
-// a time, so 16 loads are in flight before the first FMA needs one: these
-// kernels are short chains of L2 latencies otherwise. Every block sums over
-// k from 0 up: the order of a token's sum must not depend on the block it
-// lands in, or a token would compute another value in a batch of scenes than
-// alone.
+// acc[r] += sum_k xs[r][k - kb] w[k][col] over the chunk kb <= k < kb + KC
+// (k < D), for ROWS rows out of shared memory (rows of KC values, zero past
+// D) and one weight column per thread out of global memory (w is [D][D]).
+// The weight column is fetched 16 values at a time, so 16 loads are in flight
+// before the first FMA needs one: these kernels are short chains of L2
+// latencies otherwise. Every block sums over k from 0 up: the order of a
+// token's sum must not depend on the block it lands in, or a token would
+// compute another value in a batch of scenes than alone.
 // ---------------------------------------------------------------------------
-template <int D, int DP, int ROWS, typename WT>
-__device__ __forceinline__ void token_mm(const float (*xs)[DP], const WT* __restrict__ w,
-                                         int col, float acc[ROWS]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
+template <int D, int KC, int ROWS, typename WT>
+__device__ __forceinline__ void token_mm(const float (*xs)[KC], const WT* __restrict__ w,
+                                         int col, int kb, float acc[ROWS]) {
+  constexpr int DP = round_up(D, 16);
 #pragma unroll 1
-  for (int k0 = 0; k0 < DP; k0 += 16) {
+  for (int k0 = 0; k0 < KC && (KC == DP || kb + k0 < DP); k0 += 16) {
     float wr[16];
 #pragma unroll
-    for (int kk = 0; kk < 16; ++kk)
-      wr[kk] = DP == D || k0 + kk < D ? to_f(w[(k0 + kk) * D + col]) : 0.f;
+    for (int kk = 0; kk < 16; ++kk) {
+      const int k = kb + k0 + kk;
+      wr[kk] = DP == D || k < D ? to_f(w[(size_t)k * D + col]) : 0.f;
+    }
 #pragma unroll
     for (int kk = 0; kk < 16; kk += 4) {
 #pragma unroll
@@ -188,10 +206,11 @@ __device__ __forceinline__ void token_mm(const float (*xs)[DP], const WT* __rest
 }
 
 // ---------------------------------------------------------------------------
-// Prologue: per-token projections. Grid (ceil(tokens / TR), 3): a block of
-// 128 threads takes TR = token_rows tokens and one product (blockIdx.y = 0:
-// sp, 1: tp, 2: q and, with FOLD, the folded keys); thread t owns output
-// columns t, t + 128, ... below D.
+// Prologue: per-token projections. Grid (ceil(tokens / TOK), 3,
+// token_col_blocks): a block of 128 threads takes TOK tokens, one product
+// (blockIdx.y = 0: sp, 1: tp, 2: q and, with FOLD, the folded keys) and
+// token_cols output columns (blockIdx.z); thread t owns columns t, t + 128,
+// ... of them below D.
 // ---------------------------------------------------------------------------
 template <class S, typename NodeT, typename WT, bool FOLD>
 __global__ void __launch_bounds__(NT)
@@ -200,26 +219,46 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
                   const WT* __restrict__ wk, VecsT<WT> v, float* __restrict__ sp,
                   float* __restrict__ tp, float* __restrict__ q_out, int tokens) {
   constexpr int D = S::D, NH = S::NH, DH = S::DH, DP = round_up(D, 16);
-  constexpr int TR = token_rows<S, FOLD>();
+  constexpr int TR = TOK, KC = token_chunk<S, FOLD>(), CB = token_cols<S>();
   static_assert(!FOLD || (S::RESIDENT && DP == D), "the folded keys are the resident layout's");
-  __shared__ __align__(16) float xs[TR][DP];
+  __shared__ __align__(16) float xs[TR][KC];
   __shared__ __align__(16) float qs[FOLD ? TR : 1][FOLD ? DP : 1];
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TR;
   const int which = blockIdx.y;
-  for (int idx = tid; idx < TR * DP; idx += NT) {
-    const int tok = t0 + idx / DP, k = idx % DP;
-    xs[idx / DP][k] = tok < tokens && (DP == D || k < D)
-                          ? operand<WT>(to_f(node[(size_t)tok * D + k])) : 0.f;
+  const int cb0 = blockIdx.z * CB;
+  // the rows' values kb <= k < kb + KC, zero past D
+  auto stage = [&](int kb) {
+    for (int idx = tid; idx < TR * KC; idx += NT) {
+      const int tok = t0 + idx / KC, k = kb + idx % KC;
+      xs[idx / KC][idx % KC] = tok < tokens && (KC == D || k < D)
+                                   ? operand<WT>(to_f(node[(size_t)tok * D + k])) : 0.f;
+    }
+  };
+  if constexpr (KC == DP) {
+    stage(0);
+    __syncthreads();
   }
-  __syncthreads();
 
   const bool col_ok = D == NT || tid < D;   // the folded keys' column (D <= 128)
-  for (int col0 = 0; col0 < D; col0 += NT) {
+  const WT* w = which == 0 ? wm_s : which == 1 ? wm_t : wq;
+  for (int col0 = cb0; col0 < cb0 + CB; col0 += NT) {
     const int col = col0 + tid;
-    if (D % NT == 0 || col < D) {
-      float acc[TR];
-      token_mm<D, DP, TR, WT>(xs, which == 0 ? wm_s : which == 1 ? wm_t : wq, col, acc);
+    const bool on = (D % CB == 0 && CB % NT == 0) || col < D;
+    float acc[TR];
+#pragma unroll
+    for (int r = 0; r < TR; ++r) acc[r] = 0.f;
+    if constexpr (KC == DP) {
+      if (on) token_mm<D, KC, TR, WT>(xs, w, col, 0, acc);
+    } else {
+      for (int kb = 0; kb < DP; kb += KC) {
+        __syncthreads();   // the chunk before is read
+        stage(kb);
+        __syncthreads();
+        if (on) token_mm<D, KC, TR, WT>(xs, w, col, kb, acc);
+      }
+    }
+    if (on) {
       const float bias = which == 0 ? 0.f : to_f((which == 1 ? v.bm : v.bq)[col]);
       float* dst = which == 0 ? sp : which == 1 ? tp : q_out;
 #pragma unroll
@@ -250,7 +289,8 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
         float wr[DH];
 #pragma unroll
         for (int d4 = 0; d4 < DH / 4; ++d4) {
-          const float4 w4 = __ldg(reinterpret_cast<const float4*>(wk + c * D + h * DH) + d4);
+          const float4 w4 =
+              __ldg(reinterpret_cast<const float4*>(wk + (size_t)c * D + h * DH) + d4);
           wr[4 * d4] = w4.x; wr[4 * d4 + 1] = w4.y; wr[4 * d4 + 2] = w4.z; wr[4 * d4 + 3] = w4.w;
         }
 #pragma unroll
@@ -269,11 +309,10 @@ token_proj_kernel(const NodeT* __restrict__ node, const WT* __restrict__ wm_s,
 
 // Tokens a block of out_proj_kernel: TOK, or TOK / 2 where the folded
 // form's [TOK * NH][D] staging would pass the 48 KB of static shared memory;
-// without the fold, token_rows.
+// without the fold, TOK.
 template <class S, bool FOLD>
 __host__ __device__ constexpr int out_tokens() {
-  return FOLD ? ((TOK * S::NH + TOK) * S::D * 4 > 48 * 1024 ? TOK / 2 : TOK)
-              : token_rows<S, false>();
+  return FOLD ? ((TOK * S::NH + TOK) * S::D * 4 > 48 * 1024 ? TOK / 2 : TOK) : TOK;
 }
 
 // ---------------------------------------------------------------------------
@@ -283,7 +322,8 @@ __host__ __device__ constexpr int out_tokens() {
 //          1, so bv is added once)
 //   else:  x[t] = attn[tok][t] + bv[t]                      (attn = softmax-weighted
 //          sum of the bias-free v rows)
-// A block takes out_tokens<S, FOLD>() tokens.
+// Grid (ceil(tokens / TK), 1, token_col_blocks): a block takes
+// out_tokens<S, FOLD>() tokens and token_cols output columns.
 // ---------------------------------------------------------------------------
 template <class S, typename WT, bool FOLD>
 __global__ void __launch_bounds__(NT)
@@ -291,13 +331,30 @@ out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
                 const WT* __restrict__ wo, VecsT<WT> v, float* __restrict__ out,
                 int tokens) {
   constexpr int D = S::D, NH = S::NH, DH = S::DH, DP = round_up(D, 16);
-  constexpr int TK = out_tokens<S, FOLD>();
+  constexpr int TK = out_tokens<S, FOLD>(), KC = token_chunk<S, false>();
+  constexpr int CB = token_cols<S>();
   static_assert(!FOLD || (S::RESIDENT && DP == D), "the folded values are the resident layout's");
-  __shared__ __align__(16) float cs[FOLD ? TK * NH : 1][D];
-  __shared__ __align__(16) float xs[TK][DP];
+  __shared__ __align__(16) float cs[FOLD ? TK * NH : 1][FOLD ? D : 1];
+  __shared__ __align__(16) float xs[TK][KC];
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TK;
+  const int cb0 = blockIdx.z * CB;
   float acc[TK];
+  // x = attn + bv for kb <= col < kb + KC, zero past D
+  auto stage = [&](int kb) {
+    for (int c0 = 0; c0 < KC; c0 += NT) {
+      const int c = c0 + tid, col = kb + c;
+      if (KC % NT == 0 || c < KC) {
+        const bool in_row = KC == D || col < D;
+        const float bv = in_row ? to_f(v.bv[col]) : 0.f;
+#pragma unroll
+        for (int r = 0; r < TK; ++r) {
+          const int tok = t0 + r;
+          xs[r][c] = tok < tokens && in_row ? operand<WT>(in[(size_t)tok * D + col] + bv) : 0.f;
+        }
+      }
+    }
+  };
   if constexpr (FOLD) {
     const int col = tid;
     const bool col_ok = D == NT || col < D;
@@ -316,7 +373,7 @@ out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
       for (int k0 = 0; k0 < D; k0 += 16) {   // from 0 up, as in token_mm
         float wr[16];
 #pragma unroll
-        for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(wv[(k0 + kk) * D + col]);
+        for (int kk = 0; kk < 16; ++kk) wr[kk] = to_f(wv[(size_t)(k0 + kk) * D + col]);
 #pragma unroll
         for (int kk = 0; kk < 16; kk += 4) {
 #pragma unroll
@@ -332,27 +389,27 @@ out_proj_kernel(const float* __restrict__ in, const WT* __restrict__ wv,
 #pragma unroll
       for (int r = 0; r < TK; ++r) xs[r][col] = operand<WT>(acc[r] + bv);
     }
-  } else {
-    // x = attn + bv, zero past D
-    for (int col0 = 0; col0 < DP; col0 += NT) {
-      const int col = col0 + tid;
-      if (DP % NT == 0 || col < DP) {
-        const bool in_row = DP == D || col < D;
-        const float bv = in_row ? to_f(v.bv[col]) : 0.f;
+    __syncthreads();
+  } else if constexpr (KC == DP) {
+    stage(0);
+    __syncthreads();
+  }
+  for (int col0 = cb0; col0 < cb0 + CB; col0 += NT) {
+    const int col = col0 + tid;
+    const bool on = (D % CB == 0 && CB % NT == 0) || col < D;
 #pragma unroll
-        for (int r = 0; r < TK; ++r) {
-          const int tok = t0 + r;
-          xs[r][col] = tok < tokens && in_row
-                           ? operand<WT>(in[(size_t)tok * D + col] + bv) : 0.f;
-        }
+    for (int r = 0; r < TK; ++r) acc[r] = 0.f;
+    if constexpr (FOLD || KC == DP) {
+      if (on) token_mm<D, KC, TK, WT>(xs, wo, col, 0, acc);
+    } else {
+      for (int kb = 0; kb < DP; kb += KC) {
+        __syncthreads();   // the chunk before is read
+        stage(kb);
+        __syncthreads();
+        if (on) token_mm<D, KC, TK, WT>(xs, wo, col, kb, acc);
       }
     }
-  }
-  __syncthreads();
-  for (int col0 = 0; col0 < D; col0 += NT) {
-    const int col = col0 + tid;
-    if (D % NT == 0 || col < D) {
-      token_mm<D, DP, TK, WT>(xs, wo, col, acc);
+    if (on) {
       const float bo = to_f(v.bo[col]);
 #pragma unroll
       for (int r = 0; r < TK; ++r) {

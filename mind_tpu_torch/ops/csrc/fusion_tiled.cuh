@@ -41,15 +41,30 @@
 // - the edge is read and written at its true width and stride: 16-byte loads
 //   where a row is a whole number of 16-byte pieces (E * 4 or E * 2 bytes),
 //   one element at a time otherwise;
-// - a block takes TJ = 8, 4 or 2 columns: the largest whose layout fits the
-//   card's shared memory (256 wide: 8; 512 wide: 4).
+// - a block takes TJ = 8, 4, 2 or 1 columns: the largest whose layout fits
+//   the card's shared memory (256 wide: 8; 512 wide: 4; 768 wide in float32:
+//   2; 2,048 wide: 1). A chunk is TI = 8 sources of them, so R = 8 TJ rows;
+//   at R = 8 the bf16 product runs its m16n8k16 tiles with the upper 8 rows
+//   absent (zero operands, results dropped);
+// - where even one column's layout does not fit ("staged": float32 past
+//   D = E ~ 2,750, bf16 past ~3,750, fewer with many heads), the block's
+//   rows, q, the attention sum and the softmax state lie in a global scratch
+//   that the caller allocates (Layout::SCRATCH_BYTES a block, for at most
+//   GRID_CAP blocks that walk the columns in turn), read back through L1 and
+//   L2; only the weight slices stay in shared memory, so a block's shared
+//   memory is bounded whatever the width;
+// - a LayerNorm runs in a warp's registers up to 512 wide (LN_REG_MAX values
+//   a lane), and past that in passes over the staged row in S, so that no
+//   register array grows with the width. Both take the same sums in the
+//   same order.
 //
 // Bound: as the resident kernels, by operations in float32 and by bytes in
-// bf16 up to 256 wide (by operations at 512 / 512 / 16). The bound counted is
-// fusion_attention.py::fused_edge_attention_flops / _bytes at the true
-// widths. This layout is the simple form: k and v per pair in float32 too
+// bf16 up to 256 wide (by operations at 512 / 512 / 16 and above). The bound
+// counted is fusion_attention.py::fused_edge_attention_flops / _bytes at the
+// true widths. This layout is the simple form: k and v per pair in float32 too
 // (the resident kernel A folds them), synchronous chunk loads and a
-// block-wide barrier between the steps; PERF.md gives its times.
+// block-wide barrier between the steps, and every chunk streams all its
+// weights again; PERF.md gives its times.
 //
 // Every sum runs in an order that depends on neither the block nor the row a
 // pair lands in, so a node computes in a batch of scenes what it computes
@@ -69,15 +84,25 @@ constexpr int NWT = NTT / 32;
 constexpr int NC_MAX = 128;              // output columns of a tile
 constexpr int KS = 32;                   // k of a weight slice
 constexpr int BUDGET = 232448 - 1024;    // dynamic shared memory a block may take
+constexpr int GRID_CAP = 264;            // blocks of a staged launch (2 an SM)
+constexpr int LN_REG_MAX = 16;           // values a lane of a register LayerNorm
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// Shared memory of a block of tj columns (Layout's offsets, added up).
-__host__ __device__ constexpr int layout_bytes(int tj, int ldx_bytes, int lds, int w_bytes,
-                                               int d_o, int nh) {
-  return round_up(8 * tj * ldx_bytes, 16) + 8 * tj * lds * 4 + 2 * w_bytes + 2 * tj * d_o * 4 +
-         8 * tj * nh * 4 + 3 * tj * nh * 4;
+// Bytes of a block of tj columns (Layout's offsets, added up).
+__host__ __device__ constexpr long long layout_bytes(int tj, int ldx_bytes, int lds,
+                                                     int w_bytes, int d_o, int nh) {
+  return round_up(8 * tj * ldx_bytes, 16) + 8LL * tj * lds * 4 + 2LL * w_bytes +
+         2LL * tj * d_o * 4 + 8LL * tj * nh * 4 + 3LL * tj * nh * 4;
+}
+
+// The most columns (8, 4, 2 or 1) whose block fits BUDGET, or 0.
+__host__ __device__ constexpr int shared_columns(int ldx_bytes, int lds, int w_bytes, int d_o,
+                                                 int nh) {
+  int tj = 8;
+  while (tj > 0 && layout_bytes(tj, ldx_bytes, lds, w_bytes, d_o, nh) > BUDGET) tj /= 2;
+  return tj;
 }
 
 // The block's layout (bytes) for the library's widths and weight type WT.
@@ -94,9 +119,10 @@ struct Layout {
   static constexpr int LDW = KS + 8;                   // bf16 slice row [n][k]
   static constexpr int W_BYTES = BF ? NC_MAX * LDW * 2 : KS * NC_MAX * 4;
   static constexpr int XB = LDX * (int)sizeof(WT);    // X row (bytes)
-  static constexpr int TJ = layout_bytes(8, XB, LDS, W_BYTES, DO, NH) <= BUDGET   ? 8
-                            : layout_bytes(4, XB, LDS, W_BYTES, DO, NH) <= BUDGET ? 4
-                                                                                  : 2;
+  // columns a block in shared memory, or 0 where not even one fits
+  static constexpr int TJ_SHARED = shared_columns(XB, LDS, W_BYTES, DO, NH);
+  static constexpr bool STAGED = TJ_SHARED == 0;      // the rows in global scratch
+  static constexpr int TJ = STAGED ? 1 : TJ_SHARED;
   static constexpr int R = TI * TJ;                    // rows of a chunk: source-major
   static constexpr int OFF_X = 0;                                  // [R][LDX] operand
   static constexpr int OFF_S = round_up(R * LDX * (int)sizeof(WT), 16);   // [R][LDS]
@@ -107,9 +133,13 @@ struct Layout {
   static constexpr int OFF_M = OFF_L + R * NH * 4;                 // [TJ][NH] running max
   static constexpr int OFF_SUM = OFF_M + TJ * NH * 4;              // [TJ][NH] running sum
   static constexpr int OFF_C = OFF_SUM + TJ * NH * 4;              // [TJ][NH] correction
-  static constexpr int SMEM_BYTES = OFF_C + TJ * NH * 4;
-  static_assert(SMEM_BYTES == layout_bytes(TJ, XB, LDS, W_BYTES, DO, NH),
+  static constexpr int BLOCK_BYTES = OFF_C + TJ * NH * 4;
+  static_assert(BLOCK_BYTES == layout_bytes(TJ, XB, LDS, W_BYTES, DO, NH),
                 "the offsets add up to layout_bytes");
+  // dynamic shared memory: the whole block, or (staged) the weight slices
+  static constexpr int SMEM_BYTES = STAGED ? 2 * W_BYTES : BLOCK_BYTES;
+  // global scratch a block (staged; its weight-slice bytes stay unused)
+  static constexpr int SCRATCH_BYTES = STAGED ? round_up(BLOCK_BYTES, 256) : 0;
   static_assert(SMEM_BYTES <= BUDGET, "the layout must fit the H100's opt-in shared memory");
 };
 
@@ -121,6 +151,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Two-pass LayerNorm of a W-wide row held by a warp: lane l holds columns
 // l, l + 32, ... in x[0], x[1], ...; the statistics divide by the true W.
+// Up to LN_REG_MAX values a lane (W <= 512); row_stats below is the same
+// arithmetic over a row in memory.
 template <int W, typename WT>
 __device__ __forceinline__ void ln_warp(float* x, const WT* __restrict__ g,
                                         const WT* __restrict__ b, int lane) {
@@ -143,6 +175,24 @@ __device__ __forceinline__ void ln_warp(float* x, const WT* __restrict__ g,
     const int c = lane + 32 * m;
     if (W % 32 == 0 || c < W) x[m] = (x[m] - mean) * inv * to_f(g[c]) + to_f(b[c]);
   }
+}
+
+// The mean and 1 / sqrt(var + eps) of a W-wide row in memory (shared or
+// global), as ln_warp computes them: lane l sums columns l, l + 32, ... from
+// the first up, the warp's lanes are summed by warp_sum, and each lane reads
+// only the columns it wrote.
+template <int W>
+__device__ __forceinline__ void row_stats(const float* row, int lane, float& mean,
+                                          float& inv) {
+  float s = 0.f;
+  for (int c = lane; c < W; c += 32) s += row[c];
+  mean = warp_sum(s) * (1.f / W);
+  float sq = 0.f;
+  for (int c = lane; c < W; c += 32) {
+    const float d = row[c] - mean;
+    sq = fmaf(d, d, sq);
+  }
+  inv = rsqrtf(warp_sum(sq) * (1.f / W) + LN_EPS);
 }
 
 template <typename WT> __device__ __forceinline__ WT to_op(float x);
@@ -247,12 +297,16 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1, uin
 // The same product with bf16 operands on the tensor cores: warp w takes the
 // 16-row group w / WC and NC / WC columns of a tile (NTW 8-column mma
 // tiles); a slice is staged transposed to [n][k], as the mma's column
-// operand reads it.
+// operand reads it. At R = 8 (a block of one column) the one row group's
+// upper 8 rows are absent: their operands are zero and their results are
+// not stored.
 template <class L, int K, int N>
 __device__ __forceinline__ void product(const bf16* X, const bf16* __restrict__ w, float* Sb,
                                         unsigned char* wbuf, int tid) {
   constexpr int R = L::R, LDX = L::LDX, LDS = L::LDS, LDW = L::LDW;
-  constexpr int RG = R / 16;                 // 16-row groups
+  constexpr int RG = (R + 15) / 16;          // 16-row groups
+  constexpr bool HALF = R % 16 != 0;         // R = 8: rows 8-15 of the group absent
+  static_assert(!HALF || R == 8, "a chunk is 8 rows or a multiple of 16");
   constexpr int WC = NWT / RG;               // warps along a tile's columns
   constexpr int NC = cmin(NC_MAX, round_up(N, 8 * WC));
   constexpr int NTW = NC / (8 * WC);
@@ -300,8 +354,8 @@ __device__ __forceinline__ void product(const bf16* X, const bf16* __restrict__ 
 #pragma unroll
     for (int kk = 0; kk < KS; kk += 16) {
       if (KP % KS == 0 || k0 + kk < KP) {
-        const uint32_t a0 = ld32(xa + kk), a1 = ld32(xa + 8 * LDX + kk);
-        const uint32_t a2 = ld32(xa + kk + 8), a3 = ld32(xa + 8 * LDX + kk + 8);
+        const uint32_t a0 = ld32(xa + kk), a1 = HALF ? 0u : ld32(xa + 8 * LDX + kk);
+        const uint32_t a2 = ld32(xa + kk + 8), a3 = HALF ? 0u : ld32(xa + 8 * LDX + kk + 8);
 #pragma unroll
         for (int nt = 0; nt < NTW; ++nt) {
           const unsigned short* wp = Ws + (wc * 8 * NTW + nt * 8 + g) * LDW + kk + 2 * t;
@@ -317,16 +371,17 @@ __device__ __forceinline__ void product(const bf16* X, const bf16* __restrict__ 
         const int n = n0 + wc * 8 * NTW + nt * 8 + 2 * t;
         if (N % 2 == 0 && N % NC == 0) {
           *reinterpret_cast<float2*>(Sb + r0 * LDS + n) = make_float2(acc[nt][0], acc[nt][1]);
-          *reinterpret_cast<float2*>(Sb + (r0 + 8) * LDS + n) =
-              make_float2(acc[nt][2], acc[nt][3]);
+          if (!HALF)
+            *reinterpret_cast<float2*>(Sb + (r0 + 8) * LDS + n) =
+                make_float2(acc[nt][2], acc[nt][3]);
         } else {
           if (n < N) {
             Sb[r0 * LDS + n] = acc[nt][0];
-            Sb[(r0 + 8) * LDS + n] = acc[nt][2];
+            if (!HALF) Sb[(r0 + 8) * LDS + n] = acc[nt][2];
           }
           if (n + 1 < N) {
             Sb[r0 * LDS + n + 1] = acc[nt][1];
-            Sb[(r0 + 8) * LDS + n + 1] = acc[nt][3];
+            if (!HALF) Sb[(r0 + 8) * LDS + n + 1] = acc[nt][3];
           }
         }
       }
@@ -364,7 +419,8 @@ edge_attention_tiled_kernel(const EdgeT* __restrict__ edge,
                             const float* __restrict__ sp, const float* __restrict__ tp,
                             const float* __restrict__ q, VecsT<WT> v,
                             float* __restrict__ attn, float* __restrict__ edge_out,
-                            int n, int cols, int update_edge, int write_cast) {
+                            unsigned char* scratch, int n, int cols, int update_edge,
+                            int write_cast) {
   using L = Layout<S, WT>;
   constexpr int D = S::D, E = S::E, NH = S::NH, DH = S::DH, TJ = L::TJ, R = L::R;
   constexpr int LDX = L::LDX, LDS = L::LDS, DO = L::DO, DQ = L::DQ, EQ = L::EQ;
@@ -373,197 +429,247 @@ edge_attention_tiled_kernel(const EdgeT* __restrict__ edge,
   constexpr int PR = EQ / VE;                   // pieces of a staged row
   static_assert(EQ % VE == 0, "a staged row is a whole number of pieces");
   constexpr int CD = (DQ + 31) / 32, CE = (E + 31) / 32;   // values a lane of a row
+  // LayerNorms in registers up to LN_REG_MAX values a lane, else over S
+  constexpr bool LN_D = CD <= LN_REG_MAX, LN_E = CE <= LN_REG_MAX;
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
-  WT* X = reinterpret_cast<WT*>(smem + L::OFF_X);
-  float* Sb = reinterpret_cast<float*>(smem + L::OFF_S);
-  unsigned char* wbuf = smem + L::OFF_W;
-  float* O = reinterpret_cast<float*>(smem + L::OFF_O);
-  float* Qs = reinterpret_cast<float*>(smem + L::OFF_Q);
-  float* Ls = reinterpret_cast<float*>(smem + L::OFF_L);
-  float* Mx = reinterpret_cast<float*>(smem + L::OFF_M);
-  float* Sm = reinterpret_cast<float*>(smem + L::OFF_SUM);
-  float* Cr = reinterpret_cast<float*>(smem + L::OFF_C);
+  // the block's buffers: shared memory, or (staged) its slot of the scratch
+  unsigned char* buf = L::STAGED ? scratch + (size_t)blockIdx.x * L::SCRATCH_BYTES : smem;
+  WT* X = reinterpret_cast<WT*>(buf + L::OFF_X);
+  float* Sb = reinterpret_cast<float*>(buf + L::OFF_S);
+  unsigned char* wbuf = L::STAGED ? smem : smem + L::OFF_W;
+  float* O = reinterpret_cast<float*>(buf + L::OFF_O);
+  float* Qs = reinterpret_cast<float*>(buf + L::OFF_Q);
+  float* Ls = reinterpret_cast<float*>(buf + L::OFF_L);
+  float* Mx = reinterpret_cast<float*>(buf + L::OFF_M);
+  float* Sm = reinterpret_cast<float*>(buf + L::OFF_SUM);
+  float* Cr = reinterpret_cast<float*>(buf + L::OFF_C);
   __shared__ long long s_base[TJ];   // element offset of edge[b, 0, j, 0]
   __shared__ int s_tok0[TJ];         // b * n, or -1 for a column past the end
 
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int c0 = blockIdx.x * TJ;
-  if (tid < TJ) {
-    const int c = c0 + tid;
-    const int b = c / n, j = c % n;
-    s_base[tid] = ((long long)b * n * n + j) * E;
-    s_tok0[tid] = c < cols ? b * n : -1;
-  }
-  for (int idx = tid; idx < TJ * D; idx += NTT) {
-    const int jj = idx / D, c = idx % D;
-    Qs[jj * DO + c] = c0 + jj < cols ? q[(size_t)(c0 + jj) * D + c] : 0.f;
-    O[jj * DO + c] = 0.f;
-  }
-  for (int idx = tid; idx < TJ * NH; idx += NTT) {
-    Mx[idx] = -INFINITY;
-    Sm[idx] = 0.f;
-  }
-  __syncthreads();
 
-  const int n_chunks = (n + TI - 1) / TI;
-#pragma unroll 1
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int i0 = ch * TI;
-    const int ns = min(TI, n - i0);
-
-    // ---- the edge chunk -> X, in the operand type; row r = source r / TJ,
-    // column r % TJ; with write_cast the bf16 input edge goes out as float32
-    for (int idx = tid; idx < R * PR; idx += NTT) {
-      const int r = idx / PR, e0 = (idx % PR) * VE;
-      const int i = i0 + r / TJ, jj = r % TJ;
-      const bool ok = i < n && s_tok0[jj] >= 0 && (EQ == E || e0 < E);
-      float x[VE];
-      const long long off = s_base[jj] + (long long)i * n * E + e0;
-      if (ok) {
-        load_edge<VE>(edge + off, x);
-      } else {
-#pragma unroll
-        for (int u = 0; u < VE; ++u) x[u] = 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < VE; ++u) X[r * LDX + e0 + u] = to_op<WT>(x[u]);
-      if (write_cast && ok) {
-#pragma unroll
-        for (int u = 0; u < VE; ++u) edge_out[off + u] = x[u];
-      }
+  // the block's TJ columns c0, c0 + 1, ... and every chunk of their sources;
+  // a staged launch (at most GRID_CAP blocks) walks every gridDim-th group of
+  // columns through the block's slot of the scratch
+  const int c_step = L::STAGED ? gridDim.x * TJ : cols;
+  for (int c0 = blockIdx.x * TJ; c0 < cols; c0 += c_step) {
+    if (tid < TJ) {
+      const int c = c0 + tid;
+      const int b = c / n, j = c % n;
+      s_base[tid] = ((long long)b * n * n + j) * E;
+      s_tok0[tid] = c < cols ? b * n : -1;
+    }
+    for (int idx = tid; idx < TJ * D; idx += NTT) {
+      const int jj = idx / D, c = idx % D;
+      Qs[jj * DO + c] = c0 + jj < cols ? q[(size_t)(c0 + jj) * D + c] : 0.f;
+      O[jj * DO + c] = 0.f;
+    }
+    for (int idx = tid; idx < TJ * NH; idx += NTT) {
+      Mx[idx] = -INFINITY;
+      Sm[idx] = 0.f;
     }
     __syncthreads();
 
-    // ---- mem = relu(LN(edge Wm_e + node_i Wm_s + node_j Wm_t + bm)) -> X ----
-    product<L, E, D>(X, wm_e, Sb, wbuf, tid);
-    for (int r = wid; r < R; r += NWT) {
-      const int i = i0 + r / TJ, jj = r % TJ;
-      const int tok0 = s_tok0[jj];
-      const bool ok = i < n && tok0 >= 0;
-      float x[CD];
-#pragma unroll
-      for (int m = 0; m < CD; ++m) {
-        const int c = lane + 32 * m;
-        x[m] = 0.f;
-        if (c < D) {
-          const float st = ok ? sp[(size_t)(tok0 + i) * D + c] + tp[(size_t)(c0 + jj) * D + c]
-                              : 0.f;
-          x[m] = Sb[r * LDS + c] + st;
+    const int n_chunks = (n + TI - 1) / TI;
+  #pragma unroll 1
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int i0 = ch * TI;
+      const int ns = min(TI, n - i0);
+
+      // ---- the edge chunk -> X, in the operand type; row r = source r / TJ,
+      // column r % TJ; with write_cast the bf16 input edge goes out as float32
+      for (int idx = tid; idx < R * PR; idx += NTT) {
+        const int r = idx / PR, e0 = (idx % PR) * VE;
+        const int i = i0 + r / TJ, jj = r % TJ;
+        const bool ok = i < n && s_tok0[jj] >= 0 && (EQ == E || e0 < E);
+        float x[VE];
+        const long long off = s_base[jj] + (long long)i * n * E + e0;
+        if (ok) {
+          load_edge<VE>(edge + off, x);
+        } else {
+  #pragma unroll
+          for (int u = 0; u < VE; ++u) x[u] = 0.f;
+        }
+  #pragma unroll
+        for (int u = 0; u < VE; ++u) X[r * LDX + e0 + u] = to_op<WT>(x[u]);
+        if (write_cast && ok) {
+  #pragma unroll
+          for (int u = 0; u < VE; ++u) edge_out[off + u] = x[u];
         }
       }
-      ln_warp<D>(x, v.ln_m_g, v.ln_m_b, lane);
-#pragma unroll
-      for (int m = 0; m < CD; ++m) {
-        const int c = lane + 32 * m;
-        if (c < DQ) X[r * LDX + c] = to_op<WT>(c < D ? fmaxf(x[m], 0.f) : 0.f);
-      }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // ---- edge' = LN(edge + relu(LN(mem We + be))) ----
-    if (update_edge) {
-      product<L, D, E>(X, we, Sb, wbuf, tid);
+      // ---- mem = relu(LN(edge Wm_e + node_i Wm_s + node_j Wm_t + bm)) -> X ----
+      product<L, E, D>(X, wm_e, Sb, wbuf, tid);
       for (int r = wid; r < R; r += NWT) {
         const int i = i0 + r / TJ, jj = r % TJ;
-        const bool ok = i < n && s_tok0[jj] >= 0;
-        const long long off = ok ? s_base[jj] + (long long)i * n * E : 0;
-        float x[CE];
-#pragma unroll
-        for (int m = 0; m < CE; ++m) {
-          const int c = lane + 32 * m;
-          x[m] = c < E ? Sb[r * LDS + c] + to_f(v.be[c]) : 0.f;
-        }
-        ln_warp<E>(x, v.ln_e1_g, v.ln_e1_b, lane);
-#pragma unroll
-        for (int m = 0; m < CE; ++m) {
-          const int c = lane + 32 * m;
-          if (c < E) x[m] = fmaxf(x[m], 0.f) + (ok ? to_f(edge[off + c]) : 0.f);
-        }
-        ln_warp<E>(x, v.ln_e2_g, v.ln_e2_b, lane);
-        if (ok) {
-#pragma unroll
-          for (int m = 0; m < CE; ++m) {
+        const int tok0 = s_tok0[jj];
+        const bool ok = i < n && tok0 >= 0;
+        float* row = Sb + r * LDS;
+        if constexpr (LN_D) {
+          float x[CD];
+  #pragma unroll
+          for (int m = 0; m < CD; ++m) {
             const int c = lane + 32 * m;
-            if (c < E) edge_out[off + c] = x[m];
+            x[m] = 0.f;
+            if (c < D) {
+              const float st = ok ? sp[(size_t)(tok0 + i) * D + c] + tp[(size_t)(c0 + jj) * D + c]
+                                  : 0.f;
+              x[m] = row[c] + st;
+            }
+          }
+          ln_warp<D>(x, v.ln_m_g, v.ln_m_b, lane);
+  #pragma unroll
+          for (int m = 0; m < CD; ++m) {
+            const int c = lane + 32 * m;
+            if (c < DQ) X[r * LDX + c] = to_op<WT>(c < D ? fmaxf(x[m], 0.f) : 0.f);
+          }
+        } else {
+          for (int c = lane; c < D; c += 32) {
+            const float st = ok ? sp[(size_t)(tok0 + i) * D + c] + tp[(size_t)(c0 + jj) * D + c]
+                                : 0.f;
+            row[c] += st;
+          }
+          float mean, inv;
+          row_stats<D>(row, lane, mean, inv);
+          for (int c = lane; c < DQ; c += 32)
+            X[r * LDX + c] = to_op<WT>(
+                c < D ? fmaxf((row[c] - mean) * inv * to_f(v.ln_m_g[c]) + to_f(v.ln_m_b[c]), 0.f)
+                      : 0.f);
+        }
+      }
+      __syncthreads();
+
+      // ---- edge' = LN(edge + relu(LN(mem We + be))) ----
+      if (update_edge) {
+        product<L, D, E>(X, we, Sb, wbuf, tid);
+        for (int r = wid; r < R; r += NWT) {
+          const int i = i0 + r / TJ, jj = r % TJ;
+          const bool ok = i < n && s_tok0[jj] >= 0;
+          const long long off = ok ? s_base[jj] + (long long)i * n * E : 0;
+          float* row = Sb + r * LDS;
+          if constexpr (LN_E) {
+            float x[CE];
+  #pragma unroll
+            for (int m = 0; m < CE; ++m) {
+              const int c = lane + 32 * m;
+              x[m] = c < E ? row[c] + to_f(v.be[c]) : 0.f;
+            }
+            ln_warp<E>(x, v.ln_e1_g, v.ln_e1_b, lane);
+  #pragma unroll
+            for (int m = 0; m < CE; ++m) {
+              const int c = lane + 32 * m;
+              if (c < E) x[m] = fmaxf(x[m], 0.f) + (ok ? to_f(edge[off + c]) : 0.f);
+            }
+            ln_warp<E>(x, v.ln_e2_g, v.ln_e2_b, lane);
+            if (ok) {
+  #pragma unroll
+              for (int m = 0; m < CE; ++m) {
+                const int c = lane + 32 * m;
+                if (c < E) edge_out[off + c] = x[m];
+              }
+            }
+          } else {
+            for (int c = lane; c < E; c += 32) row[c] += to_f(v.be[c]);
+            float mean, inv;
+            row_stats<E>(row, lane, mean, inv);
+            for (int c = lane; c < E; c += 32)
+              row[c] = fmaxf((row[c] - mean) * inv * to_f(v.ln_e1_g[c]) + to_f(v.ln_e1_b[c]), 0.f) +
+                       (ok ? to_f(edge[off + c]) : 0.f);
+            row_stats<E>(row, lane, mean, inv);
+            if (ok)
+              for (int c = lane; c < E; c += 32)
+                edge_out[off + c] = (row[c] - mean) * inv * to_f(v.ln_e2_g[c]) + to_f(v.ln_e2_b[c]);
           }
         }
+        __syncthreads();   // S is read before the next product writes it
       }
-      __syncthreads();   // S is read before the next product writes it
-    }
 
-    // ---- k = mem Wk; logits q[j] . k[i, j] / sqrt(dh) per head ----
-    product<L, D, D>(X, wk, Sb, wbuf, tid);
-    for (int idx = tid; idx < R * NH; idx += NTT) {
-      const int r = idx / NH, h = idx % NH;
-      const int i = i0 + r / TJ, jj = r % TJ;
-      const int tok0 = s_tok0[jj];
-      const float* qh = Qs + jj * DO + h * DH;
-      const float* kh = Sb + r * LDS + h * DH;
-      float a = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) a = fmaf(qh[d], kh[d], a);
-      const bool key_on = i < n && tok0 >= 0 && mask[tok0 + i];
-      Ls[idx] = key_on ? a * S::QK_SCALE : MASKED;
-    }
-    __syncthreads();
-
-    // ---- online softmax per (target, head) over the chunk's sources ----
-    for (int idx = tid; idx < TJ * NH; idx += NTT) {
-      const int jj = idx / NH, h = idx % NH;
-      const float m_old = Mx[idx];
-      float mx = m_old;
-      for (int s = 0; s < ns; ++s) mx = fmaxf(mx, Ls[(s * TJ + jj) * NH + h]);
-      const float corr = expf(m_old - mx);
-      float sum = Sm[idx] * corr;
-#pragma unroll
-      for (int s = 0; s < TI; ++s) {
-        const int li = (s * TJ + jj) * NH + h;
-        const float p = s < ns ? expf(Ls[li] - mx) : 0.f;
-        sum += p;
-        Ls[li] = p;
+      // ---- k = mem Wk; logits q[j] . k[i, j] / sqrt(dh) per head ----
+      product<L, D, D>(X, wk, Sb, wbuf, tid);
+      for (int idx = tid; idx < R * NH; idx += NTT) {
+        const int r = idx / NH, h = idx % NH;
+        const int i = i0 + r / TJ, jj = r % TJ;
+        const int tok0 = s_tok0[jj];
+        const float* qh = Qs + jj * DO + h * DH;
+        const float* kh = Sb + r * LDS + h * DH;
+        float a = 0.f;
+  #pragma unroll 4
+        for (int d = 0; d < DH; ++d) a = fmaf(qh[d], kh[d], a);
+        const bool key_on = i < n && tok0 >= 0 && mask[tok0 + i];
+        Ls[idx] = key_on ? a * S::QK_SCALE : MASKED;
       }
-      Mx[idx] = mx;
-      Sm[idx] = sum;
-      Cr[idx] = corr;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // ---- v = mem Wv; O[j] = O[j] corr + sum_i p v ----
-    product<L, D, D>(X, wv, Sb, wbuf, tid);
+      // ---- online softmax per (target, head) over the chunk's sources ----
+      for (int idx = tid; idx < TJ * NH; idx += NTT) {
+        const int jj = idx / NH, h = idx % NH;
+        const float m_old = Mx[idx];
+        float mx = m_old;
+        for (int s = 0; s < ns; ++s) mx = fmaxf(mx, Ls[(s * TJ + jj) * NH + h]);
+        const float corr = expf(m_old - mx);
+        float sum = Sm[idx] * corr;
+  #pragma unroll
+        for (int s = 0; s < TI; ++s) {
+          const int li = (s * TJ + jj) * NH + h;
+          const float p = s < ns ? expf(Ls[li] - mx) : 0.f;
+          sum += p;
+          Ls[li] = p;
+        }
+        Mx[idx] = mx;
+        Sm[idx] = sum;
+        Cr[idx] = corr;
+      }
+      __syncthreads();
+
+      // ---- v = mem Wv; O[j] = O[j] corr + sum_i p v ----
+      product<L, D, D>(X, wv, Sb, wbuf, tid);
+      for (int idx = tid; idx < TJ * D; idx += NTT) {
+        const int jj = idx / D, c = idx % D, h = c / DH;
+        float o = O[jj * DO + c] * Cr[jj * NH + h];
+        for (int s = 0; s < ns; ++s)
+          o = fmaf(Ls[(s * TJ + jj) * NH + h], Sb[(s * TJ + jj) * LDS + c], o);
+        O[jj * DO + c] = o;
+      }
+      __syncthreads();   // X, S and the logits are free for the next chunk
+    }
+
+    // ---- attn[c] = sum_i p v / sum_i p ----
     for (int idx = tid; idx < TJ * D; idx += NTT) {
-      const int jj = idx / D, c = idx % D, h = c / DH;
-      float o = O[jj * DO + c] * Cr[jj * NH + h];
-      for (int s = 0; s < ns; ++s)
-        o = fmaf(Ls[(s * TJ + jj) * NH + h], Sb[(s * TJ + jj) * LDS + c], o);
-      O[jj * DO + c] = o;
+      const int jj = idx / D, c = idx % D;
+      if (s_tok0[jj] >= 0)
+        attn[(size_t)(c0 + jj) * D + c] = O[jj * DO + c] * (1.f / Sm[jj * NH + c / DH]);
     }
-    __syncthreads();   // X, S and the logits are free for the next chunk
-  }
-
-  // ---- attn[c] = sum_i p v / sum_i p ----
-  for (int idx = tid; idx < TJ * D; idx += NTT) {
-    const int jj = idx / D, c = idx % D;
-    if (s_tok0[jj] >= 0)
-      attn[(size_t)(c0 + jj) * D + c] = O[jj * DO + c] * (1.f / Sm[jj * NH + c / DH]);
+    if constexpr (L::STAGED) __syncthreads();   // the columns' state is free for the next
   }
 }
 
-// The main kernel of the tiled layout on `s`: 0, or a CUDA error.
+// Blocks of a launch over `cols` columns: one a block of TJ, at most
+// GRID_CAP where the rows are staged in scratch.
+template <class L>
+inline int tiled_blocks(int cols) {
+  const int tiles = (cols + L::TJ - 1) / L::TJ;
+  return L::STAGED && tiles > GRID_CAP ? GRID_CAP : tiles;
+}
+
+// The main kernel of the tiled layout on `s`: 0, or a CUDA error. `scratch`
+// holds Layout::SCRATCH_BYTES for each of tiled_blocks(cols) blocks where the
+// layout is staged (unused otherwise).
 template <class S, typename WT, typename EdgeT>
 int launch(const EdgeT* edge, const unsigned char* mask, const WT* wm_e, const WT* we,
            const WT* wk, const WT* wv, const float* sp, const float* tp, const float* q,
-           const VecsT<WT>& v, float* attn, float* edge_out, int n, int cols,
-           int update_edge, int write_cast, cudaStream_t s) {
+           const VecsT<WT>& v, float* attn, float* edge_out, unsigned char* scratch, int n,
+           int cols, int update_edge, int write_cast, cudaStream_t s) {
   using L = Layout<S, WT>;
+  if (L::STAGED && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(edge_attention_tiled_kernel<S, WT, EdgeT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          L::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  edge_attention_tiled_kernel<S, WT, EdgeT><<<(cols + L::TJ - 1) / L::TJ, NTT, L::SMEM_BYTES,
-                                              s>>>(edge, mask, wm_e, we, wk, wv, sp, tp, q,
-                                                   v, attn, edge_out, n, cols, update_edge,
-                                                   write_cast);
+  edge_attention_tiled_kernel<S, WT, EdgeT><<<tiled_blocks<L>(cols), NTT, L::SMEM_BYTES, s>>>(
+      edge, mask, wm_e, we, wk, wv, sp, tp, q, v, attn, edge_out, scratch, n, cols,
+      update_edge, write_cast);
   return 0;
 }
 

@@ -19,17 +19,19 @@ mind_tpu/ops/fusion_attention.py::_kernel. CUDA tensors launch the kernel of
 their variant or raise; CPU tensors run the variant's plain version. There is
 no fallback between the two.
 
-Widths. Like the TPU kernel, the plain versions take any node width D, edge
-width E and head count that divides D. The kernels take the domain
-`kernel_domain` states (D and E from 1 to 512, and any head count up to 64
-that divides D): the top of the card's test grid, not a limit of their
-design. A CUDA call outside it raises ValueError before anything is built or
-launched. Each library picks its layout at compile time (`kernel_layout`):
-"resident" (D and E multiples of 16 from 16 to 128, at most 16 heads of a
-width that is a multiple of 8: the weights stay in shared memory, as for the
-main path's 128 / 128 / 8) or "tiled" (every other shape:
-csrc/fusion_tiled.cuh streams the weights and takes every width and head
-layout at its true size). No weight is padded or re-laid on the host.
+Widths. Like the TPU kernel, the plain versions and the kernels take any
+node width D >= 1, edge width E >= 1 and head count that divides D
+(`kernel_domain` refuses only what the JAX function refuses). Each library
+picks its layout at compile time (`kernel_layout`): "resident" (D and E
+multiples of 16 from 16 to 128, at most 16 heads of a width that is a
+multiple of 8: the weights stay in shared memory, as for the main path's
+128 / 128 / 8) or "tiled" (every other shape: csrc/fusion_tiled.cuh streams
+the weights and takes every width and head layout at its true size; a block
+takes 8, 4, 2 or 1 target columns, whichever fits shared memory, and past
+that stages its rows in a global scratch the launcher allocates).
+`kernel_smem` mirrors each library's shared-memory bytes and scratch in
+Python; a library whose own numbers differ is refused when it is loaded. No
+weight is padded or re-laid on the host.
 
 The kernels are built with nvcc at first use into `_build/` beside this file
 (listed in .gitignore), one shared library with a C interface per source and
@@ -198,25 +200,18 @@ def fused_edge_attention_bf16_ref(node, edge, key_mask, w: FusionWeights,
     return _round_bf16(out) @ p["wo"] + p["bo"], edge_new
 
 
-MAX_WIDTH, MAX_HEADS = 512, 64   # the top of the card's test grid
-DOMAIN = (f"D and E from 1 to {MAX_WIDTH}, and a head count from 1 to {MAX_HEADS} that "
-          f"divides D")
-
-
 def kernel_domain(d: int, e: int, n_head: int):
     """None where the card's kernels take node width d, edge width e and
-    n_head heads; else why not, naming the domain (DOMAIN). A pure function
-    of the three widths: it builds, loads and launches nothing. A head count
-    that does not divide D is no gap of the port: the JAX function cannot
-    compute it either (its reshape to [N, heads, D / heads] refuses it)."""
+    n_head heads; else why not. A pure function of the three widths: it
+    builds, loads and launches nothing. The kernels take what the JAX
+    function takes: widths from 1 up and any head count that divides D (its
+    reshape to [N, heads, D / heads] refuses any other)."""
     for name, x in (("D", d), ("E", e)):
-        if not 1 <= x <= MAX_WIDTH:
-            return f"{name} = {x}: the kernels take {DOMAIN}"
-    if not 1 <= n_head <= MAX_HEADS:
-        return f"{n_head} heads: the kernels take {DOMAIN}"
-    if d % n_head:
+        if x < 1:
+            return f"{name} = {x}: a width must be at least 1"
+    if n_head < 1 or d % n_head:
         return (f"{n_head} heads at D = {d}: a head count that does not divide D, which the "
-                f"JAX function cannot compute either; the kernels take {DOMAIN}")
+                f"JAX function cannot compute either")
     return None
 
 
@@ -229,6 +224,75 @@ def kernel_layout(d: int, e: int, n_head: int) -> str:
     resident = (all(x % 16 == 0 and 16 <= x <= 128 for x in (d, e)) and n_head <= 16
                 and (d // n_head) % 8 == 0)
     return "resident" if resident else "tiled"
+
+
+class SmemLayout(NamedTuple):
+    """A library's layout as kernel_smem mirrors it."""
+
+    layout: str      # "resident" or "tiled"
+    regime: str      # "resident", "shared" (tiled, rows in shared memory) or "staged"
+    tj: int          # target columns a block of the main kernel
+    dynamic: int     # the main kernel's dynamic shared memory (bytes)
+    static: tuple    # static shared memory of (token_proj, main, out_proj), bytes
+    scratch: int     # global scratch a block of a staged launch (bytes; else 0)
+
+
+# the card's opt-in shared memory a block, less 1 KB (fusion_tiled.cuh BUDGET)
+SMEM_BUDGET = 232448 - 1024
+STATIC_LIMIT = 48 * 1024       # static shared memory a kernel may declare
+GRID_CAP = 264                 # blocks of a staged launch (fusion_tiled.cuh)
+_TOK, _TOKEN_KC = 8, 1280      # fusion_common.cuh: tokens a block, staged k a chunk
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def kernel_smem(variant: str, d: int, e: int, n_head: int) -> SmemLayout:
+    """The shared memory and scratch of the library of `variant` at (d, e,
+    n_head), computed as its sources compute them (LayoutA in
+    csrc/fusion_attention.cu, LayoutB in csrc/fusion_attention_bf16.cu,
+    tiled::Layout in csrc/fusion_tiled.cuh, and the per-token kernels'
+    static arrays in csrc/fusion_common.cuh). A pure function: the loader
+    holds each library's own numbers to it, and the tests walk it over any
+    grid."""
+    bf = variant == "bfloat16"
+    layout = kernel_layout(d, e, n_head)
+    fold = layout == "resident" and not bf
+    dp = _round_up(d, 16)
+    kc = dp if dp * _TOK * 4 * (2 if fold else 1) <= 40960 else _TOKEN_KC
+    token_proj = _TOK * kc * 4 + (_TOK * dp * 4 if fold else 0)
+    if fold:
+        tk = _TOK // 2 if (_TOK * n_head + _TOK) * d * 4 > STATIC_LIMIT else _TOK
+        out_proj = tk * n_head * d * 4 + tk * kc * 4
+    else:
+        out_proj = _TOK * kc * 4
+    if layout == "resident":
+        if bf:   # LayoutB: four weights as bf16, two tiles, the raw chunks or the merge
+            tj, r, nmax = 8, 64, max(d, e)
+            raw = max(2 * r * e * 4, 8 * tj * (d + 2 * n_head) * 4)
+            dynamic = 2 * d * e * 2 + 2 * d * d * 2 + 2 * r * nmax * 2 + raw
+        else:    # LayoutA: Wm_e, We, two chunk buffers, the folded keys, the logits
+            tj = 4 if n_head * d > 1024 else 8
+            r = 8 * tj
+            dynamic = 4 * (2 * e * d + 2 * r * max(d, e) + tj * n_head * d + r * n_head)
+        return SmemLayout(layout, "resident", tj, dynamic, (token_proj, 12 * tj, out_proj), 0)
+    kq = 16 if bf else 4
+    xw = max(_round_up(d, kq), _round_up(e, kq))
+    ldx_bytes = (xw + (8 if bf else 4)) * (2 if bf else 4)
+    lds = _round_up(max(d, e), 4) + 4
+    w_bytes = 128 * (32 + 8) * 2 if bf else 32 * 128 * 4
+    d_o = _round_up(d, 4)
+
+    def block(tj):
+        return (_round_up(8 * tj * ldx_bytes, 16) + 8 * tj * lds * 4 + 2 * w_bytes
+                + 2 * tj * d_o * 4 + 8 * tj * n_head * 4 + 3 * tj * n_head * 4)
+
+    tj = next((t for t in (8, 4, 2, 1) if block(t) <= SMEM_BUDGET), 0)
+    if tj:
+        return SmemLayout(layout, "shared", tj, block(tj), (token_proj, 12 * tj, out_proj), 0)
+    return SmemLayout(layout, "staged", 1, 2 * w_bytes, (token_proj, 12, out_proj),
+                      _round_up(block(1), 256))
 
 
 def check_domain(d: int, e: int, n_head: int) -> None:
@@ -303,12 +367,17 @@ def compile_kernels(shapes=(FULL_WIDTH,), variants=VARIANTS) -> dict:
     return paths
 
 
-_ARGTYPES = {"float32": [ctypes.c_void_p] * 29 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+_ARGTYPES = {"float32": [ctypes.c_void_p] * 30 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
              "bfloat16": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-             + [ctypes.c_void_p] * 27 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+             + [ctypes.c_void_p] * 28 + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
 _ENTRY = {"float32": "fused_edge_attention_f32", "bfloat16": "fused_edge_attention_bf16"}
 _SHAPE_FN = {"float32": "fused_edge_attention_shape",
              "bfloat16": "fused_edge_attention_bf16_shape"}
+_ATTRS_FN = {"float32": "fused_edge_attention_attrs", "bfloat16": "fused_edge_attention_bf16_attrs"}
+# each library's kernels, in the order its attrs function reports them
+KERNEL_NAMES = {"float32": ("token_proj", "main", "out_proj"),
+                "bfloat16": ("token_proj bf16 node", "token_proj float32 node", "main bf16 edge",
+                             "main float32 edge", "out_proj")}
 _LIBS = {}   # (variant, shape) -> loaded library
 
 
@@ -316,13 +385,16 @@ def _load(variant, shape, path):
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, _ENTRY[variant])
     fn.argtypes, fn.restype = _ARGTYPES[variant], ctypes.c_int
-    built = (ctypes.c_int * 5)()
+    built = (ctypes.c_int * 7)()
     getattr(lib, _SHAPE_FN[variant])(built)
     if tuple(built[:3]) != shape:
         raise RuntimeError(f"{path.name} is built for {tuple(built[:3])}, not {shape}")
-    lib.smem_bytes = built[3]
-    if ("resident", "tiled")[built[4]] != kernel_layout(*shape):
-        raise RuntimeError(f"{path.name} is not built in the {kernel_layout(*shape)} layout")
+    lib.smem_bytes, lib.tj, lib.scratch_bytes = built[3], built[5], built[6]
+    mirror = kernel_smem(variant, *shape)
+    own = (("resident", "tiled")[built[4]], built[5], built[3], built[6])
+    if own != (mirror.layout, mirror.tj, mirror.dynamic, mirror.scratch):
+        raise RuntimeError(f"{path.name}'s layout (layout, columns a block, shared memory, "
+                           f"scratch a block) {own} is not its mirror's {mirror}")
     _LIBS[(variant, shape)] = lib
     return lib
 
@@ -354,6 +426,31 @@ def kernel_library(variant: str, shape) -> ctypes.CDLL:
         check_domain(*shape)
         lib = _load(variant, shape, compile_kernels((shape,), (variant,))[(variant, shape)])
     return lib
+
+
+def kernel_attrs(variant: str, shape) -> dict:
+    """{kernel: {"static", "local", "regs"}} of the library of `variant` at
+    `shape` (built and loaded at first use): each kernel's static shared
+    memory, local memory (spills and stack) in bytes and registers a
+    thread, as cudaFuncGetAttributes gives them. Needs a card."""
+    lib = kernel_library(variant, shape)
+    names = KERNEL_NAMES[variant]
+    out = (ctypes.c_int * (3 * len(names)))()
+    err = getattr(lib, _ATTRS_FN[variant])(out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    return {k: {"static": out[3 * i], "local": out[3 * i + 1], "regs": out[3 * i + 2]}
+            for i, k in enumerate(names)}
+
+
+def _scratch(lib, cols, dev):
+    """The staged tiled layout's global scratch for a call over `cols`
+    (scene, target) columns (SCRATCH_BYTES for each of its blocks), or None
+    where the library's rows lie in shared memory."""
+    if not lib.scratch_bytes:
+        return None
+    blocks = min(-(-cols // lib.tj), GRID_CAP)
+    return torch.empty(blocks * lib.scratch_bytes, dtype=torch.uint8, device=dev)
 
 
 def _check(name, t, shape, dtypes, device):
@@ -430,6 +527,7 @@ def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
     # the attention sum (tiled)
     per_token = (n_head, D) if kernel_layout(D, E, n_head) == "resident" else (D,)
     sp, tp, qk, ctx = new(B * N, D), new(B * N, D), new(B * N, *per_token), new(B * N, *per_token)
+    scratch = _scratch(lib, B * N, dev)
     # the launch and its cudaFuncSetAttribute apply to the current device:
     # make it the tensors' one
     with torch.cuda.device(dev):
@@ -437,8 +535,8 @@ def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
             node.data_ptr(), edge.data_ptr(), key_mask.data_ptr(),
             *(t.data_ptr() for t in w),
             sp.data_ptr(), tp.data_ptr(), qk.data_ptr(), ctx.data_ptr(),
-            out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), edge_out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, N, int(update_edge), torch.cuda.current_stream(dev).cuda_stream)
     _raise_for(err, lib, "float32")
     _launched("float32")
     return out, edge_out
@@ -456,14 +554,15 @@ def _launch_bf16(node, edge, key_mask, w, n_head, update_edge):
     write_cast = not update_edge and edge.dtype != f32
     edge_out = new(B, N, N, E) if update_edge or write_cast else edge
     sp, tp, q, attn = (new(B * N, D) for _ in range(4))
+    scratch = _scratch(lib, B * N, dev)
     with torch.cuda.device(dev):   # as in _launch_f32
         err = lib.fused_edge_attention_bf16(
             node.data_ptr(), int(node.dtype == bf16), edge.data_ptr(), int(edge.dtype == bf16),
             key_mask.data_ptr(),
             *(t.data_ptr() for t in w),
             sp.data_ptr(), tp.data_ptr(), q.data_ptr(), attn.data_ptr(),
-            out.data_ptr(), edge_out.data_ptr(), B, N, int(update_edge), int(write_cast),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), edge_out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, N, int(update_edge), int(write_cast), torch.cuda.current_stream(dev).cuda_stream)
     _raise_for(err, lib, "bfloat16")
     _launched("bfloat16")
     return out, edge_out
@@ -484,7 +583,7 @@ def fused_edge_attention(node, edge, key_mask, w: FusionWeights, n_head: int,
 
     A CUDA tensor launches its kernel or raises on anything it does not take:
     ValueError, before any build or launch, for widths outside
-    `kernel_domain`. CPU tensors take any widths. Under grad mode, with an input or weight that requires grad, the call
+    `kernel_domain` (the JAX function's own domain). Under grad mode, with an input or weight that requires grad, the call
     goes through FusedEdgeAttentionFn (module docstring)."""
     variant = {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(w.wm_e.dtype)
     if variant is None:

@@ -315,19 +315,24 @@ def demo_spec(demo: str, seed: Optional[int], data_root, *, ticks: Optional[int]
     return SimSpec(cfg, planner_cfg or planner_config_for_demo(demo), ticks, scenario)
 
 
-def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0, e: int | None = None):
+def fusion_inputs(B: int, N: int, D: int, device, seed: int = 0, e: int | None = None,
+                  fan_in: bool = False):
     """(FusionWeights, node [B, N, D], edge [B, N, N, E]) of float32 random
     values from `seed`, drawn on the CPU and moved to `device`, at node width
     D and edge width E = e (D where not given; then the draws are those of
     every earlier call); the weights at their layer's shapes
-    (fusion_attention.weight_shape), LayerNorm gains near 1."""
+    (fusion_attention.weight_shape), LayerNorm gains near 1. The matrices'
+    scale is 0.08, or with `fan_in` 0.08 sqrt(128 / fan-in), as a network's
+    initialisation keeps activations of one size at any width (the same
+    values at a fan-in of 128)."""
     from mind_tpu_torch.ops.fusion_attention import FusionWeights, weight_shape
 
     E = D if e is None else e
     g = torch.Generator(device="cpu").manual_seed(seed)
     rn = lambda *s, sc=0.08: (torch.randn(*s, generator=g) * sc).to(device)
+    wsc = lambda shape: 0.08 * (128 / shape[0]) ** 0.5 if fan_in else 0.08
     w = FusionWeights(**{
-        f: (rn(*weight_shape(f, D, E)) if f.startswith("w") else
+        f: (rn(*weight_shape(f, D, E), sc=wsc(weight_shape(f, D, E))) if f.startswith("w") else
             1 + rn(*weight_shape(f, D, E), sc=0.1) if f.endswith("_g") else
             rn(*weight_shape(f, D, E), sc=0.1))
         for f in FusionWeights._fields})

@@ -242,7 +242,11 @@ def test_cuda_bf16_kernel_matches_plain():
 
 class _StubLibrary:
     """Stands in for a built kernel library on the CPU: records, at each
-    launch, the device the caller made current and the stream it passed."""
+    launch, the device the caller made current and the stream it passed.
+    Its layout is one whose rows lie in shared memory (no scratch), as the
+    loader records it on a library (columns a block, scratch a block)."""
+
+    tj, scratch_bytes = 8, 0
 
     def __init__(self, current):
         self.current, self.calls = current, []

@@ -1,0 +1,313 @@
+"""The fused edge-attention core with no width ceiling: D and E past 512 and
+more than 64 heads, which the card's kernels take in the tiled layout
+(csrc/fusion_tiled.cuh) at any width, staging a block's rows in global
+scratch where they do not fit its shared memory.
+
+On the CPU: both plain versions against the Pallas kernel in interpret mode
+(as tests/test_torch_fusion_wide.py runs it) at four shapes past 512 or past
+64 heads, with and without the edge update; the kernels' domain (exactly the
+JAX function's); the layout mirror `kernel_smem` over a grid of widths to
+16,384 and every head layout, and at the shapes the card ran before; the
+768-wide network loading the JAX parameters strictly and computing the JAX
+forward. On the card (cuda-marked, skipped here): both kernels against their
+plain versions at chip_smoke.py's new shapes, and a batch against its
+slices past two columns a block."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+from test_torch_fusion_widths import (TOL, TOL_BF16_EDGE, TOL_BF16_KERNEL,
+                                      TOL_BF16_KERNEL_MEAN, TOL_BF16_OUT, _card,
+                                      _card_inputs, inputs_np, pallas, weights_np)
+
+from mind_tpu_torch.ops import fusion_attention as tfa
+
+# (D, E, heads): past 512 with a narrower edge, 256 heads of width 4 with a
+# narrow edge, 520 heads of width 1, and a ragged 2,060-byte edge row with
+# heads of width 103
+GRID = [(640, 520, 10), (1024, 96, 256), (520, 130, 520), (1030, 515, 10)]
+N_TOKENS, N_MASKED = 12, 3
+# chip_smoke.py's WIDTHS_UNBOUNDED, each with its call's (B, N)
+CARD_GRID = [(640, 640, 10, 8, 129), (768, 768, 12, 8, 129), (1024, 512, 128, 8, 129),
+             (512, 512, 512, 8, 129), (1376, 1376, 8, 2, 129), (1056, 1056, 1056, 2, 129),
+             (2048, 2048, 16, 2, 129), (1030, 515, 10, 2, 129), (8192, 256, 64, 1, 33)]
+# the network of this slice, 12 heads of width 64 (mind_tpu's NetConfig takes it)
+WIDER_NET = dict(d_actor=768, d_lane=768, d_embed=768, d_rpe=768, n_scene_head=12)
+
+
+@functools.lru_cache(maxsize=None)
+def case(d, e, heads, update_edge, dtype):
+    """(weights, node, edge, mask, edge type, the interpreted Pallas kernel's
+    outputs) of one grid shape, made once for the tests that need them."""
+    w = weights_np(d + e + heads, d, e)
+    node, edge, mask = inputs_np(d + heads, 1, N_TOKENS, d, e, N_MASKED)
+    edge_dtype = "bfloat16" if dtype == "bfloat16" and update_edge else "float32"
+    want = pallas(w, node, edge, mask, heads, update_edge, dtype, edge_dtype)
+    return w, node, edge, mask, edge_dtype, want
+
+
+@pytest.mark.parametrize("update_edge", [True, False])
+@pytest.mark.parametrize("d,e,heads", GRID)
+def test_plain_matches_pallas_kernel_past_512(d, e, heads, update_edge):
+    w, node, edge, mask, _, (want_out, want_edge) = case(d, e, heads, update_edge, "float32")
+    got_out, got_edge = tfa.fused_edge_attention(
+        torch.tensor(node), torch.tensor(edge), torch.tensor(mask),
+        tfa.FusionWeights(**{k: torch.tensor(v) for k, v in w.items()}), heads, update_edge)
+    assert got_out.shape == (1, N_TOKENS, d) and got_edge.shape == (1, N_TOKENS, N_TOKENS, e)
+    valid = N_TOKENS - N_MASKED   # masked tokens' outputs are not compared, as upstream
+    np.testing.assert_allclose(got_out.numpy()[:, :valid], want_out[:, :valid], rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(got_edge.numpy(), want_edge, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("update_edge", [True, False])
+@pytest.mark.parametrize("d,e,heads", GRID)
+def test_bf16_plain_matches_pallas_kernel_past_512(d, e, heads, update_edge, monkeypatch):
+    """As test_torch_fusion_wide.py holds the bf16 plain version: bf16 node
+    and weights, a bf16 edge with the edge update and a float32 one without;
+    as it is, and with the activations' rounding switched off."""
+    w, node, edge, mask, edge_dtype, (want_out, want_edge) = case(d, e, heads, update_edge,
+                                                                  "bfloat16")
+    assert want_out.dtype == want_edge.dtype == np.float32
+    bf = torch.bfloat16
+    targs = (torch.tensor(node).to(bf), torch.tensor(edge).to(getattr(torch, edge_dtype)),
+             torch.tensor(mask),
+             tfa.FusionWeights(**{k: torch.tensor(v).to(bf) for k, v in w.items()}))
+    valid = N_TOKENS - N_MASKED
+
+    def check(tol_out, tol_edge):
+        got_out, got_edge = tfa.fused_edge_attention(*targs, heads, update_edge)
+        assert got_out.dtype == got_edge.dtype == torch.float32
+        np.testing.assert_allclose(got_out.numpy()[:, :valid], want_out[:, :valid],
+                                   rtol=0, atol=tol_out)
+        np.testing.assert_allclose(got_edge.numpy(), want_edge, rtol=0, atol=tol_edge)
+
+    check(TOL_BF16_OUT, TOL_BF16_EDGE)
+    monkeypatch.setattr(tfa, "_round_bf16", lambda x: x.to(torch.float32))
+    check(TOL, TOL)
+
+
+@pytest.mark.parametrize("d,e,heads", [
+    (513, 1, 1), (1, 100000, 1), (640, 640, 10), (768, 768, 12), (1024, 512, 128),
+    (512, 512, 512), (1056, 1056, 1056), (8192, 256, 64), (16384, 16384, 16384),
+    (12345, 7, 823), (65536, 65536, 1)])
+def test_domain_has_no_ceiling(d, e, heads):
+    """Every width from 1 up and every head count that divides D."""
+    assert tfa.kernel_domain(d, e, heads) is None
+    tfa.check_domain(d, e, heads)
+
+
+@pytest.mark.parametrize("d,e,heads,what", [
+    (16, 0, 1, "E = 0"), (-1, 16, 1, "D = -1"), (16, 16, 0, "0 heads"),
+    (1030, 515, 20, "20 heads"), (512, 512, 1024, "1024 heads")])
+def test_domain_refuses_what_jax_refuses(d, e, heads, what):
+    why = tfa.kernel_domain(d, e, heads)
+    assert why is not None and what in why
+    with pytest.raises(ValueError, match="at least 1|does not divide D"):
+        tfa.check_domain(d, e, heads)
+    assert not hasattr(tfa, "MAX_WIDTH") and not hasattr(tfa, "MAX_HEADS")
+
+
+def _divisors(d):
+    small = [h for h in range(1, int(d ** 0.5) + 1) if d % h == 0]
+    return sorted(set(small + [d // h for h in small]))
+
+
+# widths to 16,384: the narrowest, the resident top, past each regime's edge
+# (one block of 8, 4, 2, 1 columns in shared memory, then staged rows), odd
+# and ragged ones
+MIRROR_WIDTHS = (1, 7, 16, 100, 128, 129, 512, 513, 640, 1000, 1024, 1376, 2048, 2750,
+                 3000, 3750, 4096, 6000, 8192, 12000, 12345, 16384)
+
+
+def test_layout_mirror_fits_every_width_to_16384():
+    """Every (D, E, heads) of the grid, in both variants, gets a layout whose
+    dynamic shared memory stays within the card's 231,424 B and each
+    kernel's static shared memory within 48 KB; a staged layout takes the
+    two weight slices alone in shared memory and its rows in scratch."""
+    seen = set()
+    for d in MIRROR_WIDTHS:
+        divs = _divisors(d)
+        heads = {divs[0], divs[len(divs) // 2], divs[-1], *(h for h in divs if h <= 8)}
+        for e in MIRROR_WIDTHS:
+            for h in heads:
+                for variant in tfa.VARIANTS:
+                    m = tfa.kernel_smem(variant, d, e, h)
+                    assert m.dynamic <= tfa.SMEM_BUDGET == 231424, (variant, d, e, h, m)
+                    assert all(0 < x <= tfa.STATIC_LIMIT == 49152 for x in m.static)
+                    assert m.tj in (1, 2, 4, 8)
+                    if m.regime == "staged":
+                        assert m.tj == 1 and m.scratch >= m.dynamic and m.scratch % 256 == 0
+                        assert m.dynamic == (20480 if variant == "bfloat16" else 32768)
+                    else:
+                        assert m.scratch == 0
+                    seen.add((variant, m.regime, m.tj))
+    # the grid reaches every regime of both variants
+    for variant in tfa.VARIANTS:
+        assert {(r, t) for v, r, t in seen if v == variant} >= {
+            ("resident", 8), ("shared", 8), ("shared", 4), ("shared", 2), ("shared", 1),
+            ("staged", 1)}
+
+
+# (variant, D, E, heads) -> (layout, columns a block, dynamic bytes): every
+# shape the card ran before this slice, as its libraries were built then
+CARD_BEFORE = {
+    ("float32", 128, 128, 8): ("resident", 8, 231424),
+    ("float32", 32, 32, 4): ("resident", 8, 29696),
+    ("float32", 64, 32, 4): ("resident", 8, 58368),
+    ("float32", 48, 80, 3): ("resident", 8, 77056),
+    ("float32", 16, 16, 2): ("resident", 8, 11776),
+    ("float32", 128, 64, 8): ("resident", 8, 165888),
+    ("float32", 128, 128, 16): ("resident", 4, 198656),
+    ("float32", 256, 256, 8): ("tiled", 8, 185088),
+    ("float32", 512, 512, 16): ("tiled", 4, 184064),
+    ("float32", 512, 256, 64): ("tiled", 4, 192512),
+    ("float32", 160, 512, 20): ("tiled", 4, 173504),
+    ("float32", 130, 130, 10): ("tiled", 8, 114368),
+    ("float32", 72, 40, 6): ("tiled", 8, 78400),
+    ("float32", 36, 20, 6): ("tiled", 8, 57664),
+    ("float32", 64, 64, 32): ("tiled", 8, 82944),
+    ("float32", 12, 7, 3): ("tiled", 8, 42784),
+    ("bfloat16", 128, 128, 8): ("resident", 8, 229376),
+    ("bfloat16", 32, 32, 4): ("resident", 8, 32768),
+    ("bfloat16", 64, 32, 4): ("resident", 8, 59392),
+    ("bfloat16", 48, 80, 3): ("resident", 8, 86016),
+    ("bfloat16", 16, 16, 2): ("resident", 8, 14336),
+    ("bfloat16", 128, 64, 8): ("resident", 8, 167936),
+    ("bfloat16", 128, 128, 16): ("resident", 8, 229376),
+    ("bfloat16", 256, 256, 8): ("tiled", 8, 140032),
+    ("bfloat16", 512, 512, 16): ("tiled", 4, 139008),
+    ("bfloat16", 512, 256, 64): ("tiled", 4, 147456),
+    ("bfloat16", 160, 512, 20): ("tiled", 4, 128448),
+    ("bfloat16", 130, 130, 10): ("tiled", 8, 86720),
+    ("bfloat16", 72, 40, 6): ("tiled", 8, 57920),
+    ("bfloat16", 36, 20, 6): ("tiled", 8, 42304),
+    ("bfloat16", 64, 64, 32): ("tiled", 8, 62464),
+    ("bfloat16", 12, 7, 3): ("tiled", 8, 29472),
+}
+
+
+@pytest.mark.parametrize("variant,d,e,heads", sorted(CARD_BEFORE))
+def test_shapes_on_the_card_keep_their_layout(variant, d, e, heads):
+    """The resident and tiled shapes the card ran before keep their layout,
+    columns a block and bytes, and their per-token kernels a block of 8
+    tokens over the whole row (one column block, one chunk of k)."""
+    m = tfa.kernel_smem(variant, d, e, heads)
+    assert (m.layout, m.tj, m.dynamic) == CARD_BEFORE[(variant, d, e, heads)]
+    assert m.regime in ("resident", "shared") and m.scratch == 0
+    assert tfa.kernel_layout(d, e, heads) == m.layout
+    dp = -(-d // 16) * 16
+    fold = m.layout == "resident" and variant == "float32"
+    assert m.static[0] == 8 * dp * 4 * (2 if fold else 1) and m.static[1] == 12 * m.tj
+
+
+@pytest.mark.parametrize("variant,d,e,heads,regime,tj", [
+    ("float32", 640, 640, 10, "shared", 4), ("bfloat16", 640, 640, 10, "shared", 4),
+    ("float32", 768, 768, 12, "shared", 2), ("bfloat16", 768, 768, 12, "shared", 4),
+    ("float32", 1376, 1376, 8, "shared", 1), ("bfloat16", 1376, 1376, 8, "shared", 2),
+    ("float32", 1056, 1056, 1056, "shared", 1), ("bfloat16", 1056, 1056, 1056, "shared", 1),
+    ("float32", 2048, 2048, 16, "shared", 1), ("bfloat16", 2048, 2048, 16, "shared", 1),
+    ("float32", 8192, 256, 64, "staged", 1), ("bfloat16", 8192, 256, 64, "staged", 1)])
+def test_new_card_shapes_reach_their_regimes(variant, d, e, heads, regime, tj):
+    """chip_smoke.py's new shapes reach the regimes they are there for: the
+    first float32 block of one column at 1376, bf16's at 1056 heads of width
+    1, both past two columns at 2048, and rows staged in scratch at 8192."""
+    m = tfa.kernel_smem(variant, d, e, heads)
+    assert (m.layout, m.regime, m.tj) == ("tiled", regime, tj)
+
+
+def test_staged_scratch_a_call():
+    """The staged launch's scratch: a slot a block for at most GRID_CAP
+    blocks, whatever the batch."""
+    class Lib:
+        tj, scratch_bytes = 1, tfa.kernel_smem("float32", 8192, 256, 64).scratch
+
+    assert tfa._scratch(Lib, 33, "cpu").numel() == 33 * Lib.scratch_bytes
+    assert tfa._scratch(Lib, 8 * 129, "cpu").numel() == tfa.GRID_CAP * Lib.scratch_bytes
+    Lib.scratch_bytes = 0
+    assert tfa._scratch(Lib, 33, "cpu") is None
+
+
+def test_wider_network_loads_jax_params_and_matches_flax():
+    """WIDER_NET at 2 layers: the port's network takes the JAX parameters
+    strictly (params_from_flax) and computes make_batched_apply's forward,
+    its fusion core through the Pallas kernel interpreted, at
+    test_torch_scene_pred.py's tolerance (1e-4), as
+    test_torch_fusion_wide.py holds the 256-wide network."""
+    from mind_tpu.config import NetConfig
+    from mind_tpu.models import init_scene_pred
+    from test_torch_scene_pred import make_inputs, run_both
+
+    from mind_tpu_torch.config import NetConfig as TNetConfig
+
+    widths = dict(WIDER_NET, n_scene_layer=2, n_fpn_scale=2)
+    A, L = 6, 12
+    jcfg = NetConfig(**widths, use_pallas_fusion=True)
+    _, params, _ = init_scene_pred(jcfg, A, L, seed=5)
+    layer = params["params"]["FusionNet_0"]["RelaFusionLayer_0"]
+    assert layer["b_edge"].shape == (768,)
+    inputs = make_inputs(np.random.default_rng(1), 2, A, L, jcfg)
+    want, got = run_both(jcfg, TNetConfig(**widths), params, inputs, A, L)
+    for w, g, name in zip(want, got, ("cls", "reg", "vel")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,e,heads,b,n", CARD_GRID)
+def test_cuda_kernels_match_plain_past_512(d, e, heads, b, n):
+    """Both kernels against their plain versions at the shape's B and N, with
+    and without the edge update; kernel B with a bf16 and a float32 edge;
+    each library's layout equal to its mirror."""
+    dev = _card()
+    bf = torch.bfloat16
+    for variant in tfa.VARIANTS:
+        lib = tfa.kernel_library(variant, (d, e, heads))
+        m = tfa.kernel_smem(variant, d, e, heads)
+        assert (lib.smem_bytes, lib.tj, lib.scratch_bytes) == (m.dynamic, m.tj, m.scratch)
+    w, node, edge, mask = _card_inputs(d, e, b, n, dev)
+    w16 = tfa.FusionWeights(*(t.to(bf) for t in w))
+    for update_edge in (True, False):
+        cases = [("float32", (node, edge, mask, w), tfa.fused_edge_attention_ref)]
+        cases += [("bfloat16", (node.to(dt), edge.to(dt), mask, w16),
+                   tfa.fused_edge_attention_bf16_ref) for dt in (bf, torch.float32)]
+        for variant, args, ref in cases:
+            before = tfa.fused_edge_attention.launches_by_variant[variant]
+            out, edge_out = tfa.fused_edge_attention(*args, heads, update_edge)
+            torch.cuda.synchronize()
+            assert tfa.fused_edge_attention.launches_by_variant[variant] == before + 1
+            assert out.shape == (b, n, d) and edge_out.shape == (b, n, n, e)
+            ref_out, ref_edge = ref(*args, heads, update_edge)
+            for got, want in ((out, ref_out), (edge_out, ref_edge)):
+                diff = (got - want).abs()
+                if variant == "float32":
+                    assert diff.max().item() < TOL, (variant, update_edge)
+                else:
+                    assert diff.max().item() < TOL_BF16_KERNEL, (variant, update_edge)
+                    assert diff.mean().item() < TOL_BF16_KERNEL_MEAN
+
+
+@pytest.mark.cuda
+def test_cuda_batch_gap_past_two_columns():
+    """32 nodes compute what each 8 of them compute alone, to the bit, in
+    both kernels, at 1376 / 1376 / 8 (kernel A one column a block)."""
+    dev = _card()
+    d, e, heads, B, S = 1376, 1376, 8, 8, 4
+    w, node, edge, mask = _card_inputs(d, e, S * B, 33, dev, seed=7)
+    w16 = tfa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
+    for ww, dt in ((w, torch.float32), (w16, torch.bfloat16), (w16, torch.float32)):
+        for update_edge in (True, False):
+            x, ed = node.to(dt), edge.to(dt)
+            whole = tfa.fused_edge_attention(x, ed, mask, ww, heads, update_edge)
+            for k in range(0, S * B, B):
+                cut = lambda t: t[k:k + B].clone()
+                alone = tfa.fused_edge_attention(cut(x), cut(ed), cut(mask), ww, heads,
+                                                 update_edge)
+                for a, b in zip(whole, alone):
+                    assert torch.equal(a[k:k + B], b)

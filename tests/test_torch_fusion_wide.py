@@ -9,7 +9,7 @@ loading the JAX parameters strictly and computing the JAX forward; the
 operation counts at the true widths against FlopCounterMode. On the card
 (cuda-marked, skipped here): both kernels against their plain versions on
 the card's grid, a batch against its slices at a ragged and a wide shape,
-and a call outside the domain."""
+and a call the domain refuses (heads that do not divide D)."""
 
 import functools
 
@@ -230,9 +230,11 @@ def test_cuda_batch_gap_past_the_resident_domain(d, e, heads):
 
 @pytest.mark.cuda
 def test_cuda_call_past_the_top_of_the_domain_raises_before_a_launch():
+    """The kernels' domain has no top: what they refuse is what the JAX
+    function refuses, here 8 heads at D = 520 + 4, which do not divide it."""
     dev = _card()
-    w, node, edge, mask = _card_inputs(520, 32, 1, 9, dev)
+    w, node, edge, mask = _card_inputs(524, 32, 1, 9, dev)
     before = tfa.fused_edge_attention.launches
-    with pytest.raises(ValueError, match="from 1 to 512"):
-        tfa.fused_edge_attention(node, edge, mask, w, 8)     # D = 520
+    with pytest.raises(ValueError, match="does not divide D"):
+        tfa.fused_edge_attention(node, edge, mask, w, 8)     # 8 heads at D = 524
     assert tfa.fused_edge_attention.launches == before

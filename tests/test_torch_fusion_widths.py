@@ -159,30 +159,32 @@ def test_narrow_edge_network_loads_jax_params_and_matches_flax(use_pallas_fusion
                                        (16, 16, 2), (128, 64, 8), (128, 128, 16),
                                        (16, 128, 1), (112, 112, 14), (96, 96, 12),
                                        (80, 80, 10), (48, 48, 2),
-                                       # outside the resident layout, inside the domain
+                                       # outside the resident layout
                                        (24, 32, 3), (32, 40, 4), (144, 128, 8), (128, 256, 8),
                                        (32, 32, 8), (128, 128, 32), (1, 1, 1), (512, 512, 64),
-                                       (7, 512, 7)])
+                                       (7, 512, 7),
+                                       # past 512 wide and 64 heads
+                                       (520, 128, 8), (128, 513, 8), (640, 640, 8),
+                                       (256, 256, 128), (512, 512, 512)])
 def test_domain_query_inside(d, e, heads):
     assert tfa.kernel_domain(d, e, heads) is None
     tfa.check_domain(d, e, heads)
 
 
+# what the JAX function refuses too
+REFUSED = "at least 1|does not divide D"
+
+
 @pytest.mark.parametrize("d,e,heads,what", [
-    (520, 128, 8, "D = 520"),       # wider than the card's test grid
-    (128, 513, 8, "E = 513"),
-    (640, 640, 8, "D = 640"),
-    (0, 16, 1, "D = 0"),
-    (256, 256, 128, "128 heads"),   # more than 64 heads
-    (512, 512, 512, "512 heads"),
+    (0, 16, 1, "D = 0"),            # no width
     (48, 48, 5, "5 heads"),         # does not divide D
 ])
 def test_domain_query_outside(d, e, heads, what, monkeypatch):
-    """Outside the domain: the query says why and names the domain, and a
-    launcher raises ValueError before any build (kernel_library) or launch."""
+    """Outside the domain: the query says why, and a launcher raises
+    ValueError before any build (kernel_library) or launch."""
     why = tfa.kernel_domain(d, e, heads)
-    assert why is not None and what in why and tfa.DOMAIN in why
-    with pytest.raises(ValueError, match="from 1 to 512"):
+    assert why is not None and what in why
+    with pytest.raises(ValueError, match=REFUSED):
         tfa.check_domain(d, e, heads)
     with pytest.raises(ValueError):
         tfa.compile_kernels([(d, e, heads)])
@@ -198,7 +200,7 @@ def test_domain_query_outside(d, e, heads, what, monkeypatch):
     before = tfa.fused_edge_attention.launches
     for launch, ww in ((tfa._launch_f32, w),
                        (tfa._launch_bf16, tfa.FusionWeights(*(t.bfloat16() for t in w)))):
-        with pytest.raises(ValueError, match="from 1 to 512"):
+        with pytest.raises(ValueError, match=REFUSED):
             launch(node, edge, mask, ww, heads, True)
     assert tfa.fused_edge_attention.launches == before
 
@@ -359,6 +361,6 @@ def test_cuda_call_outside_the_domain_raises_before_a_launch():
     dev = _card()
     w, node, edge, mask = _card_inputs(32, 32, 1, 9, dev)
     before = tfa.fused_edge_attention.launches
-    with pytest.raises(ValueError, match="from 1 to 512"):
+    with pytest.raises(ValueError, match=REFUSED):
         tfa.fused_edge_attention(node, edge, mask, w, 5)     # 5 heads do not divide D
     assert tfa.fused_edge_attention.launches == before

@@ -2,14 +2,20 @@
 PyTorch version on the GPU, then time them.
 
     python3 tools/check_fusion_kernels.py [--reps 20] [--no-time] [--profile]
-        [--shape D,E,HEADS ...] [--grid]
+        [--shape D,E,HEADS ...] [--grid] [--weights auto|fan_in|unscaled]
 
 Prints each library's build seconds and nvcc's ptxas report (registers,
-spills, shared memory), the max abs error of each variant at B = 8 / N = 129
-and at a ragged B = 3 / N = 40 for both update_edge values (and both node
-and edge types of the bf16 variant), and the time per call from CUDA events,
-at each (D, E, heads) asked for: the full width 128,128,8 by default,
-the full width and chip_smoke.py's widths grid with --grid. `--profile` adds, per variant, the device
+spills, shared memory), its layout against the Python mirror
+(fusion_attention.py::kernel_smem: regime, columns a block, dynamic and
+static shared memory, scratch) and each kernel's local memory, the max abs
+error of each variant at the shape's B and N (chip_smoke.py::widths_batch:
+B = 8, N = 129 up to 1024 wide, B = 2 up to 2048, B = 1, N = 33 above) and
+at a ragged smaller call for both update_edge values (and both node and edge
+types of the bf16 variant), and the time per call from CUDA events, at each
+(D, E, heads) asked for: the full width 128,128,8 by default, the full width
+and chip_smoke.py's widths grid with --grid; at B and N, the float32
+plain version's and kernel's errors against the plain version in float64
+beside each output's largest value. `--profile` adds, per variant, the device
 time of each kernel of one call (prologue, main, epilogue and the wrapper's
 own small copies) from torch.profiler. Exits non-zero if a kernel does not build,
 does not launch or misses its tolerance. Needs a CUDA device and nvcc.
@@ -18,6 +24,7 @@ does not launch or misses its tolerance. Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
+import json
 import subprocess
 import sys
 import time
@@ -34,8 +41,8 @@ from mind_tpu_torch.synthetic import fusion_inputs  # noqa: E402
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
 
-def make_inputs(b, n, dev, variant, edge_dtype, d=128, e=128):
-    w, node, edge = fusion_inputs(b, n, d, dev, e=e)
+def make_inputs(b, n, dev, variant, edge_dtype, d=128, e=128, fan_in=False):
+    w, node, edge = fusion_inputs(b, n, d, dev, e=e, fan_in=fan_in)
     mask = (torch.arange(n, device=dev) < n - 5)[None].expand(b, -1).contiguous()
     if variant == "bfloat16":
         w = fa.FusionWeights(*(t.to(torch.bfloat16) for t in w))
@@ -53,6 +60,9 @@ def main() -> int:
     ap.add_argument("--shape", nargs="+", default=["128,128,8"],
                     help="(D, E, heads) as D,E,HEADS")
     ap.add_argument("--grid", action="store_true", help="chip_smoke.py's widths grid")
+    ap.add_argument("--weights", choices=("auto", "fan_in", "unscaled"), default="auto",
+                    help="matrices at 0.08, or scaled by fan-in (fusion_inputs); auto: "
+                         "scaled past 512 wide or 64 heads, as chip_smoke.py draws them")
     args = ap.parse_args()
     shapes = [fa.FULL_WIDTH, *cs.WIDTHS_GRID] if args.grid else \
         [tuple(int(x) for x in sh.split(",")) for sh in args.shape]
@@ -68,13 +78,28 @@ def main() -> int:
         print(f"--- nvcc, {lib} ---\n{text.strip()}")
     failed = False
     for d, e, H in shapes:
+        for variant in fa.VARIANTS:
+            mirror = fa.kernel_smem(variant, d, e, H)
+            lib, attrs = fa.kernel_library(variant, (d, e, H)), fa.kernel_attrs(variant, (d, e, H))
+            static = max(a["static"] for a in attrs.values())
+            ok = lib.smem_bytes == mirror.dynamic and static == max(mirror.static)
+            failed |= not ok
+            print(f"{variant} {d}/{e}/{H}: {mirror.regime}, {lib.tj} columns a block, "
+                  f"shared memory {lib.smem_bytes} B dynamic (mirror {mirror.dynamic}), "
+                  f"{static} B static (mirror {max(mirror.static)}), scratch "
+                  f"{lib.scratch_bytes} B a block; {'ok' if ok else 'FAIL'}; kernels "
+                  f"{json.dumps(attrs)}", flush=True)
+        big, n_big = cs.widths_batch(d, e)
+        fan_in = args.weights == "fan_in" or (args.weights == "auto" and
+                                               (max(d, e) > 512 or H > 64))
         for variant, ref in (("float32", fa.fused_edge_attention_ref),
                              ("bfloat16", fa.fused_edge_attention_bf16_ref)):
             edge_types = (torch.float32,) if variant == "float32" else \
                 (torch.float32, torch.bfloat16)
-            for b, n in ((8, 129), (3, 40)):
+            for b, n in ((big, n_big), (min(big, 3), 40 if n_big == 129 else 17)):
                 for edge_dtype in edge_types:
-                    node, edge, mask, w = make_inputs(b, n, dev, variant, edge_dtype, d, e)
+                    node, edge, mask, w = make_inputs(b, n, dev, variant, edge_dtype, d, e,
+                                                      fan_in)
                     for ue in (True, False):
                         out, edge_out = fa.fused_edge_attention(node, edge, mask, w, H, ue)
                         torch.cuda.synchronize()
@@ -84,9 +109,22 @@ def main() -> int:
                         ok = e_out < TOL[variant] and e_edge < TOL[variant]
                         failed |= not ok
                         line = (f"{variant} {d}/{e}/{H} B={b} N={n} "
-                                f"node,edge={str(edge_dtype)[6:]} update_edge={ue}: "
-                                f"err out={e_out:.3e} edge={e_edge:.3e} {'ok' if ok else 'FAIL'}")
-                        if not args.no_time and n == 129:
+                                f"node,edge={str(edge_dtype)[6:]} update_edge={ue} "
+                                f"{'fan-in' if fan_in else 'unscaled'} weights: "
+                                f"err out={e_out:.3e} edge={e_edge:.3e} "
+                                f"max|out|={ref_out.abs().max().item():.3e} "
+                                f"{'ok' if ok else 'FAIL'}")
+                        if variant == "float32" and n == n_big:
+                            # the float32 plain version's own error, and the
+                            # kernel's, against the plain version in float64
+                            w64 = fa.FusionWeights(*(t.double() for t in w))
+                            out64 = fa.fused_edge_attention_ref(node.double(), edge.double(),
+                                                                mask, w64, H, ue)[0]
+                            line += (f" | against float64: plain "
+                                     f"{(ref_out - out64).abs().max().item():.3e}, kernel "
+                                     f"{(out - out64).abs().max().item():.3e}")
+                            del w64, out64
+                        if not args.no_time and n == n_big:
                             ms = cs.cuda_time_ms(
                                 lambda: fa.fused_edge_attention(node, edge, mask, w, H, ue),
                                 args.reps)
