@@ -30,16 +30,17 @@ result line):
      B = 8, N = 129 up to 1024 wide, B = 2 up to 2048 and B = 1, N = 33
      above (widths_batch): every (D, E, heads) of WIDTHS_GRID (the resident
      layout's 32/32/4, 64/32/4, 48/80/3, 16/16/2, 128/64/8, 128/128/16; the
-     tiled layout's 256/256/8, 512/512/16, 512/256/64, 160/512/20,
+     tiled route's 256/256/8, 512/512/16, 512/256/64, 160/512/20,
      130/130/10, 72/40/6, 36/20/6, 64/64/32, 12/7/3, and past 512 wide or 64
      heads 640/640/10, 768/768/12, 1024/512/128, 512/512/512, 1376/1376/8,
-     1056/1056/1056, 2048/2048/16, 1030/515/10 and 8192/256/64, the last
-     with its rows staged in global scratch) with and without the edge
+     1056/1056/1056, 2048/2048/16, 1030/515/10 and 8192/256/64; the tiled
+     route in pair tiles, csrc/fusion_tiled.cuh) with and without the edge
      update, kernel B on a bf16 and on a float32 edge, against the plain
-     versions within the tolerances of phase 2, each case's ms, bound and
-     error printed, and each library's layout regime, shared memory (its
-     own against the Python mirror kernel_smem, any difference fatal) and
-     local memory; 32 nodes against each 8 alone, equal to the bit, at
+     versions within the tolerances of phase 2, each case's ms, bound, share
+     of the bound and error printed, and each library's route (fold, tile,
+     stages, where its LayerNorms run), shared memory (its own against the
+     Python mirror kernel_smem, any difference fatal), pair scratch bytes a
+     call and local memory; 32 nodes against each 8 alone, equal to the bit, at
      32/32/4, 72/40/6, 256/256/8 and (N = 33) 1376/1376/8 (WIDTHS_GAP); a
      call of heads that do not divide D (48/48/5), which the JAX function
      refuses too, refused with a ValueError before any launch. It runs after
@@ -406,21 +407,23 @@ REPLACES = "mind_tpu/ops/fusion_attention.py:95 (_kernel, pallas_call at :182)"
 # resident layout: the JAX tests' narrow network, a narrower edge, widths and
 # a head count that are no powers of two, the narrowest, a narrower edge at
 # full node width, and 16 heads at full width (whose folded keys need a block
-# of 4 targets in kernel A). In the tiled layout (csrc/fusion_tiled.cuh):
+# of 4 targets in kernel A). In the tiled route (csrc/fusion_tiled.cuh):
 # the wide network, 512 / 512 / 16, 64 heads of width 8 with E < D,
 # more than 16 heads just past 128, ragged and past 128 (head width 13), the
 # ragged network, head width 6, 32 heads of width 2, an edge row of 28 bytes
+# (the LayerNorms in the products' epilogues up to 128 wide, in row passes
+# above; kernel A folded from a head width of 8)
 WIDTHS_BOUNDED = ((32, 32, 4), (64, 32, 4), (48, 80, 3), (16, 16, 2), (128, 64, 8),
                   (128, 128, 16),
                   (256, 256, 8), (512, 512, 16), (512, 256, 64), (160, 512, 20),
                   (130, 130, 10), (72, 40, 6), (36, 20, 6), (64, 64, 32), (12, 7, 3))
-# past 512 wide and 64 heads, each reaching a layout regime the card had not
-# run: just past 512, the 768-wide network's widths, 128 heads of width 8,
-# 512 heads of width 1, the first float32 shape past 2 columns a block, head
-# width 1 past bf16's 2 columns, past 2 columns in both variants, a ragged
-# 2,060-byte float32 edge row with head width 103, and rows staged in global
-# scratch past the per-token kernels' former static limit and the register
-# LayerNorm
+# past 512 wide and 64 heads: just past 512, the 768-wide network's widths,
+# 128 heads of width 8 (the narrowest folded head), 512 heads of width 1
+# (unfolded), 1376 / 1376 / 8, head width 1 past 1,024, 2048 / 2048 / 16, a
+# ragged 2,060-byte float32 edge row with head width 103 (a 1,030-byte bf16
+# weight row: the producer's element copies), and 8192 wide at 33 nodes
+# (1,089 pairs: 9 x 64 tiles of its key product) past the row passes'
+# register LayerNorm
 WIDTHS_UNBOUNDED = ((640, 640, 10), (768, 768, 12), (1024, 512, 128), (512, 512, 512),
                     (1376, 1376, 8), (1056, 1056, 1056), (2048, 2048, 16), (1030, 515, 10),
                     (8192, 256, 64))
@@ -436,14 +439,15 @@ def widths_batch(d, e):
 
 
 # the batch gap's widths and N: the narrow network, a ragged and a wide shape
-# at N = 129, and kernel A's first block of one column at N = 33
+# at N = 129, and a wide one at N = 33 (pair tiles that cut a batch's pairs
+# at other rows than each scene's alone)
 WIDTHS_GAP = ((32, 32, 4, 129), (72, 40, 6, 129), (256, 256, 8, 129), (1376, 1376, 8, 33))
 # a call the kernels must refuse, as the JAX function does: 5 heads at D = 48
 WIDTHS_OUTSIDE = (48, 48, 5)
 # the 4-head, 32-wide network of the JAX package's tests and dry run
 # (__graft_entry__.py:107-108) at the default depth (6 layers)
 NARROW_NET = dict(d_actor=32, d_lane=32, d_embed=32, d_rpe=32, n_scene_head=4)
-# a 256-wide network (the tiled layout's widths above 128) and a ragged one
+# a 256-wide network (the tiled route's widths above 128) and a ragged one
 # (widths that are not multiples of 16, an edge narrower than the nodes, a
 # head width of 12), both at the default depth
 WIDE_NET = dict(d_actor=256, d_lane=256, d_embed=256, d_rpe=256, n_scene_head=8)
@@ -782,18 +786,25 @@ def widths_mask(token_mask, n):
 
 
 def widths_layout(fa, variant, shape):
-    """A [widths] library's layout: its regime and columns a block, its
+    """A [widths] library's layout: its route (resident with its columns a
+    block, or tiled: fold, tile, stages, where the LayerNorms run), its
     dynamic and static shared memory against the mirror
-    (fusion_attention.py::kernel_smem), its scratch a block and each
-    kernel's local memory and registers (cudaFuncGetAttributes). A dynamic or
-    static byte count off its mirror raises."""
+    (fusion_attention.py::kernel_smem), its pair scratch bytes a call at the
+    shape's B and N and each kernel's local memory and registers
+    (cudaFuncGetAttributes). A dynamic or static byte count off its mirror
+    raises."""
     mirror = fa.kernel_smem(variant, *shape)
     lib, attrs = fa.kernel_library(variant, shape), fa.kernel_attrs(variant, shape)
     static = max(a["static"] for a in attrs.values())
-    rec = {"regime": mirror.regime, "columns_a_block": lib.tj,
+    route = ({"layout": "resident", "columns_a_block": lib.tj} if mirror.layout == "resident"
+             else {"layout": "tiled", "fold": mirror.fold, "tile": list(mirror.tile[:2]),
+                   "stages": mirror.tile[2], "memory_ln": mirror.regime,
+                   "edge_ln": mirror.edge_ln})
+    rec = {"regime": mirror.regime, "route": route,
            "smem_dynamic": {"library": lib.smem_bytes, "mirror": mirror.dynamic},
            "smem_static": {"library": static, "mirror": max(mirror.static)},
-           "scratch_a_block": lib.scratch_bytes,
+           "scratch_bytes_a_call": fa.pair_scratch_bytes(variant, *shape,
+                                                         *widths_batch(*shape[:2])),
            "local_bytes": {k: a["local"] for k, a in attrs.items()},
            "regs": {k: a["regs"] for k, a in attrs.items()}}
     if lib.smem_bytes != mirror.dynamic or static != max(mirror.static):
@@ -829,7 +840,9 @@ def phase_widths_kernels(fa, dev, token_mask):
         for variant, by_case in kernel_cases(fa, dev, mask, d, e, h, reps, warmup,
                                              fan_in=past).items():
             layout = widths_layout(fa, variant, (d, e, h))
-            by_width[variant][f"{d}/{e}/{h}"] = {**mixed_entry(by_case), "B": B, "N": N,
+            entry = mixed_entry(by_case)
+            by_width[variant][f"{d}/{e}/{h}"] = {**entry, "B": B, "N": N,
+                                                 "bound_share": entry["bound_ms"] / entry["ms"],
                                                  **layout, "by_case": by_case}
             log(f"[widths] {variant} {d}/{e}/{h} at B={B} N={N}: " + json.dumps(layout))
     gaps = {f"{d}/{e}/{h}" + ("" if n == 129 else f" N={n}"):
@@ -853,7 +866,8 @@ def phase_widths_kernels(fa, dev, token_mask):
     for variant, entries in by_width.items():
         log(f"[widths] {variant}, the forward's mix at each shape's B and N: " + json.dumps(
             {k: {x: v[x] for x in ("B", "N", "ms", "plain_ms", "bound_ms", "bound_by",
-                                   "max_abs_err", "regime")}
+                                   "bound_share", "max_abs_err", "regime",
+                                   "scratch_bytes_a_call")}
              for k, v in entries.items()}))
     return by_width, gaps, refused
 

@@ -15,9 +15,10 @@
 // of 16 from 16 to 128, NH <= 16, dh a multiple of 8), which the main path's
 // network (D = E = 128, 8 heads) and the narrow test network (32 / 32, 4
 // heads) take. Every other shape (above 128, widths that are not multiples
-// of 16, any head layout) takes the tiled layout of fusion_tiled.cuh: the
-// weights streamed in slices, k and v per pair; run_f32 picks it at compile
-// time.
+// of 16, any head layout) takes the tiled route of fusion_tiled.cuh: pair
+// tiles of 128 pairs on a register-tiled FMA product fed by cp.async stages,
+// keys and values folded from a head width of 8; run_f32 picks it at
+// compile time.
 //
 // Folded keys and values. k and v are never formed per pair:
 //   logit_h[i,j] = mem[i,j] . (Wk[:, h] q_h[j]) / sqrt(dh)       (+ a term constant in i)
@@ -488,70 +489,119 @@ int run_f32(const float* node, const float* edge, const unsigned char* mask,
     out_proj_kernel<S, float, true><<<dim3((cols + TK - 1) / TK, 1, CBZ), NT, 0, s>>>(
         ctx, wv, wo, v, out, cols);
   } else {
-    // tiled: qk is q [B*N, D] and ctx attn [B*N, D]
-    if (tiled::Layout<S, float>::SMEM_BYTES > smem_optin()) return ERR_SMEM;
-    constexpr int TR = TOK, TK = out_tokens<S, false>();
-    token_proj_kernel<S, float, float, false><<<dim3((cols + TR - 1) / TR, 3, CBZ), NT, 0, s>>>(
-        node, wm_s, wm_t, wq, wk, v, sp, tp, qk, cols);
-    const int err = tiled::launch<S, float, float>(edge, mask, wm_e, we, wk, wv, sp, tp, qk, v,
-                                                   ctx, edge_out, scratch, n, cols,
-                                                   update_edge, 0, s);
+    // tiled: qk and ctx are [B*N, NH, D] where the route folds (qt, then the
+    // per-head weighted memory; q waits in ctx and the attention sum in sp),
+    // else [B*N, D] (q, then the attention sum)
+    using L = tiled::Layout<S, float>;
+    if (L::SMEM_BYTES > smem_optin()) return ERR_SMEM;
+    float* q = L::FOLD ? ctx : qk;
+    tiled::token_proj<S>(node, wm_s, wm_t, wq, v, sp, tp, q, cols, s);
+    if constexpr (L::FOLD) tiled::fold_keys<S>(q, wk, qk, cols, s);
+    const int err = tiled::run_pairs<S, float, float>(edge, mask, wm_e, we, wk, wv, sp, tp, qk, v,
+                                                      ctx, edge_out, scratch, batch, n,
+                                                      update_edge, 0, s);
     if (err != 0) return err;
-    out_proj_kernel<S, float, false><<<dim3((cols + TK - 1) / TK, 1, CBZ), NT, 0, s>>>(
-        ctx, wv, wo, v, out, cols);
+    float* attn = ctx;
+    if constexpr (L::FOLD) {
+      tiled::fold_values<S>(ctx, wv, sp, cols, s);
+      attn = sp;
+    }
+    tiled::out_proj<S>(attn, wo, v, out, cols, s);
   }
   return (int)cudaGetLastError();
 }
 
-// {main kernel's shared memory, 0 resident / 1 tiled, columns a block,
-// global scratch a block (staged tiled layout; else 0)}
+// {the largest dynamic shared memory of a kernel, 0 resident / 1 tiled,
+// columns a block (resident; 0 tiled), fold, tile rows, tile columns,
+// stages, epilogue LayerNorms (1 memory, 2 edge), scratch bytes a pair (S,
+// M, L)}: 11 values
 template <class S>
 void layout_of(int* out) {
   if constexpr (S::RESIDENT) {
-    out[0] = (int)LayoutA<S>::SMEM_BYTES;
-    out[1] = 0;
-    out[2] = LayoutA<S>::TJ;
-    out[3] = 0;
+    const int v[11] = {(int)LayoutA<S>::SMEM_BYTES, 0, LayoutA<S>::TJ, 1, 0, 0, 0, 0, 0, 0, 0};
+    for (int k = 0; k < 11; ++k) out[k] = v[k];
   } else {
     using L = tiled::Layout<S, float>;
-    out[0] = L::SMEM_BYTES;
-    out[1] = 1;
-    out[2] = L::TJ;
-    out[3] = L::SCRATCH_BYTES;
+    const int v[11] = {L::SMEM_BYTES, 1, 0, L::FOLD ? 1 : 0, tiled::BM, L::BN, L::STAGES,
+                       (L::EPI_MEM_LN ? 1 : 0) | (L::EPI_EDGE_LN ? 2 : 0), L::PAIR_S, L::PAIR_M,
+                       L::PAIR_L};
+    for (int k = 0; k < 11; ++k) out[k] = v[k];
   }
 }
 
+// The library's kernels in fusion_attention.py::kernel_names' order; their
+// count.
+template <class S>
+int kernels_of(const void** fns) {
+  int k = 0;
+  if constexpr (S::RESIDENT) {
+    fns[k++] = (const void*)token_proj_kernel<S, float, float, true>;
+    fns[k++] = (const void*)edge_attention_f32_kernel<S>;
+    fns[k++] = (const void*)out_proj_kernel<S, float, true>;
+  } else {
+    using namespace tiled;
+    using L = Layout<S, float>;
+    constexpr int D = S::D, E = S::E, LDS = L::LDS, LDM = L::LDM;
+    constexpr int BD = L::BN_D, BE = L::BN_E;
+    fns[k++] = (const void*)token_product<TokenProj<S>>;
+    if constexpr (L::FOLD) fns[k++] = (const void*)token_product<FoldKeys<S>>;
+    fns[k++] = (const void*)product_f32<E, D, BD, E % 4 == 0,
+                                        L::EPI_MEM_LN ? EPI_MEM : EPI_STORE, LDM, float>;
+    if constexpr (!L::EPI_MEM_LN) fns[k++] = (const void*)mem_pass<S, float, LDS, LDM>;
+    fns[k++] = (const void*)product_f32<D, E, BE, true, L::EPI_EDGE_LN ? EPI_EDGE : EPI_STORE,
+                                        LDM, float>;
+    if constexpr (!L::EPI_EDGE_LN) fns[k++] = (const void*)edge_pass<S, float, float, LDS>;
+    if constexpr (L::FOLD) {
+      fns[k++] = (const void*)token_product<LogitsFold<S, LDM>>;
+      fns[k++] = (const void*)softmax_stats<S::NH>;
+      fns[k++] = (const void*)token_product<ContextFold<S, LDM>>;
+      fns[k++] = (const void*)token_product<FoldValues<S>>;
+    } else {
+      if constexpr (L::EPI_LOGITS_OK) {
+        fns[k++] = (const void*)product_f32<D, D, BD, true, EPI_LOGITS, LDM, float, S::DH>;
+        fns[k++] = (const void*)product_f32<D, D, BD, true, EPI_STORE, LDM, float>;
+      } else {
+        fns[k++] = (const void*)product_f32<D, D, BD, true, EPI_STORE, LDM, float>;
+        fns[k++] = (const void*)logits_pass<S, LDS>;
+      }
+      fns[k++] = (const void*)softmax_stats<S::NH>;
+      fns[k++] = (const void*)attn_pass<S, LDS>;
+    }
+    fns[k++] = (const void*)token_product<OutProj<S>>;
+  }
+  return k;
+}
+
 // Each kernel of the library: {static shared memory, local memory,
-// registers} from cudaFuncGetAttributes, in the order token_proj, main,
-// out_proj.
+// registers} from cudaFuncGetAttributes, in kernels_of's order. Returns the
+// count of kernels, or minus a CUDA error.
 template <class S>
 int attrs_of(int* out) {
-  constexpr bool FOLD = S::RESIDENT;
-  const void* fns[3] = {(const void*)token_proj_kernel<S, float, float, FOLD>, nullptr,
-                        (const void*)out_proj_kernel<S, float, FOLD>};
-  if constexpr (S::RESIDENT) fns[1] = (const void*)edge_attention_f32_kernel<S>;
-  else fns[1] = (const void*)tiled::edge_attention_tiled_kernel<S, float, float>;
-  for (int k = 0; k < 3; ++k) {
+  const void* fns[16];
+  const int count = kernels_of<S>(fns);
+  for (int k = 0; k < count; ++k) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return -(int)err;
     out[3 * k] = (int)a.sharedSizeBytes;
     out[3 * k + 1] = (int)a.localSizeBytes;
     out[3 * k + 2] = a.numRegs;
   }
-  return 0;
+  return count;
 }
 
 }  // namespace
 
 // One call = prologue + main + epilogue on `stream`, at the library's widths
 // (Shape). sp and tp [B*N, D] are float32 scratch from the caller, and so are
-// qk and ctx: [B*N, NH, D] each in the resident layout (folded keys and
-// per-head weighted memory), [B*N, D] each in the tiled one (q and the
-// attention sum). `scratch` holds the staged tiled layout's rows (SCRATCH_BYTES
-// for each of min(ceil(B*N / TJ), GRID_CAP) blocks; null otherwise). Returns
-// 0, a CUDA error, or ERR_SMEM (before any launch) where the layout does not
-// fit the current device's opt-in shared memory.
+// qk and ctx: [B*N, NH, D] each where the route folds (the resident layout,
+// and the tiled route from a head width of 8: folded keys and per-head
+// weighted memory), [B*N, D] each otherwise (q and the attention sum).
+// `scratch` holds the tiled route's pair scratch
+// (tiled::pair_scratch_bytes(B*N*N); null in the resident layout). Returns
+// 0, a CUDA error, ERR_SMEM (before any launch) where the layout does not
+// fit the current device's opt-in shared memory, or tiled::ERR_TMA (before
+// the pair steps' launches) where a tensor map cannot be encoded.
 extern "C" int fused_edge_attention_f32(
     const float* node, const float* edge, const unsigned char* mask,
     const float* wm_e, const float* wm_s, const float* wm_t, const float* bm,
@@ -569,9 +619,8 @@ extern "C" int fused_edge_attention_f32(
                                 update_edge, (cudaStream_t)stream);
 }
 
-// The widths this library was built for, its main kernel's shared memory and
-// its layout: {D, E, NH, bytes, 0 resident / 1 tiled, columns a block,
-// scratch bytes a block}; the loader checks them against the shape it asked
+// The widths this library was built for and its layout: {D, E, NH,
+// layout_of's 11 values}; the loader checks them against the shape it asked
 // for and against the layout's mirror (fusion_attention.py::kernel_smem).
 extern "C" void fused_edge_attention_shape(int* out) {
   out[0] = fusion::Shape::D;
@@ -580,6 +629,39 @@ extern "C" void fused_edge_attention_shape(int* out) {
   layout_of<fusion::Shape>(out + 3);
 }
 
-// {static shared memory, local memory, registers} of each of the library's 3
-// kernels (token_proj, main, out_proj) into out[0..8]; 0 or a CUDA error.
+// {static shared memory, local memory, registers} of each of the library's
+// kernels (kernels_of) into out[3 k .. 3 k + 2]; their count, or minus a
+// CUDA error.
 extern "C" int fused_edge_attention_attrs(int* out) { return attrs_of<fusion::Shape>(out); }
+
+template <class S>
+long long scratch_of(long long pairs, long long tokens) {
+  if constexpr (S::RESIDENT) return 0;
+  else return (long long)fusion::tiled::pair_scratch_bytes<fusion::tiled::Layout<S, float>>(pairs, tokens);
+}
+
+// The tiled route's pair scratch of a call over `batch` scenes of `n`
+// nodes, in bytes (0 in the resident layout).
+extern "C" long long fused_edge_attention_scratch(long long batch, long long n) {
+  return scratch_of<fusion::Shape>(batch * n * n, batch * n);
+}
+
+template <class S>
+int product_entry(int which, const void* a, long long lda, const void* w, float* c,
+                  long long ldc, long long rows, void* stream) {
+  if constexpr (S::RESIDENT) {
+    return -3;
+  } else {
+    const int err = fusion::tiled::product_alone<S, float>(
+        which, (const float*)a, lda, (const float*)w, c, ldc, rows, (cudaStream_t)stream);
+    return err != 0 ? err : (int)cudaGetLastError();
+  }
+}
+
+// One of the tiled route's products alone (tiled::product_alone), on
+// `stream`: 0, a CUDA error, tiled::ERR_TMA, or -3 in the resident layout,
+// which has no such product.
+extern "C" int fused_edge_attention_product(int which, const void* a, long long lda, const void* w, float* c,
+                                long long ldc, long long rows, void* stream) {
+  return product_entry<fusion::Shape>(which, a, lda, w, c, ldc, rows, stream);
+}

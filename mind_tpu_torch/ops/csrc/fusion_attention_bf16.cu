@@ -21,11 +21,10 @@
 // D / NH are compile-time constants of the library, and so is its layout
 // (fusion_common.cuh): what follows is the resident layout (D, E multiples
 // of 16 from 16 to 128, NH <= 16, dh a multiple of 8). Every other shape
-// takes the tiled layout of fusion_tiled.cuh (weights streamed in slices,
-// products in column tiles on mma.sync m16n8k16, whose 16-row tiles let a
-// block shrink to 2 columns where wgmma's 64-row tile and register
-// accumulator no longer fit past 128: N / 2 registers a thread at N = 512);
-// run picks it at compile time.
+// takes the tiled route of fusion_tiled.cuh (pair tiles of 128 pairs on
+// wgmma.m64nNk16 with the weight read transposed from its own layout, fed
+// by TMA through a ring of mbarrier-signalled stages); run picks it at
+// compile time.
 //
 // Bound on the H100 (B = 8, N = 129, 128 / 128 / 8, edge update, float32 edge
 // in): the call reads 68.2 MB and writes 68.2 MB of edge, 0.041 ms at 3.35
@@ -516,9 +515,9 @@ int launch_main(const void* edge, const unsigned char* mask, const bf16* wm_e,
         edge_out, n, cols, update_edge, write_cast);
     return 0;
   } else {
-    return tiled::launch<S, bf16, EdgeT>(static_cast<const EdgeT*>(edge), mask, wm_e, we, wk,
-                                         wv, sp, tp, q, v, attn, edge_out, scratch, n, cols,
-                                         update_edge, write_cast, s);
+    return tiled::run_pairs<S, bf16, EdgeT>(static_cast<const EdgeT*>(edge), mask, wm_e, we, wk,
+                                            wv, sp, tp, q, v, attn, edge_out, scratch, cols / n, n,
+                                            update_edge, write_cast, s);
   }
 }
 
@@ -548,6 +547,8 @@ int run(const Call& c, const VecsT<bf16>& v) {
   constexpr int TR = TOK, CBZ = token_col_blocks<S>();
   const dim3 tok_grid((cols + TR - 1) / TR, 3, CBZ);
   cudaStream_t s = c.stream;
+  // the per-token products in float32 FMAs over bf16-rounded operands, in
+  // both layouts (fusion_tiled.cuh says why not on the tensor cores)
   if (c.node_bf16)
     token_proj_kernel<S, bf16, bf16, false><<<tok_grid, NT, 0, s>>>(
         (const bf16*)c.node, c.wm_s, c.wm_t, c.wq, c.wk, v, c.sp, c.tp, c.q, cols);
@@ -568,45 +569,82 @@ int run(const Call& c, const VecsT<bf16>& v) {
   return (int)cudaGetLastError();
 }
 
-// {bytes, 0 resident / 1 tiled, columns a block, scratch bytes a block} of
-// the main kernel's layout at the widths S.
+// {the largest dynamic shared memory of a kernel, 0 resident / 1 tiled,
+// columns a block (resident; 0 tiled), fold (0), tile rows, tile columns,
+// stages, epilogue LayerNorms (1 memory, 2 edge), scratch bytes a pair (S,
+// M, L)}: 11 values, as fusion_attention.cu's
 template <class S>
 void layout_of(int* out) {
-  out[0] = smem_bytes<S>();
-  out[1] = S::RESIDENT ? 0 : 1;
   if constexpr (S::RESIDENT) {
-    out[2] = TJ;
-    out[3] = 0;
+    const int v[11] = {smem_bytes<S>(), 0, TJ, 0, 0, 0, 0, 0, 0, 0, 0};
+    for (int k = 0; k < 11; ++k) out[k] = v[k];
   } else {
-    out[2] = tiled::Layout<S, bf16>::TJ;
-    out[3] = tiled::Layout<S, bf16>::SCRATCH_BYTES;
+    using L = tiled::Layout<S, bf16>;
+    const int v[11] = {L::SMEM_BYTES, 1, 0, 0, tiled::BM, L::BN, L::STAGES,
+                       (L::EPI_MEM_LN ? 1 : 0) | (L::EPI_EDGE_LN ? 2 : 0), L::PAIR_S, L::PAIR_M,
+                       L::PAIR_L};
+    for (int k = 0; k < 11; ++k) out[k] = v[k];
   }
 }
 
-// {static shared memory, local memory, registers} of each of the 5 kernels
-// at the widths S: token_proj of a bf16 and of a float32 node, main of a bf16
-// and of a float32 edge, out_proj.
+// The library's kernels in fusion_attention.py::kernel_names' order; their
+// count.
+template <class S>
+int kernels_of(const void** fns) {
+  int k = 0;
+  fns[k++] = (const void*)token_proj_kernel<S, bf16, bf16, false>;
+  fns[k++] = (const void*)token_proj_kernel<S, float, bf16, false>;
+  if constexpr (S::RESIDENT) {
+    fns[k++] = (const void*)edge_attention_bf16_kernel<S, bf16>;
+    fns[k++] = (const void*)edge_attention_bf16_kernel<S, float>;
+  } else {
+    namespace t = tiled;
+    using L = t::Layout<S, bf16>;
+    constexpr int D = S::D, E = S::E, LDS = L::LDS, LDM = L::LDM;
+    constexpr int BD = L::BN_D, BE = L::BN_E;
+    constexpr int EPI_D = L::EPI_MEM_LN ? t::EPI_MEM : t::EPI_STORE;
+    fns[k++] = (const void*)t::cast_pass<E, LDM, bf16>;
+    fns[k++] = (const void*)t::cast_pass<E, LDM, float>;
+    fns[k++] = (const void*)t::product_bf16<E, D, BD, D % 8 == 0, EPI_D, LDM, bf16>;
+    if constexpr (!L::EPI_MEM_LN) fns[k++] = (const void*)t::mem_pass<S, bf16, LDS, LDM>;
+    if constexpr (L::EPI_EDGE_LN) {
+      fns[k++] = (const void*)t::product_bf16<D, E, BE, E % 8 == 0, t::EPI_EDGE, LDM, bf16>;
+      fns[k++] = (const void*)t::product_bf16<D, E, BE, E % 8 == 0, t::EPI_EDGE, LDM, float>;
+    } else {
+      fns[k++] = (const void*)t::product_bf16<D, E, BE, E % 8 == 0, t::EPI_STORE, LDM, bf16>;
+      fns[k++] = (const void*)t::edge_pass<S, bf16, bf16, LDS>;
+      fns[k++] = (const void*)t::edge_pass<S, bf16, float, LDS>;
+    }
+    if constexpr (L::EPI_LOGITS_OK) {
+      fns[k++] = (const void*)t::product_bf16<D, D, BD, D % 8 == 0, t::EPI_LOGITS, LDM, bf16,
+                                              S::DH>;
+      fns[k++] = (const void*)t::product_bf16<D, D, BD, D % 8 == 0, t::EPI_STORE, LDM, bf16>;
+    } else {
+      fns[k++] = (const void*)t::product_bf16<D, D, BD, D % 8 == 0, t::EPI_STORE, LDM, bf16>;
+      fns[k++] = (const void*)t::logits_pass<S, LDS>;
+    }
+    fns[k++] = (const void*)t::softmax_stats<S::NH>;
+    fns[k++] = (const void*)t::attn_pass<S, LDS>;
+  }
+  fns[k++] = (const void*)out_proj_kernel<S, bf16, false>;
+  return k;
+}
+
+// {static shared memory, local memory, registers} of each kernel, in
+// kernels_of's order; their count, or minus a CUDA error.
 template <class S>
 int attrs_of(int* out) {
-  const void* fns[5] = {(const void*)token_proj_kernel<S, bf16, bf16, false>,
-                        (const void*)token_proj_kernel<S, float, bf16, false>, nullptr, nullptr,
-                        (const void*)out_proj_kernel<S, bf16, false>};
-  if constexpr (S::RESIDENT) {
-    fns[2] = (const void*)edge_attention_bf16_kernel<S, bf16>;
-    fns[3] = (const void*)edge_attention_bf16_kernel<S, float>;
-  } else {
-    fns[2] = (const void*)tiled::edge_attention_tiled_kernel<S, bf16, bf16>;
-    fns[3] = (const void*)tiled::edge_attention_tiled_kernel<S, bf16, float>;
-  }
-  for (int k = 0; k < 5; ++k) {
+  const void* fns[16];
+  const int count = kernels_of<S>(fns);
+  for (int k = 0; k < count; ++k) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return -(int)err;
     out[3 * k] = (int)a.sharedSizeBytes;
     out[3 * k + 1] = (int)a.localSizeBytes;
     out[3 * k + 2] = a.numRegs;
   }
-  return 0;
+  return count;
 }
 
 }  // namespace
@@ -617,10 +655,11 @@ int attrs_of(int* out) {
 // edge_bf16). sp, tp, q and attn [B*N, D] are float32 scratch from the caller.
 // write_cast: with update_edge == 0, write the input edge to edge_out as
 // float32 (the caller passes 0 when it returns a float32 input edge as it
-// is). `scratch` holds the staged tiled layout's rows (SCRATCH_BYTES for each
-// of min(ceil(B*N / TJ), GRID_CAP) blocks; null otherwise). Returns 0, a CUDA
-// error, or ERR_SMEM (before any launch) where the layout does not fit the
-// current device's opt-in shared memory.
+// is). `scratch` holds the tiled route's pair scratch
+// (tiled::pair_scratch_bytes(B*N*N); null in the resident layout). Returns
+// 0, a CUDA error, ERR_SMEM (before any launch) where the layout does not
+// fit the current device's opt-in shared memory, or tiled::ERR_TMA (before
+// the pair steps' launches) where a tensor map cannot be encoded.
 extern "C" int fused_edge_attention_bf16(
     const void* node, int node_bf16, const void* edge, int edge_bf16,
     const unsigned char* mask,
@@ -644,9 +683,8 @@ extern "C" int fused_edge_attention_bf16(
   return run<fusion::Shape>(c, v);
 }
 
-// The widths this library was built for, its main kernel's shared memory and
-// its layout: {D, E, NH, bytes, 0 resident / 1 tiled, columns a block,
-// scratch bytes a block}; the loader checks them against the shape it asked
+// The widths this library was built for and its layout: {D, E, NH,
+// layout_of's 11 values}; the loader checks them against the shape it asked
 // for and against the layout's mirror (fusion_attention.py::kernel_smem).
 extern "C" void fused_edge_attention_bf16_shape(int* out) {
   out[0] = fusion::Shape::D;
@@ -655,6 +693,39 @@ extern "C" void fused_edge_attention_bf16_shape(int* out) {
   layout_of<fusion::Shape>(out + 3);
 }
 
-// {static shared memory, local memory, registers} of each of the library's 5
-// kernels (attrs_of) into out[0..14]; 0 or a CUDA error.
+// {static shared memory, local memory, registers} of each of the library's
+// kernels (kernels_of) into out[3 k .. 3 k + 2]; their count, or minus a
+// CUDA error.
 extern "C" int fused_edge_attention_bf16_attrs(int* out) { return attrs_of<fusion::Shape>(out); }
+
+template <class S>
+long long scratch_of(long long pairs, long long tokens) {
+  if constexpr (S::RESIDENT) return 0;
+  else return (long long)fusion::tiled::pair_scratch_bytes<fusion::tiled::Layout<S, __nv_bfloat16>>(pairs, tokens);
+}
+
+// The tiled route's pair scratch of a call over `batch` scenes of `n`
+// nodes, in bytes (0 in the resident layout).
+extern "C" long long fused_edge_attention_bf16_scratch(long long batch, long long n) {
+  return scratch_of<fusion::Shape>(batch * n * n, batch * n);
+}
+
+template <class S>
+int product_entry(int which, const void* a, long long lda, const void* w, float* c,
+                  long long ldc, long long rows, void* stream) {
+  if constexpr (S::RESIDENT) {
+    return -3;
+  } else {
+    const int err = fusion::tiled::product_alone<S, __nv_bfloat16>(
+        which, (const __nv_bfloat16*)a, lda, (const __nv_bfloat16*)w, c, ldc, rows, (cudaStream_t)stream);
+    return err != 0 ? err : (int)cudaGetLastError();
+  }
+}
+
+// One of the tiled route's products alone (tiled::product_alone), on
+// `stream`: 0, a CUDA error, tiled::ERR_TMA, or -3 in the resident layout,
+// which has no such product.
+extern "C" int fused_edge_attention_bf16_product(int which, const void* a, long long lda, const void* w, float* c,
+                                long long ldc, long long rows, void* stream) {
+  return product_entry<fusion::Shape>(which, a, lda, w, c, ldc, rows, stream);
+}

@@ -33,19 +33,22 @@
 //   most 16 heads of a width that is a multiple of 8): the per-pair weights
 //   stay in shared memory, as each source's header sets out; the main
 //   path's 128 / 128 / 8 is one;
-// - tiled (every other shape; fusion_tiled.cuh): the weights stream through
-//   shared memory in slices, the products go in column tiles, and every
-//   width and head layout is taken at its true size; past the widths whose
-//   rows fit a block's shared memory, the rows are staged in global scratch.
+// - tiled (every other shape; fusion_tiled.cuh): every per-pair product is
+//   one product over all the call's pairs in tiles of 128 pairs, its
+//   weights streamed through a ring of shared-memory stages, and every
+//   width and head layout is taken at its true size; the whole-row steps run
+//   in the products' epilogues or in row passes over a scratch the caller
+//   allocates. Kernel A folds keys and values there from a head width of 8.
 //
 // No run-time width test or index costs a library anything. The per-token
-// kernels below serve both layouts: a thread owns columns tid, tid + 128,
-// ..., and rows are staged zero-padded to a multiple of 16 (DP), so a width
-// that is not a multiple of 16, or above 128, costs the resident shapes
-// nothing (DP == D and one column a thread there). Past 512 columns a block
-// takes 512 of them (token_cols), and past 1,280 the staged rows are cut into
-// chunks of k (token_chunk), so that their static shared memory is bounded
-// whatever the width.
+// kernels below serve the resident layout and kernel B's tiled route (kernel
+// A's tiled route has its own, fusion_tiled.cuh): a thread owns columns
+// tid, tid + 128, ..., and rows are staged zero-padded to a multiple of 16
+// (DP), so a width that is not a multiple of 16, or above 128, costs the
+// resident shapes nothing (DP == D and one column a thread there). Past 512
+// columns a block takes 512 of them (token_cols), and past 1,280 the staged
+// rows are cut into chunks of k (token_chunk), so that their static shared
+// memory is bounded whatever the width.
 
 #pragma once
 

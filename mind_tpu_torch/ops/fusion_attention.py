@@ -25,13 +25,16 @@ node width D >= 1, edge width E >= 1 and head count that divides D
 picks its layout at compile time (`kernel_layout`): "resident" (D and E
 multiples of 16 from 16 to 128, at most 16 heads of a width that is a
 multiple of 8: the weights stay in shared memory, as for the main path's
-128 / 128 / 8) or "tiled" (every other shape: csrc/fusion_tiled.cuh streams
-the weights and takes every width and head layout at its true size; a block
-takes 8, 4, 2 or 1 target columns, whichever fits shared memory, and past
-that stages its rows in a global scratch the launcher allocates).
-`kernel_smem` mirrors each library's shared-memory bytes and scratch in
-Python; a library whose own numbers differ is refused when it is loaded. No
-weight is padded or re-laid on the host.
+128 / 128 / 8) or "tiled" (every other shape: csrc/fusion_tiled.cuh runs
+every per-pair product as one product over all the call's pairs, in tiles of
+128 pairs fed through a ring of shared-memory stages, on wgmma in bf16 and a
+register-tiled FMA product in float32; kernel A folds keys and values from a
+head width of 8; the LayerNorms run in the products' epilogues up to 128
+wide and in row passes above). The tiled route's intermediates lie in a
+pair scratch the wrapper allocates per call (`pair_scratch_bytes`).
+`kernel_smem` mirrors each library's layout in Python; a library whose own
+numbers differ is refused when it is loaded. No weight is padded or re-laid
+on the host.
 
 The kernels are built with nvcc at first use into `_build/` beside this file
 (listed in .gitignore), one shared library with a C interface per source and
@@ -230,22 +233,89 @@ class SmemLayout(NamedTuple):
     """A library's layout as kernel_smem mirrors it."""
 
     layout: str      # "resident" or "tiled"
-    regime: str      # "resident", "shared" (tiled, rows in shared memory) or "staged"
-    tj: int          # target columns a block of the main kernel
-    dynamic: int     # the main kernel's dynamic shared memory (bytes)
-    static: tuple    # static shared memory of (token_proj, main, out_proj), bytes
-    scratch: int     # global scratch a block of a staged launch (bytes; else 0)
+    regime: str      # "resident"; tiled: "epilogue" (D <= 128: the memory LayerNorm in
+    #                  the first product's epilogue) or "row pass"
+    tj: int          # resident: (scene, target) columns a block; tiled: 0
+    dynamic: int     # the largest dynamic shared memory of a kernel (bytes)
+    static: tuple    # static shared memory of each kernel (kernel_names' order), bytes
+    scratch: int     # tiled: pair scratch bytes a (source, target) pair; resident: 0
+    fold: bool       # keys and values folded (kernel A resident, and tiled from dh = 8)
+    tile: tuple      # tiled: (pairs, columns) of a product's tile and its stages; else ()
+    edge_ln: str     # tiled: "epilogue" (E <= 128) or "row pass"; resident: ""
+    pair_bytes: tuple  # tiled: scratch a pair of S (float32 products), M (memory rows)
+    #                    and L (logits): each buffer of a call is 256-byte aligned
 
 
-# the card's opt-in shared memory a block, less 1 KB (fusion_tiled.cuh BUDGET)
+# the card's opt-in shared memory a block, less 1 KB
 SMEM_BUDGET = 232448 - 1024
 STATIC_LIMIT = 48 * 1024       # static shared memory a kernel may declare
-GRID_CAP = 264                 # blocks of a staged launch (fusion_tiled.cuh)
 _TOK, _TOKEN_KC = 8, 1280      # fusion_common.cuh: tokens a block, staged k a chunk
+# fusion_tiled.cuh: pairs a tile, the widest row whose LayerNorm runs in an
+# epilogue, the float32 product's stages (each 128 rows of 20 floats and 16
+# rows of the tile's columns),
+# the bf16 product's stages and stage bytes, the fold products' k a step and
+# the bf16 product's mbarriers (static shared memory)
+TILE_PAIRS, EPI_MAX = 128, 128
+_F_STAGES = 4
+_H_STAGES, _H_A_BYTES, _H_BK = 4, 128 * 64 * 2, 64
+_Q_K, _MBARRIERS = 32, 2 * 4 * 8
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def tiled_fold(variant: str, d: int, n_head: int) -> bool:
+    """Whether the tiled route folds keys and values: kernel A from a head
+    width of 8 (fusion_tiled.cuh Layout::FOLD). Below it the fold saves
+    less than a factor of 8 and its folded keys take B N D^2 / dh floats;
+    kernel B never folds (its bf16 rounding of mem before Wk and Wv is what
+    the JAX bf16 mode computes)."""
+    return variant == "float32" and d // n_head >= 8
+
+
+def kernel_names(variant: str, d: int, e: int, n_head: int) -> tuple:
+    """The library's kernels, in the order its attrs function reports them
+    (kernels_of in csrc/fusion_attention*.cu)."""
+    bf = variant == "bfloat16"
+    if kernel_layout(d, e, n_head) == "resident":
+        return (("token_proj bf16 node", "token_proj float32 node", "main bf16 edge",
+                 "main float32 edge", "out_proj") if bf else ("token_proj", "main", "out_proj"))
+    # kernel A's per-token products run on token products, kernel B's on
+    # the per-token kernels of the resident layout
+    names = ["token_proj bf16 node", "token_proj float32 node", "cast bf16 edge",
+             "cast float32 edge"] if bf else ["token_proj"]
+    fold = tiled_fold(variant, d, n_head)
+    if fold:
+        names.append("fold_keys")
+    names.append("product memory")
+    if d > EPI_MAX:
+        names.append("memory pass")
+    if e <= EPI_MAX:
+        names += ["product edge bf16 edge", "product edge float32 edge"] if bf else \
+            ["product edge"]
+    else:
+        names += ["product edge"] + (["edge pass bf16 edge", "edge pass float32 edge"] if bf
+                                     else ["edge pass"])
+    if fold:
+        names += ["logits fold", "softmax", "context fold", "fold_values"]
+    elif logits_epilogue(variant, d, n_head):
+        names += ["product keys", "product values", "softmax", "attention"]
+    else:
+        names += ["product keys, values", "logits", "softmax", "attention"]
+    return tuple(names + ["out_proj"])
+
+
+def logits_epilogue(variant: str, d: int, n_head: int) -> bool:
+    """Whether the tiled route's key product writes the logits in its
+    epilogue (fusion_tiled.cuh Layout::EPI_LOGITS_OK): unfolded, where no
+    head straddles two tiles (bf16: the head width divides the tile's 64 or
+    128 columns; float32: it divides a thread's 4 adjacent columns). Else
+    the key product writes k and a pass takes the logits from it."""
+    dh = d // n_head
+    if variant == "bfloat16":
+        return (64 if d <= 64 else 128) % dh == 0
+    return not tiled_fold(variant, d, n_head) and 4 % dh == 0
 
 
 def kernel_smem(variant: str, d: int, e: int, n_head: int) -> SmemLayout:
@@ -276,23 +346,50 @@ def kernel_smem(variant: str, d: int, e: int, n_head: int) -> SmemLayout:
             tj = 4 if n_head * d > 1024 else 8
             r = 8 * tj
             dynamic = 4 * (2 * e * d + 2 * r * max(d, e) + tj * n_head * d + r * n_head)
-        return SmemLayout(layout, "resident", tj, dynamic, (token_proj, 12 * tj, out_proj), 0)
-    kq = 16 if bf else 4
-    xw = max(_round_up(d, kq), _round_up(e, kq))
-    ldx_bytes = (xw + (8 if bf else 4)) * (2 if bf else 4)
-    lds = _round_up(max(d, e), 4) + 4
-    w_bytes = 128 * (32 + 8) * 2 if bf else 32 * 128 * 4
-    d_o = _round_up(d, 4)
+        # token_proj, the main kernel (its column offsets), out_proj
+        static = (token_proj, 12 * tj, out_proj)
+        return SmemLayout(layout, "resident", tj, dynamic, static, 0, fold, (), "", ())
+    fold = tiled_fold(variant, d, n_head)
+    epi_mem, epi_edge = d <= EPI_MAX, e <= EPI_MAX
+    bn_d = 64 if d <= 64 else 128
+    bn_e = 64 if e <= 64 else 128
+    bn = max(bn_d, bn_e)
+    ldm = _round_up(max(d, e), 8) if bf else _round_up(d, 4)
+    need_s = not epi_mem or not epi_edge or not fold
+    pair_bytes = (_round_up(max(d, e), 4) * 4 if need_s else 0, ldm * (2 if bf else 4),
+                  n_head * 4)
+    dynamic = (_H_STAGES * (_H_A_BYTES + _H_BK * bn * 2) + 1024) if bf else \
+        _F_STAGES * (TILE_PAIRS * 20 + 16 * bn) * 4
+    # the per-token products: tiles of 64 rows by the least of 8, 16, 32, 64
+    # columns that holds the heads (the fold's logits and context), the
+    # columns of a head (the folded values) or D (the folded keys, sp, tp,
+    # q and the output product); _Q_K k a step, each row padded by 4 floats
+    def fold_static(cols):
+        tn = next(t for t in (8, 16, 32, 64) if cols <= t or t == 64)
+        return _Q_K * (64 + 4) * 4 + _Q_K * (tn + 4) * 4
 
-    def block(tj):
-        return (_round_up(8 * tj * ldx_bytes, 16) + 8 * tj * lds * 4 + 2 * w_bytes
-                + 2 * tj * d_o * 4 + 8 * tj * n_head * 4 + 3 * tj * n_head * 4)
+    per_kernel = {"token_proj": fold_static(d), "out_proj": out_proj if bf else fold_static(d),
+                  "token_proj bf16 node": token_proj, "token_proj float32 node": token_proj,
+                  "logits fold": fold_static(n_head), "context fold": fold_static(n_head),
+                  "fold_keys": fold_static(d), "fold_values": fold_static(d // n_head)}
+    static = tuple(per_kernel.get(k, _MBARRIERS if bf and k.startswith("product") else 0)
+                   for k in kernel_names(variant, d, e, n_head))
+    return SmemLayout(layout, "epilogue" if epi_mem else "row pass", 0, dynamic, static,
+                      sum(pair_bytes), fold, (TILE_PAIRS, bn, _H_STAGES if bf else _F_STAGES),
+                      "epilogue" if epi_edge else "row pass", pair_bytes)
 
-    tj = next((t for t in (8, 4, 2, 1) if block(t) <= SMEM_BUDGET), 0)
-    if tj:
-        return SmemLayout(layout, "shared", tj, block(tj), (token_proj, 12 * tj, out_proj), 0)
-    return SmemLayout(layout, "staged", 1, 2 * w_bytes, (token_proj, 12, out_proj),
-                      _round_up(block(1), 256))
+
+def pair_scratch_bytes(variant: str, d: int, e: int, n_head: int, batch: int, n: int) -> int:
+    """Bytes of the tiled route's pair scratch for a call over B = batch
+    scenes of n nodes (B n^2 pairs, B n tokens): S, M and L a pair and the
+    softmax statistics (8 bytes a token and head), each 256-byte aligned, as
+    tiled::pair_scratch_bytes computes it; 0 in the resident layout."""
+    pair_bytes = kernel_smem(variant, d, e, n_head).pair_bytes
+    if not pair_bytes:
+        return 0
+    pairs, tokens = batch * n * n, batch * n
+    return sum(_round_up(pairs * x, 256) for x in pair_bytes) + \
+        _round_up(tokens * n_head * 8, 256)
 
 
 def check_domain(d: int, e: int, n_head: int) -> None:
@@ -374,10 +471,9 @@ _ENTRY = {"float32": "fused_edge_attention_f32", "bfloat16": "fused_edge_attenti
 _SHAPE_FN = {"float32": "fused_edge_attention_shape",
              "bfloat16": "fused_edge_attention_bf16_shape"}
 _ATTRS_FN = {"float32": "fused_edge_attention_attrs", "bfloat16": "fused_edge_attention_bf16_attrs"}
-# each library's kernels, in the order its attrs function reports them
-KERNEL_NAMES = {"float32": ("token_proj", "main", "out_proj"),
-                "bfloat16": ("token_proj bf16 node", "token_proj float32 node", "main bf16 edge",
-                             "main float32 edge", "out_proj")}
+_SCRATCH_FN = {"float32": "fused_edge_attention_scratch",
+               "bfloat16": "fused_edge_attention_bf16_scratch"}
+_MAX_KERNELS = 16
 _LIBS = {}   # (variant, shape) -> loaded library
 
 
@@ -385,16 +481,32 @@ def _load(variant, shape, path):
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, _ENTRY[variant])
     fn.argtypes, fn.restype = _ARGTYPES[variant], ctypes.c_int
-    built = (ctypes.c_int * 7)()
+    built = (ctypes.c_int * 14)()
     getattr(lib, _SHAPE_FN[variant])(built)
     if tuple(built[:3]) != shape:
         raise RuntimeError(f"{path.name} is built for {tuple(built[:3])}, not {shape}")
-    lib.smem_bytes, lib.tj, lib.scratch_bytes = built[3], built[5], built[6]
+    # {bytes, 0 resident / 1 tiled, columns a block, fold, tile rows, tile
+    # columns, stages, epilogue LayerNorms (1 memory, 2 edge), S, M, L a pair}
+    (lib.smem_bytes, layout, lib.tj, fold, rows, cols, stages, epi, *pair) = built[3:]
+    lib.pair_bytes, lib.scratch_bytes = tuple(pair), sum(pair)
     mirror = kernel_smem(variant, *shape)
-    own = (("resident", "tiled")[built[4]], built[5], built[3], built[6])
-    if own != (mirror.layout, mirror.tj, mirror.dynamic, mirror.scratch):
+    own = (("resident", "tiled")[layout], lib.tj, lib.smem_bytes, bool(fold),
+           (rows, cols, stages) if layout else (), lib.pair_bytes if layout else (),
+           (("row pass", "epilogue")[epi & 1], ("row pass", "epilogue")[epi >> 1])
+           if layout else ("resident", ""))
+    want = (mirror.layout, mirror.tj, mirror.dynamic, mirror.fold, mirror.tile,
+            mirror.pair_bytes, (mirror.regime, mirror.edge_ln))
+    if own != want:
         raise RuntimeError(f"{path.name}'s layout (layout, columns a block, shared memory, "
-                           f"scratch a block) {own} is not its mirror's {mirror}")
+                           f"fold, tile, scratch a pair, LayerNorms) {own} is not its "
+                           f"mirror's {want}")
+    scratch_fn = getattr(lib, _SCRATCH_FN[variant])
+    scratch_fn.argtypes, scratch_fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
+    for b, n in ((1, 1), (3, 40), (8, 129)):
+        if scratch_fn(b, n) != pair_scratch_bytes(variant, *shape, b, n):
+            raise RuntimeError(f"{path.name}'s pair scratch at B = {b}, N = {n} is "
+                               f"{scratch_fn(b, n)} B, its mirror's "
+                               f"{pair_scratch_bytes(variant, *shape, b, n)}")
     _LIBS[(variant, shape)] = lib
     return lib
 
@@ -430,27 +542,32 @@ def kernel_library(variant: str, shape) -> ctypes.CDLL:
 
 def kernel_attrs(variant: str, shape) -> dict:
     """{kernel: {"static", "local", "regs"}} of the library of `variant` at
-    `shape` (built and loaded at first use): each kernel's static shared
-    memory, local memory (spills and stack) in bytes and registers a
-    thread, as cudaFuncGetAttributes gives them. Needs a card."""
+    `shape` (built and loaded at first use), named by kernel_names: each
+    kernel's static shared memory, local memory (spills and stack) in bytes
+    and registers a thread, as cudaFuncGetAttributes gives them. Needs a
+    card."""
     lib = kernel_library(variant, shape)
-    names = KERNEL_NAMES[variant]
-    out = (ctypes.c_int * (3 * len(names)))()
-    err = getattr(lib, _ATTRS_FN[variant])(out)
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
+    names = kernel_names(variant, *shape)
+    out = (ctypes.c_int * (3 * _MAX_KERNELS))()
+    count = getattr(lib, _ATTRS_FN[variant])(out)
+    if count < 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {-count}")
+    if count != len(names):
+        raise RuntimeError(f"the library reports {count} kernels, its mirror names {names}")
     return {k: {"static": out[3 * i], "local": out[3 * i + 1], "regs": out[3 * i + 2]}
             for i, k in enumerate(names)}
 
 
-def _scratch(lib, cols, dev):
-    """The staged tiled layout's global scratch for a call over `cols`
-    (scene, target) columns (SCRATCH_BYTES for each of its blocks), or None
-    where the library's rows lie in shared memory."""
+def _scratch(lib, batch, n, dev):
+    """The tiled route's pair scratch for a call over `batch` scenes of `n`
+    nodes (pair_scratch_bytes, which the loader held the library to), or
+    None where the library has none (the resident layout)."""
     if not lib.scratch_bytes:
         return None
-    blocks = min(-(-cols // lib.tj), GRID_CAP)
-    return torch.empty(blocks * lib.scratch_bytes, dtype=torch.uint8, device=dev)
+    pairs, tokens = batch * n * n, batch * n
+    nbytes = sum(_round_up(pairs * x, 256) for x in lib.pair_bytes) + \
+        _round_up(tokens * lib.pair_bytes[2] * 2, 256)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def _check(name, t, shape, dtypes, device):
@@ -505,6 +622,10 @@ def _raise_for(err, lib, variant):
     if err == -1:   # ERR_SMEM: nothing was launched
         raise ValueError(f"fused_edge_attention ({variant}): the layout's {lib.smem_bytes} B "
                          f"of shared memory exceed this device's opt-in limit")
+    if err == -2:   # ERR_TMA: the pair steps were not launched
+        raise RuntimeError(f"fused_edge_attention ({variant}): a TMA tensor map could not be "
+                           f"encoded (libcuda has no cuTensorMapEncodeTiled, or it refused "
+                           f"the map)")
     if err != 0:
         raise RuntimeError(f"fused_edge_attention ({variant}) launch failed: CUDA error {err}")
 
@@ -522,12 +643,13 @@ def _launch_f32(node, edge, key_mask, w, n_head, update_edge):
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     out = new(B, N, D)
     edge_out = torch.empty_like(edge) if update_edge else edge
-    # scratch of the call's three launches: per-token projections, then the
-    # folded keys and per-head softmax-weighted memory (resident), or q and
-    # the attention sum (tiled)
-    per_token = (n_head, D) if kernel_layout(D, E, n_head) == "resident" else (D,)
+    # per-token scratch of the call: projections, then the folded keys and
+    # per-head softmax-weighted memory where it folds, or q and the
+    # attention sum; the tiled route's pair scratch
+    fold = kernel_layout(D, E, n_head) == "resident" or tiled_fold("float32", D, n_head)
+    per_token = (n_head, D) if fold else (D,)
     sp, tp, qk, ctx = new(B * N, D), new(B * N, D), new(B * N, *per_token), new(B * N, *per_token)
-    scratch = _scratch(lib, B * N, dev)
+    scratch = _scratch(lib, B, N, dev)
     # the launch and its cudaFuncSetAttribute apply to the current device:
     # make it the tensors' one
     with torch.cuda.device(dev):
@@ -554,7 +676,7 @@ def _launch_bf16(node, edge, key_mask, w, n_head, update_edge):
     write_cast = not update_edge and edge.dtype != f32
     edge_out = new(B, N, N, E) if update_edge or write_cast else edge
     sp, tp, q, attn = (new(B * N, D) for _ in range(4))
-    scratch = _scratch(lib, B * N, dev)
+    scratch = _scratch(lib, B, N, dev)
     with torch.cuda.device(dev):   # as in _launch_f32
         err = lib.fused_edge_attention_bf16(
             node.data_ptr(), int(node.dtype == bf16), edge.data_ptr(), int(edge.dtype == bf16),

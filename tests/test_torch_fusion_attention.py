@@ -244,7 +244,7 @@ class _StubLibrary:
     """Stands in for a built kernel library on the CPU: records, at each
     launch, the device the caller made current and the stream it passed.
     Its layout is one whose rows lie in shared memory (no scratch), as the
-    loader records it on a library (columns a block, scratch a block)."""
+    loader records it on a library (columns a block, scratch a pair)."""
 
     tj, scratch_bytes = 8, 0
 

@@ -1,7 +1,8 @@
 """The fused edge-attention core with no width ceiling: D and E past 512 and
-more than 64 heads, which the card's kernels take in the tiled layout
-(csrc/fusion_tiled.cuh) at any width, staging a block's rows in global
-scratch where they do not fit its shared memory.
+more than 64 heads, which the card's kernels take in the tiled route
+(csrc/fusion_tiled.cuh) at any width: pair tiles whose shared memory does
+not grow with the width, their intermediates in a pair scratch the wrapper
+allocates per call.
 
 On the CPU: both plain versions against the Pallas kernel in interpret mode
 (as tests/test_torch_fusion_wide.py runs it) at four shapes past 512 or past
@@ -10,8 +11,8 @@ JAX function's); the layout mirror `kernel_smem` over a grid of widths to
 16,384 and every head layout, and at the shapes the card ran before; the
 768-wide network loading the JAX parameters strictly and computing the JAX
 forward. On the card (cuda-marked, skipped here): both kernels against their
-plain versions at chip_smoke.py's new shapes, and a batch against its
-slices past two columns a block."""
+plain versions at chip_smoke.py's shapes past 512, and a batch against its
+slices at 1376 wide."""
 
 import functools
 
@@ -115,9 +116,9 @@ def _divisors(d):
     return sorted(set(small + [d // h for h in small]))
 
 
-# widths to 16,384: the narrowest, the resident top, past each regime's edge
-# (one block of 8, 4, 2, 1 columns in shared memory, then staged rows), odd
-# and ragged ones
+# widths to 16,384: the narrowest, the resident top, each side of the
+# epilogue LayerNorms' 128, the former column-block regimes' edges, odd and
+# ragged ones
 MIRROR_WIDTHS = (1, 7, 16, 100, 128, 129, 512, 513, 640, 1000, 1024, 1376, 2048, 2750,
                  3000, 3750, 4096, 6000, 8192, 12000, 12345, 16384)
 
@@ -125,8 +126,13 @@ MIRROR_WIDTHS = (1, 7, 16, 100, 128, 129, 512, 513, 640, 1000, 1024, 1376, 2048,
 def test_layout_mirror_fits_every_width_to_16384():
     """Every (D, E, heads) of the grid, in both variants, gets a layout whose
     dynamic shared memory stays within the card's 231,424 B and each
-    kernel's static shared memory within 48 KB; a staged layout takes the
-    two weight slices alone in shared memory and its rows in scratch."""
+    kernel's static shared memory within 48 KB, one static entry a kernel
+    the library reports; a tiled library takes 128-pair tiles in 4 stages
+    whatever the width (128 columns, 64 for a library no wider than 64),
+    folds where kernel A's head width is at least 8, runs a LayerNorm
+    in an epilogue up to 128 wide, and keeps a pair scratch a pair of its
+    float32 products (absent where it folds with both LayerNorms in
+    epilogues), its memory rows and its logits."""
     seen = set()
     for d in MIRROR_WIDTHS:
         divs = _divisors(d)
@@ -135,24 +141,40 @@ def test_layout_mirror_fits_every_width_to_16384():
             for h in heads:
                 for variant in tfa.VARIANTS:
                     m = tfa.kernel_smem(variant, d, e, h)
+                    bf = variant == "bfloat16"
                     assert m.dynamic <= tfa.SMEM_BUDGET == 231424, (variant, d, e, h, m)
-                    assert all(0 < x <= tfa.STATIC_LIMIT == 49152 for x in m.static)
-                    assert m.tj in (1, 2, 4, 8)
-                    if m.regime == "staged":
-                        assert m.tj == 1 and m.scratch >= m.dynamic and m.scratch % 256 == 0
-                        assert m.dynamic == (20480 if variant == "bfloat16" else 32768)
-                    else:
-                        assert m.scratch == 0
-                    seen.add((variant, m.regime, m.tj))
-    # the grid reaches every regime of both variants
+                    assert all(0 <= x <= tfa.STATIC_LIMIT == 49152 for x in m.static)
+                    assert len(m.static) == (len(tfa.kernel_names(variant, d, e, h))
+                                             if m.layout == "tiled" else 3)
+                    if m.layout == "resident":
+                        assert m.regime == "resident" and m.scratch == 0 and m.tj in (4, 8)
+                        seen.add((variant, "resident", m.fold))
+                        continue
+                    wide = max(d, e) > 64
+                    assert m.tile == (128, 128 if wide else 64, 4) and m.tj == 0
+                    assert m.dynamic == ((132096 if wide else 99328) if bf else
+                                         (73728 if wide else 57344))
+                    assert m.fold == (not bf and d // h >= 8)
+                    assert m.regime == ("epilogue" if d <= 128 else "row pass")
+                    assert m.edge_ln == ("epilogue" if e <= 128 else "row pass")
+                    s_bytes, m_bytes, l_bytes = m.pair_bytes
+                    assert m.scratch == s_bytes + m_bytes + l_bytes and l_bytes == 4 * h
+                    assert (s_bytes == 0) == (m.fold and d <= 128 and e <= 128)
+                    assert m_bytes == (2 * -(-max(d, e) // 8) * 8 if bf else 4 * -(-d // 4) * 4)
+                    seen.add((variant, m.fold, m.regime, m.edge_ln))
+    # the grid reaches every route of both variants
     for variant in tfa.VARIANTS:
-        assert {(r, t) for v, r, t in seen if v == variant} >= {
-            ("resident", 8), ("shared", 8), ("shared", 4), ("shared", 2), ("shared", 1),
-            ("staged", 1)}
+        folds = (True, False) if variant == "float32" else (False,)
+        want = {(f, r, g) for f in folds for r in ("epilogue", "row pass")
+                for g in ("epilogue", "row pass")}
+        assert {k[1:] for k in seen if k[0] == variant and len(k) == 4} >= want
+        assert (variant, "resident", variant == "float32") in seen
 
 
 # (variant, D, E, heads) -> (layout, columns a block, dynamic bytes): every
-# shape the card ran before this slice, as its libraries were built then
+# shape the card ran before this slice; the resident libraries as they were
+# built then, the tiled ones in the pair-tile design (no columns a block:
+# 128-pair tiles, the largest product's shared memory)
 CARD_BEFORE = {
     ("float32", 128, 128, 8): ("resident", 8, 231424),
     ("float32", 32, 32, 4): ("resident", 8, 29696),
@@ -161,15 +183,15 @@ CARD_BEFORE = {
     ("float32", 16, 16, 2): ("resident", 8, 11776),
     ("float32", 128, 64, 8): ("resident", 8, 165888),
     ("float32", 128, 128, 16): ("resident", 4, 198656),
-    ("float32", 256, 256, 8): ("tiled", 8, 185088),
-    ("float32", 512, 512, 16): ("tiled", 4, 184064),
-    ("float32", 512, 256, 64): ("tiled", 4, 192512),
-    ("float32", 160, 512, 20): ("tiled", 4, 173504),
-    ("float32", 130, 130, 10): ("tiled", 8, 114368),
-    ("float32", 72, 40, 6): ("tiled", 8, 78400),
-    ("float32", 36, 20, 6): ("tiled", 8, 57664),
-    ("float32", 64, 64, 32): ("tiled", 8, 82944),
-    ("float32", 12, 7, 3): ("tiled", 8, 42784),
+    ("float32", 256, 256, 8): ("tiled", 0, 73728),
+    ("float32", 512, 512, 16): ("tiled", 0, 73728),
+    ("float32", 512, 256, 64): ("tiled", 0, 73728),
+    ("float32", 160, 512, 20): ("tiled", 0, 73728),
+    ("float32", 130, 130, 10): ("tiled", 0, 73728),
+    ("float32", 72, 40, 6): ("tiled", 0, 73728),
+    ("float32", 36, 20, 6): ("tiled", 0, 57344),
+    ("float32", 64, 64, 32): ("tiled", 0, 57344),
+    ("float32", 12, 7, 3): ("tiled", 0, 57344),
     ("bfloat16", 128, 128, 8): ("resident", 8, 229376),
     ("bfloat16", 32, 32, 4): ("resident", 8, 32768),
     ("bfloat16", 64, 32, 4): ("resident", 8, 59392),
@@ -177,57 +199,89 @@ CARD_BEFORE = {
     ("bfloat16", 16, 16, 2): ("resident", 8, 14336),
     ("bfloat16", 128, 64, 8): ("resident", 8, 167936),
     ("bfloat16", 128, 128, 16): ("resident", 8, 229376),
-    ("bfloat16", 256, 256, 8): ("tiled", 8, 140032),
-    ("bfloat16", 512, 512, 16): ("tiled", 4, 139008),
-    ("bfloat16", 512, 256, 64): ("tiled", 4, 147456),
-    ("bfloat16", 160, 512, 20): ("tiled", 4, 128448),
-    ("bfloat16", 130, 130, 10): ("tiled", 8, 86720),
-    ("bfloat16", 72, 40, 6): ("tiled", 8, 57920),
-    ("bfloat16", 36, 20, 6): ("tiled", 8, 42304),
-    ("bfloat16", 64, 64, 32): ("tiled", 8, 62464),
-    ("bfloat16", 12, 7, 3): ("tiled", 8, 29472),
+    ("bfloat16", 256, 256, 8): ("tiled", 0, 132096),
+    ("bfloat16", 512, 512, 16): ("tiled", 0, 132096),
+    ("bfloat16", 512, 256, 64): ("tiled", 0, 132096),
+    ("bfloat16", 160, 512, 20): ("tiled", 0, 132096),
+    ("bfloat16", 130, 130, 10): ("tiled", 0, 132096),
+    ("bfloat16", 72, 40, 6): ("tiled", 0, 132096),
+    ("bfloat16", 36, 20, 6): ("tiled", 0, 99328),
+    ("bfloat16", 64, 64, 32): ("tiled", 0, 99328),
+    ("bfloat16", 12, 7, 3): ("tiled", 0, 99328),
 }
 
 
 @pytest.mark.parametrize("variant,d,e,heads", sorted(CARD_BEFORE))
 def test_shapes_on_the_card_keep_their_layout(variant, d, e, heads):
-    """The resident and tiled shapes the card ran before keep their layout,
-    columns a block and bytes, and their per-token kernels a block of 8
-    tokens over the whole row (one column block, one chunk of k)."""
+    """The resident shapes the card ran before keep their layout, columns a
+    block and bytes, and their per-token kernels a block of 8 tokens over
+    the whole row (one column block, one chunk of k); the tiled ones take
+    the pair-tile design's, their per-token products in tiles of 64 tokens."""
     m = tfa.kernel_smem(variant, d, e, heads)
     assert (m.layout, m.tj, m.dynamic) == CARD_BEFORE[(variant, d, e, heads)]
-    assert m.regime in ("resident", "shared") and m.scratch == 0
     assert tfa.kernel_layout(d, e, heads) == m.layout
     dp = -(-d // 16) * 16
     fold = m.layout == "resident" and variant == "float32"
-    assert m.static[0] == 8 * dp * 4 * (2 if fold else 1) and m.static[1] == 12 * m.tj
+    if m.layout == "resident":
+        assert m.static[0] == 8 * dp * 4 * (2 if fold else 1)
+        assert m.regime == "resident" and m.scratch == 0 and m.static[1] == 12 * m.tj
+    elif variant == "float32":
+        # the per-token products' tiles: 64 tokens by 64 columns (fewer
+        # columns below 64 wide), 32 k a step
+        tn = next(t for t in (8, 16, 32, 64) if d <= t or t == 64)
+        assert m.static[0] == m.static[-1] == 32 * 68 * 4 + 32 * (tn + 4) * 4
+    else:
+        # kernel B's per-token kernels: 8 tokens a block, as resident
+        assert m.static[0] == m.static[1] == m.static[-1] == 8 * dp * 4
+    if m.layout == "tiled":
+        assert m.regime in ("epilogue", "row pass") and m.scratch == sum(m.pair_bytes) > 0
 
 
-@pytest.mark.parametrize("variant,d,e,heads,regime,tj", [
-    ("float32", 640, 640, 10, "shared", 4), ("bfloat16", 640, 640, 10, "shared", 4),
-    ("float32", 768, 768, 12, "shared", 2), ("bfloat16", 768, 768, 12, "shared", 4),
-    ("float32", 1376, 1376, 8, "shared", 1), ("bfloat16", 1376, 1376, 8, "shared", 2),
-    ("float32", 1056, 1056, 1056, "shared", 1), ("bfloat16", 1056, 1056, 1056, "shared", 1),
-    ("float32", 2048, 2048, 16, "shared", 1), ("bfloat16", 2048, 2048, 16, "shared", 1),
-    ("float32", 8192, 256, 64, "staged", 1), ("bfloat16", 8192, 256, 64, "staged", 1)])
-def test_new_card_shapes_reach_their_regimes(variant, d, e, heads, regime, tj):
-    """chip_smoke.py's new shapes reach the regimes they are there for: the
-    first float32 block of one column at 1376, bf16's at 1056 heads of width
-    1, both past two columns at 2048, and rows staged in scratch at 8192."""
+@pytest.mark.parametrize("variant,d,e,heads,fold,regime,edge_ln", [
+    ("float32", 768, 768, 12, True, "row pass", "row pass"),
+    ("bfloat16", 768, 768, 12, False, "row pass", "row pass"),
+    ("float32", 1056, 1056, 1056, False, "row pass", "row pass"),
+    ("bfloat16", 1056, 1056, 1056, False, "row pass", "row pass"),
+    ("float32", 72, 40, 6, True, "epilogue", "epilogue"),
+    ("bfloat16", 72, 40, 6, False, "epilogue", "epilogue"),
+    ("float32", 64, 64, 32, False, "epilogue", "epilogue"),
+    ("bfloat16", 64, 64, 32, False, "epilogue", "epilogue"),
+    ("float32", 128, 144, 8, True, "epilogue", "row pass"),
+    ("bfloat16", 128, 144, 8, False, "epilogue", "row pass"),
+    ("float32", 8192, 256, 64, True, "row pass", "row pass"),
+    ("bfloat16", 8192, 256, 64, False, "row pass", "row pass")])
+def test_new_card_shapes_reach_their_regimes(variant, d, e, heads, fold, regime, edge_ln):
+    """Shapes of chip_smoke.py reach the routes they are there for: the
+    768-wide network folded in A and not in B, head width 1 unfolded in
+    both, the ragged network and head width 2 with every LayerNorm in an
+    epilogue, an edge wider than a tile beside a node row that fits one,
+    and 8192 wide in row passes."""
     m = tfa.kernel_smem(variant, d, e, heads)
-    assert (m.layout, m.regime, m.tj) == ("tiled", regime, tj)
+    assert (m.layout, m.fold, m.regime, m.edge_ln) == ("tiled", fold, regime, edge_ln)
+    assert m.tile[0] == tfa.TILE_PAIRS == 128 and m.tile[2] == 4
 
 
 def test_staged_scratch_a_call():
-    """The staged launch's scratch: a slot a block for at most GRID_CAP
-    blocks, whatever the batch."""
-    class Lib:
-        tj, scratch_bytes = 1, tfa.kernel_smem("float32", 8192, 256, 64).scratch
+    """The pair scratch of a call: three 256-byte aligned buffers of B N^2
+    pairs each (the float32 product rows, the memory rows, the logits) and
+    the softmax statistics of B N tokens, as the wrapper allocates it from
+    the library's bytes a pair; none in the resident layout."""
+    for variant, shape in (("float32", (8192, 256, 64)), ("bfloat16", (768, 768, 12)),
+                           ("float32", (72, 40, 6))):
+        m = tfa.kernel_smem(variant, *shape)
 
-    assert tfa._scratch(Lib, 33, "cpu").numel() == 33 * Lib.scratch_bytes
-    assert tfa._scratch(Lib, 8 * 129, "cpu").numel() == tfa.GRID_CAP * Lib.scratch_bytes
+        class Lib:
+            pair_bytes, scratch_bytes = m.pair_bytes, m.scratch
+
+        for b, n in ((1, 33), (8, 129), (3, 40)):
+            pairs = b * n * n
+            want = sum(-(-pairs * x // 256) * 256 for x in m.pair_bytes) \
+                + -(-b * n * shape[2] * 8 // 256) * 256
+            assert tfa.pair_scratch_bytes(variant, *shape, b, n) == want
+            assert tfa._scratch(Lib, b, n, "cpu").numel() == want
     Lib.scratch_bytes = 0
-    assert tfa._scratch(Lib, 33, "cpu") is None
+    assert tfa._scratch(Lib, 8, 129, "cpu") is None
+    assert tfa.pair_scratch_bytes("float32", 128, 128, 8, 8, 129) == 0
 
 
 def test_wider_network_loads_jax_params_and_matches_flax():
@@ -296,7 +350,7 @@ def test_cuda_kernels_match_plain_past_512(d, e, heads, b, n):
 @pytest.mark.cuda
 def test_cuda_batch_gap_past_two_columns():
     """32 nodes compute what each 8 of them compute alone, to the bit, in
-    both kernels, at 1376 / 1376 / 8 (kernel A one column a block)."""
+    both kernels, at 1376 / 1376 / 8 (every LayerNorm in a row pass)."""
     dev = _card()
     d, e, heads, B, S = 1376, 1376, 8, 8, 4
     w, node, edge, mask = _card_inputs(d, e, S * B, 33, dev, seed=7)

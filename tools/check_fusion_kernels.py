@@ -2,28 +2,35 @@
 PyTorch version on the GPU, then time them.
 
     python3 tools/check_fusion_kernels.py [--reps 20] [--no-time] [--profile]
-        [--shape D,E,HEADS ...] [--grid] [--weights auto|fan_in|unscaled]
+        [--products] [--shape D,E,HEADS ...] [--grid] [--weights auto|fan_in|unscaled]
 
 Prints each library's build seconds and nvcc's ptxas report (registers,
 spills, shared memory), its layout against the Python mirror
-(fusion_attention.py::kernel_smem: regime, columns a block, dynamic and
-static shared memory, scratch) and each kernel's local memory, the max abs
-error of each variant at the shape's B and N (chip_smoke.py::widths_batch:
-B = 8, N = 129 up to 1024 wide, B = 2 up to 2048, B = 1, N = 33 above) and
-at a ragged smaller call for both update_edge values (and both node and edge
-types of the bf16 variant), and the time per call from CUDA events, at each
-(D, E, heads) asked for: the full width 128,128,8 by default, the full width
-and chip_smoke.py's widths grid with --grid; at B and N, the float32
-plain version's and kernel's errors against the plain version in float64
-beside each output's largest value. `--profile` adds, per variant, the device
-time of each kernel of one call (prologue, main, epilogue and the wrapper's
-own small copies) from torch.profiler. Exits non-zero if a kernel does not build,
-does not launch or misses its tolerance. Needs a CUDA device and nvcc.
+(fusion_attention.py::kernel_smem: the route (fold, tile, stages), where the
+LayerNorms run, dynamic and static shared memory, the pair scratch of a call
+at the shape's B and N) and each kernel's local memory, the max abs error of
+each variant at the shape's B and N (chip_smoke.py::widths_batch: B = 8,
+N = 129 up to 1024 wide, B = 2 up to 2048, B = 1, N = 33 above) and at a
+ragged smaller call for both update_edge values (and both node and edge
+types of the bf16 variant), and the time per call from CUDA events with its
+TFLOP/s (fused_edge_attention_flops) and share of its bound, at each (D, E,
+heads) asked for: the full width 128,128,8 by default, the full width and
+chip_smoke.py's widths grid with --grid; at B and N, the float32 plain
+version's and kernel's errors against the plain version in float64 beside
+each output's largest value. `--products` times each product of the tiled
+route alone (the memory product, the edge update, a key or value product:
+S = X W over the call's B N^2 pairs) against torch.matmul on the same
+operands, with its error and TFLOP/s. `--profile` splits, per variant and
+shape, the device time of one call between the pair products, the row and
+softmax passes and the per-token kernels (torch.profiler). Exits non-zero if
+a kernel does not build, does not launch or misses its tolerance. Needs a
+CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -39,6 +46,74 @@ from mind_tpu_torch.ops import fusion_attention as fa  # noqa: E402
 from mind_tpu_torch.synthetic import fusion_inputs  # noqa: E402
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+TOL_MEAN = 1e-4   # kernel B's mean abs error, as chip_smoke.py holds it
+# the profile's groups of kernels, by name (the first group that matches)
+GROUPS = (("per-token kernels", ("token_proj_kernel", "out_proj_kernel", "TokenProj", "OutProj",
+                                 "FoldKeys", "FoldValues")),
+          ("pair products", ("product_f32", "product_bf16", "edge_attention_f32_kernel",
+                             "edge_attention_bf16_kernel")),
+          ("row passes", ("mem_pass", "edge_pass", "cast_pass", "logits_pass", "softmax_stats",
+                          "attn_pass", "token_product")))
+
+
+def group_of(name):
+    return next((g for g, keys in GROUPS if any(k in name for k in keys)), "other")
+
+
+def bound_ms(variant, b, n, d, e, h, ue, edge_bytes):
+    """The least time of one call on the card (operations or bytes) and what
+    bounds it, as chip_smoke.kernel_cases counts it."""
+    from mind_tpu_torch.utils import device_specs
+
+    pk = device_specs.peaks(torch.cuda.get_device_name(0))
+    flops = fa.fused_edge_attention_flops(b, n, d, ue, variant, h, e=e)
+    if variant == "float32":
+        nbytes, peak = fa.fused_edge_attention_bytes(b, n, d, ue, e=e), pk.f32_flops
+    else:
+        nbytes, peak = fa.fused_edge_attention_bytes(b, n, d, ue, edge_bytes, edge_bytes, 2,
+                                                     e=e), pk.bf16_flops
+    t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / pk.hbm_bytes
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), flops
+
+
+def time_products(d, e, h, b, n, dev, reps):
+    """Each product of the tiled route alone at the call's pairs, against
+    torch.matmul of the same operands: max abs error, ms, TFLOP/s."""
+    rows = b * n * n
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for variant in fa.VARIANTS:
+        lib = fa.kernel_library(variant, (d, e, h))
+        fn = getattr(lib, "fused_edge_attention" + ("" if variant == "float32" else "_bf16")
+                     + "_product")
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        dt = torch.float32 if variant == "float32" else torch.bfloat16
+        for which, (k, nn) in enumerate(((e, d), (d, e), (d, d))):
+            lda = -(-k // 8) * 8
+            x = (torch.randn(rows, lda, generator=g) * 0.5).to(dev, dt)
+            w = (torch.randn(k, nn, generator=g) * (1 / k) ** 0.5).to(dev, dt)
+            c = torch.empty(rows, nn, dtype=torch.float32, device=dev)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def run():
+                err = fn(which, x.data_ptr(), lda, w.data_ptr(), c.data_ptr(), nn, rows, stream)
+                if err != 0:
+                    raise RuntimeError(f"product {which} of {variant} {d}/{e}/{h}: error {err}")
+
+            run()
+            torch.cuda.synchronize()
+            want = x[:, :k].float() @ w.float()
+            err = (c - want).abs().max().item()
+            ms = cs.cuda_time_ms(run, reps)
+            lib_ms = cs.cuda_time_ms(lambda: x[:, :k] @ w, reps)
+            tf = 2 * rows * k * nn / ms / 1e9
+            print(f"product {variant} {d}/{e}/{h} #{which} [{rows} x {k}] x [{k} x {nn}]: "
+                  f"err {err:.3e} (|max| {want.abs().max().item():.3e}) {ms:.4f} ms "
+                  f"{tf:.1f} TFLOP/s; torch.matmul {lib_ms:.4f} ms", flush=True)
+            del x, w, c, want
+            torch.cuda.empty_cache()
+
 
 
 def make_inputs(b, n, dev, variant, edge_dtype, d=128, e=128, fan_in=False):
@@ -57,6 +132,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--no-time", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--products", action="store_true",
+                    help="time each product of the tiled route alone")
     ap.add_argument("--shape", nargs="+", default=["128,128,8"],
                     help="(D, E, heads) as D,E,HEADS")
     ap.add_argument("--grid", action="store_true", help="chip_smoke.py's widths grid")
@@ -78,18 +155,24 @@ def main() -> int:
         print(f"--- nvcc, {lib} ---\n{text.strip()}")
     failed = False
     for d, e, H in shapes:
+        big, n_big = cs.widths_batch(d, e)
         for variant in fa.VARIANTS:
             mirror = fa.kernel_smem(variant, d, e, H)
             lib, attrs = fa.kernel_library(variant, (d, e, H)), fa.kernel_attrs(variant, (d, e, H))
             static = max(a["static"] for a in attrs.values())
             ok = lib.smem_bytes == mirror.dynamic and static == max(mirror.static)
             failed |= not ok
-            print(f"{variant} {d}/{e}/{H}: {mirror.regime}, {lib.tj} columns a block, "
-                  f"shared memory {lib.smem_bytes} B dynamic (mirror {mirror.dynamic}), "
-                  f"{static} B static (mirror {max(mirror.static)}), scratch "
-                  f"{lib.scratch_bytes} B a block; {'ok' if ok else 'FAIL'}; kernels "
-                  f"{json.dumps(attrs)}", flush=True)
-        big, n_big = cs.widths_batch(d, e)
+            route = ("resident, " + f"{lib.tj} columns a block" if mirror.layout == "resident" else
+                     f"tiled, {'fold' if mirror.fold else 'no fold'}, tile {mirror.tile[0]} x "
+                     f"{mirror.tile[1]}, {mirror.tile[2]} stages, memory LayerNorm "
+                     f"{mirror.regime}, edge LayerNorms {mirror.edge_ln}")
+            scratch = fa.pair_scratch_bytes(variant, d, e, H, big, n_big)
+            print(f"{variant} {d}/{e}/{H}: {route}; shared memory {lib.smem_bytes} B dynamic "
+                  f"(mirror {mirror.dynamic}), {static} B static (mirror {max(mirror.static)}), "
+                  f"pair scratch {scratch} B a call at B={big} N={n_big}; "
+                  f"{'ok' if ok else 'FAIL'}; kernels {json.dumps(attrs)}", flush=True)
+        if args.products and fa.kernel_layout(d, e, H) == "tiled":
+            time_products(d, e, H, big, n_big, dev, args.reps)
         fan_in = args.weights == "fan_in" or (args.weights == "auto" and
                                                (max(d, e) > 512 or H > 64))
         for variant, ref in (("float32", fa.fused_edge_attention_ref),
@@ -104,14 +187,17 @@ def main() -> int:
                         out, edge_out = fa.fused_edge_attention(node, edge, mask, w, H, ue)
                         torch.cuda.synchronize()
                         ref_out, ref_edge = ref(node, edge, mask, w, H, ue)
-                        e_out = (out - ref_out).abs().max().item()
-                        e_edge = (edge_out - ref_edge).abs().max().item()
-                        ok = e_out < TOL[variant] and e_edge < TOL[variant]
+                        d_out, d_edge = (out - ref_out).abs(), (edge_out - ref_edge).abs()
+                        e_out, e_edge = d_out.max().item(), d_edge.max().item()
+                        m_out, m_edge = d_out.mean().item(), d_edge.mean().item()
+                        ok = e_out < TOL[variant] and e_edge < TOL[variant] and (
+                            variant == "float32" or max(m_out, m_edge) < TOL_MEAN)
                         failed |= not ok
                         line = (f"{variant} {d}/{e}/{H} B={b} N={n} "
                                 f"node,edge={str(edge_dtype)[6:]} update_edge={ue} "
                                 f"{'fan-in' if fan_in else 'unscaled'} weights: "
                                 f"err out={e_out:.3e} edge={e_edge:.3e} "
+                                f"(mean {m_out:.2e}, {m_edge:.2e}) "
                                 f"max|out|={ref_out.abs().max().item():.3e} "
                                 f"{'ok' if ok else 'FAIL'}")
                         if variant == "float32" and n == n_big:
@@ -128,28 +214,45 @@ def main() -> int:
                             ms = cs.cuda_time_ms(
                                 lambda: fa.fused_edge_attention(node, edge, mask, w, H, ue),
                                 args.reps)
-                            line += f" | {ms:.4f} ms per call"
+                            bms, by, flops = bound_ms(variant, b, n, d, e, H, ue,
+                                                      edge.element_size())
+                            line += (f" | {ms:.4f} ms per call, {flops / ms / 1e9:.1f} "
+                                     f"TFLOP/s, bound {bms:.4f} ms by {by}: "
+                                     f"{100 * bms / ms:.1f}% of it")
                         print(line, flush=True)
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
-        d, e, H = shapes[0]
-        for variant in ("float32", "bfloat16"):
-            node, edge, mask, w = make_inputs(8, 129, dev, variant, torch.float32, d, e)
-            for ue in (True, False):
-                fa.fused_edge_attention(node, edge, mask, w, H, ue)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(args.reps):
-                        fa.fused_edge_attention(node, edge, mask, w, H, ue)
+        for d, e, H in shapes:
+            b, n = cs.widths_batch(d, e)
+            for variant in fa.VARIANTS:
+                node, edge, mask, w = make_inputs(b, n, dev, variant, torch.float32, d, e,
+                                                  max(d, e) > 512 or H > 64)
+                for ue in (True, False):
+                    fa.fused_edge_attention(node, edge, mask, w, H, ue)
                     torch.cuda.synchronize()
-                by_name = {}
-                for ev in prof.events():
-                    if ev.device_type == torch.autograd.DeviceType.CUDA:
-                        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-                print(f"profile {variant} update_edge={ue}, us per call:")
-                for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
-                    print(f"  {us / args.reps:9.2f}  {name[:90]}")
+                    reps = max(1, min(args.reps, 5 if max(d, e) > 512 else args.reps))
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(reps):
+                            fa.fused_edge_attention(node, edge, mask, w, H, ue)
+                        torch.cuda.synchronize()
+                    by_name = {}
+                    for ev in prof.events():
+                        if ev.device_type == torch.autograd.DeviceType.CUDA:
+                            by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                                ev.time_range.elapsed_us()
+                    by_group = {}
+                    for name, us in by_name.items():
+                        by_group[group_of(name)] = by_group.get(group_of(name), 0.0) + us
+                    total = sum(by_group.values())
+                    print(f"profile {variant} {d}/{e}/{H} B={b} N={n} update_edge={ue}: "
+                          f"{total / reps:.2f} us of device time a call; "
+                          + ", ".join(f"{g} {us / reps:.2f} us ({100 * us / total:.1f}%)"
+                                      for g, us in sorted(by_group.items(), key=lambda kv: -kv[1])))
+                    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+                        print(f"  {us / reps:9.2f}  {name[:110]}")
+                del node, edge, w
+                torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
