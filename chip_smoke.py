@@ -21,7 +21,8 @@ result line):
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (B = 8 AIME nodes, N = 48 + 80 + 1 = 129 tokens, D = 128) for
      both update_edge values (and both edge input types of the bf16
-     variant), and time both against the card's bound; then both at
+     variant), and time both against the card's bound (each case's median
+     and spread over KERNEL_RUNS runs of 20 calls); then both at
      B = 32 against each slice of 8 alone: equal to the bit (a node
      computes in a batch of scenes what it computes alone); then the
      condition kernel against its plain version any(mask) on masks of 1 to
@@ -455,10 +456,18 @@ RAGGED_NET = dict(d_actor=72, d_lane=72, d_embed=72, d_rpe=40, n_scene_head=6)
 # a network past 512 wide: 12 heads of width 64, the default depth
 WIDER_NET = dict(d_actor=768, d_lane=768, d_embed=768, d_rpe=768, n_scene_head=12)
 WIDTHS_TRAIN_STEPS = 4
-# calls each [widths] case is timed over (20 at the full width), and past
-# 512 wide, where a call takes 7-270 ms, one after no warm-up call but the
-# check's own
+# calls each [widths] case is timed over (20 at the full width) in each of
+# KERNEL_RUNS runs, and past 512 wide, where a call takes 2-17 ms, one
+# after no warm-up call but the check's own
 WIDTHS_REPS, WIDTHS_REPS_UNBOUNDED = 10, 1
+# runs of a kernel case's timing: its median and spread (one run of one call
+# past 512 wide)
+KERNEL_RUNS = 5
+# calls a case's plain version is timed over, after one warm-up call (fewer
+# past 512 wide: WIDTHS_REPS_UNBOUNDED, no warm-up): a time reported beside
+# the kernel's, never checked; 5 in place of the kernel's 20 make up the
+# time the kernel's runs add
+PLAIN_REPS = 5
 # (plan programs): the extra configurations' loops, 26 ticks with the
 # planner on after 0.2 s (3 plans)
 PROGRAM_TICKS = 26
@@ -599,14 +608,26 @@ class TiledBuild:
         self.thread.join()
 
 
+def cuda_time_spread(fn, runs=5, reps=20, warmup=3):
+    """fn's ms a call over `runs` runs of `reps` calls each (CUDA events, as
+    cuda_time_ms), after `warmup` calls: {"ms": the median run, "lo", "hi":
+    the fastest and slowest run, "runs": every run}."""
+    for _ in range(warmup):
+        fn()
+    times = sorted(cuda_time_ms(fn, reps, 0) for _ in range(runs))
+    return {"ms": times[len(times) // 2], "lo": times[0], "hi": times[-1], "runs": times}
+
+
 def net_shape(widths):
     """(D, E, heads) of a [widths] network's fusion core."""
     return (widths["d_embed"], widths["d_rpe"], widths["n_scene_head"])
 
 
-def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20, warmup=3):
-    """One (inputs, update_edge) case: kernel vs plain, and both timed over
-    `reps` calls after `warmup` ones."""
+def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20, warmup=3, runs=1):
+    """One (inputs, update_edge) case: kernel vs plain: the kernel's median
+    ms and spread over `runs` runs of `reps` calls after `warmup` ones
+    (cuda_time_spread), the plain version's ms over PLAIN_REPS of them
+    after one."""
     edge = args[1]
     out, edge_out = fa.fused_edge_attention(*args, H, ue)
     torch.cuda.synchronize()
@@ -618,19 +639,23 @@ def check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps=20, warmup=3):
     d_out, d_edge = (out - ref_out).abs(), (edge_out - ref_edge).abs()
     err = max(d_out.max().item(), d_edge.max().item())
     mean = max(d_out.mean().item(), d_edge.mean().item())
-    ms = cuda_time_ms(lambda: fa.fused_edge_attention(*args, H, ue), reps, warmup)
-    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue), reps, warmup)
+    t = cuda_time_spread(lambda: fa.fused_edge_attention(*args, H, ue), runs, reps, warmup)
+    plain_ms = cuda_time_ms(lambda: ref(*args, H, ue), min(reps, PLAIN_REPS), min(warmup, 1))
     if not (err < tol and mean < tol_mean):
         raise RuntimeError(f"{label}: kernel disagrees with plain: max {err} (tol {tol}), "
                            f"mean {mean} (tol {tol_mean})")
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "mean_abs_err": mean}
+    return {"ms": t["ms"], "ms_lo": t["lo"], "ms_hi": t["hi"], "plain_ms": plain_ms,
+            "max_abs_err": err, "mean_abs_err": mean}
 
 
-def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20, warmup=3, fan_in=False):
+def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20, warmup=3, fan_in=False,
+                 runs=KERNEL_RUNS):
     """Both kernels vs their plain versions at B, N = key_mask.shape, node
     width D, edge width E and H heads, on random inputs with the token mask
     given (the main path's at N = 129): one result per (variant, edge type,
-    update_edge) case, weighted by its launches in one forward: 5 with the
+    update_edge) case, its kernel ms the median of `runs` runs of `reps`
+    calls with their spread (ms_lo, ms_hi), weighted by its launches in one
+    forward: 5 with the
     edge update and 1 without (weights scaled by fan-in with `fan_in`:
     fusion_inputs). In the bf16 variant the first of the 5 reads a bf16 node
     and edge (the encoders' output); the later ones read float32, which is
@@ -664,12 +689,13 @@ def kernel_cases(fa, dev, key_mask, D=128, E=128, H=8, reps=20, warmup=3, fan_in
         label = (f"B={B}{'' if N == 129 else f' N={N}'} {variant} node,edge={edge_type} "
                  f"update_edge={ue}"
                  + ("" if (D, E, H) == (128, 128, 8) else f" D,E,heads={D},{E},{H}"))
-        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps, warmup)
+        r = check_case(fa, ref, args, H, ue, tol, tol_mean, label, reps, warmup, runs)
         t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAKS.hbm_bytes
         r.update(bound_ms=max(t_ops, t_bytes), weight=weight,
                  bound_by="operations" if t_ops > t_bytes else "bytes")
         log(f"[kernel] {label}: max_abs_err={r['max_abs_err']:.3e} "
             f"mean_abs_err={r['mean_abs_err']:.3e} kernel={r['ms']:.4f} ms "
+            f"({r['ms_lo']:.4f}-{r['ms_hi']:.4f} over {runs} runs of {reps}) "
             f"plain={r['plain_ms']:.4f} ms bound={r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
         entries.setdefault(variant, {})[f"edge_{edge_type}_update_{str(ue).lower()}"] = r
@@ -740,12 +766,13 @@ def phase_kernel_check(fa, dev, token_mask, batches=(8, 32, 128)):
                                for r in per_batch[b][variant].values()),
             "ms": mix(by_case, "ms"), "plain_ms": mix(by_case, "plain_ms"),
             "bound_ms": mix(by_case, "bound_ms"),
+            "ms_spread": [mix(by_case, "ms_lo"), mix(by_case, "ms_hi")],
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
             "library_ms": None,
             "shape": f"B={batches[0]} N={token_mask.shape[0]} D=128 heads=8 {variant}",
             "by_case": by_case,
             "by_batch": {str(b): {**{k: mix(per_batch[b][variant], k)
-                                     for k in ("ms", "plain_ms", "bound_ms")},
+                                     for k in ("ms", "ms_lo", "ms_hi", "plain_ms", "bound_ms")},
                                   "max_abs_err": max(r["max_abs_err"] for r in
                                                      per_batch[b][variant].values())}
                          for b in batches},
@@ -758,7 +785,7 @@ def mixed_entry(by_case):
     """One width's kernel table numbers: the forward mix of kernel_cases'
     cases (ms, plain_ms, bound_ms), what bounds it, the largest errors."""
     bound_by = {r["bound_by"] for r in by_case.values() if r["weight"]}
-    return {**{k: mix(by_case, k) for k in ("ms", "plain_ms", "bound_ms")},
+    return {**{k: mix(by_case, k) for k in ("ms", "ms_lo", "ms_hi", "plain_ms", "bound_ms")},
             "bound_by": bound_by.pop() if len(bound_by) == 1 else "bytes",
             "max_abs_err": max(r["max_abs_err"] for r in by_case.values()),
             "mean_abs_err": max(r["mean_abs_err"] for r in by_case.values())}
@@ -796,7 +823,10 @@ def widths_layout(fa, variant, shape):
     mirror = fa.kernel_smem(variant, *shape)
     lib, attrs = fa.kernel_library(variant, shape), fa.kernel_attrs(variant, shape)
     static = max(a["static"] for a in attrs.values())
-    route = ({"layout": "resident", "columns_a_block": lib.tj} if mirror.layout == "resident"
+    route = ({"layout": "resident", "columns_a_block": lib.tj,
+              **({"chunk": list(mirror.tile[:2]), "stages": mirror.tile[2],
+                  "blocks_a_multiprocessor": mirror.blocks} if mirror.tile else {})}
+             if mirror.layout == "resident"
              else {"layout": "tiled", "fold": mirror.fold, "tile": list(mirror.tile[:2]),
                    "stages": mirror.tile[2], "memory_ln": mirror.regime,
                    "edge_ln": mirror.edge_ln})
@@ -836,9 +866,10 @@ def phase_widths_kernels(fa, dev, token_mask):
         B, N = widths_batch(d, e)
         mask = widths_mask(token_mask, N)[None].expand(B, -1).contiguous()
         past = (d, e, h) in WIDTHS_UNBOUNDED
-        reps, warmup = (WIDTHS_REPS_UNBOUNDED, 0) if past else (WIDTHS_REPS, 3)
+        reps, warmup, runs = (WIDTHS_REPS_UNBOUNDED, 0, 1) if past else \
+            (WIDTHS_REPS, 3, KERNEL_RUNS)
         for variant, by_case in kernel_cases(fa, dev, mask, d, e, h, reps, warmup,
-                                             fan_in=past).items():
+                                             fan_in=past, runs=runs).items():
             layout = widths_layout(fa, variant, (d, e, h))
             entry = mixed_entry(by_case)
             by_width[variant][f"{d}/{e}/{h}"] = {**entry, "B": B, "N": N,
@@ -1924,7 +1955,7 @@ def phase_plan_programs(dcfg, fa, loop, loop_sim6, loop_plans6, data_root, card)
         dot = os.path.join(tmp, "aime.dot")
         aime.program.dot(dot)
         text = open(dot).read()
-    kernel_b_nodes = sum("edge_attention_bf16_kernel" in line for line in text.splitlines())
+    kernel_b_nodes = sum("edge_attention_bf16_persistent" in line for line in text.splitlines())
     if kernel_b_nodes != layers * depth:
         raise RuntimeError(f"plan programs: {kernel_b_nodes} kernel B nodes in the AIME "
                            f"program's graph, expected {layers * depth}")
@@ -2343,7 +2374,7 @@ def phase_compiled(dcfg, fa, data_root, loop_ego, eager, eager_summary):
         dot = os.path.join(tmp, "episode.dot")
         prog.program.dot(dot)
         text = open(dot).read()
-    kernel_b_nodes = sum("edge_attention_bf16_kernel" in line for line in text.splitlines())
+    kernel_b_nodes = sum("edge_attention_bf16_persistent" in line for line in text.splitlines())
     # one planning cycle (cycle 10: the planner comes on at tick 50) under
     # the profiler, the program replayed on an 11-cycle schedule
     torch.cuda.synchronize()

@@ -25,7 +25,10 @@ node width D >= 1, edge width E >= 1 and head count that divides D
 picks its layout at compile time (`kernel_layout`): "resident" (D and E
 multiples of 16 from 16 to 128, at most 16 heads of a width that is a
 multiple of 8: the weights stay in shared memory, as for the main path's
-128 / 128 / 8) or "tiled" (every other shape: csrc/fusion_tiled.cuh runs
+128 / 128 / 8; kernel B's main kernel there is persistent, one block a
+multiprocessor walking tiles of 8 columns fed by bulk copies through a ring
+of stages, `resident_schedule` mirrors its order) or "tiled" (every other
+shape: csrc/fusion_tiled.cuh runs
 every per-pair product as one product over all the call's pairs, in tiles of
 128 pairs fed through a ring of shared-memory stages, on wgmma in bf16 and a
 register-tiled FMA product in float32; kernel A folds keys and values from a
@@ -244,6 +247,7 @@ class SmemLayout(NamedTuple):
     edge_ln: str     # tiled: "epilogue" (E <= 128) or "row pass"; resident: ""
     pair_bytes: tuple  # tiled: scratch a pair of S (float32 products), M (memory rows)
     #                    and L (logits): each buffer of a call is 256-byte aligned
+    blocks: int = 0  # kernel B resident: blocks a multiprocessor of its persistent grid
 
 
 # the card's opt-in shared memory a block, less 1 KB
@@ -263,6 +267,88 @@ _Q_K, _MBARRIERS = 32, 2 * 4 * 8
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+# csrc/fusion_attention_bf16.cu: kernel B's resident main kernel. Columns a
+# tile, sources a chunk, a weight's TMA box (64 k rows of 64 columns, bf16),
+# an edge box (a chunk's 64 rows of 128 bytes) and the most stages of its ring
+B_TILE_COLS, B_CHUNK_SOURCES, _B_W_BOX, _B_E_BOX, _B_STAGES_MAX = 8, 8, 64 * 64 * 2, 64 * 128, 4
+
+
+def _layout_b(d: int, e: int, n_head: int) -> tuple:
+    """(dynamic shared memory, stages) of kernel B's resident main kernel,
+    as LayoutB computes them: the four weights in 64 x 64 boxes, the seven
+    LayerNorm and bias vectors in float32, a tile's tp and q rows (padded by
+    8 floats; the softmax merge's scratch after the tile), the stages (the
+    chunk's rows as float32 in edge boxes of 32 columns, and sp of 8 sources
+    in two scenes; 1 KB aligned), an mbarrier each and two more, and 1 KB to
+    align the base; as many stages as fit SMEM_BUDGET, up to 4."""
+
+    def wbytes(k, n):
+        return -(-k // 64) * (_round_up(n, 64) // 64) * _B_W_BOX
+
+    weights = wbytes(e, d) + wbytes(d, e) + 2 * wbytes(d, d)
+    vectors = (2 * d + 5 * e) * 4
+    tile = max(2 * B_TILE_COLS * (d + 8) * 4, 8 * B_TILE_COLS * n_head * 2 * 4)
+    fixed = _round_up(weights + vectors + tile, 1024) + 2 * 8 + 1024
+    per_stage = _round_up(-(-e // 32) * _B_E_BOX + 2 * B_CHUNK_SOURCES * d * 4, 1024) + 8
+    stages = next(s for s in range(_B_STAGES_MAX, 1, -1)
+                  if fixed + s * per_stage <= SMEM_BUDGET)
+    return fixed + stages * per_stage, stages
+
+
+class ResidentTile(NamedTuple):
+    """A tile of kernel B's resident main kernel, as resident_schedule walks it."""
+
+    block: int       # the block that takes it
+    tile: int        # its index: columns 8 tile .. 8 tile + 7 of B N
+    columns: tuple   # its columns below B N, each (scene, target)
+    chunks: tuple    # per chunk (first source, consumer group, stage, the stage's use)
+
+
+def resident_schedule(batch: int, n: int, sms: int = 132, blocks_per_sm: int = 1,
+                      stages: int = 2) -> list:
+    """Kernel B's resident main kernel's static schedule over B = batch
+    scenes of n nodes, on `sms` multiprocessors: the grid of
+    min(tiles, sms * blocks_per_sm) persistent blocks, block k taking tiles
+    k, k + grid, ...; a tile's chunks of 8 sources loaded in order through
+    the block's ring (chunk t of the block's sequence into stage t % stages,
+    its (t // stages)-th use; chunks stages and later by the group that
+    frees the stage) and consumed by group ch % 2. A pure mirror of
+    edge_attention_bf16_persistent's loops: the tests walk it."""
+    cols = batch * n
+    ntiles = -(-cols // B_TILE_COLS)
+    nch = -(-n // B_CHUNK_SOURCES)
+    grid = min(ntiles, sms * blocks_per_sm)
+    out = []
+    for block in range(grid):
+        t = 0
+        for tile in range(block, ntiles, grid):
+            c0 = tile * B_TILE_COLS
+            columns = tuple(divmod(c, n) for c in range(c0, min(c0 + B_TILE_COLS, cols)))
+            chunks = []
+            for ch in range(nch):
+                chunks.append((ch * B_CHUNK_SOURCES, ch % 2, t % stages, t // stages))
+                t += 1
+            out.append(ResidentTile(block, tile, columns, tuple(chunks)))
+    return out
+
+
+def resident_column_plan(n: int) -> tuple:
+    """How kernel B's resident main kernel splits one column's n sources:
+    for each of the 8 consumer warps (4 group + warp), the sources it folds
+    into its online softmax, in order (chunk ch to group ch % 2, sources
+    8 ch + 2 warp and + 1 to warp `warp`); then the merge: warps 0, 2, 4, 6
+    summed in that order, 1, 3, 5, 7 likewise, and the two sums added. A
+    function of n alone, so a column computes the same in any batch."""
+    split = [[] for _ in range(8)]
+    for ch in range(-(-n // B_CHUNK_SOURCES)):
+        for warp in range(4):
+            for hh in range(2):
+                i = ch * B_CHUNK_SOURCES + 2 * warp + hh
+                if i < n:
+                    split[4 * (ch % 2) + warp].append(i)
+    return tuple(tuple(x) for x in split), ((0, 2, 4, 6), (1, 3, 5, 7))
 
 
 def tiled_fold(variant: str, d: int, n_head: int) -> bool:
@@ -338,14 +424,16 @@ def kernel_smem(variant: str, d: int, e: int, n_head: int) -> SmemLayout:
     else:
         out_proj = _TOK * kc * 4
     if layout == "resident":
-        if bf:   # LayoutB: four weights as bf16, two tiles, the raw chunks or the merge
-            tj, r, nmax = 8, 64, max(d, e)
-            raw = max(2 * r * e * 4, 8 * tj * (d + 2 * n_head) * 4)
-            dynamic = 2 * d * e * 2 + 2 * d * d * 2 + 2 * r * nmax * 2 + raw
-        else:    # LayoutA: Wm_e, We, two chunk buffers, the folded keys, the logits
-            tj = 4 if n_head * d > 1024 else 8
-            r = 8 * tj
-            dynamic = 4 * (2 * e * d + 2 * r * max(d, e) + tj * n_head * d + r * n_head)
+        if bf:   # LayoutB: the persistent kernel, everything in dynamic shared memory
+            tj = B_TILE_COLS
+            dynamic, stages = _layout_b(d, e, n_head)
+            static = (token_proj, 0, out_proj)
+            return SmemLayout(layout, "resident", tj, dynamic, static, 0, fold,
+                              (tj * B_CHUNK_SOURCES, tj, stages), "", (), 1)
+        # LayoutA: Wm_e, We, two chunk buffers, the folded keys, the logits
+        tj = 4 if n_head * d > 1024 else 8
+        r = 8 * tj
+        dynamic = 4 * (2 * e * d + 2 * r * max(d, e) + tj * n_head * d + r * n_head)
         # token_proj, the main kernel (its column offsets), out_proj
         static = (token_proj, 12 * tj, out_proj)
         return SmemLayout(layout, "resident", tj, dynamic, static, 0, fold, (), "", ())
@@ -481,25 +569,27 @@ def _load(variant, shape, path):
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, _ENTRY[variant])
     fn.argtypes, fn.restype = _ARGTYPES[variant], ctypes.c_int
-    built = (ctypes.c_int * 14)()
+    built = (ctypes.c_int * 16)()
     getattr(lib, _SHAPE_FN[variant])(built)
     if tuple(built[:3]) != shape:
         raise RuntimeError(f"{path.name} is built for {tuple(built[:3])}, not {shape}")
     # {bytes, 0 resident / 1 tiled, columns a block, fold, tile rows, tile
     # columns, stages, epilogue LayerNorms (1 memory, 2 edge), S, M, L a pair}
-    (lib.smem_bytes, layout, lib.tj, fold, rows, cols, stages, epi, *pair) = built[3:]
+    # and, from kernel B's library, blocks a multiprocessor (kernel A's
+    # library writes none: 0)
+    (lib.smem_bytes, layout, lib.tj, fold, rows, cols, stages, epi, *pair) = built[3:14]
     lib.pair_bytes, lib.scratch_bytes = tuple(pair), sum(pair)
     mirror = kernel_smem(variant, *shape)
     own = (("resident", "tiled")[layout], lib.tj, lib.smem_bytes, bool(fold),
-           (rows, cols, stages) if layout else (), lib.pair_bytes if layout else (),
+           (rows, cols, stages) if layout or rows else (), lib.pair_bytes if layout else (),
            (("row pass", "epilogue")[epi & 1], ("row pass", "epilogue")[epi >> 1])
-           if layout else ("resident", ""))
+           if layout else ("resident", ""), built[14])
     want = (mirror.layout, mirror.tj, mirror.dynamic, mirror.fold, mirror.tile,
-            mirror.pair_bytes, (mirror.regime, mirror.edge_ln))
+            mirror.pair_bytes, (mirror.regime, mirror.edge_ln), mirror.blocks)
     if own != want:
         raise RuntimeError(f"{path.name}'s layout (layout, columns a block, shared memory, "
-                           f"fold, tile, scratch a pair, LayerNorms) {own} is not its "
-                           f"mirror's {want}")
+                           f"fold, tile, scratch a pair, LayerNorms, blocks a "
+                           f"multiprocessor) {own} is not its mirror's {want}")
     scratch_fn = getattr(lib, _SCRATCH_FN[variant])
     scratch_fn.argtypes, scratch_fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
     for b, n in ((1, 1), (3, 40), (8, 129)):

@@ -209,16 +209,23 @@ TOL_BF16_KERNEL_MEAN = 1e-4
 @pytest.mark.cuda
 def test_cuda_bf16_kernel_matches_plain():
     """The tensor-core kernel vs the bf16 plain version on the card, at
-    B = 8, N = 129 and a ragged N = 40; both update modes, and every pair of
-    node and edge types it takes (the network gives it both bf16 in the first
-    layer and both float32 in the later ones)."""
+    B = 8, N = 129 and a ragged N = 40, and at the B and N whose tiles of 8
+    (scene, target) columns lie inside a scene, straddle two, span up to
+    eight (N < 8) or end ragged: B in {1, 3, 8, 32, 128}, N in {1, 7, 9, 33,
+    129} (tests/test_torch_fusion_resident.py walks the schedule there); both
+    update modes, and every pair of node and edge types it takes (the network
+    gives it both bf16 in the first layer and both float32 in the later
+    ones), the two the network gives at B = 32 and 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    for b, n in ((8, 129), (3, 40)):
-        for node_dtype, edge_dtype in (("bfloat16", "bfloat16"), ("float32", "float32"),
-                                       ("bfloat16", "float32"), ("float32", "bfloat16")):
+    calls = [(8, 129), (3, 40), (1, 1), (1, 7), (3, 7), (1, 9), (3, 9), (8, 9), (3, 33),
+             (8, 33), (1, 129), (3, 129), (32, 129), (128, 129)]
+    for b, n in calls:
+        types = (("bfloat16", "bfloat16"), ("float32", "float32"), ("bfloat16", "float32"),
+                 ("float32", "bfloat16"))
+        for node_dtype, edge_dtype in types[:2] if b >= 32 else types:
             _, (node, edge, mask, w) = bf16_inputs(4, 5, b, n, edge_dtype, dev, node_dtype)
             for update_edge in (True, False):
                 before = dict(tfa.fused_edge_attention.launches_by_variant)

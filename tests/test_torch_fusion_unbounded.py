@@ -172,9 +172,11 @@ def test_layout_mirror_fits_every_width_to_16384():
 
 
 # (variant, D, E, heads) -> (layout, columns a block, dynamic bytes): every
-# shape the card ran before this slice; the resident libraries as they were
-# built then, the tiled ones in the pair-tile design (no columns a block:
-# 128-pair tiles, the largest product's shared memory)
+# shape the card ran before this slice; kernel A's resident libraries as they
+# were built then, kernel B's in its persistent main kernel (8-column tiles,
+# the four weights and the chunks in TMA boxes, a ring of 2-4 stages), the tiled ones in the
+# pair-tile design (no columns a block: 128-pair tiles, the largest
+# product's shared memory)
 CARD_BEFORE = {
     ("float32", 128, 128, 8): ("resident", 8, 231424),
     ("float32", 32, 32, 4): ("resident", 8, 29696),
@@ -192,13 +194,13 @@ CARD_BEFORE = {
     ("float32", 36, 20, 6): ("tiled", 0, 57344),
     ("float32", 64, 64, 32): ("tiled", 0, 57344),
     ("float32", 12, 7, 3): ("tiled", 0, 57344),
-    ("bfloat16", 128, 128, 8): ("resident", 8, 229376),
-    ("bfloat16", 32, 32, 4): ("resident", 8, 32768),
-    ("bfloat16", 64, 32, 4): ("resident", 8, 59392),
-    ("bfloat16", 48, 80, 3): ("resident", 8, 86016),
-    ("bfloat16", 16, 16, 2): ("resident", 8, 14336),
-    ("bfloat16", 128, 64, 8): ("resident", 8, 167936),
-    ("bfloat16", 128, 128, 16): ("resident", 8, 229376),
+    ("bfloat16", 128, 128, 8): ("resident", 8, 226336),
+    ("bfloat16", 32, 32, 4): ("resident", 8, 78896),
+    ("bfloat16", 64, 32, 4): ("resident", 8, 89136),
+    ("bfloat16", 48, 80, 3): ("resident", 8, 166960),
+    ("bfloat16", 16, 16, 2): ("resident", 8, 72752),
+    ("bfloat16", 128, 64, 8): ("resident", 8, 208944),
+    ("bfloat16", 128, 128, 16): ("resident", 8, 226336),
     ("bfloat16", 256, 256, 8): ("tiled", 0, 132096),
     ("bfloat16", 512, 512, 16): ("tiled", 0, 132096),
     ("bfloat16", 512, 256, 64): ("tiled", 0, 132096),
@@ -213,10 +215,12 @@ CARD_BEFORE = {
 
 @pytest.mark.parametrize("variant,d,e,heads", sorted(CARD_BEFORE))
 def test_shapes_on_the_card_keep_their_layout(variant, d, e, heads):
-    """The resident shapes the card ran before keep their layout, columns a
-    block and bytes, and their per-token kernels a block of 8 tokens over
-    the whole row (one column block, one chunk of k); the tiled ones take
-    the pair-tile design's, their per-token products in tiles of 64 tokens."""
+    """The resident shapes the card ran before keep their layout and columns
+    a block, with the bytes of their main kernel (kernel B's persistent one:
+    no static shared memory), and their per-token kernels a block of 8
+    tokens over the whole row (one column block, one chunk of k); the tiled
+    ones take the pair-tile design's, their per-token products in tiles of
+    64 tokens."""
     m = tfa.kernel_smem(variant, d, e, heads)
     assert (m.layout, m.tj, m.dynamic) == CARD_BEFORE[(variant, d, e, heads)]
     assert tfa.kernel_layout(d, e, heads) == m.layout
@@ -224,7 +228,8 @@ def test_shapes_on_the_card_keep_their_layout(variant, d, e, heads):
     fold = m.layout == "resident" and variant == "float32"
     if m.layout == "resident":
         assert m.static[0] == 8 * dp * 4 * (2 if fold else 1)
-        assert m.regime == "resident" and m.scratch == 0 and m.static[1] == 12 * m.tj
+        assert m.regime == "resident" and m.scratch == 0
+        assert m.static[1] == (12 * m.tj if variant == "float32" else 0)
     elif variant == "float32":
         # the per-token products' tiles: 64 tokens by 64 columns (fewer
         # columns below 64 wide), 32 k a step

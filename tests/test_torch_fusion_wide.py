@@ -167,16 +167,22 @@ def test_unfolded_count_equals_the_counter_at_ragged_heads(d, e, heads, update_e
     (128, 128, 32, "tiled"), (1, 1, 1, "tiled"), (512, 512, 64, "tiled")])
 def test_kernel_layout(d, e, heads, layout):
     """The layout a library is built in: the resident one for the shapes the
-    kernels took before the tiled one existed, the tiled route elsewhere,
-    in the pair-tile design: 128-pair tiles, kernel A folded from a head
-    width of 8 and B never, each LayerNorm in an epilogue up to 128 wide."""
+    kernels took before the tiled one existed (kernel B's persistent main
+    kernel there: 64-row chunks of 8-column tiles through a ring of 2-4
+    stages), the tiled route elsewhere, in the pair-tile design: 128-pair
+    tiles, kernel A folded from a head width of 8 and B never, each
+    LayerNorm in an epilogue up to 128 wide."""
     assert tfa.kernel_domain(d, e, heads) is None
     assert tfa.kernel_layout(d, e, heads) == layout
     for variant in tfa.VARIANTS:
         m = tfa.kernel_smem(variant, d, e, heads)
         assert m.layout == layout
         if layout == "resident":
-            assert m.regime == "resident" and m.tile == () and m.scratch == 0
+            assert m.regime == "resident" and m.scratch == 0
+            if variant == "float32":
+                assert m.tile == ()
+            else:
+                assert m.tile[:2] == (64, 8) and 2 <= m.tile[2] <= 4
             continue
         assert m.tile[0] == 128 and m.tj == 0
         assert m.fold == (variant == "float32" and d // heads >= 8)
